@@ -1,0 +1,163 @@
+"""JAX ``DVISOnline`` parameter tree -> the port's ``state_dict``.
+
+Counterpart: the Flax tree of ``dvis_plus_tpu/models/meta/dvis_online.py::
+DVISOnline`` (:40). The port's parameters carry the reference checkpoints'
+names, so this is the inverse of ``dvis_plus_tpu/core/zoo_convert.py::
+convert_reference_checkpoint`` for the R50 online model, and the port's
+``state_dict()`` converts back with that function. Numpy in, torch out; no
+jax needed.
+
+Layout changes: Flax ``Dense`` kernel (in, out) -> ``Linear.weight``
+(out, in); conv HWIO -> OIHW; ``DenseGeneral`` q/k/v (C, H, Dh) and
+``out_proj`` (H, Dh, C) -> the fused ``in_proj_weight`` (3C, C) and
+``out_proj.weight``; ``FrozenBN`` scale/bias/mean/var -> buffers;
+``GroupNorm`` / ``LayerNorm`` scale -> weight.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _a(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _dense(p, key: str, out: Dict[str, np.ndarray]) -> None:
+    out[f"{key}.weight"] = _a(p["kernel"]).T
+    if "bias" in p:
+        out[f"{key}.bias"] = _a(p["bias"])
+
+
+def _conv(p, key: str, out: Dict[str, np.ndarray]) -> None:
+    out[f"{key}.weight"] = np.transpose(_a(p["kernel"]), (3, 2, 0, 1))
+    if "bias" in p:
+        out[f"{key}.bias"] = _a(p["bias"])
+
+
+def _norm(p, key: str, out: Dict[str, np.ndarray]) -> None:
+    out[f"{key}.weight"] = _a(p["scale"])
+    out[f"{key}.bias"] = _a(p["bias"])
+
+
+def _frozen_bn(p, key: str, out: Dict[str, np.ndarray]) -> None:
+    _norm(p, key, out)
+    out[f"{key}.running_mean"] = _a(p["mean"])
+    out[f"{key}.running_var"] = _a(p["var"])
+
+
+def _mlp(p, key: str, out: Dict[str, np.ndarray]) -> None:
+    for name in sorted(p, key=lambda n: int(n.split("_")[1])):
+        _dense(p[name], f"{key}.layers.{name.split('_')[1]}", out)
+
+
+def _mha(p, key: str, out: Dict[str, np.ndarray]) -> None:
+    ws, bs = [], []
+    for name in ("q_proj", "k_proj", "v_proj"):
+        k = _a(p[name]["kernel"])  # (C, H, Dh)
+        ws.append(k.reshape(k.shape[0], -1).T)
+        bs.append(_a(p[name]["bias"]).reshape(-1))
+    out[f"{key}.in_proj_weight"] = np.concatenate(ws, axis=0)
+    out[f"{key}.in_proj_bias"] = np.concatenate(bs, axis=0)
+    k = _a(p["out_proj"]["kernel"])  # (H, Dh, C)
+    out[f"{key}.out_proj.weight"] = k.reshape(-1, k.shape[-1]).T
+    out[f"{key}.out_proj.bias"] = _a(p["out_proj"]["bias"])
+
+
+def _layers(p, pre: str, out: Dict[str, np.ndarray]) -> None:
+    """self_{i} / cross_{i} / ffn_{i} -> the reference's three layer lists."""
+    for name, sub in p.items():
+        kind, _, idx = name.rpartition("_")
+        if kind == "self":
+            _mha(sub["attn"], f"{pre}transformer_self_attention_layers.{idx}.self_attn", out)
+            _norm(sub["norm"], f"{pre}transformer_self_attention_layers.{idx}.norm", out)
+        elif kind == "cross":
+            _mha(sub["attn"], f"{pre}transformer_cross_attention_layers.{idx}.multihead_attn", out)
+            _norm(sub["norm"], f"{pre}transformer_cross_attention_layers.{idx}.norm", out)
+        elif kind == "ffn":
+            for lin in ("linear1", "linear2"):
+                _dense(sub[lin], f"{pre}transformer_ffn_layers.{idx}.{lin}", out)
+            _norm(sub["norm"], f"{pre}transformer_ffn_layers.{idx}.norm", out)
+
+
+def _backbone(p, out: Dict[str, np.ndarray]) -> None:
+    _conv(p["stem_conv1"], "backbone.stem.conv1", out)
+    _frozen_bn(p["stem_norm1"], "backbone.stem.conv1.norm", out)
+    for name, blk in p.items():
+        if not name.startswith("res"):
+            continue
+        stage, _, b = name.partition("_block")
+        pre = f"backbone.{stage}.{b}"
+        for i in (1, 2, 3):
+            _conv(blk[f"conv{i}"], f"{pre}.conv{i}", out)
+            _frozen_bn(blk[f"norm{i}"], f"{pre}.conv{i}.norm", out)
+        if "shortcut" in blk:
+            _conv(blk["shortcut"], f"{pre}.shortcut", out)
+            _frozen_bn(blk["shortcut_norm"], f"{pre}.shortcut.norm", out)
+
+
+def _pixel_decoder(p, out: Dict[str, np.ndarray]) -> None:
+    pre = "sem_seg_head.pixel_decoder."
+    for name, sub in p.items():
+        if name.startswith("input_proj_") and name.endswith("_conv"):
+            _conv(sub, f"{pre}input_proj.{name.split('_')[2]}.0", out)
+        elif name.startswith("input_proj_") and name.endswith("_norm"):
+            _norm(sub, f"{pre}input_proj.{name.split('_')[2]}.1", out)
+        elif name.startswith("encoder_layer_"):
+            e = f"{pre}transformer.encoder.layers.{name.rsplit('_', 1)[1]}"
+            for lin in ("value_proj", "sampling_offsets", "attention_weights", "output_proj"):
+                _dense(sub[lin], f"{e}.self_attn.{lin}", out)
+            for lin in ("linear1", "linear2"):
+                _dense(sub[lin], f"{e}.{lin}", out)
+            _norm(sub["norm1"], f"{e}.norm1", out)
+            _norm(sub["norm2"], f"{e}.norm2", out)
+    out[f"{pre}transformer.level_embed"] = _a(p["level_embed"])
+    _conv(p["mask_features"], f"{pre}mask_features", out)
+    for name in ("adapter_1", "layer_1"):
+        _conv(p[name]["conv"], f"{pre}{name}", out)
+        _norm(p[name]["norm"], f"{pre}{name}.norm", out)
+
+
+def _predictor(p, out: Dict[str, np.ndarray]) -> None:
+    pre = "sem_seg_head.predictor."
+    for name in ("query_feat", "query_embed", "level_embed"):
+        out[f"{pre}{name}.weight"] = _a(p[name])
+    _norm(p["decoder_norm"], f"{pre}decoder_norm", out)
+    _dense(p["class_embed"], f"{pre}class_embed", out)
+    _mlp(p["mask_embed"], f"{pre}mask_embed", out)
+    if "reid_embed" in p:
+        _mlp(p["reid_embed"], f"{pre}reid_embed", out)
+    for name, sub in p.items():
+        if name.startswith("input_proj_"):
+            _conv(sub, f"{pre}input_proj.{name.split('_')[2]}", out)
+    _layers(p, pre, out)
+
+
+def _tracker(p, out: Dict[str, np.ndarray]) -> None:
+    pre = "tracker."
+    step = p["frame_step"]
+    _layers(step, pre, out)
+    _mlp(step["ref_proj"], f"{pre}ref_proj", out)
+    _norm(p["decoder_norm"], f"{pre}decoder_norm", out)
+    _dense(p["class_embed"], f"{pre}class_embed", out)
+    _mlp(p["mask_embed"], f"{pre}mask_embed", out)
+    k = _a(p["mask_feature_proj"]["kernel"])  # Dense (C_in, C_out) = 1x1 conv
+    out[f"{pre}mask_feature_proj.weight"] = k.T[:, :, None, None]
+    out[f"{pre}mask_feature_proj.bias"] = _a(p["mask_feature_proj"]["bias"])
+
+
+def state_dict_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
+    """JAX ``DVISOnline`` params (``{"params": ...}`` or the bare tree, numpy
+    leaves) -> a ``state_dict`` for ``models.meta.dvis_online.DVISOnline``.
+    ``cfg`` is accepted for symmetry with the zoo converter; the tree itself
+    carries every shape."""
+    p = params.get("params", params)
+    out: Dict[str, np.ndarray] = {}
+    seg = p["segmenter"]
+    _backbone(seg["backbone"], out)
+    _pixel_decoder(seg["pixel_decoder"], out)
+    _predictor(seg["transformer_decoder"], out)
+    _tracker(p["tracker"], out)
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}

@@ -1,0 +1,89 @@
+"""Segmenter = backbone + pixel decoder + masked-attention query decoder.
+
+Counterpart: ``dvis_plus_tpu/models/segmenter/segmenter.py::Segmenter`` (:41).
+Submodules carry the reference names ``backbone`` and
+``sem_seg_head.{pixel_decoder,predictor}``, so a meta-architecture that
+extends this class keeps the reference checkpoints' key space. Input
+(BT, 3, H, W) normalized images; the images are cast to
+``model.compute_dtype`` before the backbone and the pixel decoder's outputs
+before the query decoder, as in the JAX module (:81-89).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn as nn
+
+from dvis_plus_tpu_torch.models.backbones.resnet import resnet50, resnet101
+from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import (
+    MSDeformAttnPixelDecoder,
+    dtype_of,
+)
+from dvis_plus_tpu_torch.models.segmenter.transformer_decoder import MaskedTransformerDecoder
+
+_RESNET_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
+
+
+def build_backbone(cfg) -> nn.Module:
+    """cfg: a model config (``cfg.model`` of either config kind)."""
+    name = cfg.backbone.name
+    if name == "resnet50":
+        return resnet50(out_features=tuple(cfg.backbone.out_features))
+    if name == "resnet101":
+        return resnet101(out_features=tuple(cfg.backbone.out_features))
+    raise ValueError(f"backbone {name!r} is not ported yet")
+
+
+class MaskFormerHead(nn.Module):
+    """Container for the reference ``sem_seg_head`` key group."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        pd, td = cfg.pixel_decoder, cfg.transformer_decoder
+        self.pixel_decoder = MSDeformAttnPixelDecoder(
+            in_channels=_RESNET_CHANNELS,
+            conv_dim=pd.conv_dim,
+            mask_dim=pd.mask_dim,
+            num_enc_layers=pd.transformer_enc_layers,
+            n_heads=pd.transformer_nheads,
+            d_ffn=pd.transformer_dim_feedforward,
+            n_points=pd.num_points,
+            transformer_in_features=tuple(pd.transformer_in_features),
+            value_dtype=pd.msdeform_value_dtype,
+            island_dtype=pd.island_dtype,
+            impl=pd.msdeform_impl,
+        )
+        self.predictor = MaskedTransformerDecoder(
+            num_classes=cfg.num_classes,
+            in_channels=pd.conv_dim,
+            hidden_dim=td.hidden_dim,
+            num_queries=td.num_queries,
+            num_heads=td.nheads,
+            dim_feedforward=td.dim_feedforward,
+            num_layers=td.dec_layers,
+            mask_dim=td.mask_dim,
+            reid_branch=td.reid_branch,
+            reid_hidden_dim=td.reid_hidden_dim,
+        )
+
+
+class Segmenter(nn.Module):
+    """Frame-level Mask2Former segmenter (the frozen stage-1 model of DVIS)."""
+
+    def __init__(self, cfg):
+        """cfg: a model config (``cfg.model`` of either config kind)."""
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = dtype_of(cfg.compute_dtype)
+        self.backbone = build_backbone(cfg)
+        self.sem_seg_head = MaskFormerHead(cfg)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        """images: (BT, 3, H, W) normalized. Returns the per-frame dict."""
+        cdt = self.compute_dtype
+        features = self.backbone(images.to(cdt))
+        mask_features, multi_scale = self.sem_seg_head.pixel_decoder(features)
+        return self.sem_seg_head.predictor(
+            [m.to(cdt) for m in multi_scale], mask_features.to(cdt)
+        )

@@ -1,0 +1,100 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). The library lands in
+``build/dvis_plus_tpu_torch_kernels/`` under the repository root, named by a
+hash of the sources and flags, so a changed source builds anew and an
+unchanged one is reused. Sources compile in parallel (one ``nvcc`` each),
+and the library is written under a temporary name and renamed into place,
+so a concurrent build never sees a half-written file.
+
+Nothing here runs at import time: the wrappers call :func:`library` the first
+time they launch a kernel on a CUDA tensor, so CPU-only machines (no
+``nvcc``) never build or load anything.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dvis_plus_tpu_torch_kernels")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def _library_path() -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libdvis_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` into the shared library unless it exists.
+    Returns its path."""
+    so = _library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, "-c", src, "-o", obj]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        outs = [proc.communicate()[0] for _, _, proc in procs]  # wait for every nvcc
+        for (cmd, _, proc), out in zip(procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    + out.decode(errors="replace")
+                )
+        tmp_so = os.path.join(tmp, os.path.basename(so))
+        subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_so, *[o for _, o, _ in procs]],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp_so, so)
+    return so
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with every entry point's C signature set."""
+    lib = ctypes.CDLL(build())
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.msdeform_fwd.restype = i32
+    lib.msdeform_fwd.argtypes = [
+        vp, i32, vp, vp, vp,  # value, value_is_bf16, loc, attn, out
+        i32, i32, i32, i32, i32, i32, i32,  # B, Len, Lq, M, D, L, P
+        vp, i32, vp,  # shapes (host int32[2L]), radius, stream
+    ]
+    lib.msdeform_error_string.restype = ctypes.c_char_p
+    lib.msdeform_error_string.argtypes = [i32]
+    return lib

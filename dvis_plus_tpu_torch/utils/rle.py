@@ -1,0 +1,117 @@
+"""COCO run-length encoding of binary masks, in numpy.
+
+Counterpart: ``dvis_plus_tpu/utils/rle.py`` (``encode``, ``encode_packed``,
+``PackedMasks``), which binds a C++ codec. The port carries its own codec so
+that its GPU path needs nothing of the JAX package: column-major run lengths
+(the first run counts zeros) and pycocotools' compressed count string (the
+third count on is delta-coded against the count two before, five bits per
+character with a continuation bit, offset by 48).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+
+def mask_counts(mask: np.ndarray) -> np.ndarray:
+    """(h, w) binary mask -> column-major run lengths, starting with zeros."""
+    flat = np.asarray(mask, bool).T.reshape(-1)
+    if flat.size == 0:
+        return np.zeros(1, np.int64)
+    change = np.flatnonzero(flat[1:] != flat[:-1]) + 1
+    runs = np.diff(np.concatenate([[0], change, [flat.size]]))
+    return np.concatenate([[0], runs]) if flat[0] else runs
+
+
+_MAX_CHARS = 13  # 5 bits per character covers any int64 delta
+
+
+def counts_to_string(cnts: np.ndarray) -> bytes:
+    """pycocotools' ``rleToString``, vectorized over all counts: character
+    k of a count holds bits [5k, 5k+5) of its (delta-coded) value, with
+    0x20 set while more characters follow."""
+    x = np.asarray(cnts, np.int64).copy()
+    if x.size > 3:
+        x[3:] -= np.asarray(cnts, np.int64)[1:-2]
+    chars = np.empty((x.size, _MAX_CHARS), np.int64)
+    more = np.empty((x.size, _MAX_CHARS), bool)
+    for k in range(_MAX_CHARS):
+        c = x & 0x1F
+        x = x >> 5  # arithmetic shift, as on the C int64
+        more[:, k] = np.where(c & 0x10, x != -1, x != 0)
+        chars[:, k] = c | (more[:, k] << 5)
+    n_chars = np.argmin(more, axis=1) + 1  # stop after the first "no more"
+    keep = np.arange(_MAX_CHARS)[None, :] < n_chars[:, None]
+    return (chars[keep] + 48).astype(np.uint8).tobytes()
+
+
+def string_to_counts(s: bytes) -> np.ndarray:
+    cnts = []
+    p = 0
+    while p < len(s):
+        x, k, more = 0, 0, True
+        while more:
+            c = s[p] - 48
+            x |= (c & 0x1F) << (5 * k)
+            more = bool(c & 0x20)
+            p += 1
+            k += 1
+            if not more and c & 0x10:
+                x |= -1 << (5 * k)
+        if len(cnts) > 2:
+            x += cnts[-2]
+        cnts.append(x)
+    return np.asarray(cnts, np.int64)
+
+
+def encode(mask: np.ndarray) -> Dict:
+    """(h, w) binary mask -> {"size": [h, w], "counts": bytes}."""
+    h, w = mask.shape
+    return {"size": [int(h), int(w)], "counts": counts_to_string(mask_counts(mask))}
+
+
+def decode(rle: Dict) -> np.ndarray:
+    """COCO RLE dict -> (h, w) uint8 mask."""
+    h, w = rle["size"]
+    counts = rle["counts"]
+    cnts = string_to_counts(counts.encode() if isinstance(counts, str) else counts)
+    vals = np.arange(len(cnts)) % 2
+    return np.repeat(vals, cnts).astype(np.uint8).reshape(w, h).T
+
+
+def encode_packed(packed_rows: np.ndarray, h: int, w: int) -> Dict:
+    """Row-major MSB-first bit-packed mask (h, ceil(w/8)) -> COCO RLE dict."""
+    return encode(np.unpackbits(packed_rows, axis=-1)[:, :w])
+
+
+class PackedMasks:
+    """A (n, T, H, W) bool mask stack bit-packed along W (numpy ``packbits``
+    order): ``bits`` is (n, T, H, ceil(W/8)) uint8. Same interface as the JAX
+    package's ``PackedMasks``, so either evaluator takes it."""
+
+    def __init__(self, bits: np.ndarray, height: int, width: int):
+        if bits.ndim != 4 or bits.dtype != np.uint8:
+            raise ValueError(f"bits must be (n, T, H, ceil(W/8)) uint8, got {bits.shape} {bits.dtype}")
+        self.bits = bits
+        self.height = int(height)
+        self.width = int(width)
+
+    @property
+    def shape(self):
+        return (self.bits.shape[0], self.bits.shape[1], self.height, self.width)
+
+    def frame_any(self, i: int, t: int) -> bool:
+        return bool(self.bits[i, t].any())
+
+    def encode_frame(self, i: int, t: int) -> Dict:
+        return encode_packed(self.bits[i, t], self.height, self.width)
+
+    def unpack(self) -> np.ndarray:
+        return np.unpackbits(self.bits, axis=-1)[..., : self.width].astype(bool)
+
+    def __getitem__(self, i):
+        return np.unpackbits(self.bits[i], axis=-1)[..., : self.width].astype(bool)
+
+    def __len__(self) -> int:
+        return self.bits.shape[0]

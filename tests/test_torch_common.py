@@ -1,0 +1,112 @@
+"""Shared helpers for the PyTorch port's parity tests (no tests of its own).
+
+Builds a tiny DVIS++ online configuration and seeded numpy weights shaped
+like the JAX model's parameter tree (random everywhere, so that the
+reference's zero-initialized projections such as the sampling offsets give
+generic sampling locations). The same weights load into the port through
+``dvis_plus_tpu_torch.convert.state_dict_from_jax``.
+"""
+import functools
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dvis_plus_tpu.core.config import Config
+
+H_IN, W_IN = 64, 96  # input size of the tiny parity runs
+
+
+def tiny_cfg(impl: str = "exact", enc_layers: int = 2, tracker_layers: int = 2) -> Config:
+    """fp32 parity settings (PARITY.md): exact deformable op or its clamped
+    form, exact JV matcher, float32 compute."""
+    cfg = Config()
+    m = cfg.model
+    m.meta_architecture = "dvis_online"
+    m.num_classes = 5
+    m.compute_dtype = "float32"
+    pd = m.pixel_decoder
+    pd.conv_dim, pd.mask_dim = 32, 32
+    pd.transformer_enc_layers = enc_layers
+    pd.transformer_dim_feedforward = 64
+    pd.transformer_nheads = 4
+    pd.msdeform_impl = impl
+    td = m.transformer_decoder
+    td.hidden_dim, td.mask_dim = 32, 32
+    td.num_queries = 8
+    td.nheads = 4
+    td.dim_feedforward = 64
+    td.dec_layers = 2
+    td.reid_branch = True
+    td.reid_hidden_dim = 48
+    m.tracker.num_layers = tracker_layers
+    m.tracker.feedforward_dim = 64
+    m.tracker.num_heads = 4
+    m.tracker.matcher_solver = "jv"
+    cfg.test.window_size = 3
+    cfg.test.max_num = 10
+    cfg.test.mask_download = "packed"
+    cfg.test.eval_pipeline = False
+    return cfg
+
+
+def rel_err(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def random_params(shapes, seed: int = 0, scale: float = 0.05):
+    """Seeded numpy weights shaped like a JAX param tree (from
+    ``jax.eval_shape(model.init, ...)``): normal(0, scale) leaves, norm
+    scales around 1, FrozenBN variances positive, and wider sampling-offset
+    projections so deformable samples spread over several pixels."""
+    rng = np.random.RandomState(seed)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        x = (scale * rng.randn(*tree.shape)).astype(np.float32)
+        if path[-1] == "var":
+            return np.abs(x) + 0.5
+        if path[-1] == "scale":
+            return x + 1.0
+        if "sampling_offsets" in path and path[-1] == "kernel":
+            return x * 10.0
+        return x
+
+    return walk(shapes, ())
+
+
+@functools.cache
+def jax_model_and_params(impl: str = "exact", enc_layers: int = 2, tracker_layers: int = 2):
+    """(cfg, flax module, seeded numpy params) for the tiny DVISOnline."""
+    from dvis_plus_tpu.models.meta.dvis_online import DVISOnline
+
+    cfg = tiny_cfg(impl, enc_layers, tracker_layers)
+    model = DVISOnline(cfg.model)
+    shapes = jax.eval_shape(
+        model.init, jax.random.key(0), jnp.zeros((1, 2, H_IN, W_IN, 3), jnp.float32)
+    )
+    return cfg, model, random_params(shapes)
+
+
+def port_model(cfg, params):
+    """The port's DVISOnline with the JAX params loaded (strict)."""
+    from dvis_plus_tpu_torch.convert import state_dict_from_jax
+    from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
+
+    model = DVISOnline(cfg.model)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    return model.eval()
+
+
+def images(T: int, seed: int = 1) -> np.ndarray:
+    """(T, H, W, 3) normalized synthetic frames."""
+    return np.random.RandomState(seed).randn(T, H_IN, W_IN, 3).astype(np.float32)
+
+
+def nchw(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, -3)))

@@ -1,0 +1,58 @@
+"""Weights carried across: JAX DVISOnline params <-> the port's state_dict.
+
+The port keeps the reference checkpoints' key space, so its ``state_dict``
+converts back to the JAX tree with the JAX package's own zoo converter."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from dvis_plus_tpu.core.zoo_convert import convert_reference_checkpoint
+from dvis_plus_tpu_torch.convert import state_dict_from_jax
+from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline as TorchDVISOnline
+from tests.test_torch_common import H_IN, W_IN, jax_model_and_params, tiny_cfg
+
+torch.set_num_threads(2)
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, prefix + (k,)))
+        return out
+    return {"/".join(prefix): np.asarray(tree)}
+
+
+def test_jax_init_loads_strict_with_no_key_left_over():
+    from dvis_plus_tpu.models.meta.dvis_online import DVISOnline
+
+    cfg = tiny_cfg(enc_layers=1, tracker_layers=1)
+    params = jax.jit(DVISOnline(cfg.model).init)(
+        jax.random.key(0), jnp.zeros((1, 1, H_IN, W_IN, 3), jnp.float32)
+    )
+    sd = state_dict_from_jax(jax.device_get(params))
+    model = TorchDVISOnline(cfg.model)
+    missing, unexpected = model.load_state_dict(sd, strict=True)
+    assert not missing and not unexpected
+    # every JAX leaf landed somewhere: same parameter count on both sides
+    n_jax = sum(v.size for v in _flat(params).values())
+    assert n_jax == sum(t.numel() for t in model.state_dict().values())
+    want = np.asarray(params["params"]["segmenter"]["pixel_decoder"]["encoder_layer_0"]
+                      ["sampling_offsets"]["bias"])
+    got = model.state_dict()[
+        "sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.sampling_offsets.bias"
+    ].numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_round_trip_through_zoo_converter():
+    cfg, _, params = jax_model_and_params()
+    model = TorchDVISOnline(cfg.model)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    back = _flat(convert_reference_checkpoint(sd, cfg))
+    orig = _flat(params)
+    assert sorted(back) == sorted(orig)
+    for k in orig:
+        np.testing.assert_array_equal(back[k], orig[k], err_msg=k)

@@ -1,0 +1,71 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Needs an NVIDIA GPU and ``nvcc``: every test here is marked ``cuda`` and
+skips without a card. The module imports no jax, so it also runs on a
+machine without JAX; there, run it without the repository conftest (which
+imports jax):
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from dvis_plus_tpu_torch.ops import msdeform
+
+SHAPES = [(16, 20), (8, 10), (4, 5)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ with no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, dtype, seed=0, B=2, M=8, D=32, P=4, spread=10.0):
+    rng = np.random.RandomState(seed)
+    Len = sum(h * w for h, w in SHAPES)
+    refs = []
+    for H, W in SHAPES:
+        qi = (np.arange(H * W) // W + 0.5) / H
+        qj = (np.arange(H * W) % W + 0.5) / W
+        refs.append(np.stack([qj, qi], -1))
+    ref = np.concatenate(refs, 0)
+    loc = np.zeros((B, Len, M, len(SHAPES), P, 2), np.float32)
+    for lv, (H, W) in enumerate(SHAPES):
+        off = rng.uniform(-spread, spread, (B, Len, M, P, 2)).astype(np.float32)
+        loc[:, :, :, lv] = ref[None, :, None, None] + off / np.array([W, H])
+    attn = rng.rand(B, Len, M, len(SHAPES), P).astype(np.float32)
+    attn /= attn.sum((-1, -2), keepdims=True)
+    value = rng.randn(B, Len, M, D).astype(np.float32)
+    return (
+        torch.from_numpy(value).to(dev, dtype),
+        torch.from_numpy(loc).to(dev),
+        torch.from_numpy(attn).to(dev),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [None, 7])
+def test_msdeform_kernel_matches_twin(cuda_device, dtype, radius):
+    value, loc, attn = _inputs(cuda_device, dtype)
+    msdeform.reset_launches()
+    got = msdeform.ms_deform_attn(value, SHAPES, loc, attn, radius=radius)
+    torch.cuda.synchronize()
+    assert msdeform.launches == 1
+    want = msdeform.ms_deform_attn_torch(value, SHAPES, loc, attn, radius=radius)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_msdeform_wrapper_raises_instead_of_falling_back(cuda_device):
+    value, loc, attn = _inputs(cuda_device, torch.float32)
+    with pytest.raises(TypeError):
+        msdeform.ms_deform_attn(value.half(), SHAPES, loc, attn)
+    with pytest.raises(ValueError):
+        msdeform.ms_deform_attn(value, SHAPES, loc.cpu(), attn)
