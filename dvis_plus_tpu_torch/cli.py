@@ -5,6 +5,10 @@
         --config-file configs/dvis/dvis_online_r50_ytvis19.yaml --eval-only \\
         [weights=<state_dict .pth/.npz>] [key.path=value ...]
 
+(``configs/dvis/dvis_offline_swinl_ytvis19.yaml`` runs the offline Swin-L
+model the same way; ``model.meta_architecture`` picks ``DVISOnline`` or
+``DVISOffline``.)
+
 Loads the configuration and the video datasets with the JAX package's
 host-side modules (config YAML, dataset catalog and eval mapper; no jax),
 runs the port's ``run_vis_inference`` on CUDA when a card is present and on
@@ -68,6 +72,7 @@ def main(argv=None) -> dict:
 
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
     from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
+    from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline
     from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -82,7 +87,10 @@ def main(argv=None) -> dict:
     register_all_ytvis(os.environ.get("DVIS_DATASETS", "datasets"))
     dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     torch.manual_seed(cfg.seed)
-    model = DVISOnline(cfg.model)
+    arch = {"dvis_online": DVISOnline, "dvis_offline": DVISOffline}.get(cfg.model.meta_architecture)
+    if arch is None:
+        raise NotImplementedError(f"meta_architecture {cfg.model.meta_architecture!r} is not ported yet")
+    model = arch(cfg.model)
     if cfg.weights:
         load_weights(model, cfg.weights)
     model = model.to(dev).eval()

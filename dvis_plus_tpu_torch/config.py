@@ -1,12 +1,14 @@
-"""YAML-free configuration preset for the ported slice.
+"""YAML-free configuration presets for the ported slices.
 
 The port's model code reads its configuration by attribute only, so it takes
 either the JAX package's ``dvis_plus_tpu.core.config.Config`` (tests and the
-CPU CLI, where PyYAML is installed) or the preset below (on a GPU machine,
-which may have no PyYAML). The preset holds only the fields the port reads,
-with the values ``load_config("configs/dvis/dvis_online_r50_ytvis19.yaml")``
-resolves through its ``_BASE_`` chain (ctvis -> minvis -> base_video);
-``tests/test_torch_config.py`` holds the two equal field by field.
+CPU CLI, where PyYAML is installed) or a preset below (on a GPU machine,
+which may have no PyYAML). The presets hold only the fields the port reads,
+with the values ``load_config`` resolves for their YAML through its
+``_BASE_`` chain: ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (ctvis ->
+minvis -> base_video) and ``configs/dvis/dvis_offline_swinl_ytvis19.yaml``
+(dvis_online_swinl -> dvis_online_r50 -> ...). ``tests/test_torch_config.py``
+holds each preset equal to its YAML field by field.
 """
 from __future__ import annotations
 
@@ -16,8 +18,18 @@ from typing import Tuple
 
 @dataclass
 class BackboneConfig:
-    name: str = "resnet50"
+    name: str = "resnet50"  # resnet50 | resnet101 | swin_{t,s,b,l} | another swin_* name
     out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
+    # Swin widths: read only for a swin_* name outside swin_{t,s,b,l}
+    swin_embed_dim: int = 96
+    swin_depths: Tuple[int, ...] = (2, 2, 6, 2)
+    swin_num_heads: Tuple[int, ...] = (3, 6, 12, 24)
+    swin_window_size: int = 7
+    swin_mlp_ratio: float = 4.0
+    swin_patch_size: int = 4
+    swin_qkv_bias: bool = True
+    swin_fast_softmax: bool = False  # bf16 attention scores: not ported (raises)
+    swin_fused_attn: bool = False  # both values run kernel B2 on CUDA
 
 
 @dataclass
@@ -55,6 +67,14 @@ class TrackerConfig:
 
 
 @dataclass
+class RefinerConfig:
+    num_layers: int = 6
+    feedforward_dim: int = 2048
+    num_heads: int = 8
+    window_size: int = 5
+
+
+@dataclass
 class ModelConfig:
     meta_architecture: str = "dvis_online"
     num_classes: int = 40
@@ -66,6 +86,7 @@ class ModelConfig:
         default_factory=TransformerDecoderConfig
     )
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
+    refiner: RefinerConfig = field(default_factory=RefinerConfig)
 
 
 @dataclass
@@ -91,3 +112,17 @@ class Config:
 def dvis_online_r50_ytvis19() -> Config:
     """DVIS++ online, ResNet-50, YouTube-VIS 2019 (40 classes)."""
     return Config()
+
+
+def dvis_offline_swinl_ytvis19() -> Config:
+    """DVIS++ offline, Swin-L (window 12), YouTube-VIS 2019: the online
+    Swin-L stack with Q = 200 plus the 6-layer temporal refiner."""
+    cfg = Config()
+    m = cfg.model
+    m.meta_architecture = "dvis_offline"
+    m.backbone = BackboneConfig(
+        name="swin_l", swin_embed_dim=192, swin_depths=(2, 2, 18, 2),
+        swin_num_heads=(6, 12, 24, 48), swin_window_size=12,
+    )
+    m.transformer_decoder.num_queries = 200
+    return cfg

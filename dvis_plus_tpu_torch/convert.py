@@ -1,17 +1,23 @@
-"""JAX ``DVISOnline`` parameter tree -> the port's ``state_dict``.
+"""JAX ``DVISOnline`` / ``DVISOffline`` parameter tree -> the port's
+``state_dict``.
 
-Counterpart: the Flax tree of ``dvis_plus_tpu/models/meta/dvis_online.py::
-DVISOnline`` (:40). The port's parameters carry the reference checkpoints'
-names, so this is the inverse of ``dvis_plus_tpu/core/zoo_convert.py::
-convert_reference_checkpoint`` for the R50 online model, and the port's
-``state_dict()`` converts back with that function. Numpy in, torch out; no
-jax needed.
+Counterpart: the Flax trees of ``dvis_plus_tpu/models/meta/dvis_online.py::
+DVISOnline`` (:40, ``{"segmenter", "tracker"}``) and
+``dvis_plus_tpu/models/meta/dvis_offline.py::DVISOffline`` (:46,
+``{"online": {"segmenter", "tracker"}, "refiner"}``), with a ResNet or Swin
+backbone. The port's parameters carry the reference checkpoints' names, so
+this is the inverse of ``dvis_plus_tpu/core/zoo_convert.py::
+convert_reference_checkpoint`` (with ``convert_torch_swin`` and
+``convert_refiner``), and the port's ``state_dict()`` converts back with
+that function. Numpy in, torch out; no jax needed.
 
 Layout changes: Flax ``Dense`` kernel (in, out) -> ``Linear.weight``
-(out, in); conv HWIO -> OIHW; ``DenseGeneral`` q/k/v (C, H, Dh) and
-``out_proj`` (H, Dh, C) -> the fused ``in_proj_weight`` (3C, C) and
-``out_proj.weight``; ``FrozenBN`` scale/bias/mean/var -> buffers;
-``GroupNorm`` / ``LayerNorm`` scale -> weight.
+(out, in); conv HWIO -> OIHW, conv1d (k, in, out) -> (out, in, k);
+``DenseGeneral`` q/k/v (C, H, Dh) and ``out_proj`` (H, Dh, C) -> the fused
+``in_proj_weight`` (3C, C) and ``out_proj.weight``; ``FrozenBN``
+scale/bias/mean/var -> buffers; ``GroupNorm`` / ``LayerNorm`` scale ->
+weight. The Swin ``relative_position_index`` buffers, which the JAX tree
+does not hold, are rebuilt from each bias table's size.
 """
 from __future__ import annotations
 
@@ -98,6 +104,34 @@ def _backbone(p, out: Dict[str, np.ndarray]) -> None:
             _frozen_bn(blk["shortcut_norm"], f"{pre}.shortcut.norm", out)
 
 
+def _swin_backbone(p, out: Dict[str, np.ndarray]) -> None:
+    from dvis_plus_tpu_torch.models.backbones.swin import rel_pos_index
+
+    _conv(p["patch_embed"], "backbone.patch_embed.proj", out)
+    _norm(p["patch_norm"], "backbone.patch_embed.norm", out)
+    for name, sub in p.items():
+        if name.startswith("stage"):
+            stage, _, b = name[len("stage"):].partition("_block")
+            pre = f"backbone.layers.{stage}.blocks.{b}"
+            _norm(sub["norm1"], f"{pre}.norm1", out)
+            _norm(sub["norm2"], f"{pre}.norm2", out)
+            attn = sub["attn"]
+            _dense(attn["qkv"], f"{pre}.attn.qkv", out)
+            _dense(attn["proj"], f"{pre}.attn.proj", out)
+            table = _a(attn["relative_position_bias_table"])
+            out[f"{pre}.attn.relative_position_bias_table"] = table
+            ws = (int(round(table.shape[0] ** 0.5)) + 1) // 2
+            out[f"{pre}.attn.relative_position_index"] = rel_pos_index(ws).astype(np.int64)
+            _dense(sub["mlp_fc1"], f"{pre}.mlp.fc1", out)
+            _dense(sub["mlp_fc2"], f"{pre}.mlp.fc2", out)
+        elif name.startswith("downsample"):
+            pre = f"backbone.layers.{name[len('downsample'):]}.downsample"
+            _norm(sub["norm"], f"{pre}.norm", out)
+            _dense(sub["reduction"], f"{pre}.reduction", out)
+        elif name.startswith("out_norm"):
+            _norm(sub, f"backbone.norm{name[len('out_norm'):]}", out)
+
+
 def _pixel_decoder(p, out: Dict[str, np.ndarray]) -> None:
     pre = "sem_seg_head.pixel_decoder."
     for name, sub in p.items():
@@ -148,16 +182,53 @@ def _tracker(p, out: Dict[str, np.ndarray]) -> None:
     out[f"{pre}mask_feature_proj.bias"] = _a(p["mask_feature_proj"]["bias"])
 
 
+def _refiner(p, out: Dict[str, np.ndarray]) -> None:
+    pre = "refiner."
+    for name, sub in p.items():
+        kind, _, i = name.rpartition("_")
+        if kind in ("time_self", "obj_self"):
+            layer = f"{pre}transformer_{kind}_attention_layers.{i}"
+            _mha(sub["attn"], f"{layer}.self_attn", out)
+            _norm(sub["norm"], f"{layer}.norm", out)
+        elif kind == "cross":
+            layer = f"{pre}transformer_cross_attention_layers.{i}"
+            _mha(sub["attn"], f"{layer}.multihead_attn", out)
+            _norm(sub["norm"], f"{layer}.norm", out)
+        elif kind == "ffn":
+            for lin in ("linear1", "linear2"):
+                _dense(sub[lin], f"{pre}transformer_ffn_layers.{i}.{lin}", out)
+            _norm(sub["norm"], f"{pre}transformer_ffn_layers.{i}.norm", out)
+        elif kind == "conv":
+            for j, conv in ((0, "conv1"), (2, "conv2")):
+                key = f"{pre}conv_short_aggregate_layers.{i}.{j}"
+                out[f"{key}.weight"] = np.transpose(_a(sub[conv]["kernel"]), (2, 1, 0))
+                out[f"{key}.bias"] = _a(sub[conv]["bias"])
+            _norm(sub["norm"], f"{pre}conv_norms.{i}", out)
+    _norm(p["decoder_norm"], f"{pre}decoder_norm", out)
+    _mlp(p["mask_embed"], f"{pre}mask_embed", out)
+    _dense(p["activation_proj"], f"{pre}activation_proj", out)
+    _dense(p["class_embed"], f"{pre}class_embed", out)
+
+
 def state_dict_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
-    """JAX ``DVISOnline`` params (``{"params": ...}`` or the bare tree, numpy
-    leaves) -> a ``state_dict`` for ``models.meta.dvis_online.DVISOnline``.
-    ``cfg`` is accepted for symmetry with the zoo converter; the tree itself
-    carries every shape."""
+    """JAX ``DVISOnline`` or ``DVISOffline`` params (``{"params": ...}`` or
+    the bare tree, numpy leaves) -> a ``state_dict`` for the port's
+    ``DVISOnline`` / ``DVISOffline``. ``cfg`` is accepted for symmetry with
+    the zoo converter; the tree itself carries every shape."""
     p = params.get("params", params)
     out: Dict[str, np.ndarray] = {}
-    seg = p["segmenter"]
-    _backbone(seg["backbone"], out)
+    online = p.get("online", p)
+    seg = online["segmenter"]
+    if "patch_embed" in seg["backbone"]:
+        _swin_backbone(seg["backbone"], out)
+    else:
+        _backbone(seg["backbone"], out)
     _pixel_decoder(seg["pixel_decoder"], out)
     _predictor(seg["transformer_decoder"], out)
-    _tracker(p["tracker"], out)
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+    _tracker(online["tracker"], out)
+    if "refiner" in p:
+        _refiner(p["refiner"], out)
+    return {
+        k: torch.from_numpy(v if v.dtype == np.int64 else np.array(v, np.float32))
+        for k, v in out.items()
+    }

@@ -1,9 +1,10 @@
 """VIS inference loop: windowed streaming eval over whole videos.
 
 Counterpart: ``dvis_plus_tpu/engine/inference.py`` (``resolve_window_size``
-:27, ``paged_inference_video`` :132, ``run_vis_inference`` :274, the online
-half of ``_online_video`` :620-684). Signatures are the JAX ones without
-``params``: the module holds its weights.
+:27, ``eval_mask_budget_bytes`` :45, ``paged_inference_video`` :132,
+``run_vis_inference`` :274, ``_online_video`` :620-777 with its online and
+offline halves). Signatures are the JAX ones without ``params``: the module
+holds its weights.
 
 Frames are cut into windows of ``test.window_size`` (the tail window is
 padded by repeating the last frame), the tracker carry streams across
@@ -11,9 +12,17 @@ windows, and each video's top-K masks are upsampled a chunk of frames at a
 time, thresholded and bit-packed on the device (``download="packed"``), so
 only packed bits reach the host. The JAX package's ``runs`` download (RLE
 run boundaries extracted on the device) is not ported yet.
+
+Offline (``dvis_offline``): the refiner's embed pass runs once over the
+video's true length T. The JAX eval loop pads the time axis to a power-of-two
+window count by replicating the last real frame and masks the padding
+(``_bucket_windows`` :491, ``_pad_time_replicate`` :502) only to bound its
+per-shape compiles; eager PyTorch has none, and the two give the same
+real-frame outputs (``tests/test_torch_dvis_offline.py``).
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Iterator, Optional
 
@@ -39,6 +48,16 @@ def resolve_window_size(cfg) -> int:
         while W_sz > 1 and per_frame * W_sz * 8 > 12 * 1024**3:
             W_sz -= 1
     return W_sz
+
+
+def eval_mask_budget_bytes(cfg) -> float:
+    """Device budget for whole-video eval tensors: videos beyond it page
+    window by window through the host (``test.offline_mf_budget_gb``; the
+    environment variable ``DVIS_OFFLINE_MF_BUDGET_GB`` overrides it)."""
+    gb = os.environ.get("DVIS_OFFLINE_MF_BUDGET_GB", "")
+    if gb:
+        return float(gb) * 1e9
+    return float(getattr(cfg.test, "offline_mf_budget_gb", 4.0)) * 1e9
 
 
 def _packbits(x: torch.Tensor) -> torch.Tensor:
@@ -100,9 +119,11 @@ def _pad_to(images: np.ndarray, pad_T: int) -> np.ndarray:
 
 
 def _online_video(cfg, model, images: np.ndarray, W_sz: int):
-    """DVIS online: the tracker carry streams across windows. images
-    (T, H, W, 3) normalized numpy. Returns (mean logits (Q, K+1), masks
-    (Q, T, H4, W4), None)."""
+    """DVIS online: the tracker carry streams across windows; offline: the
+    window outputs accumulate, then one refiner pass over the whole video.
+    images (T, H, W, 3) normalized numpy. Returns (class logits (Q, K+1),
+    masks (Q, T, H4, W4) on the device or paged to host fp16, aux logits
+    (Q, K+1) or None)."""
     dev = next(model.parameters()).device
     td = cfg.model.transformer_decoder
     C2 = td.hidden_dim * (2 if td.reid_branch else 1)
@@ -111,22 +132,55 @@ def _online_video(cfg, model, images: np.ndarray, W_sz: int):
     T = images.shape[0]
     n_windows = (T + W_sz - 1) // W_sz
     images = _pad_to(images, n_windows * W_sz)
-    # beyond the memory budget each window's masks page to host fp16
     Him, Wim = images.shape[1:3]
-    mask_bytes = n_windows * W_sz * td.num_queries * (Him // 4) * (Wim // 4) * 4
-    page_to_host = mask_bytes > float(cfg.test.offline_mf_budget_gb) * 1e9
 
-    logits_l, masks_l = [], []
-    for i in range(n_windows):
+    def window(i):
         chunk = torch.from_numpy(np.ascontiguousarray(images[i * W_sz : (i + 1) * W_sz]))
-        chunk = chunk.to(dev).permute(0, 3, 1, 2)[None]  # (1, W_sz, 3, H, W)
-        _, track_out, state = model(chunk, state=state)
-        logits_l.append(track_out["pred_logits"][0])
-        mk = track_out["pred_masks"][0]
-        masks_l.append(mk.to("cpu", torch.float16) if page_to_host else mk)
-    logits = torch.cat(logits_l, dim=0)[:T]  # (T, Q, K+1)
-    masks = torch.cat(masks_l, dim=1)[:, :T]  # (Q, T, H4, W4)
-    return online_post_processing(logits.float()), masks, None
+        return chunk.to(dev).permute(0, 3, 1, 2)[None]  # (1, W_sz, 3, H, W)
+
+    if cfg.model.meta_architecture != "dvis_offline":
+        # beyond the memory budget each window's masks page to host fp16
+        mask_bytes = n_windows * W_sz * td.num_queries * (Him // 4) * (Wim // 4) * 4
+        page_to_host = mask_bytes > eval_mask_budget_bytes(cfg)
+        logits_l, masks_l = [], []
+        for i in range(n_windows):
+            _, track_out, state = model(window(i), state=state)
+            logits_l.append(track_out["pred_logits"][0])
+            mk = track_out["pred_masks"][0]
+            masks_l.append(mk.to("cpu", torch.float16) if page_to_host else mk)
+        logits = torch.cat(logits_l, dim=0)[:T]  # (T, Q, K+1)
+        masks = torch.cat(masks_l, dim=1)[:, :T]  # (Q, T, H4, W4)
+        return online_post_processing(logits.float()), masks, None
+
+    # Offline: the embeds accumulate on the device (small); the mask
+    # features stay there while the whole video fits the budget (the JAX
+    # eval loop's estimate: 256 fp32 channels at stride 4) and page to the
+    # host per window beyond it, and so do the refined masks, as host fp16
+    mf_bytes_per_window = (Him // 4) * (Wim // 4) * 256 * 4 * W_sz
+    keep_on_device = n_windows * mf_bytes_per_window < eval_mask_budget_bytes(cfg)
+    online_logits_l, inst_l, frame_l, mf_l = [], [], [], []
+    for i in range(n_windows):
+        lg, inst, frame, mf, state = model.online_step(window(i), state)
+        online_logits_l.append(lg[0])
+        inst_l.append(inst)
+        frame_l.append(frame)
+        mf_l.append(mf if keep_on_device else mf.cpu())
+    online_logits = torch.cat(online_logits_l, dim=0)[:T]  # (T, Q, K+1)
+    inst = torch.cat(inst_l, dim=1)[:, :T]
+    frame = torch.cat(frame_l, dim=1)[:, :T]
+
+    r = model.refine_embeds(inst, frame)
+    r_logits, membd = r["pred_logits"][0], r["mask_embed"]  # (Q, K+1), (1, T, Q, Cm)
+    masks_l = []
+    for i in range(n_windows):
+        t0, t1 = i * W_sz, min((i + 1) * W_sz, T)
+        mw = model.refine_mask_window(membd[:, t0:t1], mf_l[i][:, : t1 - t0].to(dev))[0]
+        masks_l.append(mw if keep_on_device else mw.to("cpu", torch.float16))
+    r_masks = torch.cat(masks_l, dim=1)  # (Q, T, H4, W4)
+    # aux = the online logits' raw mean over time; the max-of-probabilities
+    # fusion happens in topk_select after its softmax, without renormalizing
+    aux = online_logits.float().mean(dim=0)  # (Q, K+1)
+    return r_logits, r_masks, aux
 
 
 def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
@@ -136,7 +190,7 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
     ``model_s`` (window forwards, synchronized) and ``post_s`` (top-K,
     upsample, packed download, evaluator rows) in wall seconds."""
     arch = cfg.model.meta_architecture
-    if arch != "dvis_online":
+    if arch not in ("dvis_online", "dvis_offline"):
         raise NotImplementedError(f"meta_architecture {arch!r} is not ported yet")
     W_sz = resolve_window_size(cfg)
     dev = next(model.parameters()).device

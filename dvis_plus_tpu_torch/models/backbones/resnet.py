@@ -74,6 +74,7 @@ class ResNet(nn.Module):
         self.stem = BasicStem(width)
         in_ch, out_ch, bott = width, width * 4, width
         self.stage_names = []
+        self.out_channels: Dict[str, int] = {}  # per-level output widths
         for s, depth in enumerate(depths):
             blocks = []
             for b in range(depth):
@@ -85,6 +86,8 @@ class ResNet(nn.Module):
             name = f"res{s + 2}"
             self.add_module(name, nn.Sequential(*blocks))
             self.stage_names.append(name)
+            if name in self.out_features:
+                self.out_channels[name] = out_ch
             in_ch, out_ch, bott = out_ch, out_ch * 2, bott * 2
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -50,6 +50,12 @@ class Conv2d(nn.Conv2d):
         return y if self.norm is None else self.norm(y)
 
 
+class Conv1d(nn.Conv1d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
+
+
 class FrozenBatchNorm2d(nn.Module):
     """BatchNorm with frozen statistics: a per-channel affine computed in fp32
     and applied in the input's dtype (``dvis_plus_tpu/models/backbones/

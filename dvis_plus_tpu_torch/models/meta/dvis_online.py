@@ -38,6 +38,7 @@ class DVISOnline(Segmenter):
         self,
         images: torch.Tensor,  # (B, T, 3, H, W) normalized
         state: Optional[TrackerState] = None,
+        predict_masks: bool = True,
     ) -> Tuple[Dict[str, Any], Dict[str, Any], TrackerState]:
         B, T = images.shape[:2]
         seg_out = super().forward(images.flatten(0, 1))
@@ -48,6 +49,7 @@ class DVISOnline(Segmenter):
             mf.reshape(B, T, *mf.shape[1:]),
             frame_embeds_no_norm=seg_out["pred_embds_without_norm"].reshape(B, T, -1, C2),
             state=state,
+            predict_masks=predict_masks,
         )
         return seg_out, track_out, new_state
 

@@ -3,7 +3,10 @@
 Counterpart: ``dvis_plus_tpu/models/segmenter/segmenter.py::Segmenter`` (:41).
 Submodules carry the reference names ``backbone`` and
 ``sem_seg_head.{pixel_decoder,predictor}``, so a meta-architecture that
-extends this class keeps the reference checkpoints' key space. Input
+extends this class keeps the reference checkpoints' key space. The pixel
+decoder's input projections take the widths the backbone reports
+(``backbone.out_channels``), as the JAX module infers them from its
+inputs. Input
 (BT, 3, H, W) normalized images; the images are cast to
 ``model.compute_dtype`` before the backbone and the pixel decoder's outputs
 before the query decoder, as in the JAX module (:81-89).
@@ -16,33 +19,34 @@ import torch
 import torch.nn as nn
 
 from dvis_plus_tpu_torch.models.backbones.resnet import resnet50, resnet101
+from dvis_plus_tpu_torch.models.backbones.swin import build_swin
 from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import (
     MSDeformAttnPixelDecoder,
     dtype_of,
 )
 from dvis_plus_tpu_torch.models.segmenter.transformer_decoder import MaskedTransformerDecoder
 
-_RESNET_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
-
-
 def build_backbone(cfg) -> nn.Module:
-    """cfg: a model config (``cfg.model`` of either config kind)."""
+    """cfg: a model config (``cfg.model`` of either config kind). The module
+    reports its per-level output widths in ``out_channels``."""
     name = cfg.backbone.name
     if name == "resnet50":
         return resnet50(out_features=tuple(cfg.backbone.out_features))
     if name == "resnet101":
         return resnet101(out_features=tuple(cfg.backbone.out_features))
+    if name.startswith("swin"):
+        return build_swin(cfg.backbone)
     raise ValueError(f"backbone {name!r} is not ported yet")
 
 
 class MaskFormerHead(nn.Module):
     """Container for the reference ``sem_seg_head`` key group."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, in_channels: Dict[str, int]):
         super().__init__()
         pd, td = cfg.pixel_decoder, cfg.transformer_decoder
         self.pixel_decoder = MSDeformAttnPixelDecoder(
-            in_channels=_RESNET_CHANNELS,
+            in_channels=in_channels,
             conv_dim=pd.conv_dim,
             mask_dim=pd.mask_dim,
             num_enc_layers=pd.transformer_enc_layers,
@@ -77,7 +81,7 @@ class Segmenter(nn.Module):
         self.cfg = cfg
         self.compute_dtype = dtype_of(cfg.compute_dtype)
         self.backbone = build_backbone(cfg)
-        self.sem_seg_head = MaskFormerHead(cfg)
+        self.sem_seg_head = MaskFormerHead(cfg, self.backbone.out_channels)
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         """images: (BT, 3, H, W) normalized. Returns the per-frame dict."""

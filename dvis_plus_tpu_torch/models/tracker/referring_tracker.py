@@ -124,13 +124,12 @@ class ReferringTracker(nn.Module):
         mask_features: torch.Tensor,  # (B, T, mask_in_dim, H, W)
         frame_embeds_no_norm: Optional[torch.Tensor] = None,
         state: Optional[TrackerState] = None,  # None = video start
+        predict_masks: bool = True,  # False: no mask head (the offline path)
     ) -> Tuple[Dict[str, torch.Tensor], TrackerState]:
         B, T, Q, C = frame_embeds.shape
         if frame_embeds_no_norm is None:
             frame_embeds_no_norm = frame_embeds
         dtype = frame_embeds.dtype
-        mf = self.mask_feature_proj(mask_features.flatten(0, 1))
-        mf = mf.reshape(B, T, *mf.shape[1:])
         if state is None:
             state = init_tracker_state(B, Q, C, dtype, frame_embeds.device)
         else:
@@ -151,13 +150,16 @@ class ReferringTracker(nn.Module):
 
         x = self.decoder_norm(emit)
         logits = self.class_embed(torch.cat([refs, x], dim=-1))  # (B, T, Q, K+1)
-        membd = self.mask_embed(x)
-        masks = torch.einsum("btqc,btchw->bqthw", membd.float(), mf.float())
         out = {
             "pred_logits": logits,
-            "pred_masks": masks,  # (B, Q, T, H, W) fp32
             "pred_embds": emit,
             "pred_references": refs,
             "indices": torch.stack(indices, dim=1),  # (B, T, Q)
         }
+        if predict_masks:
+            mf = self.mask_feature_proj(mask_features.flatten(0, 1))
+            mf = mf.reshape(B, T, *mf.shape[1:])
+            membd = self.mask_embed(x)
+            # (B, Q, T, H, W) fp32
+            out["pred_masks"] = torch.einsum("btqc,btchw->bqthw", membd.float(), mf.float())
         return out, state

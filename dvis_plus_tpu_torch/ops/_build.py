@@ -88,7 +88,7 @@ def build() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library with every entry point's C signature set."""
     lib = ctypes.CDLL(build())
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.msdeform_fwd.restype = i32
     lib.msdeform_fwd.argtypes = [
         vp, i32, vp, vp, vp,  # value, value_is_bf16, loc, attn, out
@@ -97,4 +97,13 @@ def library() -> ctypes.CDLL:
     ]
     lib.msdeform_error_string.restype = ctypes.c_char_p
     lib.msdeform_error_string.argtypes = [i32]
+    lib.swin_window_attn_fwd.restype = i32
+    lib.swin_window_attn_fwd.argtypes = [
+        vp, vp, vp,  # q, k, v
+        i64, i64, i64, i64, i64, i64,  # window and row strides of q, k, v
+        vp, vp, i32, vp,  # bias, mask (or null), nW, out
+        i32, i32, i32, i32, vp,  # is_bf16, B_, N, H, stream
+    ]
+    lib.swin_window_attn_error_string.restype = ctypes.c_char_p
+    lib.swin_window_attn_error_string.argtypes = [i32]
     return lib

@@ -1,10 +1,10 @@
 """Shared helpers for the PyTorch port's parity tests (no tests of its own).
 
-Builds a tiny DVIS++ online configuration and seeded numpy weights shaped
-like the JAX model's parameter tree (random everywhere, so that the
-reference's zero-initialized projections such as the sampling offsets give
-generic sampling locations). The same weights load into the port through
-``dvis_plus_tpu_torch.convert.state_dict_from_jax``.
+Builds tiny DVIS++ online (ResNet-50) and offline (Swin) configurations and
+seeded numpy weights shaped like the JAX model's parameter tree (random
+everywhere, so that the reference's zero-initialized projections such as
+the sampling offsets give generic sampling locations). The same weights
+load into the port through ``dvis_plus_tpu_torch.convert.state_dict_from_jax``.
 """
 import functools
 
@@ -75,6 +75,8 @@ def random_params(shapes, seed: int = 0, scale: float = 0.05):
             return x + 1.0
         if "sampling_offsets" in path and path[-1] == "kernel":
             return x * 10.0
+        if path[-1] == "relative_position_bias_table":
+            return x * 20.0  # a bias of order 1, so the scores depend on it
         return x
 
     return walk(shapes, ())
@@ -93,12 +95,49 @@ def jax_model_and_params(impl: str = "exact", enc_layers: int = 2, tracker_layer
     return cfg, model, random_params(shapes)
 
 
+def tiny_offline_cfg(window: int = 12, backbone: str = "swin_tiny") -> Config:
+    """DVIS++ offline with a tiny Swin: embed 32, depths (2, 2, 2, 2), heads
+    (1, 2, 4, 8), so Dh = 32 in every stage. The backbone name lies outside
+    the named variants, so the ``swin_*`` width fields apply on both sides.
+    At 64x96 input the stages see 16x24, 8x12, 4x6 and 2x3 tokens: every
+    stage pads, and with window 12 the last three are one padded window."""
+    cfg = tiny_cfg()
+    m = cfg.model
+    m.meta_architecture = "dvis_offline"
+    b = m.backbone
+    b.name = backbone
+    b.swin_embed_dim = 32
+    b.swin_depths = (2, 2, 2, 2)
+    b.swin_num_heads = (1, 2, 4, 8)
+    b.swin_window_size = window
+    m.refiner.num_layers = 2
+    m.refiner.feedforward_dim = 64
+    m.refiner.num_heads = 4
+    return cfg
+
+
+@functools.cache
+def jax_offline_model_and_params(window: int = 12):
+    """(cfg, flax module, seeded numpy params) for the tiny Swin DVISOffline."""
+    from dvis_plus_tpu.models.meta.dvis_offline import DVISOffline
+
+    cfg = tiny_offline_cfg(window)
+    model = DVISOffline(cfg.model)
+    shapes = jax.eval_shape(
+        model.init, jax.random.key(0), jnp.zeros((1, 2, H_IN, W_IN, 3), jnp.float32)
+    )
+    return cfg, model, random_params(shapes)
+
+
 def port_model(cfg, params):
-    """The port's DVISOnline with the JAX params loaded (strict)."""
+    """The port's DVISOnline / DVISOffline (by ``meta_architecture``) with
+    the JAX params loaded (strict)."""
     from dvis_plus_tpu_torch.convert import state_dict_from_jax
+    from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline
     from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
 
-    model = DVISOnline(cfg.model)
+    arch = DVISOffline if cfg.model.meta_architecture == "dvis_offline" else DVISOnline
+    model = arch(cfg.model)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model.eval()
 

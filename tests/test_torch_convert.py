@@ -1,4 +1,5 @@
-"""Weights carried across: JAX DVISOnline params <-> the port's state_dict.
+"""Weights carried across: JAX DVISOnline / DVISOffline params <-> the port's
+state_dict.
 
 The port keeps the reference checkpoints' key space, so its ``state_dict``
 converts back to the JAX tree with the JAX package's own zoo converter."""
@@ -10,7 +11,14 @@ import torch
 from dvis_plus_tpu.core.zoo_convert import convert_reference_checkpoint
 from dvis_plus_tpu_torch.convert import state_dict_from_jax
 from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline as TorchDVISOnline
-from tests.test_torch_common import H_IN, W_IN, jax_model_and_params, tiny_cfg
+from tests.test_torch_common import (
+    H_IN,
+    W_IN,
+    jax_model_and_params,
+    random_params,
+    tiny_cfg,
+    tiny_offline_cfg,
+)
 
 torch.set_num_threads(2)
 
@@ -51,6 +59,33 @@ def test_round_trip_through_zoo_converter():
     model = TorchDVISOnline(cfg.model)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    back = _flat(convert_reference_checkpoint(sd, cfg))
+    orig = _flat(params)
+    assert sorted(back) == sorted(orig)
+    for k in orig:
+        np.testing.assert_array_equal(back[k], orig[k], err_msg=k)
+
+
+def test_offline_swin_round_trip_through_zoo_converter():
+    """Swin-T offline (the smallest Swin the zoo converter routes): the JAX
+    DVISOffline tree loads strictly, and the port's state_dict converts back
+    through ``convert_reference_checkpoint`` leaf for leaf. Shapes only come
+    from ``jax.eval_shape``: no forward runs."""
+    from dvis_plus_tpu.models.meta.dvis_offline import DVISOffline
+    from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline as TorchDVISOffline
+
+    cfg = tiny_offline_cfg(backbone="swin_t")
+    shapes = jax.eval_shape(
+        DVISOffline(cfg.model).init, jax.random.key(0),
+        jnp.zeros((1, 2, H_IN, W_IN, 3), jnp.float32),
+    )
+    params = random_params(shapes, seed=7)
+    model = TorchDVISOffline(cfg.model)
+    missing, unexpected = model.load_state_dict(state_dict_from_jax(params), strict=True)
+    assert not missing and not unexpected
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    assert sum(k.startswith("backbone.layers.2.blocks.") and k.endswith(".attn.qkv.weight")
+               for k in sd) == 6  # Swin-T depths (2, 2, 6, 2)
     back = _flat(convert_reference_checkpoint(sd, cfg))
     orig = _flat(params)
     assert sorted(back) == sorted(orig)

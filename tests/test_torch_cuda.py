@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from dvis_plus_tpu_torch.ops import msdeform
+from dvis_plus_tpu_torch.ops import msdeform, swin_window_attn
 
 SHAPES = [(16, 20), (8, 10), (4, 5)]
 
@@ -69,3 +69,44 @@ def test_msdeform_wrapper_raises_instead_of_falling_back(cuda_device):
         msdeform.ms_deform_attn(value.half(), SHAPES, loc, attn)
     with pytest.raises(ValueError):
         msdeform.ms_deform_attn(value, SHAPES, loc.cpu(), attn)
+
+
+def _swin_inputs(dev, dtype, B_, N, H, nW, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    C = H * 32
+    qkv = torch.randn(B_, N, 3 * C, generator=g).to(dev, dtype)  # one qkv output
+    bias = (torch.randn(H, N, N, generator=g) * 2.0).to(dev)
+    mask = None
+    if nW:
+        ids = torch.randint(0, 3, (nW, N), generator=g)
+        mask = torch.where(ids[:, None, :] != ids[:, :, None], -100.0, 0.0).to(dev)
+    return (*qkv.split(C, dim=-1), bias, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("B_,N,H,nW", [(40, 144, 6, 20), (40, 144, 6, 0), (8, 144, 48, 4), (12, 49, 3, 6)])
+def test_swin_window_attn_kernel_matches_twin(cuda_device, dtype, tol, B_, N, H, nW):
+    """Tolerance: fp32 rel 1e-5 (both accumulate in fp32); bf16 rel 1e-2,
+    one bf16 ulp of the output (p and the output round to bf16 on both
+    sides, after sums taken in different orders)."""
+    q, k, v, bias, mask = _swin_inputs(cuda_device, dtype, B_, N, H, nW)
+    swin_window_attn.reset_launches()
+    got = swin_window_attn.window_attention(q, k, v, bias, mask, H)
+    torch.cuda.synchronize()
+    assert swin_window_attn.launches == 1
+    want = swin_window_attn.window_attention_torch(q, k, v, bias, mask, H)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+def test_swin_window_attn_wrapper_raises_instead_of_falling_back(cuda_device):
+    q, k, v, bias, mask = _swin_inputs(cuda_device, torch.float32, 4, 144, 2, 2)
+    with pytest.raises(TypeError):
+        swin_window_attn.window_attention(q.half(), k.half(), v.half(), bias, mask, 2)
+    with pytest.raises(ValueError):
+        swin_window_attn.window_attention(q, k, v, bias.cpu(), mask, 2)
+    with pytest.raises(ValueError):  # head dim 64
+        swin_window_attn.window_attention(q, k, v, bias[:1], mask, 1)

@@ -35,14 +35,15 @@ def _loader():
 
 
 def _record_paged(monkeypatch, module):
-    """Record each video's (mean logits, masks, sizes) on their way into
-    ``module.paged_inference_video``."""
+    """Record each video's (mean logits, masks, sizes, aux logits) on their
+    way into ``module.paged_inference_video``."""
     seen = {}
     paged = module.paged_inference_video
 
     def recording(mask_cls, mask_pred, img_size, output_size, padded_size, **kw):
+        aux = kw.get("aux_pred_cls")
         seen[len(seen) + 1] = (np.asarray(mask_cls), np.asarray(mask_pred), img_size,
-                               output_size, padded_size)
+                               output_size, padded_size, None if aux is None else np.asarray(aux))
         return paged(mask_cls, mask_pred, img_size, output_size, padded_size, **kw)
 
     monkeypatch.setattr(module, "paged_inference_video", recording)
@@ -65,7 +66,7 @@ def test_run_vis_inference_matches_jax(monkeypatch):
         assert g["pred_labels"] == w["pred_labels"]
         assert g["pred_masks"].shape == w["pred_masks"].shape
         # the video-level logits and stride-4 masks themselves
-        mask_cls, mask_pred, img, out, pad = seen[vid]
+        mask_cls, mask_pred, img, out, pad, _ = seen[vid]
         assert rel_err(seen_port[vid][0], mask_cls) <= 2e-4
         assert rel_err(seen_port[vid][1], mask_pred) <= 2e-4
         # JAX pre-threshold masks of its top-K queries
