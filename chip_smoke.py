@@ -10,19 +10,35 @@ kernels:
 - DVIS++ online VIS at the full width of
   ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (kernel B1);
 - DVIS++ offline VIS at the full width of
-  ``configs/dvis/dvis_offline_swinl_ytvis19.yaml`` (kernels B1 and B2).
+  ``configs/dvis/dvis_offline_swinl_ytvis19.yaml`` (kernels B1 and B2);
+- DVIS++ offline VIS at the full width of
+  ``configs/dvis/dvis_offline_vitl_ytvis19.yaml`` with
+  ``backbone.vit_flash_attention`` on (kernels B1 and B3), at 720x1280
+  frames padded to 736x1280.
 
 Run from a checkout of the repository:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --profile [vitl] [swinl] [r50]
+                                     # build, then stage times and a torch.profiler
+                                     # breakdown of one video of each slice named
 
-Each phase prints one JSON line. The last line is
+Each phase prints one JSON line. The ``kernels`` line gives, for every
+kernel, its launches on its main path, its time, its plain version's time,
+the time of the one PyTorch call that computes the same function
+(``library_ms``, timed here and called nowhere in the port) and its bound:
+the larger of bytes moved (each input read once, each output written once)
+over 3.35 TB/s and operations over the peak for the input type (989 TFLOP/s
+bf16, 67 TFLOP/s fp32), NVIDIA's published H100 SXM rates. The last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed; any
 failure raises (exit code != 0). It needs CUDA and exits non-zero without it.
 
 Numerics: TF32 is off for matmuls and convolutions in every phase, so the
 fp32 parts (the deformable encoder island, mask products) run in full fp32;
-the timed slices run the configuration's ``compute_dtype`` (bfloat16).
+the timed slices run the configuration's ``compute_dtype`` (bfloat16). The
+seeded random ViT-L gets LayerScale gains of 0.1 (a trained checkpoint's
+order) instead of the 1e-5 initial value, so that trunk attention carries
+weight in what the phases compare.
 """
 import json
 import os
@@ -34,15 +50,30 @@ import warnings
 
 import numpy as np
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; fp32 CUDA cores
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 LEVELS = [(60, 80), (30, 40), (15, 20)]  # 480x640 input: strides 8, 16, 32
+VIT_LEVELS = [(92, 160), (46, 80), (23, 40)]  # 736x1280 input: the ViT-L slice's encoder
 FRAMES, VIDEOS, H_IN, W_IN, H_OUT, W_OUT = 15, 2, 480, 640, 720, 960
 KERNEL_TOL = 1e-5  # max |kernel - twin| / max |twin|, both accumulate in fp32
 # B2 in bf16: p and the output round to bf16 on both sides after sums taken
 # in different orders, so they may differ by one bf16 ulp of the output
 KERNEL_TOL_BF16 = 1e-2
 SLICE_TOL = 1e-3  # GPU (kernel, cuDNN) vs CPU (twin) fp32 path, small input
+# ViT-L serving size: 720x1280 frames padded to 736x1280, a 46x80 token grid
+VIT_FRAMES, VIT_H, VIT_W, VIT_H_OUT, VIT_W_OUT = 10, 736, 1280, 720, 1280
+VIT_GRID = (46, 80)
+FLASH_SHAPES = [(5, 3681, 16), (2, 2049, 16)]  # (B, L, H), Dh = 64
+# bf16 ViT-L backbone features: kernel B3 against dense attention, and each of
+# the two against an fp32 evaluation of the same weights, as relative RMS. The
+# largest single difference is a few bf16 ulps of the feature maximum between
+# any two of the three (the phase prints all of them), so it is held to
+# DENSE_MAX_TOL
+DENSE_TOL = 2e-2
+DENSE_MAX_TOL = 5e-2
 # B2 shapes of Swin-L (window 12, N = 144, Dh = 32) at 480x640 and 5 frames:
 # stage 0 is 120x160 tokens, padded to 120x168 = 140 windows; stage 3 is
 # 15x20, padded to 24x24 = 4 windows
@@ -74,6 +105,15 @@ def cuda_ms(fn, iters: int) -> float:
     return float(np.median(times))
 
 
+def bound(tensors, flops, dtype):
+    """(bound_ms, bound_by): the least time the card could take. ``tensors``
+    are the inputs and outputs (each moved once), ``flops`` the operations
+    on them, held to the peak for ``dtype``."""
+    t_bytes = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_device():
     import torch
 
@@ -98,22 +138,22 @@ def phase_build():
     emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(path, REPO)})
 
 
-def msdeform_inputs(dev, seed=SEED, BT=5, M=8, D=32, P=4):
+def msdeform_inputs(dev, levels=LEVELS, seed=SEED, BT=5, M=8, D=32, P=4):
     """Encoder-shaped inputs: queries are the level grids, offsets up to 10
     pixels, so some locations leave [0, 1] and some exceed the radius."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    Len = sum(h * w for h, w in LEVELS)
-    L = len(LEVELS)
+    Len = sum(h * w for h, w in levels)
+    L = len(levels)
     refs = []
-    for H, W in LEVELS:
+    for H, W in levels:
         ry = (torch.arange(H) + 0.5) / H
         rx = (torch.arange(W) + 0.5) / W
         gy, gx = torch.meshgrid(ry, rx, indexing="ij")
         refs.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], -1))
     ref = torch.cat(refs)[None, :, None, None, None, :]
-    norm = torch.tensor([[w, h] for h, w in LEVELS], dtype=torch.float32)[None, None, None, :, None]
+    norm = torch.tensor([[w, h] for h, w in levels], dtype=torch.float32)[None, None, None, :, None]
     off = (torch.rand(BT, Len, M, L, P, 2, generator=g) * 2 - 1) * 10.0
     loc = (ref + off / norm).contiguous()
     attn = torch.rand(BT, Len, M, L * P, generator=g).softmax(-1).reshape(BT, Len, M, L, P)
@@ -153,13 +193,61 @@ def window_attention_fp64(q, k, v, bias, mask, H):
     return (a.softmax(-1) @ heads(v)).transpose(1, 2).reshape(B_, N, C)
 
 
-def phase_kernels(dev):
-    """B1 against its twin at the R50 slice's shapes, both forms; B2 at the
-    Swin-L stages' shapes, with and without the shift mask; fp32 and bf16."""
+def msdeform_bound(value, loc, attn):
+    """B1: value, locations and weights read once, the fp32 output written
+    once; per sample and channel four bilinear FMAs and one weight FMA."""
     import torch
 
+    B, Lq, M, L, P = attn.shape
+    out = torch.empty(B, Lq, M * value.shape[-1], device="meta")
+    return bound((value, loc, attn, out), 10 * attn.numel() * value.shape[-1], value.dtype)
+
+
+def extractor_inputs(dev, seed=SEED, BT=5, M=16, D=64, P=4):
+    """B1 as the ViT-L adapter's extractors call it: the three spatial grids
+    (92x160, 46x80, 23x40 = 19,320 queries a frame) attend into the one
+    46x80 ViT level, 16 heads of 64 channels (the kernel's limit of 1024)."""
+    import torch
+
+    from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import reference_points
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    Hv, Wv = VIT_GRID
+    grids = [(2 * Hv, 2 * Wv), (Hv, Wv), (Hv // 2, Wv // 2)]
+    ref = reference_points(grids)[:, 1:2][None, :, None, :, None, :]  # (1, Lq, 1, 1, 1, 2)
+    Lq = ref.shape[1]
+    off = (torch.rand(BT, Lq, M, 1, P, 2, generator=g) * 2 - 1) * 6.0
+    loc = (ref + off / torch.tensor([Wv, Hv], dtype=torch.float32)).contiguous()
+    attn = torch.rand(BT, Lq, M, P, generator=g).softmax(-1).reshape(BT, Lq, M, 1, P)
+    value = torch.randn(BT, Hv * Wv, M, D, generator=g)
+    return value.to(dev), loc.to(dev), attn.contiguous().to(dev)
+
+
+def attention_fp64(q, k, v):
+    """Self-attention in float64, one batch element at a time: the value
+    that B3, its plain version and the library call round."""
+    import torch
+
+    outs = []
+    for b in range(q.shape[0]):
+        qb, kb, vb = (t[b].double().transpose(0, 1) for t in (q, k, v))  # (H, L, Dh)
+        p = (qb @ kb.transpose(-1, -2) * q.shape[-1] ** -0.5).softmax(-1)
+        outs.append((p @ vb).transpose(0, 1))
+    return torch.stack(outs)
+
+
+def phase_kernels(dev):
+    """B1 against its twin at the R50 and Swin-L slices' encoder shape, both
+    forms, and at the ViT-L slice's two shapes (its pixel decoder's encoder
+    at 736x1280 and its extractors); B2 at the Swin-L stages' shapes, with and
+    without the shift mask; B3 at the ViT-L trunk's shapes, contiguous and
+    as views of a fused qkv tensor; fp32 and bf16. Beside B2 and B3,
+    ``scaled_dot_product_attention`` on the same tensors, as a yardstick."""
+    import torch
+    import torch.nn.functional as F
+
     from dvis_plus_tpu_torch.models.backbones.swin import shift_mask
-    from dvis_plus_tpu_torch.ops import msdeform, swin_window_attn
+    from dvis_plus_tpu_torch.ops import flash_attn, msdeform, swin_window_attn
 
     value, loc, attn = msdeform_inputs(dev)
     b1 = []
@@ -172,9 +260,39 @@ def phase_kernels(dev):
                 lambda: msdeform.ms_deform_attn_torch(v, LEVELS, loc, attn, radius=radius),
                 KERNEL_TOL,
             )
+            res["bound_ms"], res["bound_by"] = msdeform_bound(v, loc, attn)
             b1.append({"radius": radius, "value_dtype": str(dtype).split(".")[1], **res})
     emit({"phase": "kernels", "kernel": "msdeform_fwd",
           "shapes": {"value": list(value.shape), "loc": list(loc.shape)}, "forms": b1})
+
+    # the ViT-L slice's encoder: half of B1's launches on that path
+    value, loc, attn = msdeform_inputs(dev, VIT_LEVELS)
+    res = kernel_check(
+        "msdeform_fwd",
+        lambda: msdeform.ms_deform_attn(value, VIT_LEVELS, loc, attn),
+        lambda: msdeform.ms_deform_attn_torch(value, VIT_LEVELS, loc, attn),
+        KERNEL_TOL, iters=20, plain_iters=3,
+    )
+    res["bound_ms"], res["bound_by"] = msdeform_bound(value, loc, attn)
+    b1v = [{"radius": None, "value_dtype": "float32", **res}]
+    emit({"phase": "kernels", "kernel": "msdeform_fwd", "caller": "ViT-L slice's pixel decoder",
+          "shapes": {"value": list(value.shape), "loc": list(loc.shape)}, "forms": b1v})
+
+    value, loc, attn = extractor_inputs(dev)
+    b1x = []
+    for dtype in (torch.bfloat16, torch.float32):
+        v = value.to(dtype)
+        res = kernel_check(
+            "msdeform_fwd",
+            lambda: msdeform.ms_deform_attn(v, [VIT_GRID], loc, attn),
+            lambda: msdeform.ms_deform_attn_torch(v, [VIT_GRID], loc, attn),
+            KERNEL_TOL, iters=20, plain_iters=3,
+        )
+        res["bound_ms"], res["bound_by"] = msdeform_bound(v, loc, attn)
+        b1x.append({"value_dtype": str(dtype).split(".")[1], **res})
+    emit({"phase": "kernels", "kernel": "msdeform_fwd", "caller": "vit_adapter extractor",
+          "shapes": {"value": list(value.shape), "loc": list(loc.shape)}, "forms": b1x})
+    del value, loc, attn
 
     g = torch.Generator(device="cpu").manual_seed(SEED)
     b2 = []
@@ -192,6 +310,22 @@ def phase_kernels(dev):
                     "twin": lambda: swin_window_attn.window_attention_torch(q, k, v, bias, mask, H),
                 }
                 res = kernel_check("swin_window_attn_fwd", forms["kernel"], forms["twin"], tol)
+                out = torch.empty(B_, 144, C, device="meta", dtype=dtype)
+                res["bound_ms"], res["bound_by"] = bound(
+                    (q, k, v, out, bias) + (() if mask is None else (mask,)),
+                    4 * B_ * H * 144 * 144 * 32, dtype)
+                if st["stage"] == 0:
+                    # the library call takes bias and mask as one additive
+                    # tensor, combined here outside the timed call
+                    add = bias[None]  # (1, H, N, N), broadcast over the windows
+                    if mask is not None:  # window i takes mask row i % nW
+                        add = (bias[None, None] + mask[None, :, None]).expand(
+                            B_ // st["nW"], -1, -1, -1, -1).reshape(B_, H, 144, 144)
+                    add = add.to(dtype).contiguous()
+                    qh, kh, vh = (t.unflatten(-1, (H, 32)).transpose(1, 2) for t in (q, k, v))
+                    res["library_ms"] = cuda_ms(
+                        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=add), 20)
+                    del add
                 if dtype == torch.float32:
                     # kernel and twin may agree bit for bit (the same fp32
                     # sums in the same order); each one's distance from the
@@ -206,15 +340,49 @@ def phase_kernels(dev):
                            "nW": st["nW"] if masked else 0, "dtype": str(dtype).split(".")[1],
                            **res})
     emit({"phase": "kernels", "kernel": "swin_window_attn_fwd", "N": 144, "forms": b2})
-    return b1, b2
+    del qkv, bias, q, k, v
+
+    b3 = []
+    for B, L, H in FLASH_SHAPES:
+        C = 64 * H
+        qkv = torch.randn(B, L, 3 * C, generator=g).to(dev)
+        for dtype, tol in ((torch.float32, KERNEL_TOL), (torch.bfloat16, KERNEL_TOL_BF16)):
+            fused = [t.unflatten(-1, (H, 64)) for t in qkv.to(dtype).split(C, dim=-1)]
+            for layout in ("fused_qkv_views", "contiguous"):
+                q, k, v = fused if layout == "fused_qkv_views" else [t.contiguous() for t in fused]
+                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, L, Dh) views
+                forms = {
+                    "kernel": lambda: flash_attn.flash_self_attention(q, k, v),
+                    "twin": lambda: flash_attn.attention_torch(q, k, v),
+                    "library": lambda: F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2),
+                }
+                res = kernel_check("flash_attn_fwd", forms["kernel"], forms["twin"], tol,
+                                   iters=20, plain_iters=3)
+                res["library_ms"] = cuda_ms(forms["library"], 20)
+                res["bound_ms"], res["bound_by"] = bound(
+                    (q, k, v, torch.empty(B, L, C, device="meta", dtype=dtype)),
+                    4 * B * H * L * L * 64, dtype)
+                if layout == "fused_qkv_views":
+                    exact = attention_fp64(q, k, v)
+                    scale = exact.abs().max().item()
+                    res["fp64_rel_err"] = {
+                        name: (fn().double() - exact).abs().max().item() / scale
+                        for name, fn in forms.items()
+                    }
+                    del exact
+                b3.append({"B": B, "L": L, "heads": H, "dtype": str(dtype).split(".")[1],
+                           "layout": layout, **res})
+    emit({"phase": "kernels", "kernel": "flash_attn_fwd", "Dh": 64, "forms": b3})
+    return {"encoder": b1, "vitl_encoder": b1v, "vitl_extractor": b1x}, b2, b3
 
 
-def synthetic_videos(n, T, H, W, Ho, Wo, seed):
+def synthetic_videos(n, T, H, W, Ho, Wo, seed, valid=None):
+    """``valid``: the (h, w) of the frame on the padded (H, W) canvas."""
     rng = np.random.RandomState(seed)
     for vid in range(n):
         yield {
             "images": rng.randn(T, H, W, 3).astype(np.float32),
-            "image_size": np.asarray([H, W], np.int32),
+            "image_size": np.asarray(valid or [H, W], np.int32),
             "height": Ho, "width": Wo, "video_id": vid + 1,
         }
 
@@ -227,7 +395,12 @@ def build_model(cfg, dev):
 
     torch.manual_seed(SEED)
     arch = DVISOffline if cfg.model.meta_architecture == "dvis_offline" else DVISOnline
-    return arch(cfg.model).to(dev).eval()
+    model = arch(cfg.model)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith((".ls1.gamma", ".ls2.gamma")):  # ViT LayerScale
+                p.fill_(0.1)
+    return model.to(dev).eval()
 
 
 def phase_slice_parity(dev):
@@ -289,35 +462,47 @@ def phase_swinl_slice_parity(dev):
         raise AssertionError(f"GPU Swin-L path disagrees with the CPU path: {errs}")
 
 
-def timed_slice(cfg, dev):
-    """2 synthetic videos x 15 frames at 480x640 (output 720x960) through
-    ``run_vis_inference`` after one untimed warm-up video; the kernels'
-    launch counts are read from the timed run alone."""
+def reset_launches() -> None:
+    from dvis_plus_tpu_torch.ops import flash_attn, msdeform, swin_window_attn
+
+    for mod in (msdeform, swin_window_attn, flash_attn):
+        mod.reset_launches()
+
+
+def read_launches() -> dict:
+    from dvis_plus_tpu_torch.ops import flash_attn, msdeform, swin_window_attn
+
+    return {"msdeform_fwd": msdeform.launches, "swin_window_attn_fwd": swin_window_attn.launches,
+            "flash_attn_fwd": flash_attn.launches}
+
+
+def timed_slice(cfg, dev, frames=FRAMES, canvas=(H_IN, W_IN), valid=None, out=(H_OUT, W_OUT),
+                model=None):
+    """``VIDEOS`` synthetic videos x ``frames`` frames on a ``canvas`` input
+    (by default 2 x 15 at 480x640, output 720x960) through
+    ``run_vis_inference`` after one untimed warm-up video; every kernel's
+    launch count is set to 0 just before the timed run and read just after."""
     import torch
 
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
     from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
-    from dvis_plus_tpu_torch.ops import msdeform, swin_window_attn
 
-    model = build_model(cfg, dev)
+    model = model or build_model(cfg, dev)
     with tempfile.TemporaryDirectory() as tmp:
         # warm-up video (cuDNN / cuBLAS autotuning, allocator), not timed
-        run_vis_inference(cfg, model, synthetic_videos(1, 5, H_IN, W_IN, H_OUT, W_OUT, 99),
+        run_vis_inference(cfg, model, synthetic_videos(1, 5, *canvas, *out, 99, valid),
                           YTVISEvaluator("warmup", tmp))
         evaluator = YTVISEvaluator("synthetic", tmp)
         timings = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        msdeform.reset_launches()
-        swin_window_attn.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
-        run_vis_inference(cfg, model,
-                          synthetic_videos(VIDEOS, FRAMES, H_IN, W_IN, H_OUT, W_OUT, SEED),
+        run_vis_inference(cfg, model, synthetic_videos(VIDEOS, frames, *canvas, *out, SEED, valid),
                           evaluator, timings)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"msdeform_fwd": msdeform.launches,
-                    "swin_window_attn_fwd": swin_window_attn.launches}
+        launches = read_launches()
         rows = evaluator.predictions
         size = os.path.getsize(evaluator.write_results())
     topk = cfg.test.max_num
@@ -327,13 +512,13 @@ def timed_slice(cfg, dev):
         and videos == list(range(1, VIDEOS + 1))
         and all(0.0 <= r["score"] <= 1.0 for r in rows)
         and all(1 <= r["category_id"] <= cfg.model.num_classes for r in rows)
-        and all(len(r["segmentations"]) == FRAMES for r in rows)
-        and all(s is None or s["size"] == [H_OUT, W_OUT] for r in rows for s in r["segmentations"])
+        and all(len(r["segmentations"]) == frames for r in rows)
+        and all(s is None or s["size"] == list(out) for r in rows for s in r["segmentations"])
     )
     res = {"compute_dtype": cfg.model.compute_dtype, "tf32": False, "videos": VIDEOS,
-           "frames": FRAMES, "input": [H_IN, W_IN], "window": cfg.test.window_size,
-           "wall_s": wall, "fps": VIDEOS * FRAMES / wall,
-           "model_fps": VIDEOS * FRAMES / timings["model_s"], "post_s": timings["post_s"],
+           "frames": frames, "input": list(canvas), "window": cfg.test.window_size,
+           "wall_s": wall, "fps": VIDEOS * frames / wall,
+           "model_fps": VIDEOS * frames / timings["model_s"], "post_s": timings["post_s"],
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "rows": len(rows),
            "results_json_bytes": size, "launches": launches}
     return res, rows_ok
@@ -348,7 +533,7 @@ def phase_slice(dev, impl):
     res, rows_ok = timed_slice(cfg, dev)
     windows = VIDEOS * -(-FRAMES // cfg.test.window_size)
     expect = {"msdeform_fwd": cfg.model.pixel_decoder.transformer_enc_layers * windows,
-              "swin_window_attn_fwd": 0}
+              "swin_window_attn_fwd": 0, "flash_attn_fwd": 0}
     res = {"phase": "slice", "msdeform_impl": impl, **res, "expected_launches": expect}
     emit(res)
     if not (rows_ok and res["launches"] == expect):
@@ -366,13 +551,219 @@ def phase_swinl_slice(dev):
     res, rows_ok = timed_slice(cfg, dev)
     windows = VIDEOS * -(-FRAMES // cfg.test.window_size)
     expect = {"msdeform_fwd": cfg.model.pixel_decoder.transformer_enc_layers * windows,
-              "swin_window_attn_fwd": sum(cfg.model.backbone.swin_depths) * windows}
+              "swin_window_attn_fwd": sum(cfg.model.backbone.swin_depths) * windows,
+              "flash_attn_fwd": 0}
     res = {"phase": "swinl_slice", "backbone": cfg.model.backbone.name,
            "meta_architecture": cfg.model.meta_architecture, **res, "expected_launches": expect}
     emit(res)
     if not (rows_ok and res["launches"] == expect):
         raise AssertionError(f"Swin-L slice check failed: {res}")
     return res
+
+
+def vitl_cfg():
+    from dvis_plus_tpu_torch.config import dvis_offline_vitl_ytvis19
+
+    cfg = dvis_offline_vitl_ytvis19()
+    cfg.model.backbone.vit_flash_attention = True
+    return cfg
+
+
+def phase_vitl_slice_parity(dev):
+    """The whole offline ViT-L path at full width, fp32, on 2 frames of
+    512x1024 (32x64 + 1 = 2049 tokens, so B3 runs), window 2: GPU (kernels,
+    cuDNN) against the CPU (plain versions), same seeded weights, exact JV
+    matcher."""
+    import torch
+
+    from dvis_plus_tpu_torch.engine.inference import _online_video
+
+    cfg = vitl_cfg()
+    cfg.model.compute_dtype = "float32"
+    cfg.model.tracker.matcher_solver = "jv"
+    cfg.test.window_size = 2
+    images = next(synthetic_videos(1, 2, 512, 1024, 512, 1024, SEED + 3))["images"]
+    out, launches = {}, {}
+    with torch.inference_mode():
+        for d in (dev, torch.device("cpu")):
+            reset_launches()
+            res = _online_video(cfg, build_model(cfg, d), images, cfg.test.window_size)
+            out[d.type], launches[d.type] = [x.float().cpu() for x in res], read_launches()
+    errs = {}
+    for i, name in enumerate(("logits", "masks", "aux")):
+        a, b = out["cuda"][i], out["cpu"][i]
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"non-finite {name} on the GPU")
+        errs[name] = ((a - b).abs().max() / b.abs().max()).item()
+    emit({"phase": "vitl_slice_parity", "input": [2, 512, 1024], "tokens": 2049,
+          "window": cfg.test.window_size, "rel_err": errs, "tol": SLICE_TOL, "launches": launches})
+    if max(errs.values()) > SLICE_TOL:
+        raise AssertionError(f"GPU ViT-L path disagrees with the CPU path: {errs}")
+    if launches["cuda"]["flash_attn_fwd"] != cfg.model.backbone.vit_depth or any(launches["cpu"].values()):
+        raise AssertionError(f"ViT-L parity run took the wrong attention path: {launches}")
+
+
+def phase_vitl_slice(dev):
+    """Full-width ViT-L DVIS++ offline over 2 videos x 10 frames of 720x1280
+    padded to 736x1280, window 5: B3 runs once per trunk block and window,
+    B1 once per pixel-decoder encoder layer and once per extractor (4
+    interactions + 2 extra) and window. Then one further window with dense
+    trunk attention on the same weights: its time, its peak memory, and the
+    distances between the backbone's features on the kernel path, on the
+    dense path and in an fp32 evaluation (relative RMS and largest
+    difference over the feature maximum): the two bf16 paths must be as
+    close to each other as each is to fp32."""
+    import torch
+
+    from dvis_plus_tpu_torch.engine.inference import _online_video
+    from dvis_plus_tpu_torch.models.backbones.vit_adapter import Attention
+
+    cfg = vitl_cfg()
+    model = build_model(cfg, dev)
+    res, rows_ok = timed_slice(cfg, dev, frames=VIT_FRAMES, canvas=(VIT_H, VIT_W),
+                               valid=(VIT_H_OUT, VIT_W_OUT), out=(VIT_H_OUT, VIT_W_OUT), model=model)
+    windows = VIDEOS * -(-VIT_FRAMES // cfg.test.window_size)
+    b = cfg.model.backbone
+    extractors = len(b.vit_interaction_indexes) + 2
+    expect = {"msdeform_fwd": (cfg.model.pixel_decoder.transformer_enc_layers + extractors) * windows,
+              "swin_window_attn_fwd": 0, "flash_attn_fwd": b.vit_depth * windows}
+
+    images = next(synthetic_videos(1, 5, VIT_H, VIT_W, VIT_H_OUT, VIT_W_OUT, SEED + 4))["images"]
+    frames = torch.from_numpy(images).to(dev).permute(0, 3, 1, 2).to(torch.bfloat16)
+    window = {}
+    with torch.inference_mode():
+        for impl in ("flash", "dense", "flash", "dense"):  # in turns; the second round is timed
+            for m in model.modules():
+                if isinstance(m, Attention):
+                    m.attn_impl = impl
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            _online_video(cfg, model, images, 5)
+            torch.cuda.synchronize()
+            window[impl] = {"window_ms": 1e3 * (time.perf_counter() - t0),
+                            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                            "flash_attn_fwd": read_launches()["flash_attn_fwd"],
+                            "features": model.backbone(frames)}
+        feats = {"flash": window["flash"].pop("features"), "dense": window["dense"].pop("features"),
+                 "fp32": model.backbone(frames.float())}  # fp32 throughout, dense attention
+    dists = {}
+    for one, other in (("flash", "dense"), ("flash", "fp32"), ("dense", "fp32")):
+        dist = dists[f"{one}_vs_{other}"] = {"rms": {}, "max": {}}
+        for name, want in feats[other].items():
+            got, want = feats[one][name].float(), want.float()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"non-finite {name} from the ViT-L backbone ({one})")
+            dist["rms"][name] = ((got - want).norm() / want.norm()).item()
+            dist["max"][name] = ((got - want).abs().max() / want.abs().max()).item()
+    dist = dists["flash_vs_dense"]
+    del feats
+    res = {"phase": "vitl_slice", "backbone": b.name, "meta_architecture": cfg.model.meta_architecture,
+           "vit_flash_attention": True, "valid": [VIT_H_OUT, VIT_W_OUT], **res,
+           "expected_launches": expect, "one_window": window,
+           "dense_vs_kernel_rel_err": dist, "kernel_vs_fp32_rel_err": dists["flash_vs_fp32"],
+           "dense_vs_fp32_rel_err": dists["dense_vs_fp32"],
+           "dense_tol": {"rms": DENSE_TOL, "max": DENSE_MAX_TOL}}
+    emit(res)
+    if not (rows_ok and res["launches"] == expect):
+        raise AssertionError(f"ViT-L slice check failed: {res}")
+    if window["dense"]["flash_attn_fwd"] != 0 or window["flash"]["flash_attn_fwd"] != b.vit_depth:
+        raise AssertionError(f"the attention switch did not switch: {window}")
+    for pair in ("flash_vs_dense", "flash_vs_fp32"):
+        d = dists[pair]
+        if max(d["rms"].values()) > DENSE_TOL or max(d["max"].values()) > DENSE_MAX_TOL:
+            raise AssertionError(f"ViT-L backbone features disagree ({pair}): {d}")
+    return res
+
+
+def phase_profile(dev, name):
+    """One video of slice ``name`` (``vitl``: 5 frames at 736x1280, one
+    window; ``swinl`` and ``r50``: 15 frames at 480x640, three windows),
+    bf16: CUDA-event time of every stage (device work plus dispatch gaps),
+    then ``torch.profiler`` over the same video: the device-busy share (sum
+    of kernel times over wall) and the time by kernel and by operator."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dvis_plus_tpu_torch.config import dvis_offline_swinl_ytvis19, dvis_online_r50_ytvis19
+    from dvis_plus_tpu_torch.engine.inference import _online_video
+
+    cfg = {"vitl": vitl_cfg, "swinl": dvis_offline_swinl_ytvis19, "r50": dvis_online_r50_ytvis19}[name]()
+    T, H, W = (5, VIT_H, VIT_W) if name == "vitl" else (FRAMES, H_IN, W_IN)
+    model = build_model(cfg, dev)
+    images = next(synthetic_videos(1, T, H, W, H, W, SEED + 4))["images"]
+    head = model.sem_seg_head
+    stages = [("backbone", model.backbone, "forward"), ("pixel_decoder", head.pixel_decoder, "forward"),
+              ("query_decoder", head.predictor, "forward"), ("tracker", model.tracker, "forward")]
+    if hasattr(model, "refiner"):
+        stages += [("refiner_embed_pass", model.refiner, "embed_pass"),
+                   ("refiner_mask_window", model.refiner, "mask_window")]
+    if name == "vitl":
+        stages += [("vit_trunk_blocks", blk, "forward") for blk in model.backbone.vit_module.blocks]
+    events = {}
+
+    def timed(stage, fn):
+        def call(*args, **kwargs):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            events.setdefault(stage, []).append((a, b))
+            return out
+
+        return call
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _online_video(cfg, model, images, cfg.test.window_size)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    with torch.inference_mode():
+        run()  # warm-up
+        plain_ms = run()
+        for stage, obj, attr in stages:  # an instance attribute shadows the method
+            setattr(obj, attr, timed(stage, getattr(obj, attr)))
+        staged_ms = run()
+        for _, obj, attr in stages:
+            delattr(obj, attr)
+        stage_ms = {k: sum(a.elapsed_time(b) for a, b in ev) for k, ev in events.items()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled_ms = run()
+
+    def self_device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # kernel rows carry the device time once; operator rows repeat it
+    averages = prof.key_averages()
+    kernels = sorted(((self_device_us(e), e.count, e.key) for e in averages
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    ops = sorted(((self_device_us(e), e.count, e.key) for e in averages
+                  if e.device_type == DeviceType.CPU and self_device_us(e) > 0), reverse=True)
+    device_ms = sum(r[0] for r in kernels) / 1e3
+    if device_ms <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+
+    def share(tag):
+        rows = [r for r in kernels if tag in r[2]]
+        ms = sum(r[0] for r in rows) / 1e3
+        return {"ms": ms, "launches": sum(r[1] for r in rows), "share_of_device": ms / device_ms}
+
+    def top(rows):
+        return [{"ms": r[0] / 1e3, "count": r[1], "name": r[2][:72]} for r in rows[:10]]
+
+    emit({"phase": "profile", "slice": name, "frames": T, "input": [H, W],
+          "window": cfg.test.window_size, "compute_dtype": cfg.model.compute_dtype,
+          "video_ms": {"plain": plain_ms, "staged": staged_ms, "profiled": profiled_ms},
+          "stage_ms": stage_ms, "device_ms": device_ms,
+          "busy_share": {"of_profiled_wall": device_ms / profiled_ms, "of_plain_wall": device_ms / plain_ms},
+          "kernel_launches": sum(r[1] for r in kernels),
+          "flash_attn_fwd": share("flash_attn"), "msdeform_fwd": share("msdeform_fwd"),
+          "swin_window_attn_fwd": share("swin_window_attn"),
+          "top_kernels": top(kernels), "top_operators": top(ops)})
 
 
 def phase_host_syncs(dev):
@@ -416,35 +807,76 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
-    b1, b2 = phase_kernels(dev)
+    if "--profile" in sys.argv[1:]:
+        names = [a for a in sys.argv[1:] if a != "--profile"] or ["vitl", "swinl", "r50"]
+        for name in names:
+            phase_profile(dev, name)
+        return 0
+    b1, b2, b3 = phase_kernels(dev)
     phase_slice_parity(dev)
     runs = {impl: phase_slice(dev, impl) for impl in ("exact", "pallas_local")}
     phase_host_syncs(dev)
     phase_swinl_slice_parity(dev)
     swinl = phase_swinl_slice(dev)
+    phase_vitl_slice_parity(dev)
+    vitl = phase_vitl_slice(dev)
 
-    # the timed forms: B1 exact fp32 (R50 encoder shapes); B2 Swin-L stage 0
-    # with the shift mask in bf16, the serving dtype
-    b1_main = next(f for f in b1 if f["radius"] is None and f["value_dtype"] == "float32")
+    # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
+    # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 0
+    # with the shift mask in bf16, the serving dtype; B3 at the ViT-L trunk's
+    # serving shape in bf16, q/k/v as views of the fused qkv output
+    b1_main = next(f for f in b1["encoder"] if f["radius"] is None and f["value_dtype"] == "float32")
+    b1_shapes = {"encoder_480x640": b1_main, "vitl_encoder_736x1280": b1["vitl_encoder"][0],
+                 "vitl_extractor": next(f for f in b1["vitl_extractor"] if f["value_dtype"] == "bfloat16")}
+    timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     b2_main = next(f for f in b2 if f["stage"] == 0 and f["nW"] and f["dtype"] == "bfloat16")
+    b3_main = next(f for f in b3 if f["L"] == 3681 and f["dtype"] == "bfloat16"
+                   and f["layout"] == "fused_qkv_views")
+    paths = {"slice": runs["exact"], "swinl_slice": swinl, "vitl_slice": vitl}
+
+    def by_path(kernel):
+        return {name: r["launches"][kernel] for name, r in paths.items()}
+
     emit({"kernels": [{
         "name": "msdeform_fwd",
         "route": "cuda",
         "source": "dvis_plus_tpu_torch/csrc/msdeform_fwd.cu",
         "replaces": "dvis_plus_tpu/ops/msdeform_pallas.py:67",
         "launches": runs["exact"]["launches"]["msdeform_fwd"],
-        "max_abs_err": max(f["max_abs_err"] for f in b1),
+        "launches_by_path": by_path("msdeform_fwd"),
+        "max_abs_err": max(f["max_abs_err"] for forms in b1.values() for f in forms),
         "ms": b1_main["ms"],
         "plain_ms": b1_main["plain_ms"],
+        "bound_ms": b1_main["bound_ms"],
+        "bound_by": b1_main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it
+        "by_shape": {name: {k: f[k] for k in timing_keys} for name, f in b1_shapes.items()},
     }, {
         "name": "swin_window_attn_fwd",
         "route": "cuda",
         "source": "dvis_plus_tpu_torch/csrc/swin_window_attn_fwd.cu",
         "replaces": "dvis_plus_tpu/ops/swin_window_attn.py:60",
         "launches": swinl["launches"]["swin_window_attn_fwd"],
+        "launches_by_path": by_path("swin_window_attn_fwd"),
         "max_abs_err": max(f["max_abs_err"] for f in b2),
         "ms": b2_main["ms"],
         "plain_ms": b2_main["plain_ms"],
+        "bound_ms": b2_main["bound_ms"],
+        "bound_by": b2_main["bound_by"],
+        "library_ms": b2_main["library_ms"],
+    }, {
+        "name": "flash_attn_fwd",
+        "route": "cuda",
+        "source": "dvis_plus_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "dvis_plus_tpu/ops/flash_attn.py:41",
+        "launches": vitl["launches"]["flash_attn_fwd"],
+        "launches_by_path": by_path("flash_attn_fwd"),
+        "max_abs_err": max(f["max_abs_err"] for f in b3),
+        "ms": b3_main["ms"],
+        "plain_ms": b3_main["plain_ms"],
+        "bound_ms": b3_main["bound_ms"],
+        "bound_by": b3_main["bound_by"],
+        "library_ms": b3_main["library_ms"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,20 +3,22 @@
 
     DVIS_DATASETS=<root> python -m dvis_plus_tpu_torch.cli \\
         --config-file configs/dvis/dvis_online_r50_ytvis19.yaml --eval-only \\
-        [weights=<state_dict .pth/.npz>] [key.path=value ...]
+        [--device cuda|cpu] [weights=<state_dict .pth/.npz>] [key.path=value ...]
 
-(``configs/dvis/dvis_offline_swinl_ytvis19.yaml`` runs the offline Swin-L
-model the same way; ``model.meta_architecture`` picks ``DVISOnline`` or
-``DVISOffline``.)
+(``configs/dvis/dvis_offline_swinl_ytvis19.yaml`` and
+``configs/dvis/dvis_offline_vitl_ytvis19.yaml`` run the offline Swin-L and
+ViT-L models the same way; ``model.meta_architecture`` picks ``DVISOnline``
+or ``DVISOffline``.)
 
-Loads the configuration and the video datasets with the JAX package's
-host-side modules (config YAML, dataset catalog and eval mapper; no jax),
-runs the port's ``run_vis_inference`` on CUDA when a card is present and on
-the CPU otherwise, and writes ``<output_dir>/inference/<dataset>/results.json``.
-Weights are a state dict in the reference checkpoints' key space (the port's
-own ``state_dict()``, a zoo ``.pth``, or the same as ``.npz``); without
-``weights=`` the model keeps its random initialization from ``seed``. AP is
-scored with the JAX package's YouTube-VIS scorer when the dataset has
+Loads the configuration (``config.load_config``) and the video datasets
+(``data.catalog``, ``data.datasets.ytvis``, ``data.mapper``) with the port's
+own host-side modules, runs ``run_vis_inference`` on the card and writes
+``<output_dir>/inference/<dataset>/results.json``. ``--device cuda`` (the
+default) raises when no card is present; only ``--device cpu`` runs on the
+CPU. Weights are a state dict in the reference checkpoints' key space (the
+port's own ``state_dict()``, a zoo ``.pth``, or the same as ``.npz``);
+without ``weights=`` the model keeps its random initialization from
+``seed``. AP is scored (``evaluation.ytvos_eval``) when the dataset has
 ground truth.
 """
 from __future__ import annotations
@@ -51,7 +53,7 @@ def load_weights(model: torch.nn.Module, path: str) -> None:
 
 
 def _score(md, rows):
-    from dvis_plus_tpu.evaluation.ytvos_eval import evaluate_vis
+    from dvis_plus_tpu_torch.evaluation.ytvos_eval import evaluate_vis
 
     with open(md.json_file) as f:
         gt = json.load(f)
@@ -65,11 +67,10 @@ def _score(md, rows):
 
 
 def main(argv=None) -> dict:
-    from dvis_plus_tpu.core.config import load_config
-    from dvis_plus_tpu.data.build import mapper_for_type
-    from dvis_plus_tpu.data.catalog import get_dataset, get_metadata
-    from dvis_plus_tpu.data.datasets.ytvis import register_all_ytvis
-
+    from dvis_plus_tpu_torch.config import load_config
+    from dvis_plus_tpu_torch.data.catalog import get_dataset, get_metadata
+    from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
+    from dvis_plus_tpu_torch.data.mapper import YTVISDatasetMapper
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
     from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
     from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline
@@ -79,13 +80,17 @@ def main(argv=None) -> dict:
     parser.add_argument("--config-file", required=True)
     parser.add_argument("--eval-only", action="store_true", required=True,
                         help="training is not ported; evaluation only")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="cuda (default) raises without a card; cpu must be asked for")
     parser.add_argument("opts", nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
     cfg = load_config(args.config_file, args.opts)
     register_all_ytvis(os.environ.get("DVIS_DATASETS", "datasets"))
-    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
+    dev = torch.device(args.device)
     torch.manual_seed(cfg.seed)
     arch = {"dvis_online": DVISOnline, "dvis_offline": DVISOffline}.get(cfg.model.meta_architecture)
     if arch is None:
@@ -98,7 +103,7 @@ def main(argv=None) -> dict:
     results = {}
     for name in cfg.datasets.test:
         md = get_metadata(name)
-        mapper = mapper_for_type(cfg, "video_instance", False, dataset_name=name)
+        mapper = YTVISDatasetMapper(cfg)
         loader = (mapper(rec, seed=0) for rec in get_dataset(name))
         evaluator = YTVISEvaluator(
             name, os.path.join(cfg.output_dir, "inference", name),

@@ -1,24 +1,37 @@
-"""YAML-free configuration presets for the ported slices.
+"""Configuration of the ported slices: dataclasses, YAML loading and
+YAML-free presets.
 
-The port's model code reads its configuration by attribute only, so it takes
-either the JAX package's ``dvis_plus_tpu.core.config.Config`` (tests and the
-CPU CLI, where PyYAML is installed) or a preset below (on a GPU machine,
-which may have no PyYAML). The presets hold only the fields the port reads,
-with the values ``load_config`` resolves for their YAML through its
-``_BASE_`` chain: ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (ctvis ->
-minvis -> base_video) and ``configs/dvis/dvis_offline_swinl_ytvis19.yaml``
-(dvis_online_swinl -> dvis_online_r50 -> ...). ``tests/test_torch_config.py``
-holds each preset equal to its YAML field by field.
+Counterpart: ``dvis_plus_tpu/core/config.py`` (the dataclasses :31-370 and
+``load_config`` :453). The dataclasses below hold only the fields the port
+reads, under the JAX package's names and defaults. :func:`load_config`
+follows a YAML's ``_BASE_`` chain and applies dotted ``key.path=value``
+overrides as the JAX package's does; a key the port has no field for
+(``solver``, training input, the criterion) is kept as a plain attribute or
+namespace, so any of the repository's YAMLs loads. PyYAML is imported inside
+the function: a GPU machine may have none, and there the presets serve.
+
+The presets hold the values ``load_config`` resolves for their YAML:
+``configs/dvis/dvis_online_r50_ytvis19.yaml`` (ctvis -> minvis ->
+base_video), ``configs/dvis/dvis_offline_swinl_ytvis19.yaml``
+(dvis_online_swinl -> dvis_online_r50 -> ...) and
+``configs/dvis/dvis_offline_vitl_ytvis19.yaml`` (dvis_online_vitl ->
+dvis_online_r50 -> ...). ``tests/test_torch_config.py`` holds each preset
+equal to its YAML field by field, and this ``load_config`` equal to the JAX
+package's.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Tuple
+import os
+import typing
+from dataclasses import dataclass, field, fields, is_dataclass
+from types import SimpleNamespace
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclass
 class BackboneConfig:
-    name: str = "resnet50"  # resnet50 | resnet101 | swin_{t,s,b,l} | another swin_* name
+    # resnet50 | resnet101 | swin_{t,s,b,l} | another swin_* name | vit_adapter_dinov2
+    name: str = "resnet50"
     out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
     # Swin widths: read only for a swin_* name outside swin_{t,s,b,l}
     swin_embed_dim: int = 96
@@ -30,6 +43,20 @@ class BackboneConfig:
     swin_qkv_bias: bool = True
     swin_fast_softmax: bool = False  # bf16 attention scores: not ported (raises)
     swin_fused_attn: bool = False  # both values run kernel B2 on CUDA
+    # ViT-Adapter (DINOv2); the trunk runs on a stride-16 grid whatever
+    # vit_patch_size says, as in the JAX package
+    vit_embed_dim: int = 1024
+    vit_depth: int = 24
+    vit_num_heads: int = 16
+    vit_patch_size: int = 14
+    vit_interaction_indexes: Tuple[Tuple[int, int], ...] = ((0, 5), (6, 11), (12, 17), (18, 23))
+    vit_conv_inplane: int = 64
+    vit_deform_num_heads: int = 16
+    vit_n_points: int = 4
+    vit_with_cffn: bool = True
+    vit_deform_ratio: float = 0.5
+    vit_flash_attention: bool = False  # serving: trunk attention through kernel B3
+    vit_extractor_coarse: bool = False  # serving: coarse stride-8 extractor queries
 
 
 @dataclass
@@ -54,7 +81,7 @@ class TransformerDecoderConfig:
     dim_feedforward: int = 2048
     dec_layers: int = 9
     mask_dim: int = 256
-    reid_branch: bool = True
+    reid_branch: bool = False
     reid_hidden_dim: int = 512
 
 
@@ -76,10 +103,12 @@ class RefinerConfig:
 
 @dataclass
 class ModelConfig:
-    meta_architecture: str = "dvis_online"
+    meta_architecture: str = "minvis"
     num_classes: int = 40
     compute_dtype: str = "bfloat16"
     size_divisibility: int = 32
+    pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
+    pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     pixel_decoder: PixelDecoderConfig = field(default_factory=PixelDecoderConfig)
     transformer_decoder: TransformerDecoderConfig = field(
@@ -96,6 +125,11 @@ class InputConfig:
 
 
 @dataclass
+class DatasetsConfig:
+    test: Tuple[str, ...] = ("ytvis_2019_val",)
+
+
+@dataclass
 class TestConfig:
     window_size: int = 5
     max_num: int = 20
@@ -106,23 +140,146 @@ class TestConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     input: InputConfig = field(default_factory=InputConfig)
+    datasets: DatasetsConfig = field(default_factory=DatasetsConfig)
     test: TestConfig = field(default_factory=TestConfig)
+    output_dir: str = "./output"
+    seed: int = 42
+    weights: str = ""  # state dict to load (.npz or a torch checkpoint)
+
+
+# ---------------------------------------------------------------------------
+# YAML loading with _BASE_ inheritance and dotted overrides
+# ---------------------------------------------------------------------------
+
+
+def _deep_merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
+    out = dict(base)
+    for k, v in override.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _load_yaml_chain(path: str) -> Dict[str, Any]:
+    import yaml
+
+    with open(path) as f:
+        data = yaml.safe_load(f) or {}
+    base_rel = data.pop("_BASE_", None)
+    if base_rel is not None:
+        data = _deep_merge(_load_yaml_chain(os.path.join(os.path.dirname(path), base_rel)), data)
+    return data
+
+
+def _coerce(value: Any, typ: Any) -> Any:
+    """Coerce a YAML or command-line value into a field's declared type."""
+    origin = typing.get_origin(typ)
+    if origin is tuple:
+        args = typing.get_args(typ)
+        elem = args[0] if args else Any
+        if isinstance(value, str):
+            value = [v for v in value.strip("()[]").split(",") if v != ""]
+        if elem is Any or elem is Ellipsis:
+            return tuple(value)
+        return tuple(_coerce(v, elem) for v in value)
+    if typ is bool:
+        if isinstance(value, str):
+            return value.lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    if typ in (int, float, str):
+        return typ(value)
+    return value
+
+
+def _field_type(node: Any, name: str) -> Any:
+    return typing.get_type_hints(type(node))[name]
+
+
+def _set(node: Any, key: str, value: Any) -> None:
+    """Set one key on a config node: a declared field is coerced to its type;
+    anything else (a section or key the port never reads) is kept as it is,
+    dictionaries as namespaces."""
+    if is_dataclass(node) and key in {f.name for f in fields(node)}:
+        cur = getattr(node, key)
+        if is_dataclass(cur) and isinstance(value, dict):
+            for k, v in value.items():
+                _set(cur, k.lower(), v)
+        else:
+            setattr(node, key, _coerce(value, _field_type(node, key)))
+    elif isinstance(value, dict):
+        cur = getattr(node, key, None)
+        if not isinstance(cur, SimpleNamespace):
+            cur = SimpleNamespace()
+            setattr(node, key, cur)
+        for k, v in value.items():
+            _set(cur, k.lower(), v)
+    else:
+        setattr(node, key, value)
+
+
+def load_config(path: Optional[str] = None, overrides: Optional[List[str]] = None) -> Config:
+    """Build a Config from an optional YAML (with ``_BASE_`` chaining) plus
+    ``key.path=value`` overrides."""
+    import yaml
+
+    cfg = Config()
+    if path:
+        for k, v in _load_yaml_chain(path).items():
+            _set(cfg, k.lower(), v)
+    for ov in overrides or []:
+        if "=" not in ov:
+            raise ValueError(f"Override must be key.path=value, got: {ov}")
+        key, _, value = ov.partition("=")
+        try:
+            parsed = yaml.safe_load(value)
+        except yaml.YAMLError:
+            parsed = value
+        *sections, leaf = key.strip().lower().split(".")
+        node = cfg
+        for p in sections:
+            if not hasattr(node, p):
+                setattr(node, p, SimpleNamespace())
+            node = getattr(node, p)
+        _set(node, leaf, parsed)
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# Presets
+# ---------------------------------------------------------------------------
 
 
 def dvis_online_r50_ytvis19() -> Config:
     """DVIS++ online, ResNet-50, YouTube-VIS 2019 (40 classes)."""
-    return Config()
+    cfg = Config()
+    cfg.model.meta_architecture = "dvis_online"
+    cfg.model.transformer_decoder.reid_branch = True
+    return cfg
 
 
 def dvis_offline_swinl_ytvis19() -> Config:
     """DVIS++ offline, Swin-L (window 12), YouTube-VIS 2019: the online
     Swin-L stack with Q = 200 plus the 6-layer temporal refiner."""
-    cfg = Config()
+    cfg = dvis_online_r50_ytvis19()
     m = cfg.model
     m.meta_architecture = "dvis_offline"
     m.backbone = BackboneConfig(
         name="swin_l", swin_embed_dim=192, swin_depths=(2, 2, 18, 2),
         swin_num_heads=(6, 12, 24, 48), swin_window_size=12,
     )
+    m.transformer_decoder.num_queries = 200
+    return cfg
+
+
+def dvis_offline_vitl_ytvis19() -> Config:
+    """DVIS++ offline, DINOv2 ViT-L with the ViT-Adapter (every ``vit_*``
+    default is the ViT-L width), YouTube-VIS 2019: Q = 200, ReID branch,
+    6-layer temporal refiner."""
+    cfg = dvis_online_r50_ytvis19()
+    m = cfg.model
+    m.meta_architecture = "dvis_offline"
+    m.backbone = BackboneConfig(name="vit_adapter_dinov2")
     m.transformer_decoder.num_queries = 200
     return cfg

@@ -4,11 +4,11 @@
 Counterpart: the Flax trees of ``dvis_plus_tpu/models/meta/dvis_online.py::
 DVISOnline`` (:40, ``{"segmenter", "tracker"}``) and
 ``dvis_plus_tpu/models/meta/dvis_offline.py::DVISOffline`` (:46,
-``{"online": {"segmenter", "tracker"}, "refiner"}``), with a ResNet or Swin
-backbone. The port's parameters carry the reference checkpoints' names, so
+``{"online": {"segmenter", "tracker"}, "refiner"}``), with a ResNet, Swin or
+ViT-Adapter backbone. The port's parameters carry the reference checkpoints' names, so
 this is the inverse of ``dvis_plus_tpu/core/zoo_convert.py::
-convert_reference_checkpoint`` (with ``convert_torch_swin`` and
-``convert_refiner``), and the port's ``state_dict()`` converts back with
+convert_reference_checkpoint`` (with ``convert_torch_swin``,
+``convert_torch_vit_adapter`` and ``convert_refiner``), and the port's ``state_dict()`` converts back with
 that function. Numpy in, torch out; no jax needed.
 
 Layout changes: Flax ``Dense`` kernel (in, out) -> ``Linear.weight``
@@ -59,17 +59,21 @@ def _mlp(p, key: str, out: Dict[str, np.ndarray]) -> None:
         _dense(p[name], f"{key}.layers.{name.split('_')[1]}", out)
 
 
-def _mha(p, key: str, out: Dict[str, np.ndarray]) -> None:
+def _mha(p, key: str, out: Dict[str, np.ndarray], in_proj: str = "in_proj_",
+         out_proj: str = "out_proj") -> None:
+    """q/k/v ``DenseGeneral``s -> one fused (3C, C) projection, named
+    ``in_proj_weight`` / ``out_proj`` (``nn.MultiheadAttention``) or, for the
+    ViT trunk, ``qkv.weight`` / ``proj``."""
     ws, bs = [], []
     for name in ("q_proj", "k_proj", "v_proj"):
         k = _a(p[name]["kernel"])  # (C, H, Dh)
         ws.append(k.reshape(k.shape[0], -1).T)
         bs.append(_a(p[name]["bias"]).reshape(-1))
-    out[f"{key}.in_proj_weight"] = np.concatenate(ws, axis=0)
-    out[f"{key}.in_proj_bias"] = np.concatenate(bs, axis=0)
+    out[f"{key}.{in_proj}weight"] = np.concatenate(ws, axis=0)
+    out[f"{key}.{in_proj}bias"] = np.concatenate(bs, axis=0)
     k = _a(p["out_proj"]["kernel"])  # (H, Dh, C)
-    out[f"{key}.out_proj.weight"] = k.reshape(-1, k.shape[-1]).T
-    out[f"{key}.out_proj.bias"] = _a(p["out_proj"]["bias"])
+    out[f"{key}.{out_proj}.weight"] = k.reshape(-1, k.shape[-1]).T
+    out[f"{key}.{out_proj}.bias"] = _a(p["out_proj"]["bias"])
 
 
 def _layers(p, pre: str, out: Dict[str, np.ndarray]) -> None:
@@ -130,6 +134,75 @@ def _swin_backbone(p, out: Dict[str, np.ndarray]) -> None:
             _dense(sub["reduction"], f"{pre}.reduction", out)
         elif name.startswith("out_norm"):
             _norm(sub, f"backbone.norm{name[len('out_norm'):]}", out)
+
+
+def _vit_backbone(p, out: Dict[str, np.ndarray]) -> None:
+    """Flax ``ViTAdapter`` tree -> ``backbone.*`` in the reference key space
+    (the inverse of ``dvis_plus_tpu/core/checkpoint.py::
+    convert_torch_vit_adapter``)."""
+    pre = "backbone."
+    vit = p["vit"]
+    out[f"{pre}vit_module.cls_token"] = _a(vit["cls_token"])
+    out[f"{pre}vit_module.pos_embed"] = _a(vit["pos_embed"])
+    _conv(vit["patch_embed"], f"{pre}vit_module.patch_embed.proj", out)
+    for name, blk in vit.items():
+        if not name.startswith("block"):
+            continue
+        b = f"{pre}vit_module.blocks.{name[len('block'):]}"
+        _norm(blk["norm1"], f"{b}.norm1", out)
+        _norm(blk["norm2"], f"{b}.norm2", out)
+        _mha(blk["attn"], f"{b}.attn", out, in_proj="qkv.", out_proj="proj")
+        _dense(blk["mlp_fc1"], f"{b}.mlp.fc1", out)
+        _dense(blk["mlp_fc2"], f"{b}.mlp.fc2", out)
+        out[f"{b}.ls1.gamma"] = _a(blk["ls1"]["gamma"])
+        out[f"{b}.ls2.gamma"] = _a(blk["ls2"]["gamma"])
+
+    spm = p["spm"]
+    for name, idx in (("stem1", "stem.0"), ("stem2", "stem.3"), ("stem3", "stem.6"),
+                      ("conv2", "conv2.0"), ("conv3", "conv3.0"), ("conv4", "conv4.0")):
+        head, _, i = idx.rpartition(".")
+        _conv(spm[f"{name}_conv"], f"{pre}spm.{idx}", out)
+        _frozen_bn(spm[f"{name}_bn"], f"{pre}spm.{head}.{int(i) + 1}", out)
+    for name in ("fc1", "fc2", "fc3", "fc4"):
+        _conv(spm[name], f"{pre}spm.{name}", out)
+
+    def deform(sub, key):
+        for lin in ("value_proj", "sampling_offsets", "attention_weights", "output_proj"):
+            _dense(sub[lin], f"{key}.{lin}", out)
+
+    def extractor(sub, key):
+        _norm(sub["query_norm"], f"{key}.query_norm", out)
+        _norm(sub["feat_norm"], f"{key}.feat_norm", out)
+        deform(sub["attn"], f"{key}.attn")
+        if "ffn" in sub:
+            _norm(sub["ffn_norm"], f"{key}.ffn_norm", out)
+            _dense(sub["ffn"]["fc1"], f"{key}.ffn.fc1", out)
+            _dense(sub["ffn"]["fc2"], f"{key}.ffn.fc2", out)
+            _conv(sub["ffn"]["dwconv"], f"{key}.ffn.dwconv.dwconv", out)  # (3, 3, 1, C) -> (C, 1, 3, 3)
+
+    last = max(int(n.rsplit("_", 1)[1]) for n in p if n.startswith("extractor_"))
+    for name, sub in p.items():
+        kind, _, i = name.rpartition("_")
+        if kind == "extractor":
+            extractor(sub, f"{pre}interactions.{i}.extractor")
+        elif kind == "extra_extractor":  # they sit on the last interaction
+            extractor(sub, f"{pre}interactions.{last}.extra_extractors.{i}")
+        elif kind == "injector":
+            key = f"{pre}interactions.{i}.injector"
+            _norm(sub["query_norm"], f"{key}.query_norm", out)
+            _norm(sub["feat_norm"], f"{key}.feat_norm", out)
+            deform(sub["attn"], f"{key}.attn")
+            out[f"{key}.gamma"] = _a(sub["gamma"])
+
+    # Flax's ConvTranspose places the spatially mirrored tap where torch's
+    # ConvTranspose2d places tap (kh, kw): (kH, kW, Cin, Cout) -> (Cin, Cout,
+    # kH, kW), flipped on both spatial axes
+    up = np.transpose(_a(p["up"]["kernel"]), (2, 3, 0, 1))[:, :, ::-1, ::-1]
+    out[f"{pre}up.weight"] = np.ascontiguousarray(up)
+    out[f"{pre}up.bias"] = _a(p["up"]["bias"])
+    for n in (1, 2, 3, 4):
+        _frozen_bn(p[f"norm{n}"], f"{pre}norm{n}", out)
+    out[f"{pre}level_embed"] = _a(p["level_embed"])
 
 
 def _pixel_decoder(p, out: Dict[str, np.ndarray]) -> None:
@@ -221,6 +294,8 @@ def state_dict_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
     seg = online["segmenter"]
     if "patch_embed" in seg["backbone"]:
         _swin_backbone(seg["backbone"], out)
+    elif "vit" in seg["backbone"]:
+        _vit_backbone(seg["backbone"], out)
     else:
         _backbone(seg["backbone"], out)
     _pixel_decoder(seg["pixel_decoder"], out)

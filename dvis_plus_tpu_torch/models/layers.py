@@ -50,6 +50,12 @@ class Conv2d(nn.Conv2d):
         return y if self.norm is None else self.norm(y)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+
+
 class Conv1d(nn.Conv1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)

@@ -20,6 +20,7 @@ import torch.nn as nn
 
 from dvis_plus_tpu_torch.models.backbones.resnet import resnet50, resnet101
 from dvis_plus_tpu_torch.models.backbones.swin import build_swin
+from dvis_plus_tpu_torch.models.backbones.vit_adapter import build_vit_adapter
 from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import (
     MSDeformAttnPixelDecoder,
     dtype_of,
@@ -36,6 +37,8 @@ def build_backbone(cfg) -> nn.Module:
         return resnet101(out_features=tuple(cfg.backbone.out_features))
     if name.startswith("swin"):
         return build_swin(cfg.backbone)
+    if name == "vit_adapter_dinov2":
+        return build_vit_adapter(cfg.backbone)
     raise ValueError(f"backbone {name!r} is not ported yet")
 
 

@@ -106,4 +106,13 @@ def library() -> ctypes.CDLL:
     ]
     lib.swin_window_attn_error_string.restype = ctypes.c_char_p
     lib.swin_window_attn_error_string.argtypes = [i32]
+    lib.flash_attn_fwd.restype = i32
+    lib.flash_attn_fwd.argtypes = [
+        vp, vp, vp,  # q, k, v
+        i64, i64, i64, i64, i64, i64,  # batch and row strides of q, k, v
+        vp, i32, i32, i32, i32, i32,  # out, is_bf16, B, L, H, Dh
+        ctypes.c_float, vp,  # scale, stream
+    ]
+    lib.flash_attn_error_string.restype = ctypes.c_char_p
+    lib.flash_attn_error_string.argtypes = [i32]
     return lib

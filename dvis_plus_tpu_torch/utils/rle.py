@@ -1,8 +1,8 @@
 """COCO run-length encoding of binary masks, in numpy.
 
-Counterpart: ``dvis_plus_tpu/utils/rle.py`` (``encode``, ``encode_packed``,
-``PackedMasks``), which binds a C++ codec. The port carries its own codec so
-that its GPU path needs nothing of the JAX package: column-major run lengths
+Counterpart: ``dvis_plus_tpu/utils/rle.py`` (``encode``, ``decode``, ``area``,
+``merge``, ``encode_packed``, ``PackedMasks``), which binds a C++ codec. The
+port carries its own codec so that it needs nothing of the JAX package: column-major run lengths
 (the first run counts zeros) and pycocotools' compressed count string (the
 third count on is delta-coded against the count two before, five bits per
 character with a continuation bit, offset by 48).
@@ -78,6 +78,22 @@ def decode(rle: Dict) -> np.ndarray:
     cnts = string_to_counts(counts.encode() if isinstance(counts, str) else counts)
     vals = np.arange(len(cnts)) % 2
     return np.repeat(vals, cnts).astype(np.uint8).reshape(w, h).T
+
+
+def area(rle: Dict) -> int:
+    """Number of set pixels: the sum of the odd-indexed run lengths."""
+    counts = rle["counts"]
+    cnts = string_to_counts(counts.encode() if isinstance(counts, str) else counts)
+    return int(cnts[1::2].sum())
+
+
+def merge(rles, intersect: bool = False) -> Dict:
+    """Union (or intersection) of same-size RLE masks, as an RLE dict."""
+    masks = [decode(r).astype(bool) for r in rles]
+    out = masks[0]
+    for m in masks[1:]:
+        out = (out & m) if intersect else (out | m)
+    return encode(out)
 
 
 def encode_packed(packed_rows: np.ndarray, h: int, w: int) -> Dict:

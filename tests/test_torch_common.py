@@ -1,6 +1,7 @@
 """Shared helpers for the PyTorch port's parity tests (no tests of its own).
 
-Builds tiny DVIS++ online (ResNet-50) and offline (Swin) configurations and
+Builds tiny DVIS++ online (ResNet-50) and offline (Swin, ViT-Adapter)
+configurations and
 seeded numpy weights shaped like the JAX model's parameter tree (random
 everywhere, so that the reference's zero-initialized projections such as
 the sampling offsets give generic sampling locations). The same weights
@@ -77,6 +78,10 @@ def random_params(shapes, seed: int = 0, scale: float = 0.05):
             return x * 10.0
         if path[-1] == "relative_position_bias_table":
             return x * 20.0  # a bias of order 1, so the scores depend on it
+        if "vit" in path and path[-1] == "kernel" and path[-2] in ("q_proj", "k_proj"):
+            return x * 20.0  # scores of order 1, so the softmax is not flat
+        if path[-1] == "gamma":
+            return x + 0.5  # LayerScale / injector gates of order 1, not 1e-5
         return x
 
     return walk(shapes, ())
@@ -127,6 +132,43 @@ def jax_offline_model_and_params(window: int = 12):
         model.init, jax.random.key(0), jnp.zeros((1, 2, H_IN, W_IN, 3), jnp.float32)
     )
     return cfg, model, random_params(shapes)
+
+
+def tiny_vit_backbone(b, coarse: bool = False, flash: bool = False):
+    """Set a backbone config to a tiny ViT-Adapter: embed 32, depth 4, 2
+    heads (Dh = 16), one trunk block per interaction, ``conv_inplane`` 8, 2
+    deformable heads. At 64x96 input the trunk sees 4x6 tokens, not the 37x37
+    pretraining grid, so the position embedding is resampled."""
+    b.name = "vit_adapter_dinov2"
+    b.vit_embed_dim = 32
+    b.vit_depth = 4
+    b.vit_num_heads = 2
+    b.vit_interaction_indexes = ((0, 0), (1, 1), (2, 2), (3, 3))
+    b.vit_conv_inplane = 8
+    b.vit_deform_num_heads = 2
+    b.vit_extractor_coarse = coarse
+    b.vit_flash_attention = flash
+    return b
+
+
+def tiny_vit_offline_cfg(coarse: bool = False, flash: bool = False) -> Config:
+    """DVIS++ offline with the tiny ViT-Adapter backbone."""
+    cfg = tiny_offline_cfg()
+    tiny_vit_backbone(cfg.model.backbone, coarse, flash)
+    return cfg
+
+
+@functools.cache
+def jax_vit_offline_model_and_params(coarse: bool = False, flash: bool = False):
+    """(cfg, flax module, seeded numpy params) for the tiny ViT DVISOffline."""
+    from dvis_plus_tpu.models.meta.dvis_offline import DVISOffline
+
+    cfg = tiny_vit_offline_cfg(coarse, flash)
+    model = DVISOffline(cfg.model)
+    shapes = jax.eval_shape(
+        model.init, jax.random.key(0), jnp.zeros((1, 2, H_IN, W_IN, 3), jnp.float32)
+    )
+    return cfg, model, random_params(shapes, seed=3)
 
 
 def port_model(cfg, params):

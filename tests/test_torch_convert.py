@@ -18,6 +18,7 @@ from tests.test_torch_common import (
     random_params,
     tiny_cfg,
     tiny_offline_cfg,
+    tiny_vit_offline_cfg,
 )
 
 torch.set_num_threads(2)
@@ -86,6 +87,36 @@ def test_offline_swin_round_trip_through_zoo_converter():
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
     assert sum(k.startswith("backbone.layers.2.blocks.") and k.endswith(".attn.qkv.weight")
                for k in sd) == 6  # Swin-T depths (2, 2, 6, 2)
+    back = _flat(convert_reference_checkpoint(sd, cfg))
+    orig = _flat(params)
+    assert sorted(back) == sorted(orig)
+    for k in orig:
+        np.testing.assert_array_equal(back[k], orig[k], err_msg=k)
+
+
+def test_offline_vit_round_trip_through_zoo_converter():
+    """ViT-Adapter offline: the JAX DVISOffline tree loads strictly (fused
+    ``attn.qkv``, the mirrored ``up`` kernel, the shared depthwise conv), and
+    the port's state_dict converts back through
+    ``convert_reference_checkpoint`` leaf for leaf."""
+    from dvis_plus_tpu.models.meta.dvis_offline import DVISOffline
+    from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline as TorchDVISOffline
+
+    cfg = tiny_vit_offline_cfg()
+    shapes = jax.eval_shape(
+        DVISOffline(cfg.model).init, jax.random.key(0),
+        jnp.zeros((1, 2, H_IN, W_IN, 3), jnp.float32),
+    )
+    params = random_params(shapes, seed=8)
+    model = TorchDVISOffline(cfg.model)
+    missing, unexpected = model.load_state_dict(state_dict_from_jax(params), strict=True)
+    assert not missing and not unexpected
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    assert sd["backbone.vit_module.blocks.3.attn.qkv.weight"].shape == (96, 32)
+    assert sd["backbone.interactions.3.extra_extractors.1.ffn.dwconv.dwconv.weight"].shape == (8, 1, 3, 3)
+    assert not any(".injector." in k for k in sd)
+    up = np.asarray(params["params"]["online"]["segmenter"]["backbone"]["up"]["kernel"])
+    np.testing.assert_array_equal(sd["backbone.up.weight"][3, 5], up[::-1, ::-1, 3, 5])
     back = _flat(convert_reference_checkpoint(sd, cfg))
     orig = _flat(params)
     assert sorted(back) == sorted(orig)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from dvis_plus_tpu_torch.ops import msdeform, swin_window_attn
+from dvis_plus_tpu_torch.ops import flash_attn, msdeform, swin_window_attn
 
 SHAPES = [(16, 20), (8, 10), (4, 5)]
 
@@ -110,3 +110,82 @@ def test_swin_window_attn_wrapper_raises_instead_of_falling_back(cuda_device):
         swin_window_attn.window_attention(q, k, v, bias.cpu(), mask, 2)
     with pytest.raises(ValueError):  # head dim 64
         swin_window_attn.window_attention(q, k, v, bias[:1], mask, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msdeform_kernel_at_the_extractor_shape(cuda_device, dtype):
+    """The ViT-Adapter extractor's call: the queries are not the value's
+    grid (three query grids attend into one value level) and M * D is the
+    kernel's limit of 1024 channels."""
+    rng = np.random.RandomState(3)
+    B, M, D, P, (H, W) = 2, 16, 64, 4, (6, 10)
+    Lq = 4 * H * W + H * W + (H // 2) * (W // 2)
+    value = torch.from_numpy(rng.randn(B, H * W, M, D).astype(np.float32)).to(cuda_device, dtype)
+    loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (B, Lq, M, 1, P, 2)).astype(np.float32)).to(cuda_device)
+    attn = torch.from_numpy(rng.rand(B, Lq, M, 1, P).astype(np.float32)).to(cuda_device)
+    msdeform.reset_launches()
+    got = msdeform.ms_deform_attn(value, [(H, W)], loc, attn)
+    torch.cuda.synchronize()
+    assert msdeform.launches == 1 and got.shape == (B, Lq, M * D)
+    want = msdeform.ms_deform_attn_torch(value, [(H, W)], loc, attn)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def _flash_inputs(dev, dtype, B, L, H, fused, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    if fused:  # column views of one qkv output, as the ViT trunk hands them over
+        qkv = torch.randn(B, L, 3 * H * 64, generator=g).to(dev, dtype)
+        return [t.unflatten(-1, (H, 64)) for t in qkv.split(H * 64, dim=-1)]
+    return [torch.randn(B, L, H, 64, generator=g).to(dev, dtype) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("B,L,H", [(2, 2049, 16), (1, 3681, 4), (1, 2048, 1)])
+def test_flash_attn_kernel_matches_twin(cuda_device, dtype, tol, fused, B, L, H):
+    """Tolerance: fp32 rel 1e-5 (both accumulate in fp32); bf16 rel 1e-2, one
+    bf16 ulp of the output (p and the output round to bf16 on both sides,
+    after sums taken in different orders). L = 2049 and 3681 leave a ragged
+    last tile of keys and of query rows."""
+    q, k, v = _flash_inputs(cuda_device, dtype, B, L, H, fused)
+    flash_attn.reset_launches()
+    got = flash_attn.flash_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attn.launches == 1
+    want = flash_attn.attention_torch(q, k, v)
+    assert got.dtype == dtype and got.shape == want.shape == (B, L, H, 64) and got.is_contiguous()
+    assert torch.isfinite(got).all()
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+def test_flash_attn_scale_and_short_sequences(cuda_device):
+    q, k, v = _flash_inputs(cuda_device, torch.float32, 1, 2100, 2, True)
+    got = flash_attn.flash_self_attention(q, k, v, sm_scale=0.05)
+    want = flash_attn.attention_torch(q, k, v, 0.05)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for L in (1, 63, 100, 1201):  # short sequences launch the kernel too
+            qs, ks, vs = (t[:, :L].to(dtype) for t in (q, k, v))
+            flash_attn.reset_launches()
+            got = flash_attn.flash_self_attention(qs, ks, vs)
+            assert flash_attn.launches == 1
+            want = flash_attn.attention_torch(qs, ks, vs)
+            err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+            assert err <= tol, (dtype, L, err)
+
+
+@pytest.mark.cuda
+def test_flash_attn_wrapper_raises_instead_of_falling_back(cuda_device):
+    q, k, v = _flash_inputs(cuda_device, torch.float32, 1, 2048, 2, False)
+    with pytest.raises(TypeError):
+        flash_attn.flash_self_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        flash_attn.flash_self_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):  # head dim 32
+        flash_attn.flash_self_attention(*(t.reshape(1, 2048, 4, 32) for t in (q, k, v)))
+    with pytest.raises(ValueError):  # heads not on contiguous columns
+        flash_attn.flash_self_attention(*(t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)))

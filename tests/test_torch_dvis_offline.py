@@ -24,6 +24,7 @@ from tests.test_torch_common import (
     images,
     jax_model_and_params,
     jax_offline_model_and_params,
+    jax_vit_offline_model_and_params,
     nchw,
     port_model,
     rel_err,
@@ -124,6 +125,52 @@ def test_offline_run_vis_inference_matches_jax(monkeypatch):
         # JAX pre-threshold masks of its top-K queries (scores fused with aux)
         scores, _, queries = topk_select(mask_cls, len(w["pred_scores"]), aux)
         np.testing.assert_allclose(np.asarray(scores), w["pred_scores"], rtol=1e-6)
+        pre = _jax_prethreshold(mask_pred[np.asarray(queries)], img, out, pad)
+        for bits in (g["pred_masks"].unpack(), w["pred_masks"].unpack()):
+            differ = bits != (pre > 0)
+            assert np.all(np.abs(pre[differ]) < 1e-4)
+
+
+@pytest.mark.parametrize("variant", ["default", "serving"])
+def test_offline_vit_video_matches_jax(variant):
+    """The ViT-Adapter slice through ``_online_video``: 7 frames, window 3.
+    ``serving`` sets ``vit_flash_attention`` and ``vit_extractor_coarse``, the
+    two knobs of the JAX package's ViT-L serving set-up (on the CPU the flash
+    flag takes the dense path on both sides)."""
+    serving = variant == "serving"
+    cfg, model, params = jax_vit_offline_model_and_params(coarse=serving, flash=serving)
+    x = images(7, seed=25)
+    wl, wm, wa = jax_inference._online_video(cfg, model, params, x, {}, 3)
+    with torch.inference_mode():
+        gl, gm, ga = port_inference._online_video(cfg, port_model(cfg, params), x, 3)
+    assert gm.shape == wm[:, :7].shape == (8, 7, 16, 24)
+    assert rel_err(_to_np(gl), wl) <= 1e-4
+    assert rel_err(_to_np(ga), wa) <= 1e-4
+    assert rel_err(_to_np(gm), _to_np(wm[:, :7])) <= 1e-4
+
+
+def test_offline_vit_run_vis_inference_matches_jax(monkeypatch):
+    """The ViT-Adapter slice as a whole, with the bars of the Swin slice:
+    logits, masks and aux rel <= 1e-4; rows with equal labels, scores rel
+    1e-4, equal mask bits but where |pre-threshold| < 1e-4."""
+    cfg, model, params = jax_vit_offline_model_and_params()
+    seen = _record_paged(monkeypatch, jax_inference)
+    seen_port = _record_paged(monkeypatch, port_inference)
+    want = Recorder()
+    jax_inference.run_vis_inference(cfg, model, params, _loader(), want)
+    got = Recorder()
+    port_inference.run_vis_inference(cfg, port_model(cfg, params), _loader(), got)
+
+    assert sorted(got.rows) == sorted(want.rows) == [1, 2]
+    for vid in (1, 2):
+        g, w = got.rows[vid], want.rows[vid]
+        np.testing.assert_allclose(g["pred_scores"], w["pred_scores"], rtol=1e-4)
+        assert g["pred_labels"] == w["pred_labels"]
+        assert g["pred_masks"].shape == w["pred_masks"].shape
+        mask_cls, mask_pred, img, out, pad, aux = seen[vid]
+        for j in (0, 1, 5):  # logits, masks, aux
+            assert rel_err(seen_port[vid][j], seen[vid][j]) <= 1e-4
+        scores, _, queries = topk_select(mask_cls, len(w["pred_scores"]), aux)
         pre = _jax_prethreshold(mask_pred[np.asarray(queries)], img, out, pad)
         for bits in (g["pred_masks"].unpack(), w["pred_masks"].unpack()):
             differ = bits != (pre > 0)

@@ -1,7 +1,11 @@
 """The port imports no jax, flax or JAX-package module, and no triton, and
-builds nothing, when every module is imported and its CPU path runs.
+builds nothing, when every module is imported, its CPU path runs for the
+three presets at a small size, and its CLI evaluates the synthetic
+YouTube-VIS set with ``--device cpu``.
 
-Runs in a subprocess: the pytest process itself has jax loaded (conftest)."""
+Runs in a subprocess: the pytest process itself has jax loaded (conftest).
+The synthetic set is written by the pytest process (``tools/synth_data.py``
+encodes its masks with the JAX package's codec)."""
 import json
 import os
 import subprocess
@@ -17,18 +21,28 @@ import dvis_plus_tpu_torch
 for m in pkgutil.walk_packages(dvis_plus_tpu_torch.__path__, "dvis_plus_tpu_torch."):
     importlib.import_module(m.name)
 
-from dvis_plus_tpu_torch.config import dvis_offline_swinl_ytvis19, dvis_online_r50_ytvis19
+from dvis_plus_tpu_torch import cli
+from dvis_plus_tpu_torch.config import (
+    dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19, dvis_online_r50_ytvis19,
+)
 from dvis_plus_tpu_torch.engine.inference import run_vis_inference
 from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
 from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline
 from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
-from dvis_plus_tpu_torch.ops import _build, msdeform, swin_window_attn
+from dvis_plus_tpu_torch.ops import _build, flash_attn, msdeform, swin_window_attn
 
 rows = []
-for preset, arch in ((dvis_online_r50_ytvis19, DVISOnline), (dvis_offline_swinl_ytvis19, DVISOffline)):
+for preset, arch in ((dvis_online_r50_ytvis19, DVISOnline), (dvis_offline_swinl_ytvis19, DVISOffline),
+                     (dvis_offline_vitl_ytvis19, DVISOffline)):
     cfg = preset()
     m = cfg.model
     m.compute_dtype = "float32"
+    m.backbone.vit_embed_dim = 32
+    m.backbone.vit_depth = 2
+    m.backbone.vit_num_heads = m.backbone.vit_deform_num_heads = 2
+    m.backbone.vit_interaction_indexes = ((0, 0), (1, 1))
+    m.backbone.vit_conv_inplane = 8
+    m.backbone.vit_flash_attention = True
     m.backbone.name = m.backbone.name.replace("swin_l", "swin_tiny")
     m.backbone.swin_embed_dim = 32
     m.backbone.swin_depths = (1, 1, 1, 1)
@@ -56,18 +70,42 @@ for preset, arch in ((dvis_online_r50_ytvis19, DVISOnline), (dvis_offline_swinl_
         run_vis_inference(cfg, model, iter([video]), ev)
         ev.write_results()
     rows.append(len(ev.predictions))
+small = [
+    "model.compute_dtype=float32", "model.backbone.vit_embed_dim=32", "model.backbone.vit_depth=2",
+    "model.backbone.vit_num_heads=2", "model.backbone.vit_deform_num_heads=2",
+    "model.backbone.vit_interaction_indexes=[[0,0],[1,1]]", "model.backbone.vit_conv_inplane=8",
+    "model.pixel_decoder.conv_dim=32", "model.pixel_decoder.mask_dim=32",
+    "model.pixel_decoder.transformer_enc_layers=1", "model.pixel_decoder.transformer_dim_feedforward=64",
+    "model.transformer_decoder.hidden_dim=32", "model.transformer_decoder.num_queries=4",
+    "model.transformer_decoder.nheads=4", "model.transformer_decoder.dim_feedforward=64",
+    "model.transformer_decoder.dec_layers=1", "model.transformer_decoder.mask_dim=32",
+    "model.transformer_decoder.reid_hidden_dim=32", "model.tracker.num_layers=1",
+    "model.tracker.feedforward_dim=64", "model.refiner.num_layers=1",
+    "model.refiner.feedforward_dim=64", "input.min_size_test=64", "input.max_size_test=96",
+    "test.window_size=2", "test.max_num=3",
+]
+with tempfile.TemporaryDirectory() as tmp:
+    res = cli.main(["--config-file", "configs/dvis/dvis_offline_vitl_ytvis19.yaml", "--eval-only",
+                    "--device", "cpu", *small, "output_dir=" + tmp])["ytvis_2019_val"]
 roots = ("jax", "jaxlib", "flax", "dvis_plus_tpu", "triton")
 print(json.dumps({
     "rows": rows,
+    "cli": [res["device"], res["predictions"], "AP" in res],
     "loaded": sorted(k for k in sys.modules if k.split(".")[0] in roots),
     "built": _build.library.cache_info().currsize,
-    "launches": [msdeform.launches, swin_window_attn.launches],
+    "launches": [msdeform.launches, swin_window_attn.launches, flash_attn.launches],
 }))
 """
 
 
-def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc():
-    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from synth_data import make_ytvis
+
+    from dvis_plus_tpu.data.datasets.categories import YTVIS_2019_CLASSES
+
+    make_ytvis(str(tmp_path), "ytvis_2019", YTVIS_2019_CLASSES, n_videos=2, length=3)
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="", DVIS_DATASETS=str(tmp_path))
     env.pop("XLA_FLAGS", None)
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=REPO, env=env, capture_output=True, text=True,
@@ -75,5 +113,7 @@ def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc():
     )
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    # top-20 rows from the online R50 and the offline Swin model each
-    assert out == {"rows": [20, 20], "loaded": [], "built": 0, "launches": [0, 0]}
+    # top-20 rows from the online R50, the offline Swin and the offline ViT
+    # model each; the CLI scored 2 videos x top-3 on the CPU
+    assert out == {"rows": [20, 20, 20], "cli": ["cpu", 6, True], "loaded": [], "built": 0,
+                   "launches": [0, 0, 0]}
