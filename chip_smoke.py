@@ -19,6 +19,8 @@ kernels:
 Run from a checkout of the repository:
 
     python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --kernels  # build, then only the kernels against their
+                                     # plain versions and the wrappers' host time
     python3 chip_smoke.py --profile [vitl] [swinl] [r50]
                                      # build, then stage times and a torch.profiler
                                      # breakdown of one video of each slice named
@@ -58,6 +60,7 @@ SEED = 0
 LEVELS = [(60, 80), (30, 40), (15, 20)]  # 480x640 input: strides 8, 16, 32
 VIT_LEVELS = [(92, 160), (46, 80), (23, 40)]  # 736x1280 input: the ViT-L slice's encoder
 FRAMES, VIDEOS, H_IN, W_IN, H_OUT, W_OUT = 15, 2, 480, 640, 720, 960
+KERNEL_REPS = 10  # back-to-back launches per timed run of a kernel or a library call
 KERNEL_TOL = 1e-5  # max |kernel - twin| / max |twin|, both accumulate in fp32
 # B2 in bf16: p and the output round to bf16 on both sides after sums taken
 # in different orders, so they may differ by one bf16 ulp of the output
@@ -66,7 +69,9 @@ SLICE_TOL = 1e-3  # GPU (kernel, cuDNN) vs CPU (twin) fp32 path, small input
 # ViT-L serving size: 720x1280 frames padded to 736x1280, a 46x80 token grid
 VIT_FRAMES, VIT_H, VIT_W, VIT_H_OUT, VIT_W_OUT = 10, 736, 1280, 720, 1280
 VIT_GRID = (46, 80)
-FLASH_SHAPES = [(5, 3681, 16), (2, 2049, 16)]  # (B, L, H), Dh = 64
+# (B, L, H), Dh = 64: the serving size, the parity phase's size, and one
+# 480x640 frame's 30x40 + 1 tokens (ten 128-key tiles: a short ragged length)
+FLASH_SHAPES = [(5, 3681, 16), (2, 2049, 16), (5, 1201, 16)]
 # bf16 ViT-L backbone features: kernel B3 against dense attention, and each of
 # the two against an fp32 evaluation of the same weights, as relative RMS. The
 # largest single difference is a few bf16 ulps of the feature maximum between
@@ -74,12 +79,16 @@ FLASH_SHAPES = [(5, 3681, 16), (2, 2049, 16)]  # (B, L, H), Dh = 64
 # DENSE_MAX_TOL
 DENSE_TOL = 2e-2
 DENSE_MAX_TOL = 5e-2
-# B2 shapes of Swin-L (window 12, N = 144, Dh = 32) at 480x640 and 5 frames:
-# stage 0 is 120x160 tokens, padded to 120x168 = 140 windows; stage 3 is
-# 15x20, padded to 24x24 = 4 windows
+# B2 shapes of Swin-L (window 12, N = 144, Dh = 32) at 480x640 and 5 frames.
+# The token map of each stage is padded to a multiple of the window: stage 0
+# 120x160 -> 120x168 = 140 windows, stage 1 60x80 -> 60x84 = 35, stage 2
+# 30x40 -> 36x48 = 12, stage 3 15x20 -> 24x24 = 4. "blocks" is the stage's
+# depth: B2 launches that many times per window of frames (2 / 2 / 18 / 2)
 SWIN_STAGES = [
-    {"stage": 0, "B_": 5 * 140, "heads": 6, "map": (120, 168), "nW": 140},
-    {"stage": 3, "B_": 5 * 4, "heads": 48, "map": (24, 24), "nW": 4},
+    {"stage": 0, "B_": 5 * 140, "heads": 6, "map": (120, 168), "nW": 140, "blocks": 2},
+    {"stage": 1, "B_": 5 * 35, "heads": 12, "map": (60, 84), "nW": 35, "blocks": 2},
+    {"stage": 2, "B_": 5 * 12, "heads": 24, "map": (36, 48), "nW": 12, "blocks": 18},
+    {"stage": 3, "B_": 5 * 4, "heads": 48, "map": (24, 24), "nW": 4, "blocks": 2},
 ]
 
 
@@ -87,8 +96,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` CUDA-event-timed runs."""
+def cuda_ms(fn, iters: int, reps: int = 1) -> float:
+    """Median milliseconds of one call of ``fn`` over ``iters`` CUDA-event-timed
+    runs of ``reps`` calls back to back. With one call between the events the
+    card waits for the host to prepare the launch, and that wait is timed
+    too (tens of microseconds for a wrapper call): ``reps`` of 10 keeps the
+    queue fed, so the time is the kernel's unless the host is the slower."""
     import torch
 
     fn()
@@ -98,10 +111,11 @@ def cuda_ms(fn, iters: int) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
@@ -135,7 +149,8 @@ def phase_build():
     path = _build.build()
     seconds = time.perf_counter() - t0
     _build.library()  # loads and binds every entry point
-    emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(path, REPO)})
+    emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(path, REPO),
+          "ptxas": _build.resource_usage()})
 
 
 def msdeform_inputs(dev, levels=LEVELS, seed=SEED, BT=5, M=8, D=32, P=4):
@@ -161,7 +176,7 @@ def msdeform_inputs(dev, levels=LEVELS, seed=SEED, BT=5, M=8, D=32, P=4):
     return value.to(dev), loc.to(dev), attn.contiguous().to(dev)
 
 
-def kernel_check(name, got_fn, want_fn, tol, iters=50, plain_iters=10):
+def kernel_check(name, got_fn, want_fn, tol, iters=20, plain_iters=10):
     """Kernel output against its twin's, then both timed. Raises on a
     disagreement beyond ``tol`` (relative to the twin's max)."""
     import torch
@@ -174,7 +189,7 @@ def kernel_check(name, got_fn, want_fn, tol, iters=50, plain_iters=10):
     if not (np.isfinite(res["rel_err"]) and res["rel_err"] <= tol):
         emit({"phase": "kernels", "kernel": name, "failed": res})
         raise AssertionError(f"{name} disagrees with its twin: {res}")
-    res["ms"] = cuda_ms(got_fn, iters)
+    res["ms"] = cuda_ms(got_fn, iters, KERNEL_REPS)
     res["plain_ms"] = cuda_ms(want_fn, plain_iters)
     return res
 
@@ -240,8 +255,9 @@ def phase_kernels(dev):
     """B1 against its twin at the R50 and Swin-L slices' encoder shape, both
     forms, and at the ViT-L slice's two shapes (its pixel decoder's encoder
     at 736x1280 and its extractors); B2 at the Swin-L stages' shapes, with and
-    without the shift mask; B3 at the ViT-L trunk's shapes, contiguous and
-    as views of a fused qkv tensor; fp32 and bf16. Beside B2 and B3,
+    without the shift mask; B3 at the ViT-L trunk's shapes and at one short
+    ragged length, contiguous and as views of a fused qkv tensor; fp32 and
+    bf16. Beside B2 and B3,
     ``scaled_dot_product_attention`` on the same tensors, as a yardstick."""
     import torch
     import torch.nn.functional as F
@@ -286,7 +302,7 @@ def phase_kernels(dev):
             "msdeform_fwd",
             lambda: msdeform.ms_deform_attn(v, [VIT_GRID], loc, attn),
             lambda: msdeform.ms_deform_attn_torch(v, [VIT_GRID], loc, attn),
-            KERNEL_TOL, iters=20, plain_iters=3,
+            KERNEL_TOL, iters=10, plain_iters=3,
         )
         res["bound_ms"], res["bound_by"] = msdeform_bound(v, loc, attn)
         b1x.append({"value_dtype": str(dtype).split(".")[1], **res})
@@ -314,18 +330,17 @@ def phase_kernels(dev):
                 res["bound_ms"], res["bound_by"] = bound(
                     (q, k, v, out, bias) + (() if mask is None else (mask,)),
                     4 * B_ * H * 144 * 144 * 32, dtype)
-                if st["stage"] == 0:
-                    # the library call takes bias and mask as one additive
-                    # tensor, combined here outside the timed call
-                    add = bias[None]  # (1, H, N, N), broadcast over the windows
-                    if mask is not None:  # window i takes mask row i % nW
-                        add = (bias[None, None] + mask[None, :, None]).expand(
-                            B_ // st["nW"], -1, -1, -1, -1).reshape(B_, H, 144, 144)
-                    add = add.to(dtype).contiguous()
-                    qh, kh, vh = (t.unflatten(-1, (H, 32)).transpose(1, 2) for t in (q, k, v))
-                    res["library_ms"] = cuda_ms(
-                        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=add), 20)
-                    del add
+                # the library call takes bias and mask as one additive
+                # tensor, combined here outside the timed call
+                add = bias[None]  # (1, H, N, N), broadcast over the windows
+                if mask is not None:  # window i takes mask row i % nW
+                    add = (bias[None, None] + mask[None, :, None]).expand(
+                        B_ // st["nW"], -1, -1, -1, -1).reshape(B_, H, 144, 144)
+                add = add.to(dtype).contiguous()
+                qh, kh, vh = (t.unflatten(-1, (H, 32)).transpose(1, 2) for t in (q, k, v))
+                res["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=add), 20, KERNEL_REPS)
+                del add
                 if dtype == torch.float32:
                     # kernel and twin may agree bit for bit (the same fp32
                     # sums in the same order); each one's distance from the
@@ -336,7 +351,7 @@ def phase_kernels(dev):
                         name: (fn().double() - exact).abs().max().item() / scale
                         for name, fn in forms.items()
                     }
-                b2.append({"stage": st["stage"], "B_": B_, "C": C, "heads": H,
+                b2.append({"stage": st["stage"], "blocks": st["blocks"], "B_": B_, "C": C, "heads": H,
                            "nW": st["nW"] if masked else 0, "dtype": str(dtype).split(".")[1],
                            **res})
     emit({"phase": "kernels", "kernel": "swin_window_attn_fwd", "N": 144, "forms": b2})
@@ -357,8 +372,8 @@ def phase_kernels(dev):
                     "library": lambda: F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2),
                 }
                 res = kernel_check("flash_attn_fwd", forms["kernel"], forms["twin"], tol,
-                                   iters=20, plain_iters=3)
-                res["library_ms"] = cuda_ms(forms["library"], 20)
+                                   iters=10, plain_iters=3)
+                res["library_ms"] = cuda_ms(forms["library"], 20, KERNEL_REPS)
                 res["bound_ms"], res["bound_by"] = bound(
                     (q, k, v, torch.empty(B, L, C, device="meta", dtype=dtype)),
                     4 * B * H * L * L * 64, dtype)
@@ -374,6 +389,35 @@ def phase_kernels(dev):
                            "layout": layout, **res})
     emit({"phase": "kernels", "kernel": "flash_attn_fwd", "Dh": 64, "forms": b3})
     return {"encoder": b1, "vitl_encoder": b1v, "vitl_extractor": b1x}, b2, b3
+
+
+def phase_host_call(dev, calls=1000):
+    """Host time of one wrapper call of B2 and B3 in bf16: the wall time of
+    ``calls`` calls without a synchronization, divided, at shapes so small
+    that the card stays ahead of the host (the paths are bound by eager
+    dispatch, so what a call costs the host matters beside its kernel)."""
+    import torch
+
+    from dvis_plus_tpu_torch.ops import flash_attn, swin_window_attn
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    qkv = torch.randn(1, 128, 3 * 1024, generator=g).to(dev, torch.bfloat16)
+    q3, k3, v3 = (t.unflatten(-1, (16, 64)) for t in qkv.split(1024, dim=-1))
+    wqkv = torch.randn(4, 144, 3 * 192, generator=g).to(dev, torch.bfloat16)
+    q2, k2, v2 = wqkv.split(192, dim=-1)
+    bias = torch.randn(6, 144, 144, generator=g).to(dev)
+    fns = {"flash_attn_fwd": lambda: flash_attn.flash_self_attention(q3, k3, v3),
+           "swin_window_attn_fwd": lambda: swin_window_attn.window_attention(q2, k2, v2, bias, None, 6)}
+    res = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        res[name] = 1e6 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+    emit({"phase": "host_call", "calls": calls, "dtype": "bfloat16", "host_us_per_call": res})
 
 
 def synthetic_videos(n, T, H, W, Ho, Wo, seed, valid=None):
@@ -462,11 +506,17 @@ def phase_swinl_slice_parity(dev):
         raise AssertionError(f"GPU Swin-L path disagrees with the CPU path: {errs}")
 
 
+# B2's launches since the last reset by (B_, heads, shift mask given), as the
+# hooks of phase_swinl_slice count them
+B2_BY_SHAPE = {}
+
+
 def reset_launches() -> None:
     from dvis_plus_tpu_torch.ops import flash_attn, msdeform, swin_window_attn
 
     for mod in (msdeform, swin_window_attn, flash_attn):
         mod.reset_launches()
+    B2_BY_SHAPE.clear()
 
 
 def read_launches() -> dict:
@@ -546,9 +596,31 @@ def phase_swinl_slice(dev):
     B2 runs once per Swin block and window, B1 once per encoder layer and
     window."""
     from dvis_plus_tpu_torch.config import dvis_offline_swinl_ytvis19
+    from dvis_plus_tpu_torch.models.backbones.swin import WindowAttention
+    from dvis_plus_tpu_torch.ops import swin_window_attn
 
     cfg = dvis_offline_swinl_ytvis19()
-    res, rows_ok = timed_slice(cfg, dev)
+    model = build_model(cfg, dev)
+    # B2's launches by shape: what the count rose by across each attention
+    # module's forward, keyed by (B_, heads, shift mask given)
+    before = {}
+
+    def pre(mod, args, kwargs):
+        before[mod] = swin_window_attn.launches
+
+    def post(mod, args, kwargs, out):
+        masked = (args[1] if len(args) > 1 else kwargs.get("mask")) is not None
+        key = (args[0].shape[0], mod.num_heads, masked)
+        B2_BY_SHAPE[key] = B2_BY_SHAPE.get(key, 0) + swin_window_attn.launches - before[mod]
+
+    for mod in model.modules():
+        if isinstance(mod, WindowAttention):
+            mod.register_forward_pre_hook(pre, with_kwargs=True)
+            mod.register_forward_hook(post, with_kwargs=True)
+    res, rows_ok = timed_slice(cfg, dev, model=model)
+    res["b2_launches_by_shape"] = [
+        {"B_": B_, "heads": H, "masked": masked, "launches": n}
+        for (B_, H, masked), n in sorted(B2_BY_SHAPE.items())]
     windows = VIDEOS * -(-FRAMES // cfg.test.window_size)
     expect = {"msdeform_fwd": cfg.model.pixel_decoder.transformer_enc_layers * windows,
               "swin_window_attn_fwd": sum(cfg.model.backbone.swin_depths) * windows,
@@ -556,7 +628,8 @@ def phase_swinl_slice(dev):
     res = {"phase": "swinl_slice", "backbone": cfg.model.backbone.name,
            "meta_architecture": cfg.model.meta_architecture, **res, "expected_launches": expect}
     emit(res)
-    if not (rows_ok and res["launches"] == expect):
+    counted = sum(f["launches"] for f in res["b2_launches_by_shape"])
+    if not (rows_ok and res["launches"] == expect and counted == expect["swin_window_attn_fwd"]):
         raise AssertionError(f"Swin-L slice check failed: {res}")
     return res
 
@@ -813,6 +886,9 @@ def main() -> int:
             phase_profile(dev, name)
         return 0
     b1, b2, b3 = phase_kernels(dev)
+    phase_host_call(dev)
+    if "--kernels" in sys.argv[1:]:
+        return 0
     phase_slice_parity(dev)
     runs = {impl: phase_slice(dev, impl) for impl in ("exact", "pallas_local")}
     phase_host_syncs(dev)
@@ -822,16 +898,23 @@ def main() -> int:
     vitl = phase_vitl_slice(dev)
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
-    # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 0
-    # with the shift mask in bf16, the serving dtype; B3 at the ViT-L trunk's
-    # serving shape in bf16, q/k/v as views of the fused qkv output
+    # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2
+    # (18 of its 24 launches a window) with the shift mask in bf16, the
+    # serving dtype, with every stage, shifted and not, under "by_shape"; B3
+    # at the ViT-L trunk's serving shape in bf16, q/k/v as views of the fused
+    # qkv output, with the shorter lengths under "by_shape"
     b1_main = next(f for f in b1["encoder"] if f["radius"] is None and f["value_dtype"] == "float32")
     b1_shapes = {"encoder_480x640": b1_main, "vitl_encoder_736x1280": b1["vitl_encoder"][0],
                  "vitl_extractor": next(f for f in b1["vitl_extractor"] if f["value_dtype"] == "bfloat16")}
     timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    b2_main = next(f for f in b2 if f["stage"] == 0 and f["nW"] and f["dtype"] == "bfloat16")
-    b3_main = next(f for f in b3 if f["L"] == 3681 and f["dtype"] == "bfloat16"
-                   and f["layout"] == "fused_qkv_views")
+    b2_shapes = {f"stage{f['stage']}_{'shifted' if f['nW'] else 'unshifted'}": f
+                 for f in b2 if f["dtype"] == "bfloat16"}
+    b2_main = b2_shapes["stage2_shifted"]
+    # the Swin-L path's launches at each of those shapes, as that run counted them
+    b2_counted = {(f["B_"], f["heads"], f["masked"]): f["launches"] for f in swinl["b2_launches_by_shape"]}
+    b3_shapes = {f"B{f['B']}_L{f['L']}": f for f in b3
+                 if f["dtype"] == "bfloat16" and f["layout"] == "fused_qkv_views"}
+    b3_main = b3_shapes["B5_L3681"]
     paths = {"slice": runs["exact"], "swinl_slice": swinl, "vitl_slice": vitl}
 
     def by_path(kernel):
@@ -864,6 +947,9 @@ def main() -> int:
         "bound_ms": b2_main["bound_ms"],
         "bound_by": b2_main["bound_by"],
         "library_ms": b2_main["library_ms"],
+        "by_shape": {name: {**{k: f[k] for k in timing_keys + ("library_ms",)},
+                            "launches": b2_counted[f["B_"], f["heads"], bool(f["nW"])]}
+                     for name, f in b2_shapes.items()},
     }, {
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -877,6 +963,8 @@ def main() -> int:
         "bound_ms": b3_main["bound_ms"],
         "bound_by": b3_main["bound_by"],
         "library_ms": b3_main["library_ms"],
+        "by_shape": {name: {k: f[k] for k in timing_keys + ("library_ms",)}
+                     for name, f in b3_shapes.items()},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

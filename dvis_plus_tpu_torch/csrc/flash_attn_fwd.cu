@@ -16,7 +16,8 @@
 // row stride each, with the heads as column slices of H * 64 contiguous
 // channels, so the three may be strided views of one (B, L, 3 * H * 64) qkv
 // output; out (B, L, H * 64) contiguous in q's dtype. Pointers and strides
-// must allow 4-element vector loads (the wrapper checks).
+// in bytes must be multiples of 16 (vector loads, tensor maps; the wrapper
+// checks).
 //
 // Two kernels, one entry point:
 //
@@ -32,28 +33,50 @@
 // that share a row sit in one half warp, so the row max and sum reduce by
 // shuffles and P needs only a warp-level sync before P.V.
 //
-// flash_attn_mma_kernel (bf16 inputs): tensor cores through warp-level
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate). One block of 4 warps takes
-// 64 query rows (16 per warp) and walks the keys 64 at a time; the K and V
-// tiles are staged as bf16 in shared memory (rows padded to 72 elements, so
-// the 8 row addresses of an ldmatrix fall in different banks) by cp.async,
-// double buffered. Q lives in registers as A fragments, S = Q K^T and
-// O += P V keep their accumulators in registers, the softmax runs on the
-// accumulator fragments (row max and sum over the 4 lanes of a quad), and
-// the bf16-rounded P is repacked in registers from the accumulator layout
-// into the A-fragment layout, so P never touches shared memory.
+// flash_attn_wgmma_kernel (bf16 inputs): Hopper's warpgroup matrix multiply
+// fed by the Tensor Memory Accelerator (the pieces are in hopper.cuh). One
+// block takes 128 query rows of one (b, h) and has three warpgroups behind
+// one top-level branch:
+// - the producer gives its registers away (setmaxnreg) and one of its
+//   threads starts TMA loads: the Q tile once, then K and V tiles of 128
+//   keys x 64 channels (16 KB each) into a ring of FW_STAGES stages. Each
+//   stage has a "full" mbarrier, completed by the TMA unit's byte count, and
+//   an "empty" one, on which the 8 consumer warps arrive when their products
+//   on the stage have finished. The tensor maps are 3-D over each tensor's
+//   (H * 64, L, B) view with its own strides, so q, k, v need no copy; boxes
+//   are 64 channels x 128 rows, 128-byte swizzled, and rows past L read as
+//   zero, which is all the padding there is.
+// - two consumer warpgroups of 64 query rows each. S = Q K^T is four
+//   wgmma m64n128k16 with Q and K read from the swizzled tiles through
+//   matrix descriptors; the softmax runs on the fp32 accumulator fragments
+//   in base 2 with the scale folded into one multiply-add (row max and sum over
+//   the 4 lanes of a quad), keys at or past L masked in the last tile only;
+//   the bf16-rounded P is repacked in registers into A fragments, and
+//   O += P V is eight wgmma m64n64k16 with A from registers and V read
+//   [key][channel] as an MN-major B operand (the instruction's transpose
+//   bit), so V is neither transposed nor copied. The loop is software
+//   pipelined: a warpgroup starts S of tile t + 1 and P V of tile t back to
+//   back, waits for S only, and takes the softmax of tile t + 1 while the
+//   tensor cores run P V of tile t (at Dh = 64 the softmax's exponentials
+//   cost the special-function units about what the two products cost the
+//   tensor cores, so the two have to overlap); the other warpgroup's
+//   products fill what is left.
+// Rows at or past L are not written.
 //
 // Bound: operations. 4 * B * H * L^2 * 64 FLOPs per call against
 // 4 * B * L * H * 64 elements of q, k, v, out: at ViT-L serving size
 // (B, L, H) = (5, 3681, 16) that is 277 GFLOP over 151 MB in bf16, far above
 // the card's ratio of FLOP/s to bytes/s. The SIMT kernel is held to the
-// fp32 CUDA-core rate, the mma kernel to the bf16 tensor-core rate. wgmma
-// and TMA staging are later work.
+// fp32 CUDA-core rate, the wgmma kernel to the bf16 tensor-core rate:
+// wgmma is the only instruction that reaches it, and TMA keeps the copies
+// out of the computing warps' instruction streams and registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 #define FA_DH 64
 #define FA_BM 64
@@ -220,229 +243,202 @@ flash_attn_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16)
+// Tensor-core kernel (bf16): wgmma + TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
-#define FA_MMA_THREADS 128
-#define FA_LDH 72  // padded bf16 row: 144 bytes, an odd number of 16-byte chunks
-#define FA_MMA_TILE (FA_BN * FA_LDH)  // elements of one staged tile
-// Q tile + 2 stages x (K tile + V tile)
-#define FA_MMA_SMEM (5 * FA_MMA_TILE * (int)sizeof(__nv_bfloat16))
+using namespace hopper;
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, bool valid) {
-  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem_dst);
-  const int bytes = valid ? 16 : 0;  // src-size 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
-               "r"(bytes));
-}
+#define FW_BM 128                     // query rows of a block: 64 per consumer warpgroup
+#define FW_BN 128                     // keys of a tile
+#define FW_STAGES 4                   // K/V ring
+#define FW_THREADS 384                // producer warpgroup + 2 consumer warpgroups
+#define FW_TILE (FW_BN * FA_DH * 2)   // bytes of one staged tile (Q, K or V): 16 KB
+#define FW_CONSUMER_WARPS 8
+// Q + ring of (K, V) + barriers, plus the slack to align the tiles to 1024
+#define FW_SMEM ((1 + 2 * FW_STAGES) * FW_TILE + 1024 + 128)
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__global__ void __launch_bounds__(FW_THREADS, 1)
+flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        __nv_bfloat16* __restrict__ out, int L, int H, float scale_log2e) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte-swizzled tiles want 1024-byte alignment
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = smem;
+  uint8_t* Ks = Qs + FW_TILE;
+  uint8_t* Vs = Ks + FW_STAGES * FW_TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + FW_STAGES * FW_TILE);
+  uint64_t* full = q_full + 1;          // [FW_STAGES]: K and V of the stage have landed
+  uint64_t* empty = full + FW_STAGES;   // [FW_STAGES]: every consumer warp is done with it
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_src) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_src);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_src) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_src);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// D (16x8 fp32) += A (16x16 bf16, row) * B (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
-// 64 rows x 64 channels of bf16 -> dst[64][FA_LDH] by 16-byte cp.async;
-// rows at or past L are zero-filled
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long row_stride, int row0, int L) {
-#pragma unroll
-  for (int i = 0; i < (FA_BN * FA_DH / 8) / FA_MMA_THREADS; ++i) {
-    const int idx = threadIdx.x + i * FA_MMA_THREADS;
-    const int r = idx >> 3;
-    const int c8 = (idx & 7) * 8;
-    const bool valid = row0 + r < L;
-    const __nv_bfloat16* g = src + (long long)(valid ? row0 + r : 0) * row_stride + c8;
-    cp_async16(dst + r * FA_LDH + c8, g, valid);
-  }
-}
-
-__global__ void __launch_bounds__(FA_MMA_THREADS)
-flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, long long qs0, long long qs1,
-                      long long ks0, long long ks1, long long vs0, long long vs1,
-                      __nv_bfloat16* __restrict__ out, int L, int H, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* KVs = Qs + FA_MMA_TILE;  // stage s: K at 2 s, V at 2 s + 1
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const int row0 = blockIdx.x * FA_BM;
-  const __nv_bfloat16* qh = q + (long long)b * qs0 + h * FA_DH;
-  const __nv_bfloat16* kh = k + (long long)b * ks0 + h * FA_DH;
-  const __nv_bfloat16* vh = v + (long long)b * vs0 + h * FA_DH;
+  const int row0 = blockIdx.x * FW_BM;
+  const int n_tiles = (L + FW_BN - 1) / FW_BN;
 
-  const int n_tiles = (L + FA_BN - 1) / FA_BN;
-  stage_tile(Qs, qh, qs1, row0, L);
-  stage_tile(KVs, kh, ks1, 0, L);
-  stage_tile(KVs + FA_MMA_TILE, vh, vs1, 0, L);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, FW_CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  // Q as A fragments: 4 k-steps of 16 channels for this warp's 16 rows.
-  // ldmatrix x4: lanes 0-15 give the rows of the left 8 channels, lanes
-  // 16-31 the rows of the right 8, so r[0..3] = (rows 0-7, k 0-7),
-  // (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15) = a0..a3
-  uint32_t qf[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    ldmatrix_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * FA_LDH + ks * 16 + (lane >> 4) * 8);
-
-  // this thread's two rows: g = lane / 4 and g + 8; its columns in an
-  // 8-wide block: 2 (lane % 4) and + 1
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float o[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * FA_BN;
-    const __nv_bfloat16* Ks = KVs + (t & 1) * 2 * FA_MMA_TILE;
-    const __nv_bfloat16* Vs = Ks + FA_MMA_TILE;
-    if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      __nv_bfloat16* Kn = KVs + ((t + 1) & 1) * 2 * FA_MMA_TILE;
-      stage_tile(Kn, kh, ks1, k0 + FA_BN, L);
-      stage_tile(Kn + FA_MMA_TILE, vh, vs1, k0 + FA_BN, L);
-      cp_async_commit();
-    }
-
-    // S = Q K^T for 8 blocks of 8 keys. B fragment of block n, k-step ks:
-    // b0 = K[n*8 + lane/4][ks*16 + 2*(lane%4) ..], b1 the same at + 8
-    // channels. One ldmatrix x4 on K rows n*8 .. n*8+7 at channel chunks
-    // (2 ks, 2 ks + 1, 2 ks + 2, 2 ks + 3) gives b0, b1 of k-steps ks, ks + 1.
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kp = 0; kp < 2; ++kp) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Ks + (n * 8 + (lane & 7)) * FA_LDH + kp * 32 + (lane >> 3) * 8);
-        mma_bf16(s[n], qf[2 * kp], kf[0], kf[1]);
-        mma_bf16(s[n], qf[2 * kp + 1], kf[2], kf[3]);
+  // The two roles never meet again (no block-wide sync below): with one
+  // top-level branch the register reallocation takes effect.
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread keeps the TMA loads in flight
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, FW_TILE);
+      tma_load_3d(Qs, &map_q, q_full, h * FA_DH, row0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % FW_STAGES;
+        // round r of a stage waits for the consumers' release of round r - 1;
+        // in round 0 the parity-1 wait on a fresh barrier passes at once
+        mbar_wait(empty + s, ((t / FW_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + s, 2 * FW_TILE);
+        tma_load_3d(Ks + s * FW_TILE, &map_k, full + s, h * FA_DH, t * FW_BN, b);
+        tma_load_3d(Vs + s * FW_TILE, &map_v, full + s, h * FA_DH, t * FW_BN, b);
       }
     }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x - 128;
+    const int wg = tid >> 7;
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;   // this thread's rows of its warp's 16: g and g + 8
+    const int t4 = lane & 3;   // its columns of an 8-wide block: 2 t4 and 2 t4 + 1
 
-    // online softmax on the fragments: s[n][0..1] row g, s[n][2..3] row g + 8
-    float tmax[2] = {-INFINITY, -INFINITY};
+    const uint64_t q_desc = smem_desc_sw128(smem_u32(Qs) + wg * (FW_TILE / 2));
+    // running row max (of the raw scores) and this thread's share of the row
+    // sum: the 4 lanes of a quad hold one row and are added up at the end
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    float o[32];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int col = k0 + n * 8 + 2 * (lane & 3);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = (col + (e & 1) < L) ? s[n][e] * scale : -INFINITY;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[n][e]);
-      }
-    }
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    // sc[4 j + e]: row g + 8 (e / 2), key 8 j + 2 t4 + e % 2 of the tile, first
+    // the raw scores, then the probabilities
+    float sc[64];
+    // P (bf16) as A fragments of 8 k-steps of 16 keys: key blocks 2 kk, 2 kk + 1;
+    // a0 = (row g, keys 0-7), a1 = (row g + 8, keys 0-7), a2 = (row g, keys
+    // 8-15), a3 = (row g + 8, keys 8-15)
+    uint32_t pf[8][4];
     float alpha[2];
+
+    // sc = Q K_t^T: 64 rows x 128 keys, 4 k-steps of 16 channels (asynchronous)
+    auto start_qk = [&](int t) {
+      const uint64_t k_desc = smem_desc_sw128(smem_u32(Ks + (t % FW_STAGES) * FW_TILE));
+#pragma unroll
+      for (int kk = 0; kk < FA_DH / 16; ++kk)
+        wgmma_m64n128k16_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+      wgmma_commit();
+    };
+    // o += P V_t: 64 rows x 64 channels, 8 k-steps of 16 keys (asynchronous);
+    // V is stored [key][channel], the MN-major form of a B operand
+    auto start_pv = [&](int t) {
+      const uint64_t v_desc = smem_desc_sw128(smem_u32(Vs + (t % FW_STAGES) * FW_TILE));
+#pragma unroll
+      for (int kk = 0; kk < FW_BN / 16; ++kk)
+        wgmma_m64n64k16_rs(o, pf[kk], v_desc + kk * (16 * 128 >> 4), 1);
+      wgmma_commit();
+    };
+    // online softmax of tile t on the accumulator fragments, in base 2 with
+    // the scale folded into the exponent's multiply-add: raw scores in sc ->
+    // probabilities in sc; m, l and alpha (the old sums' correction) updated
+    auto softmax = [&](int t) {
+      const int k0 = t * FW_BN;
+      if (k0 + FW_BN > L) {  // the last tile: keys at or past L score -inf
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if (k0 + 8 * (i >> 2) + 2 * t4 + (i & 1) >= L) sc[i] = -INFINITY;
+      }
+      float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
+      float ms[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+        // every tile starts below L, so it holds a real key and m_new is finite
+        const float m_new = fmaxf(m[r], tmax[r]);
+        alpha[r] = fast_exp2((m[r] - m_new) * scale_log2e);
+        m[r] = m_new;
+        ms[r] = m_new * scale_log2e;
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        sc[i] = fast_exp2(fmaf(sc[i], scale_log2e, -ms[(i >> 1) & 1]));
+        psum[(i >> 1) & 1] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+    };
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(sc[4 * j + 0], sc[4 * j + 1]);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+    };
+
+    // Software pipeline: while the tensor cores run P_t V_t, this warpgroup
+    // takes the softmax of tile t + 1, whose scores were started just before.
+    mbar_wait(q_full, 0);
+    mbar_wait(full, 0);
+    wgmma_fence();
+    start_qk(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(0);
+    pack_p();
+    for (int t = 0; t + 1 < n_tiles; ++t) {
+      mbar_wait(full + (t + 1) % FW_STAGES, ((t + 1) / FW_STAGES) & 1);
+      fence_regs(sc);
+      fence_regs(o);
+      wgmma_fence();
+      start_qk(t + 1);
+      start_pv(t);
+      wgmma_wait<1>();  // the scores of tile t + 1 are there; P_t V_t runs on
+      fence_regs(sc);
+      softmax(t + 1);
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(empty + t % FW_STAGES);  // this warp is done with tile t
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+      pack_p();
+    }
+    fence_regs(o);
+    wgmma_fence();
+    start_pv(n_tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      const float m_new = fmaxf(m[r], tmax[r]);  // finite: the tile has a key below L
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
-    float psum[2] = {0.f, 0.f};
-    // P (bf16) as A fragments of 4 k-steps of 16 keys: blocks 2 kk, 2 kk + 1
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = expf(s[n][e] - m[e >> 1]);
-        psum[e >> 1] += p[e];
-      }
-      // a0 = (row g, k 0-7), a1 = (row g + 8, k 0-7), a2 = (row g, k 8-15),
-      // a3 = (row g + 8, k 8-15)
-      pf[n >> 1][(n & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
+
+    __nv_bfloat16* oh = out + (long long)b * L * H * FA_DH + h * FA_DH + 2 * t4;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-      l[r] = l[r] * alpha[r] + psum[r];
-    }
+      const int row = row0 + wg * 64 + warp * 16 + g + 8 * r;
+      if (row < L) {
+        const float inv = 1.f / l[r];
+        __nv_bfloat16* orow = oh + (long long)row * H * FA_DH;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V for 8 blocks of 8 channels. B fragment of block n, k-step kk:
-    // b0 = V[kk*16 + 2*(lane%4) .. + 1][n*8 + lane/4], b1 at keys + 8: V is
-    // stored [key][channel], so ldmatrix.trans. One x4 on keys kk*16 ..
-    // kk*16 + 15 (lanes 0-15 address rows) at channel blocks n, n + 1 (lanes
-    // 16-31) gives b0, b1 of block n and b0, b1 of block n + 1.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vs + (kk * 16 + (lane & 15)) * FA_LDH + np * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * np], pf[kk], vf[0], vf[1]);
-        mma_bf16(o[2 * np + 1], pf[kk], vf[2], vf[3]);
-      }
-    }
-
-    if (t + 1 < n_tiles) cp_async_wait<0>();
-    __syncthreads();  // the next stage has landed; this one may be overwritten
-  }
-
-  const int g = lane >> 2;
-  __nv_bfloat16* oh = out + (long long)b * L * H * FA_DH + h * FA_DH + 2 * (lane & 3);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + warp * 16 + g + 8 * r;
-    if (row < L) {
-      const float inv = 1.f / l[r];
-      __nv_bfloat16* orow = oh + (long long)row * H * FA_DH;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const uint32_t packed = pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-        *reinterpret_cast<uint32_t*>(orow + n * 8) = packed;
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<uint32_t*>(orow + n * 8) =
+              pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
       }
     }
   }
@@ -450,29 +446,45 @@ flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError(); the caller raises on
-// a non-zero code. Strides are in elements. bf16 takes the tensor-core
-// kernel, fp32 the CUDA-core one.
+// Launches on `stream` and returns 0, a CUDA runtime error code, or
+// hopper::kTensorMapError plus libcuda's code when a tensor map could not
+// be encoded; the caller raises on a non-zero code. Strides are in elements.
+// bf16 takes the tensor-core kernel, fp32 the CUDA-core one.
 int flash_attn_fwd(const void* q, const void* k, const void* v, long long qs0,
                    long long qs1, long long ks0, long long ks1, long long vs0,
                    long long vs1, void* out, int is_bf16, int B, int L, int H,
                    int Dh, float scale, void* stream) {
   if (B < 1 || L < 1 || H < 1 || Dh != FA_DH || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((L + FA_BM - 1) / FA_BM), (unsigned)(B * H));
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (is_bf16) {
-    err = cudaFuncSetAttribute(flash_attn_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, FA_MMA_SMEM);
+    // the kernel takes the row max of the raw scores, so the scale must not
+    // turn their order round
+    if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;
+    static int allowed[kMaxDevices];
+    err = allow_smem_once(flash_attn_wgmma_kernel, FW_SMEM, allowed);
     if (err != cudaSuccess) return (int)err;
-    flash_attn_mma_kernel<<<grid, FA_MMA_THREADS, FA_MMA_SMEM, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, qs0, qs1,
-        ks0, ks1, vs0, vs1, (__nv_bfloat16*)out, L, H, scale);
+    // one map per tensor over its (H * 64, L, B) view: the three have
+    // different bases and may have different strides. Rows past L of a box
+    // read as zero.
+    CUtensorMap maps[3];
+    const void* base[3] = {q, k, v};
+    const long long strides[3][2] = {{qs1, qs0}, {ks1, ks0}, {vs1, vs0}};
+    for (int i = 0; i < 3; ++i) {
+      const int rc = encode_bf16_3d_sw128(&maps[i], base[i], (uint64_t)H * FA_DH, (uint64_t)L,
+                                          (uint64_t)B, (uint64_t)strides[i][0] * 2,
+                                          (uint64_t)strides[i][1] * 2, FW_BN);
+      if (rc) return rc;
+    }
+    const dim3 grid((unsigned)((L + FW_BM - 1) / FW_BM), (unsigned)(B * H));
+    flash_attn_wgmma_kernel<<<grid, FW_THREADS, FW_SMEM, st>>>(
+        maps[0], maps[1], maps[2], (__nv_bfloat16*)out, L, H, scale * 1.4426950408889634f);
   } else {
-    err = cudaFuncSetAttribute(flash_attn_simt_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, FA_SIMT_SMEM);
+    static int allowed[kMaxDevices];
+    err = allow_smem_once(flash_attn_simt_kernel, FA_SIMT_SMEM, allowed);
     if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((L + FA_BM - 1) / FA_BM), (unsigned)(B * H));
     flash_attn_simt_kernel<<<grid, FA_SIMT_THREADS, FA_SIMT_SMEM, st>>>(
         (const float*)q, (const float*)k, (const float*)v, qs0, qs1, ks0, ks1, vs0, vs1,
         (float*)out, L, H, scale);
@@ -481,6 +493,7 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, long long qs0,
 }
 
 const char* flash_attn_error_string(int code) {
+  if (code >= kTensorMapError) return "cuTensorMapEncodeTiled failed (code - 100000 is its CUresult)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

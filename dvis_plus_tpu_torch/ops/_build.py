@@ -4,10 +4,12 @@ Every ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). The library lands in
 ``build/dvis_plus_tpu_torch_kernels/`` under the repository root, named by a
-hash of the sources and flags, so a changed source builds anew and an
-unchanged one is reused. Sources compile in parallel (one ``nvcc`` each),
-and the library is written under a temporary name and renamed into place,
-so a concurrent build never sees a half-written file.
+hash of the flags and of every file under ``csrc`` (sources and headers), so
+a changed file builds anew and an unchanged tree is reused. Sources compile
+in parallel (one ``nvcc`` each), and the library is written under a
+temporary name and renamed into place, so a concurrent build never sees a
+half-written file. The compilers' output (what ``ptxas -v`` says of every
+kernel) is kept beside the library; :func:`resource_usage` reads it.
 
 Nothing here runs at import time: the wrappers call :func:`library` the first
 time they launch a kernel on a CUDA tensor, so CPU-only machines (no
@@ -20,6 +22,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -28,7 +31,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dvis_plus_tpu_torch_kernels")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -Xptxas -v: the assembler reports every kernel's registers and spills
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -46,10 +50,15 @@ def _sources():
 
 
 def _library_path() -> str:
+    """Named by the flags and every file under ``csrc`` (sources and the
+    headers they include), so a change to any of them builds anew."""
     h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode())
-    for src in _sources():
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode() + f.read())
+    for root, dirs, files in os.walk(CSRC):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            with open(path, "rb") as f:
+                h.update(os.path.relpath(path, CSRC).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libdvis_kernels_{h.hexdigest()[:16]}.so")
 
 
@@ -80,8 +89,44 @@ def build() -> str:
             [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_so, *[o for _, o, _ in procs]],
             check=True, capture_output=True,
         )
+        with open(tmp_so + ".log", "w") as f:
+            f.write("".join(out.decode(errors="replace") for out in outs))
+        os.replace(tmp_so + ".log", _log_path(so))
         os.replace(tmp_so, so)
     return so
+
+
+def _log_path(so: str) -> str:
+    return so[: -len(".so")] + ".ptxas.txt"
+
+
+def parse_ptxas(text: str) -> list:
+    """``ptxas -v`` output -> one record per kernel: its (mangled) name, the
+    registers a thread has at launch, and its stack frame, spill stores and
+    spill loads in bytes."""
+    kernels, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and "stack_bytes" not in cur:
+            cur["stack_bytes"], cur["spill_store_bytes"], cur["spill_load_bytes"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            kernels.append(cur)
+            cur = None
+    return kernels
+
+
+def resource_usage() -> list:
+    """Registers and spills of every kernel of the built library."""
+    with open(_log_path(build())) as f:
+        return parse_ptxas(f.read())
 
 
 @functools.cache

@@ -67,6 +67,13 @@ def _check(q, k, v):
 
 
 def _check_kernel_layout(q, k, v):
+    """What the kernels need of q, k, v beyond :func:`_check`. The bf16
+    kernel reads each through a tensor map over its (H * Dh, L, B) view: a
+    16-byte aligned base, batch and row strides that are multiples of 16
+    bytes and below 2^40, rows that do not overlap, no batch stride of 0
+    (an expanded batch). The fp32 kernel's vector
+    loads need the same alignment. Column views of one (B, L, 3 * H * Dh) qkv
+    output pass; a transposed view does not."""
     B, L, H, Dh = q.shape
     if Dh != HEAD_DIM:
         raise ValueError(f"the kernel takes head dim {HEAD_DIM}, got {Dh}")
@@ -77,13 +84,19 @@ def _check_kernel_layout(q, k, v):
             raise ValueError(f"{name} must keep heads and channels contiguous, got strides {t.stride()}")
         size = t.element_size()
         if t.data_ptr() % 16 or (t.stride(0) * size) % 16 or (t.stride(1) * size) % 16:
-            raise ValueError(f"{name} must be 16-byte aligned in its batch and row strides")
+            raise ValueError(f"{name} must be 16-byte aligned in its base and its batch and row strides")
+        if t.stride(1) < H * Dh or t.stride(0) < 0 or max(t.stride(0), t.stride(1)) * size >= 2**40:
+            raise ValueError(f"{name} must have rows that do not overlap and strides below 2^40 bytes, "
+                             f"got strides {t.stride()}")
+        if B > 1 and t.stride(0) == 0:
+            raise ValueError(f"{name} must not repeat one batch element (batch stride 0): "
+                             f"a tensor map takes no zero stride")
 
 
 def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          sm_scale: Optional[float] = None) -> torch.Tensor:
     """Self-attention forward, (B, L, H, Dh) in and out. On CUDA bfloat16
-    runs on tensor cores and float32 on CUDA cores."""
+    runs on tensor cores (``wgmma`` fed by TMA) and float32 on CUDA cores."""
     _check(q, k, v)
     B, L, H, Dh = q.shape
     if q.device.type == "cpu":
@@ -96,6 +109,9 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     lib = _build.library()
     scale = 1.0 / math.sqrt(Dh) if sm_scale is None else float(sm_scale)
+    if q.dtype == torch.bfloat16 and not scale > 0.0:
+        # it takes the row max of the raw scores (the float32 kernel scales first)
+        raise ValueError(f"the bfloat16 kernel takes a positive sm_scale, got {scale}")
     out = torch.empty(B, L, H, Dh, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

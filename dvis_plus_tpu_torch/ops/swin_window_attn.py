@@ -14,11 +14,17 @@ written in q's dtype. The JAX default path and its fused Pallas path compute
 this same math (the Pallas kernel casts bias and mask to q's dtype first,
 which only matters in bf16; here both are added in fp32, as the default path
 does), so one kernel serves both values of ``backbone.swin_fused_attn``.
+(The bf16 CUDA kernel rounds ``exp(x - max)`` to bf16 for the product and
+divides the fp32 result by the fp32 row sum, instead of rounding the
+normalised probabilities: the same relative rounding of p, within one bf16
+ulp of the output of this definition.)
 
 On a CPU tensor :func:`window_attention` computes the twin
 :func:`window_attention_torch`. On a CUDA tensor it launches the
-hand-written kernel (``csrc/swin_window_attn_fwd.cu``) or raises; it never
-falls back. Forward only (the TPU kernel has no VJP either).
+hand-written kernel (``csrc/swin_window_attn_fwd.cu``: tensor cores with the
+head's bias kept in shared memory for bfloat16, CUDA cores for float32) or
+raises; it never falls back. Forward only (the TPU kernel has no VJP
+either).
 
 Shapes (the JAX package's layout, heads as column slices of C):
   q, k, v: (B_, N, C) float32 or bfloat16, B_ batch-major over windows
@@ -34,11 +40,13 @@ from typing import Optional
 
 import torch
 
-HEAD_DIM = 32  # Dh of every Swin variant; the kernel takes only this
-SMEM_LIMIT = 48 * 1024  # static shared memory of one block
-# K staged in fp32 with a padded row of Dh + 1 words, V in fp32 rows of Dh
+HEAD_DIM = 32  # Dh of every Swin variant; the kernels take only this
+SMEM_LIMIT = 48 * 1024  # static shared memory of one block of the fp32 kernel
+# it stages K in fp32 with a padded row of Dh + 1 words, V in fp32 rows of Dh
 SMEM_PER_KEY = (2 * HEAD_DIM + 1) * 4
-MAX_TOKENS = SMEM_LIMIT // SMEM_PER_KEY  # 189 tokens per window (ws <= 13)
+# 189 tokens per window (ws <= 13); the bf16 kernel's shared memory (the
+# head's bias beside one q/k/v stage) holds that many too
+MAX_TOKENS = SMEM_LIMIT // SMEM_PER_KEY
 
 # kernel launches since the last reset (chip_smoke.py reads it to show the
 # main path ran through the kernel)
@@ -106,6 +114,29 @@ def _check(q, k, v, bias, mask, num_heads):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_kernel_layout(q, k, v, bias, mask):
+    """What the bf16 kernel's vector copies need beyond :func:`_check`. Of
+    q, k, v: a 16-byte aligned base and window and row strides that are
+    multiples of 16 bytes. Column views of one (B_, N, 3C) qkv output pass; a
+    view that starts or strides half a chunk off does not. Of the bias, which
+    is copied 16 bytes at a time where its rows allow it (N % 4 == 0), a
+    16-byte aligned base there; of the mask, read 8 bytes at a time where N
+    is even, an 8-byte aligned base there. (The fp32 kernel reads element by
+    element and takes whatever :func:`_check` takes.)"""
+    N = q.shape[1]
+    for name, t, align in (("bias", bias, 16 if N % 4 == 0 else 4), ("mask", mask, 8 if N % 2 == 0 else 4)):
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned for N={N}, got offset {t.data_ptr() % align}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        size = t.element_size()
+        if t.data_ptr() % 16 or (t.stride(0) * size) % 16 or (t.stride(1) * size) % 16:
+            raise ValueError(
+                f"{name} must be 16-byte aligned in its base and its window and row strides, "
+                f"got offset {t.data_ptr() % 16} and strides {t.stride()}")
+        if t.stride(0) < 0 or t.stride(1) < 0:
+            raise ValueError(f"{name} must have non-negative strides, got {t.stride()}")
+
+
 def window_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -121,6 +152,8 @@ def window_attention(
         return window_attention_torch(q, k, v, bias, mask, num_heads)
     if q.device.type != "cuda":
         raise ValueError(f"no window-attention kernel for device {q.device}")
+    if q.dtype == torch.bfloat16:
+        _check_kernel_layout(q, k, v, bias, mask)
     from dvis_plus_tpu_torch.ops import _build
 
     global launches
