@@ -24,6 +24,16 @@ Run from a checkout of the repository:
     python3 chip_smoke.py --profile [vitl] [swinl] [r50]
                                      # build, then stage times and a torch.profiler
                                      # breakdown of one video of each slice named
+    python3 chip_smoke.py --b1-runs  # build, then kernel B1's time at its main shapes
+                                     # by the run of queries a block takes
+
+Kernel B1 (deformable attention) is held and timed at each of its three
+main shapes under two distributions of sampling offsets: uniform over +-10
+value pixels (+-6 at the extractor), which leaves neighbouring queries few
+corners in common, and the offsets the model's own initialisation gives
+(head m points in direction m, point p at p pixels, plus noise of a quarter
+pixel), where they share most. Beside its bound the line gives the bytes it
+gathers (samples x 4 corners x D x itemsize) and the rate they imply.
 
 Each phase prints one JSON line. The ``kernels`` line gives, for every
 kernel, its launches on its main path, its time, its plain version's time,
@@ -43,6 +53,7 @@ order) instead of the 1e-5 initial value, so that trunk attention carries
 weight in what the phases compare.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -153,9 +164,33 @@ def phase_build():
           "ptxas": _build.resource_usage()})
 
 
-def msdeform_inputs(dev, levels=LEVELS, seed=SEED, BT=5, M=8, D=32, P=4):
-    """Encoder-shaped inputs: queries are the level grids, offsets up to 10
-    pixels, so some locations leave [0, 1] and some exceed the radius."""
+def init_offsets(M, L, P):
+    """(M, L, P, 2) sampling offsets in pixels as ``MSDeformAttn``'s
+    initialisation sets them: head m points in direction m (scaled to the
+    unit square's border), point p lies p pixels out."""
+    import torch
+
+    thetas = torch.arange(M, dtype=torch.float32) * (2.0 * math.pi / M)
+    grid = torch.stack([thetas.cos(), thetas.sin()], -1)
+    grid = grid / grid.abs().max(-1, keepdim=True).values
+    steps = torch.arange(1, P + 1, dtype=torch.float32)
+    return (grid[:, None, None, :] * steps[None, None, :, None]).expand(M, L, P, 2)
+
+
+def sampling_offsets(g, BT, Lq, M, L, P, offsets, spread):
+    """(BT, Lq, M, L, P, 2) offsets in value pixels: ``uniform`` over
+    +-``spread``, or ``init``: the initialisation's plus N(0, 0.25) noise."""
+    import torch
+
+    if offsets == "uniform":
+        return (torch.rand(BT, Lq, M, L, P, 2, generator=g) * 2 - 1) * spread
+    return init_offsets(M, L, P) + 0.25 * torch.randn(BT, Lq, M, L, P, 2, generator=g)
+
+
+def msdeform_inputs(dev, levels=LEVELS, seed=SEED, BT=5, M=8, D=32, P=4, offsets="uniform"):
+    """Encoder-shaped inputs: queries are the level grids. ``uniform``
+    offsets reach 10 pixels, so some locations leave [0, 1] and some exceed
+    the radius."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -169,7 +204,7 @@ def msdeform_inputs(dev, levels=LEVELS, seed=SEED, BT=5, M=8, D=32, P=4):
         refs.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], -1))
     ref = torch.cat(refs)[None, :, None, None, None, :]
     norm = torch.tensor([[w, h] for h, w in levels], dtype=torch.float32)[None, None, None, :, None]
-    off = (torch.rand(BT, Len, M, L, P, 2, generator=g) * 2 - 1) * 10.0
+    off = sampling_offsets(g, BT, Len, M, L, P, offsets, 10.0)
     loc = (ref + off / norm).contiguous()
     attn = torch.rand(BT, Len, M, L * P, generator=g).softmax(-1).reshape(BT, Len, M, L, P)
     value = torch.randn(BT, Len, M, D, generator=g)
@@ -194,6 +229,79 @@ def kernel_check(name, got_fn, want_fn, tol, iters=20, plain_iters=10):
     return res
 
 
+def b1_check(levels, value, loc, attn, radius=None, **timing):
+    """B1 against its twin on these inputs, timed, with its bound and the
+    bytes it gathers. The bar follows the output's type: fp32 sums on both
+    sides (1e-5 of the twin's maximum), rounded once to bf16 where the value
+    is bf16 (one bf16 ulp of the output: 1e-2)."""
+    import torch
+
+    from dvis_plus_tpu_torch.ops import msdeform
+
+    out_dtype = msdeform.ms_deform_attn(value[:1], levels, loc[:1], attn[:1], radius=radius).dtype
+    res = kernel_check(
+        "msdeform_fwd",
+        lambda: msdeform.ms_deform_attn(value, levels, loc, attn, radius=radius),
+        lambda: msdeform.ms_deform_attn_torch(value, levels, loc, attn, radius=radius),
+        KERNEL_TOL_BF16 if out_dtype == torch.bfloat16 else KERNEL_TOL, **timing,
+    )
+    res["bound_ms"], res["bound_by"] = msdeform_bound(value, loc, attn, out_dtype)
+    # every sample reads four corners of D values, whatever the mapping
+    res["gathered_bytes"] = attn.numel() * 4 * value.shape[-1] * value.element_size()
+    res["gathered_tb_per_s"] = res["gathered_bytes"] / (res["ms"] * 1e-3) / 1e12
+    return {"radius": radius, "value_dtype": str(value.dtype).split(".")[1],
+            "attn_dtype": str(attn.dtype).split(".")[1], "out_dtype": str(out_dtype).split(".")[1],
+            **res}
+
+
+# B1 at small odd shapes, checked and not timed: (levels, B, M, D, P). Level
+# grids of odd sizes (runs of queries that span two levels), a level one pixel wide, a head of
+# 16 bytes, M * D = 1024, rows of 24 bytes (the scalar instantiation)
+B1_ODD_SHAPES = [
+    ([(7, 9), (3, 5), (2, 2)], 3, 8, 32, 4),
+    ([(5, 1), (1, 7), (1, 1)], 2, 4, 8, 4),
+    ([(6, 5), (3, 3)], 1, 2, 4, 2),
+    ([(9, 11), (5, 6), (3, 3)], 2, 16, 64, 4),
+    ([(7, 6), (4, 3)], 2, 3, 6, 3),
+]
+
+
+def b1_odd_shapes(dev):
+    """B1 against its twin round the edges of its tiling and of its two
+    instantiations, both forms, fp32 and bf16, and on a contiguous value that
+    starts off a 16-byte boundary."""
+    import torch
+
+    from dvis_plus_tpu_torch.ops import msdeform
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for levels, B, M, D, P in B1_ODD_SHAPES:
+        value, loc, attn = msdeform_inputs(dev, levels, SEED + 5, B, M, D, P)
+        loc[0, 0, 0, 0, 0] = torch.tensor([0.0, 1.0])  # exactly on the border
+        loc[0, 1, 0, 0, 0] = torch.tensor([1.0 + 0.5 / levels[0][1], 0.5])  # half a pixel outside
+        loc[0, 2, 0, 0, 0] = torch.tensor([37.0, -1e6])  # far outside
+        for dtype in (torch.float32, torch.bfloat16):
+            flat = torch.zeros(value.numel() + 1, device=dev, dtype=dtype)
+            shifted = flat[1:].view_as(value).copy_(value)  # one element past the allocation's start
+            for v in (value.to(dtype), shifted):
+                for radius in (None, 2):
+                    got = msdeform.ms_deform_attn(v, levels, loc, attn, radius=radius)
+                    torch.cuda.synchronize()
+                    want = msdeform.ms_deform_attn_torch(v, levels, loc, attn, radius=radius)
+                    rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+                    name = str(got.dtype).split(".")[1]
+                    tol = KERNEL_TOL_BF16 if got.dtype == torch.bfloat16 else KERNEL_TOL
+                    if not (np.isfinite(rel) and rel <= tol):
+                        raise AssertionError(f"msdeform_fwd disagrees with its twin at {levels}, "
+                                             f"B {B} M {M} D {D} P {P} {dtype} radius {radius}: {rel}")
+                    worst[name] = max(worst[name], rel)
+                    n += 1
+    emit({"phase": "kernels", "kernel": "msdeform_fwd", "odd_shapes": len(B1_ODD_SHAPES),
+          "checks": n, "worst_rel_err_by_out_dtype": worst,
+          "tol": {"float32": KERNEL_TOL, "bfloat16": KERNEL_TOL_BF16}})
+
+
 def window_attention_fp64(q, k, v, bias, mask, H):
     """Window attention in float64: the value that B2 and its twin round."""
     B_, N, C = q.shape
@@ -208,30 +316,36 @@ def window_attention_fp64(q, k, v, bias, mask, H):
     return (a.softmax(-1) @ heads(v)).transpose(1, 2).reshape(B_, N, C)
 
 
-def msdeform_bound(value, loc, attn):
-    """B1: value, locations and weights read once, the fp32 output written
-    once; per sample and channel four bilinear FMAs and one weight FMA."""
+def msdeform_bound(value, loc, attn, out_dtype):
+    """B1: value, locations and weights read once, the output written once
+    in ``out_dtype``; per sample and channel four bilinear FMAs and one
+    weight FMA."""
     import torch
 
     B, Lq, M, L, P = attn.shape
-    out = torch.empty(B, Lq, M * value.shape[-1], device="meta")
+    out = torch.empty(B, Lq, M * value.shape[-1], device="meta", dtype=out_dtype)
     return bound((value, loc, attn, out), 10 * attn.numel() * value.shape[-1], value.dtype)
 
 
-def extractor_inputs(dev, seed=SEED, BT=5, M=16, D=64, P=4):
+def extractor_grids():
+    Hv, Wv = VIT_GRID
+    return [(2 * Hv, 2 * Wv), (Hv, Wv), (Hv // 2, Wv // 2)]
+
+
+def extractor_inputs(dev, seed=SEED, BT=5, M=16, D=64, P=4, offsets="uniform"):
     """B1 as the ViT-L adapter's extractors call it: the three spatial grids
     (92x160, 46x80, 23x40 = 19,320 queries a frame) attend into the one
-    46x80 ViT level, 16 heads of 64 channels (the kernel's limit of 1024)."""
+    46x80 ViT level, 16 heads of 64 channels. ``uniform`` offsets reach 6
+    pixels."""
     import torch
 
     from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import reference_points
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     Hv, Wv = VIT_GRID
-    grids = [(2 * Hv, 2 * Wv), (Hv, Wv), (Hv // 2, Wv // 2)]
-    ref = reference_points(grids)[:, 1:2][None, :, None, :, None, :]  # (1, Lq, 1, 1, 1, 2)
+    ref = reference_points(extractor_grids())[:, 1:2][None, :, None, :, None, :]  # (1, Lq, 1, 1, 1, 2)
     Lq = ref.shape[1]
-    off = (torch.rand(BT, Lq, M, 1, P, 2, generator=g) * 2 - 1) * 6.0
+    off = sampling_offsets(g, BT, Lq, M, 1, P, offsets, 6.0)
     loc = (ref + off / torch.tensor([Wv, Hv], dtype=torch.float32)).contiguous()
     attn = torch.rand(BT, Lq, M, P, generator=g).softmax(-1).reshape(BT, Lq, M, 1, P)
     value = torch.randn(BT, Hv * Wv, M, D, generator=g)
@@ -252,9 +366,10 @@ def attention_fp64(q, k, v):
 
 
 def phase_kernels(dev):
-    """B1 against its twin at the R50 and Swin-L slices' encoder shape, both
-    forms, and at the ViT-L slice's two shapes (its pixel decoder's encoder
-    at 736x1280 and its extractors); B2 at the Swin-L stages' shapes, with and
+    """B1 against its twin at small odd shapes, then at the R50 and Swin-L
+    slices' encoder shape, both forms, and at the ViT-L slice's two shapes
+    (its pixel decoder's encoder at 736x1280 and its extractors), each under
+    uniform offsets and under the initialisation's; B2 at the Swin-L stages' shapes, with and
     without the shift mask; B3 at the ViT-L trunk's shapes and at one short
     ragged length, contiguous and as views of a fused qkv tensor; fp32 and
     bf16. Beside B2 and B3,
@@ -265,47 +380,31 @@ def phase_kernels(dev):
     from dvis_plus_tpu_torch.models.backbones.swin import shift_mask
     from dvis_plus_tpu_torch.ops import flash_attn, msdeform, swin_window_attn
 
-    value, loc, attn = msdeform_inputs(dev)
-    b1 = []
-    for radius in (None, 7):
-        for dtype in (torch.float32, torch.bfloat16):
-            v = value.to(dtype)
-            res = kernel_check(
-                "msdeform_fwd",
-                lambda: msdeform.ms_deform_attn(v, LEVELS, loc, attn, radius=radius),
-                lambda: msdeform.ms_deform_attn_torch(v, LEVELS, loc, attn, radius=radius),
-                KERNEL_TOL,
-            )
-            res["bound_ms"], res["bound_by"] = msdeform_bound(v, loc, attn)
-            b1.append({"radius": radius, "value_dtype": str(dtype).split(".")[1], **res})
+    b1_odd_shapes(dev)
+    b1, b1v, b1x = [], [], []
+    for offsets in ("uniform", "init"):
+        value, loc, attn = msdeform_inputs(dev, offsets=offsets)
+        for radius in (None, 7):
+            for dtype in (torch.float32, torch.bfloat16):
+                b1.append({"offsets": offsets, **b1_check(LEVELS, value.to(dtype), loc, attn, radius)})
     emit({"phase": "kernels", "kernel": "msdeform_fwd",
           "shapes": {"value": list(value.shape), "loc": list(loc.shape)}, "forms": b1})
 
     # the ViT-L slice's encoder: half of B1's launches on that path
-    value, loc, attn = msdeform_inputs(dev, VIT_LEVELS)
-    res = kernel_check(
-        "msdeform_fwd",
-        lambda: msdeform.ms_deform_attn(value, VIT_LEVELS, loc, attn),
-        lambda: msdeform.ms_deform_attn_torch(value, VIT_LEVELS, loc, attn),
-        KERNEL_TOL, iters=20, plain_iters=3,
-    )
-    res["bound_ms"], res["bound_by"] = msdeform_bound(value, loc, attn)
-    b1v = [{"radius": None, "value_dtype": "float32", **res}]
+    for offsets in ("uniform", "init"):
+        value, loc, attn = msdeform_inputs(dev, VIT_LEVELS, offsets=offsets)
+        b1v.append({"offsets": offsets,
+                    **b1_check(VIT_LEVELS, value, loc, attn, iters=20, plain_iters=3)})
     emit({"phase": "kernels", "kernel": "msdeform_fwd", "caller": "ViT-L slice's pixel decoder",
           "shapes": {"value": list(value.shape), "loc": list(loc.shape)}, "forms": b1v})
 
-    value, loc, attn = extractor_inputs(dev)
-    b1x = []
-    for dtype in (torch.bfloat16, torch.float32):
-        v = value.to(dtype)
-        res = kernel_check(
-            "msdeform_fwd",
-            lambda: msdeform.ms_deform_attn(v, [VIT_GRID], loc, attn),
-            lambda: msdeform.ms_deform_attn_torch(v, [VIT_GRID], loc, attn),
-            KERNEL_TOL, iters=10, plain_iters=3,
-        )
-        res["bound_ms"], res["bound_by"] = msdeform_bound(v, loc, attn)
-        b1x.append({"value_dtype": str(dtype).split(".")[1], **res})
+    # the extractors: the weights come in the value's dtype, as the adapter
+    # hands them over
+    for offsets in ("uniform", "init"):
+        value, loc, attn = extractor_inputs(dev, offsets=offsets)
+        for dtype in (torch.bfloat16, torch.float32):
+            b1x.append({"offsets": offsets, **b1_check(
+                [VIT_GRID], value.to(dtype), loc, attn.to(dtype), iters=10, plain_iters=3)})
     emit({"phase": "kernels", "kernel": "msdeform_fwd", "caller": "vit_adapter extractor",
           "shapes": {"value": list(value.shape), "loc": list(loc.shape)}, "forms": b1x})
     del value, loc, attn
@@ -389,6 +488,38 @@ def phase_kernels(dev):
                            "layout": layout, **res})
     emit({"phase": "kernels", "kernel": "flash_attn_fwd", "Dh": 64, "forms": b3})
     return {"encoder": b1, "vitl_encoder": b1v, "vitl_extractor": b1x}, b2, b3
+
+
+def phase_b1_runs(dev):
+    """B1's time at its three main shapes (exact form; the encoders in fp32,
+    the extractor in bf16) under both offset distributions, by the run of
+    consecutive queries a block takes: what ``ops/msdeform.py``'s ``MAX_RUN``
+    rests on. Every run length gives the same bits."""
+    import torch
+
+    from dvis_plus_tpu_torch.ops import msdeform
+
+    shapes = {
+        "encoder_480x640": (LEVELS, lambda o: msdeform_inputs(dev, offsets=o), torch.float32),
+        "vitl_encoder_736x1280": (VIT_LEVELS, lambda o: msdeform_inputs(dev, VIT_LEVELS, offsets=o),
+                                  torch.float32),
+        "vitl_extractor": ([VIT_GRID], lambda o: extractor_inputs(dev, offsets=o), torch.bfloat16),
+    }
+    for name, (levels, make, dtype) in shapes.items():
+        for offsets in ("uniform", "init"):
+            value, loc, attn = (t.to(dtype) if i != 1 else t for i, t in enumerate(make(offsets)))
+            want = msdeform.ms_deform_attn(value, levels, loc, attn)
+            plan = msdeform.kernel_plan(value, loc)
+            rows = []
+            for queries in (1, 2, 4, 8, 16):
+                def fn():
+                    return msdeform._launch(value, levels, loc, attn, None, plan._replace(queries=queries))
+
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"B1 changed its bits with runs of {queries} at {name}")
+                rows.append({"queries": queries, "ms": cuda_ms(fn, 10, KERNEL_REPS)})
+            emit({"phase": "b1_runs", "shape": name, "offsets": offsets,
+                  "value_dtype": str(dtype).split(".")[1], "plan": list(plan), "rows": rows})
 
 
 def phase_host_call(dev, calls=1000):
@@ -885,6 +1016,9 @@ def main() -> int:
         for name in names:
             phase_profile(dev, name)
         return 0
+    if "--b1-runs" in sys.argv[1:]:
+        phase_b1_runs(dev)
+        return 0
     b1, b2, b3 = phase_kernels(dev)
     phase_host_call(dev)
     if "--kernels" in sys.argv[1:]:
@@ -903,9 +1037,20 @@ def main() -> int:
     # serving dtype, with every stage, shifted and not, under "by_shape"; B3
     # at the ViT-L trunk's serving shape in bf16, q/k/v as views of the fused
     # qkv output, with the shorter lengths under "by_shape"
-    b1_main = next(f for f in b1["encoder"] if f["radius"] is None and f["value_dtype"] == "float32")
-    b1_shapes = {"encoder_480x640": b1_main, "vitl_encoder_736x1280": b1["vitl_encoder"][0],
-                 "vitl_extractor": next(f for f in b1["vitl_extractor"] if f["value_dtype"] == "bfloat16")}
+    def b1_form(forms, offsets, dtype="float32", radius=None):
+        return next(f for f in forms if f["offsets"] == offsets and f["value_dtype"] == dtype
+                    and f["radius"] == radius)
+
+    b1_main = b1_form(b1["encoder"], "uniform")
+    b1_shapes = {}
+    for offsets in ("uniform", "init"):
+        tag = "" if offsets == "uniform" else "_init_offsets"
+        b1_shapes["encoder_480x640" + tag] = b1_form(b1["encoder"], offsets)
+        b1_shapes["encoder_480x640_clamped_r7" + tag] = b1_form(b1["encoder"], offsets, radius=7)
+        b1_shapes["vitl_encoder_736x1280" + tag] = b1_form(b1["vitl_encoder"], offsets)
+        b1_shapes["vitl_extractor" + tag] = b1_form(b1["vitl_extractor"], offsets, "bfloat16")
+    b1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "gathered_bytes",
+               "gathered_tb_per_s", "out_dtype")
     timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     b2_shapes = {f"stage{f['stage']}_{'shifted' if f['nW'] else 'unshifted'}": f
                  for f in b2 if f["dtype"] == "bfloat16"}
@@ -933,7 +1078,7 @@ def main() -> int:
         "bound_ms": b1_main["bound_ms"],
         "bound_by": b1_main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes it
-        "by_shape": {name: {k: f[k] for k in timing_keys} for name, f in b1_shapes.items()},
+        "by_shape": {name: {k: f[k] for k in b1_keys} for name, f in b1_shapes.items()},
     }, {
         "name": "swin_window_attn_fwd",
         "route": "cuda",

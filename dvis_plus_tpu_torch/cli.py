@@ -67,7 +67,7 @@ def _score(md, rows):
 
 
 def main(argv=None) -> dict:
-    from dvis_plus_tpu_torch.config import load_config
+    from dvis_plus_tpu_torch.config import check_supported, load_config
     from dvis_plus_tpu_torch.data.catalog import get_dataset, get_metadata
     from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
     from dvis_plus_tpu_torch.data.mapper import YTVISDatasetMapper
@@ -87,15 +87,13 @@ def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO)
 
     cfg = load_config(args.config_file, args.opts)
+    check_supported(cfg)  # a setting the port cannot honour raises here
     register_all_ytvis(os.environ.get("DVIS_DATASETS", "datasets"))
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
     dev = torch.device(args.device)
     torch.manual_seed(cfg.seed)
-    arch = {"dvis_online": DVISOnline, "dvis_offline": DVISOffline}.get(cfg.model.meta_architecture)
-    if arch is None:
-        raise NotImplementedError(f"meta_architecture {cfg.model.meta_architecture!r} is not ported yet")
-    model = arch(cfg.model)
+    model = {"dvis_online": DVISOnline, "dvis_offline": DVISOffline}[cfg.model.meta_architecture](cfg.model)
     if cfg.weights:
         load_weights(model, cfg.weights)
     model = model.to(dev).eval()

@@ -9,6 +9,9 @@ overrides as the JAX package's does; a key the port has no field for
 (``solver``, training input, the criterion) is kept as a plain attribute or
 namespace, so any of the repository's YAMLs loads. PyYAML is imported inside
 the function: a GPU machine may have none, and there the presets serve.
+:func:`check_supported` then holds a loaded configuration to what the port
+does: a setting it cannot honour raises ``NotImplementedError`` (the CLI and
+``run_vis_inference`` call it), so no entry point gives way silently.
 
 The presets hold the values ``load_config`` resolves for their YAML:
 ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (ctvis -> minvis ->
@@ -145,6 +148,8 @@ class Config:
     output_dir: str = "./output"
     seed: int = 42
     weights: str = ""  # state dict to load (.npz or a torch checkpoint)
+    # dotted paths of the keys a YAML chain or an override set (load_config)
+    explicit_keys: Tuple[str, ...] = ()
 
 
 # ---------------------------------------------------------------------------
@@ -225,9 +230,12 @@ def load_config(path: Optional[str] = None, overrides: Optional[List[str]] = Non
     import yaml
 
     cfg = Config()
+    explicit = []
     if path:
-        for k, v in _load_yaml_chain(path).items():
+        data = _load_yaml_chain(path)
+        for k, v in data.items():
             _set(cfg, k.lower(), v)
+        explicit += _leaf_paths(data)
     for ov in overrides or []:
         if "=" not in ov:
             raise ValueError(f"Override must be key.path=value, got: {ov}")
@@ -243,7 +251,89 @@ def load_config(path: Optional[str] = None, overrides: Optional[List[str]] = Non
                 setattr(node, p, SimpleNamespace())
             node = getattr(node, p)
         _set(node, leaf, parsed)
+        explicit.append(key.strip().lower())
+    cfg.explicit_keys = tuple(dict.fromkeys(explicit))
     return cfg
+
+
+def _leaf_paths(data: Dict[str, Any], prefix: str = "") -> List[str]:
+    out = []
+    for k, v in data.items():
+        path = f"{prefix}{k.lower()}"
+        out += _leaf_paths(v, path + ".") if isinstance(v, dict) else [path]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# What the port honours
+# ---------------------------------------------------------------------------
+
+
+def _ported_backbone(name) -> bool:
+    return name in ("resnet50", "resnet101", "vit_adapter_dinov2") or str(name).startswith("swin")
+
+
+def _all_video_instance(types) -> bool:
+    return all(t == "video_instance" for t in types)
+
+
+# (key path, the values the port honours (a tuple, or a predicate), the
+# ROADMAP item that lifts the limit[, the JAX package's default where that
+# default names a path the port lacks but whose results are the same]).
+# One place to shrink as later slices land. A key that is absent is at the
+# JAX package's default, which every row honours. Keys that cannot change an
+# eval result (``solver.*``, the training input and datasets, the criterion,
+# ``parallel.*``, profiling and compile-cache directories) are not listed and
+# stay ignored.
+SUPPORTED = (
+    ("model.meta_architecture", ("dvis_online", "dvis_offline"),
+     "A7 (minvis, ctvis), A11 (maskformer, video_maskformer), A12 (daq_*)"),
+    ("model.backbone.name", _ported_backbone, "A13 (the CLIP trunks)"),
+    ("model.backbone.swin_fast_softmax", (False,), "queue A, small pieces left open (bf16 scores)"),
+    ("model.sem_seg_head", ("mask_former",), "A13 (fcclip)"),
+    ("model.pixel_decoder.name", ("msdeform",), "A6 (FPNPixelDecoder)"),
+    ("model.ov.enabled", (False,), "A13 (open vocabulary)"),
+    ("test.task", ("vis",), "A11 (vps, vss), A12 (vos, mots)"),
+    ("datasets.dataset_type_test", _all_video_instance, "A11 (panoptic, semantic), A12 (sot)"),
+    ("test.refiner_shard_devices", (0, 1), "A15 (the object-sharded refiner pass)"),
+    ("test.eval_devices", (1,), "A15 (video-parallel eval)"),
+    # ``runs`` and ``packed`` write the same results.json bytes, and the
+    # threaded pipeline the same rows as the plain loop: left at the JAX
+    # default they pass (the port serves them through its packed download and
+    # its plain loop); asked for by name in a YAML or an override they raise
+    ("test.mask_download", ("packed",), "A6 (the runs download)", "runs"),
+    ("test.eval_pipeline", (False,), "A6 (the threaded eval pipeline)", True),
+)
+
+_ABSENT = object()
+
+
+def _lookup(cfg: Any, path: str) -> Any:
+    for part in path.split("."):
+        cfg = getattr(cfg, part, _ABSENT)
+        if cfg is _ABSENT:
+            return _ABSENT
+    return cfg
+
+
+def check_supported(cfg: Any) -> None:
+    """Raise ``NotImplementedError`` naming every key of ``cfg`` whose value
+    asks for something the port does not do (:data:`SUPPORTED`), with the
+    value and the ROADMAP item that will lift the limit. ``cfg`` is a
+    :class:`Config` or any object with the same attribute paths."""
+    explicit = getattr(cfg, "explicit_keys", ())
+    faults = []
+    for key, honours, item, *inherited in SUPPORTED:
+        value = _lookup(cfg, key)
+        if value is _ABSENT:
+            continue
+        if honours(value) if callable(honours) else value in honours:
+            continue
+        if inherited and value == inherited[0] and key not in explicit:
+            continue
+        faults.append(f"{key}={value!r} is not ported (ROADMAP {item})")
+    if faults:
+        raise NotImplementedError("the port cannot honour: " + "; ".join(faults))
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from dvis_plus_tpu_torch.config import check_supported
 from dvis_plus_tpu_torch.models.meta.dvis_online import online_post_processing
 from dvis_plus_tpu_torch.models.meta.minvis import topk_select, upsample_masks
 from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import dtype_of
@@ -94,8 +95,9 @@ def paged_inference_video(
     masks is a :class:`~dvis_plus_tpu_torch.utils.rle.PackedMasks` (``download`` /
     ``packed`` given) or a (n, T, H, W) bool array (legacy default).
     ``k_col`` belongs to the ``runs`` download, which is not ported."""
-    if download not in (None, "packed"):
-        raise NotImplementedError(f"mask download {download!r} is not ported; use 'packed'")
+    if download not in (None, "packed"):  # config.SUPPORTED's test.mask_download row
+        raise NotImplementedError(
+            f"mask download {download!r} is not ported (ROADMAP A6); use 'packed'")
     want_array = download is None and not packed
     scores, labels, queries = topk_select(mask_cls, topk, aux_pred_cls)
     dev = mask_cls.device
@@ -188,10 +190,10 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
     """VIS eval loop: windows -> post-processing -> top-K packed masks ->
     ``evaluator.process`` per video. ``timings`` (optional dict) accumulates
     ``model_s`` (window forwards, synchronized) and ``post_s`` (top-K,
-    upsample, packed download, evaluator rows) in wall seconds."""
-    arch = cfg.model.meta_architecture
-    if arch not in ("dvis_online", "dvis_offline"):
-        raise NotImplementedError(f"meta_architecture {arch!r} is not ported yet")
+    upsample, packed download, evaluator rows) in wall seconds. A setting
+    the port cannot honour raises ``NotImplementedError``
+    (``config.check_supported``)."""
+    check_supported(cfg)
     W_sz = resolve_window_size(cfg)
     dev = next(model.parameters()).device
 

@@ -31,9 +31,10 @@ Semantics kept from the JAX module (and the reference):
   never reaches the extractors;
 - the deformable attentions run kernel B1 (``ops/msdeform.py``, exact
   form). As in the port's pixel decoder, the attention weights take their
-  softmax in the query's dtype and reach the kernel, like the locations, as
-  contiguous float32; the value keeps the query's dtype. ``deform_ratio``
-  changes no shape (``value_proj`` is C -> C);
+  softmax in the query's dtype and reach the kernel in that dtype (it reads
+  bfloat16 weights as float32, as its plain version does); the locations are
+  float32; the value keeps the query's dtype and so does the result.
+  ``deform_ratio`` changes no shape (``value_proj`` is C -> C);
 - one depthwise conv is shared by the three level grids of a ConvFFN;
 - every resize is bilinear, ``align_corners=False``, not antialiased, the
   0.5x downsample of the last trunk output included. Only the stride-4 prior
@@ -251,7 +252,9 @@ class SpatialPriorModule(nn.Module):
 def deform_attention(sa: MSDeformAttn, query: torch.Tensor, refs: torch.Tensor,
                      feat: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]]):
     """Deformable cross-attention of the adapter (JAX ``DeformAttnModule``):
-    query (B, Lq, C), refs (Lq, L, 2), feat (B, Len, C) over ``spatial_shapes``."""
+    query (B, Lq, C), refs (Lq, L, 2), feat (B, Len, C) over ``spatial_shapes``.
+    The attention weights go to the kernel in the query's dtype and the
+    result comes back in the value's."""
     B, Lq, C = query.shape
     M, L, P = sa.n_heads, sa.n_levels, sa.n_points
     value = sa.value_proj(feat).reshape(B, feat.shape[1], M, C // M)
@@ -265,9 +268,9 @@ def deform_attention(sa: MSDeformAttn, query: torch.Tensor, refs: torch.Tensor,
     )
     out = ms_deform_attn(
         value.contiguous(), spatial_shapes, locations.float().contiguous(),
-        attn.reshape(B, Lq, M, L, P).float().contiguous(),
-    )  # (B, Lq, C) fp32
-    return sa.output_proj(out.to(query.dtype))
+        attn.reshape(B, Lq, M, L, P).contiguous(),
+    )  # (B, Lq, C) in value's dtype
+    return sa.output_proj(out)
 
 
 class DWConv(nn.Module):

@@ -19,15 +19,19 @@ def topk_select(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flat top-K over the (Q x K) score matrix. Returns (scores, labels,
     query indices), each (topk,). ``aux_pred_cls``: element-wise max of the
-    two softmaxes, no renormalization. Order among equal scores may differ
-    from ``jax.lax.top_k``."""
+    two softmaxes, no renormalization. Among equal scores the lower flat
+    index comes first, as ``jax.lax.top_k`` orders them: a stable descending
+    sort, the same on the CPU and on the card (``torch.topk`` fixes no order
+    among ties, and equal scores are real: a saturated softmax is exactly
+    1.0)."""
     Q, K1 = mask_cls.shape
     K = K1 - 1
     topk = min(topk, Q * K)
     scores = mask_cls.float().softmax(-1)[:, :-1]
     if aux_pred_cls is not None:
         scores = torch.maximum(scores, aux_pred_cls.float().softmax(-1)[:, :-1])
-    top_scores, top_idx = torch.topk(scores.reshape(-1), topk)
+    top_scores, top_idx = torch.sort(scores.reshape(-1), descending=True, stable=True)
+    top_scores, top_idx = top_scores[:topk], top_idx[:topk]
     return top_scores, top_idx % K, torch.div(top_idx, K, rounding_mode="floor")
 
 

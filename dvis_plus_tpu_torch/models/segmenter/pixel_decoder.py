@@ -108,10 +108,10 @@ class MSDeformAttnLayer(nn.Module):
         )
         out = ms_deform_attn(
             value.contiguous(), spatial_shapes, locations.float().contiguous(),
-            attn.float().contiguous(),
+            attn.contiguous(),
             radius=LOCAL_RADIUS if self.impl == "pallas_local" else None,
-        )  # (B, Len, C) fp32
-        out = sa.output_proj(out.to(self.value_dtype).to(cdt))
+        )  # (B, Len, C) in value_dtype; the queries are the level grids
+        out = sa.output_proj(out.to(cdt))
         src = self.norm1(src.to(cdt) + out)
         ffn = self.linear2(F.relu(self.linear1(src)))
         return self.norm2(src + ffn)

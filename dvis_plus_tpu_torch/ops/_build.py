@@ -136,9 +136,10 @@ def library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.msdeform_fwd.restype = i32
     lib.msdeform_fwd.argtypes = [
-        vp, i32, vp, vp, vp,  # value, value_is_bf16, loc, attn, out
+        vp, i32, vp, vp, i32, vp,  # value, value_is_bf16, loc, attn, attn_is_bf16, out
         i32, i32, i32, i32, i32, i32, i32,  # B, Len, Lq, M, D, L, P
-        vp, i32, vp,  # shapes (host int32[2L]), radius, stream
+        vp, i32, i32,  # shapes (host int32[2L]), queries a block, vector
+        i32, vp,  # radius, stream
     ]
     lib.msdeform_error_string.restype = ctypes.c_char_p
     lib.msdeform_error_string.argtypes = [i32]

@@ -1,8 +1,12 @@
 """The port's YAML-free presets equal the JAX package's loaded configs, field
 by field, for every field the port reads; and the port's own ``load_config``
 (``_BASE_`` chain, dotted overrides) resolves the slices' YAMLs to the same
-values as the JAX package's."""
+values as the JAX package's. ``check_supported`` holds every YAML under
+``configs/`` to what the port does: the ported slices pass, anything else
+raises ``NotImplementedError`` with the key in the message."""
 import dataclasses
+import glob
+import os
 
 import pytest
 
@@ -95,3 +99,167 @@ def test_load_config_matches_jax(yaml_name, overrides):
 def test_load_config_rejects_a_malformed_override():
     with pytest.raises(ValueError):
         port_config.load_config(None, ["model.compute_dtype"])
+
+
+# ---------------------------------------------------------------------------
+# check_supported: a setting the port cannot honour raises, naming the key
+# ---------------------------------------------------------------------------
+
+ALL_YAMLS = sorted(
+    os.path.relpath(p, "configs")
+    for p in glob.glob(os.path.join("configs", "**", "*.yaml"), recursive=True)
+)
+
+
+def _expected_fault(cfg):
+    """The first key that puts a YAML outside the ported slices, from the
+    JAX package's own reading of it; None where the port runs it."""
+    m = cfg.model
+    if m.meta_architecture not in ("dvis_online", "dvis_offline"):
+        return "model.meta_architecture"
+    if m.backbone.name.startswith("clip"):
+        return "model.backbone.name"
+    if m.ov.enabled:
+        return "model.ov.enabled"
+    if cfg.test.task != "vis":
+        return "test.task"
+    return None
+
+
+@pytest.mark.parametrize("yaml_name", ALL_YAMLS)
+def test_every_yaml_loads_and_is_run_or_refused(yaml_name):
+    """Every YAML of the repository loads; the port runs it exactly when the
+    JAX package's reading of it stays inside the ported slices (DVIS++ online
+    and offline VIS on ResNet, Swin and ViT-Adapter backbones), and otherwise
+    raises with the offending key in the message."""
+    path = os.path.join("configs", yaml_name)
+    cfg = port_config.load_config(path)
+    fault = _expected_fault(load_config(path))
+    if fault is None:
+        port_config.check_supported(cfg)
+    else:
+        with pytest.raises(NotImplementedError, match=fault.replace(".", r"\.")):
+            port_config.check_supported(cfg)
+
+
+def test_some_yamls_of_every_kind_exist():
+    kinds = {_expected_fault(load_config(os.path.join("configs", y))) for y in ALL_YAMLS}
+    assert kinds == {None, "model.meta_architecture", "model.backbone.name", "test.task"}
+    assert len(ALL_YAMLS) > 100
+
+
+# the tiny variants the CLI tests run
+SLICE_CASES = [
+    ("dvis/dvis_online_r50_ytvis19.yaml", []),
+    ("dvis/dvis_offline_swinl_ytvis19.yaml", []),
+    ("dvis/dvis_offline_vitl_ytvis19.yaml", []),
+    ("dvis/dvis_offline_swinl_ytvis19.yaml", ["model.backbone.name=swin_t"]),
+    ("dvis/dvis_offline_r50_ytvis19.yaml", ["model.compute_dtype=float32"]),
+    ("dvis/dvis_offline_vitl_ytvis19.yaml", ["model.backbone.vit_flash_attention=true"]),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["model.pixel_decoder.msdeform_impl=pallas_local"]),
+    # the values the port does serve, asked for by name
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.mask_download=packed", "test.eval_pipeline=false",
+                                          "test.eval_devices=1", "test.refiner_shard_devices=0",
+                                          "model.pixel_decoder.name=msdeform", "test.task=vis"]),
+    # keys that cannot change an eval result stay ignored
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["solver.max_iter=3", "parallel.model_parallel_size=2",
+                                          "input.sampling_frame_num=3", "datasets.train=[ovis_train]"]),
+]
+
+
+@pytest.mark.parametrize("yaml_name,overrides", SLICE_CASES)
+def test_ported_slices_pass_the_check(yaml_name, overrides):
+    port_config.check_supported(port_config.load_config(os.path.join("configs", yaml_name), overrides))
+
+
+REFUSED_CASES = [
+    ("dvis/dvis_online_r50_vipseg.yaml", [], "test.task"),  # VPS
+    ("dvis/dvis_offline_r50_vspw.yaml", [], "test.task"),  # VSS
+    ("daq/daq_online_r50_ytvis19.yaml", [], "model.meta_architecture"),  # DAQ
+    ("daq/daq_vos_r50_ytvos.yaml", [], "test.task"),  # VOS
+    ("ov/ov_online_r50_zeroshot_ytvis19.yaml", [], "model.ov.enabled"),  # OV
+    ("ov/ov_online_r50_zeroshot_ytvis19.yaml", [], "model.backbone.name"),
+    ("dvis/minvis_r50_ytvis19.yaml", [], "model.meta_architecture"),
+    ("dvis/ctvis_r50_ytvis19.yaml", [], "model.meta_architecture"),
+    ("dvis/video_maskformer_r50_ytvis19.yaml", [], "model.meta_architecture"),
+    ("dvis/dvis_online_r50_vipseg.yaml", [], "datasets.dataset_type_test"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.refiner_shard_devices=2"], "test.refiner_shard_devices"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_devices=4"], "test.eval_devices"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_devices=0"], "test.eval_devices"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.task=vss"], "test.task"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["model.sem_seg_head=fcclip"], "model.sem_seg_head"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["model.backbone.name=clip_rn50"], "model.backbone.name"),
+    ("dvis/dvis_offline_swinl_ytvis19.yaml", ["model.backbone.swin_fast_softmax=true"],
+     "model.backbone.swin_fast_softmax"),
+    # asked for by name: a path the port lacks, though its bytes would be the same
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.mask_download=runs"], "test.mask_download"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_pipeline=true"], "test.eval_pipeline"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.mask_download=raw"], "test.mask_download"),
+]
+
+
+@pytest.mark.parametrize("yaml_name,overrides,key", REFUSED_CASES)
+def test_unported_settings_raise_with_the_key(yaml_name, overrides, key):
+    cfg = port_config.load_config(os.path.join("configs", yaml_name), overrides)
+    with pytest.raises(NotImplementedError) as exc:
+        port_config.check_supported(cfg)
+    msg = str(exc.value)
+    assert key + "=" in msg and ("ROADMAP A" in msg or "ROADMAP queue A" in msg), msg
+
+
+def test_check_names_every_fault_at_once():
+    cfg = port_config.load_config(
+        "configs/dvis/dvis_online_r50_ytvis19.yaml", ["test.task=vps", "model.pixel_decoder.name=fpn"])
+    with pytest.raises(NotImplementedError) as exc:
+        port_config.check_supported(cfg)
+    assert "test.task='vps'" in str(exc.value) and "model.pixel_decoder.name='fpn'" in str(exc.value)
+
+
+def test_inherited_jax_defaults_pass_and_presets_pass():
+    """The JAX package's own Config (``test.mask_download='runs'``,
+    ``test.eval_pipeline=True`` by default) passes where nothing asked for
+    them by name: the parity tests hand such a config to ``run_vis_inference``.
+    The YAML-free presets pass too."""
+    jax_cfg = load_config(YAML)
+    assert jax_cfg.test.mask_download == "runs" and jax_cfg.test.eval_pipeline is True
+    port_config.check_supported(jax_cfg)
+    jax_cfg.test.task = "vps"
+    with pytest.raises(NotImplementedError, match=r"test\.task"):
+        port_config.check_supported(jax_cfg)
+    for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19):
+        port_config.check_supported(preset())
+
+
+def test_load_config_records_what_was_set_by_name():
+    cfg = port_config.load_config(YAML, ["test.mask_download=packed", "seed=3"])
+    assert "test.mask_download" in cfg.explicit_keys and "seed" in cfg.explicit_keys
+    assert "model.meta_architecture" in cfg.explicit_keys  # from the YAML chain
+    assert "test.eval_pipeline" not in cfg.explicit_keys
+
+
+@pytest.mark.parametrize("key,value", [("test.task", "vps"), ("model.pixel_decoder.name", "fpn"),
+                                       ("model.meta_architecture", "minvis")])
+def test_run_vis_inference_refuses_before_it_reads_a_video(key, value):
+    from dvis_plus_tpu_torch.engine.inference import run_vis_inference
+
+    cfg = port_config.load_config(YAML, [f"{key}={value}"])
+
+    def loader():
+        raise AssertionError("the loader was read")
+        yield
+
+    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+        run_vis_inference(cfg, None, loader(), None)
+
+
+def test_cli_refuses_an_unported_setting(tmp_path):
+    from dvis_plus_tpu_torch import cli
+
+    with pytest.raises(NotImplementedError, match=r"test\.task='vps'"):
+        cli.main(["--config-file", "configs/dvis/dvis_online_r50_vipseg.yaml", "--eval-only",
+                  "--device", "cpu", f"output_dir={tmp_path}"])
+    with pytest.raises(NotImplementedError, match=r"model\.meta_architecture='minvis'"):
+        cli.main(["--config-file", "configs/dvis/minvis_r50_ytvis19.yaml", "--eval-only",
+                  "--device", "cpu", f"output_dir={tmp_path}"])

@@ -48,27 +48,187 @@ def _inputs(dev, dtype, seed=0, B=2, M=8, D=32, P=4, spread=10.0):
     )
 
 
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+# B1's bars: fp32 1e-5 of the twin's maximum (both sum in fp32, in another
+# order); bf16 1e-2: kernel and twin round their fp32 sums once to bf16, so
+# they differ by at most one bf16 ulp of the output (2^-8 of the value)
+MSDEFORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("attn_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("radius", [None, 7])
-def test_msdeform_kernel_matches_twin(cuda_device, dtype, radius):
+def test_msdeform_kernel_matches_twin(cuda_device, dtype, radius, attn_dtype):
     value, loc, attn = _inputs(cuda_device, dtype)
+    attn = attn.to(attn_dtype)
     msdeform.reset_launches()
     got = msdeform.ms_deform_attn(value, SHAPES, loc, attn, radius=radius)
     torch.cuda.synchronize()
     assert msdeform.launches == 1
+    assert got.dtype == dtype and got.shape == (2, loc.shape[1], 8 * 32) and got.is_contiguous()
     want = msdeform.ms_deform_attn_torch(value, SHAPES, loc, attn, radius=radius)
-    err = ((got - want).abs().max() / want.abs().max()).item()
-    assert err <= 1e-5, err
+    assert want.dtype == dtype
+    assert _rel(got, want) <= MSDEFORM_TOL[dtype]
+
+
+def _msdeform_case(dev, dtype, shapes, B, M, D, P, seed=0, spread=6.0, qgrids=None):
+    """Queries are ``qgrids`` (default: the level grids) with reference points
+    at their cell centres, offsets up to ``spread`` value pixels; the first
+    queries get the special locations: exactly on the border, half a pixel
+    outside, far outside."""
+    rng = np.random.RandomState(seed)
+    Len = sum(h * w for h, w in shapes)
+    refs = []
+    for H, W in qgrids or shapes:
+        qi = (np.arange(H * W) // W + 0.5) / H
+        qj = (np.arange(H * W) % W + 0.5) / W
+        refs.append(np.stack([qj, qi], -1))
+    ref = np.concatenate(refs, 0)
+    Lq = ref.shape[0]
+    loc = np.zeros((B, Lq, M, len(shapes), P, 2), np.float32)
+    for lv, (H, W) in enumerate(shapes):
+        off = rng.uniform(-spread, spread, (B, Lq, M, P, 2)).astype(np.float32)
+        loc[:, :, :, lv] = ref[None, :, None, None] + off / np.array([W, H])
+    H0, W0 = shapes[0]
+    loc[0, 0, 0, 0, 0] = (0.0, 1.0)  # exactly on the border
+    loc[0, 0, 0, 0, 1 % P] = (1.0, 0.0)
+    loc[0, 1 % Lq, 0, 0, 0] = (1.0 + 0.5 / W0, 0.5)  # half a pixel outside
+    loc[0, 1 % Lq, 0, 0, 1 % P] = (0.5, -0.5 / H0)
+    loc[0, 2 % Lq, 0, 0, 0] = (37.0, -1e6)  # far outside
+    loc[0, 2 % Lq, 0, 0, 1 % P] = (-1e30, 1e30)
+    attn = rng.rand(B, Lq, M, len(shapes), P).astype(np.float32)
+    attn /= attn.sum((-1, -2), keepdims=True)
+    value = rng.randn(B, Len, M, D).astype(np.float32)
+    return (torch.from_numpy(value).to(dev, dtype), torch.from_numpy(loc).to(dev),
+            torch.from_numpy(attn).to(dev))
+
+
+# (shapes, B, M, D, P): edges of the tiling and of the two instantiations.
+# Level grids of odd sizes, so that Lq is no multiple of a block's run of
+# queries and runs span two levels; levels one pixel wide and one pixel in all; D of 4,
+# 8, 32 and 64 (fp32 rows of 16 bytes and more: the vector kernel; D = 4 in
+# bf16 is 8 bytes: the scalar one); M * D = 1024 both ways; D = 6 and 10,
+# whose rows are no multiple of 16 bytes; one level; four levels; P = 1 and 3
+MSDEFORM_EDGE_CASES = [
+    ([(7, 9), (3, 5), (2, 2)], 3, 8, 32, 4),
+    ([(5, 1), (1, 7), (1, 1)], 2, 4, 8, 4),
+    ([(6, 5), (3, 3)], 1, 2, 4, 2),
+    ([(9, 11), (5, 6), (3, 3)], 2, 16, 64, 4),
+    ([(9, 11), (5, 6), (3, 3)], 1, 32, 32, 2),
+    ([(7, 6), (4, 3)], 2, 3, 6, 3),
+    ([(7, 6)], 2, 5, 10, 1),
+    ([(6, 7), (3, 4), (2, 2), (1, 1)], 2, 8, 32, 4),
+    ([(13, 17)], 1, 1, 128, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [None, 2])
+@pytest.mark.parametrize("shapes,B,M,D,P", MSDEFORM_EDGE_CASES)
+def test_msdeform_kernel_at_the_tiling_edges(cuda_device, dtype, radius, shapes, B, M, D, P):
+    value, loc, attn = _msdeform_case(cuda_device, dtype, shapes, B, M, D, P)
+    plan = msdeform.kernel_plan(value, loc)
+    assert plan.vector == ((D * value.element_size()) % 16 == 0)
+    msdeform.reset_launches()
+    got = msdeform.ms_deform_attn(value, shapes, loc, attn, radius=radius)
+    torch.cuda.synchronize()
+    assert msdeform.launches == 1 and got.dtype == dtype and torch.isfinite(got).all()
+    want = msdeform.ms_deform_attn_torch(value, shapes, loc, attn, radius=radius)
+    assert _rel(got, want) <= MSDEFORM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [None, 3])
+def test_msdeform_tiling_and_instantiation_change_no_bit(cuda_device, dtype, radius):
+    """Runs of any length (one query a block, runs that end inside a level or
+    span all of them) and both instantiations do the same arithmetic per
+    output: equal bits. The
+    scalar instantiation is reached through a contiguous view of ``value``
+    that starts 4 (fp32) or 2 (bf16) bytes past a 16-byte boundary."""
+    shapes = [(9, 11), (5, 6), (3, 3)]
+    value, loc, attn = _msdeform_case(cuda_device, dtype, shapes, 2, 8, 32, 4, seed=1)
+    ref = msdeform.ms_deform_attn(value, shapes, loc, attn, radius=radius)
+    assert msdeform.kernel_plan(value, loc) == (True, 2)
+    for queries in (1, 3, 5, 8, 16, 21):  # 21 runs' samples: all of 48 KB
+        got = msdeform._launch(value, shapes, loc, attn, radius, msdeform.KernelPlan(True, queries))
+        assert torch.equal(got, ref), queries
+    flat = torch.zeros(value.numel() + 1, device=cuda_device, dtype=dtype)
+    shifted = flat[1:].view_as(value).copy_(value)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert not msdeform.kernel_plan(shifted, loc).vector
+    msdeform.reset_launches()
+    got = msdeform.ms_deform_attn(shifted, shapes, loc, attn, radius=radius)
+    assert msdeform.launches == 1 and torch.equal(got, ref)
+    want = msdeform.ms_deform_attn_torch(value, shapes, loc, attn, radius=radius)
+    assert _rel(ref, want) <= MSDEFORM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [None, 3])
+def test_msdeform_kernel_with_nan_and_far_locations(cuda_device, radius):
+    """Exact form: a sample whose location is NaN, or farther than a pixel
+    outside the level, contributes nothing: the result equals the one with
+    that sample's weight set to 0. Clamped form: the clamp brings a far
+    location back to the window's edge, and a NaN coordinate goes the same way
+    as a far negative one (``fmaxf`` returns its other operand). Finite either
+    way."""
+    shapes = [(9, 11), (5, 6), (3, 3)]
+    value, loc, attn = _msdeform_case(cuda_device, torch.float32, shapes, 2, 8, 32, 4, seed=2)
+    rng = np.random.RandomState(5)
+    drop = torch.from_numpy(rng.rand(*attn.shape) < 0.1).to(cuda_device)
+    kinds = torch.from_numpy(rng.randint(0, 3, tuple(attn.shape))).to(cuda_device)
+    bad = loc.clone()
+    bad[..., 0][drop & (kinds == 0)] = float("nan")
+    bad[..., 1][drop & (kinds == 1)] = float("nan")
+    bad[..., 0][drop & (kinds == 2)] = -7.5
+    got = msdeform.ms_deform_attn(value, shapes, bad, attn, radius=radius)
+    if radius is None:
+        want = msdeform.ms_deform_attn(value, shapes, loc, attn * ~drop)
+    else:
+        want = msdeform.ms_deform_attn(value, shapes, torch.nan_to_num(bad, nan=-1e30), attn, radius=radius)
+    assert torch.isfinite(got).all() and drop.sum() > 100
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_msdeform_kernel_on_pixel_centres(cuda_device):
+    """Locations on pixel centres give three corners a weight of 0 (the
+    kernel reads no corner of weight exactly 0): the result is the centre
+    pixel's value times the attention weight."""
+    shapes = [(6, 8)]
+    value, loc, attn = _msdeform_case(cuda_device, torch.float32, shapes, 1, 2, 8, 1, seed=3,
+                                      spread=0.0)
+    loc = loc.clone()
+    loc[0, :3, 0, 0, 0] = loc[0, 3:6, 0, 0, 0]  # undo the special locations
+    got = msdeform.ms_deform_attn(value, shapes, loc, attn)
+    want = (value[:, :, :, :] * attn[:, :, :, 0, :]).reshape(1, 48, 16)
+    assert _rel(got[:, 3:], want[:, 3:]) <= 1e-6
 
 
 @pytest.mark.cuda
 def test_msdeform_wrapper_raises_instead_of_falling_back(cuda_device):
     value, loc, attn = _inputs(cuda_device, torch.float32)
+    msdeform.reset_launches()
     with pytest.raises(TypeError):
         msdeform.ms_deform_attn(value.half(), SHAPES, loc, attn)
+    with pytest.raises(TypeError):
+        msdeform.ms_deform_attn(value, SHAPES, loc, attn.half())
     with pytest.raises(ValueError):
         msdeform.ms_deform_attn(value, SHAPES, loc.cpu(), attn)
+    with pytest.raises(ValueError):  # the clamped form's queries are the level grids
+        msdeform.ms_deform_attn(value, SHAPES, loc[:, :-1].contiguous(), attn[:, :-1].contiguous(), radius=7)
+    with pytest.raises(RuntimeError):  # a run whose samples exceed a block's shared memory
+        msdeform._launch(value, SHAPES, loc, attn, None, msdeform.KernelPlan(True, 64))
+    with pytest.raises(RuntimeError):  # 16-byte loads from a value 4 bytes past a boundary
+        flat = torch.zeros(value.numel() + 1, device=cuda_device)
+        msdeform._launch(flat[1:].view_as(value), SHAPES, loc, attn, None, msdeform.KernelPlan(True, 8))
+    assert msdeform.launches == 0
 
 
 def _swin_inputs(dev, dtype, B_, N, H, nW, seed=0, fused=True):
@@ -147,23 +307,50 @@ def test_swin_window_attn_wrapper_raises_instead_of_falling_back(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(6, 10), (5, 7)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_msdeform_kernel_at_the_extractor_shape(cuda_device, dtype):
+def test_msdeform_kernel_at_the_extractor_shape(cuda_device, dtype, grid):
     """The ViT-Adapter extractor's call: the queries are not the value's
-    grid (three query grids attend into one value level) and M * D is the
-    kernel's limit of 1024 channels."""
+    grid (three query grids attend into one value level), M * D is 1024
+    channels, and the weights come in the value's dtype."""
     rng = np.random.RandomState(3)
-    B, M, D, P, (H, W) = 2, 16, 64, 4, (6, 10)
-    Lq = 4 * H * W + H * W + (H // 2) * (W // 2)
+    B, M, D, P, (H, W) = 2, 16, 64, 4, grid
+    qgrids = [(2 * H, 2 * W), (H, W), (H // 2, W // 2)]
+    Lq = sum(h * w for h, w in qgrids)
     value = torch.from_numpy(rng.randn(B, H * W, M, D).astype(np.float32)).to(cuda_device, dtype)
     loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (B, Lq, M, 1, P, 2)).astype(np.float32)).to(cuda_device)
-    attn = torch.from_numpy(rng.rand(B, Lq, M, 1, P).astype(np.float32)).to(cuda_device)
+    attn = torch.from_numpy(rng.rand(B, Lq, M, 1, P).astype(np.float32)).to(cuda_device, dtype)
     msdeform.reset_launches()
     got = msdeform.ms_deform_attn(value, [(H, W)], loc, attn)
     torch.cuda.synchronize()
-    assert msdeform.launches == 1 and got.shape == (B, Lq, M * D)
+    assert msdeform.launches == 1 and got.shape == (B, Lq, M * D) and got.dtype == dtype
     want = msdeform.ms_deform_attn_torch(value, [(H, W)], loc, attn)
-    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert _rel(got, want) <= MSDEFORM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aux", [False, True])
+def test_topk_select_tie_order_on_the_card(cuda_device, aux):
+    """Equal scores across the K-th place: the card returns the lower flat
+    index first, as the CPU does (and ``jax.lax.top_k``), twice in a row."""
+    from dvis_plus_tpu_torch.models.meta.minvis import topk_select
+
+    def tied(seed):
+        rng = np.random.RandomState(seed)
+        logits = rng.randn(200, 41).astype(np.float32)
+        for q in rng.choice(200, 60, replace=False):  # 60 scores of exactly 1.0, K keeps 20
+            logits[q] = -60.0
+            logits[q, rng.randint(40)] = 60.0
+        return torch.from_numpy(logits)
+
+    logits, aux_logits = tied(7), tied(8) if aux else None
+    want = topk_select(logits, 20, aux_logits)
+    assert (want[0] == 1.0).all() and (want[2][1:] >= want[2][:-1]).all()  # ties, in index order
+    for _ in range(2):
+        got = topk_select(logits.to(cuda_device), 20,
+                          None if aux_logits is None else aux_logits.to(cuda_device))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
 
 
 def _flash_inputs(dev, dtype, B, L, H, fused, seed=0):

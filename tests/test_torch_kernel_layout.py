@@ -1,5 +1,5 @@
-"""What the port's kernel wrappers check before a launch, and how the kernel
-library is named, on the CPU (no card, no ``nvcc``).
+"""What the port's kernel wrappers check and choose before a launch, and how
+the kernel library is named, on the CPU (no card, no ``nvcc``).
 
 The bf16 attention kernels read q, k, v through 16-byte asynchronous copies
 (kernel B3 through TMA tensor maps over the tensors' views, kernel B2 through
@@ -8,7 +8,10 @@ strides before anything is launched. The checks are plain Python on strides
 and pointers and run here on CPU tensors: they must accept the column views
 of a fused qkv output that ``swin.py`` and ``vit_adapter.py`` really pass,
 and reject with a ``ValueError`` what a tensor map or a 16-byte copy cannot
-address. ``_build`` names the library by a hash of everything under
+address. Kernel B1 (deformable attention) has a 16-byte and a scalar
+instantiation and gives a block a run of consecutive queries:
+``kernel_plan`` chooses from shapes and the value pointer, and what the
+callers really pass must reach the vector kernel. ``_build`` names the library by a hash of everything under
 ``csrc/``, headers included, so that a changed header never reuses a stale
 build, and reads each kernel's registers and spills from what the assembler
 printed.
@@ -20,7 +23,8 @@ import pytest
 import torch
 
 from dvis_plus_tpu_torch.models.backbones import swin, vit_adapter
-from dvis_plus_tpu_torch.ops import _build, flash_attn, swin_window_attn
+from dvis_plus_tpu_torch.models.segmenter import pixel_decoder
+from dvis_plus_tpu_torch.ops import _build, flash_attn, msdeform, swin_window_attn
 
 torch.set_num_threads(2)
 DTYPES = [torch.float32, torch.bfloat16]
@@ -215,6 +219,158 @@ def test_swin_check_holds_the_kernels_limits():
     with pytest.raises(ValueError):  # more tokens than a block's shared memory holds
         swin_window_attn._check(*_fused_swin(1, n, 1, torch.bfloat16), torch.zeros(1, n, n), None, 1)
     swin_window_attn._check(*_fused_swin(1, n - 1, 1, torch.bfloat16), torch.zeros(1, n - 1, n - 1), None, 1)
+
+
+# ----------------------------------------------------------------------------
+# B1: msdeform.kernel_plan and _check
+# ----------------------------------------------------------------------------
+
+ENC = [(60, 80), (30, 40), (15, 20)]
+
+
+def _msdeform_args(shapes, B, M, D, P, dtype, Lq=None, value_offset=0):
+    """Zero inputs of the given shapes; ``value_offset`` elements past a
+    64-byte aligned buffer's start."""
+    Len = sum(h * w for h, w in shapes)
+    n = B * Len * M * D
+    flat = torch.zeros(n + value_offset + 64, dtype=dtype)
+    flat = flat[(-flat.data_ptr() // flat.element_size()) % (64 // flat.element_size()):]
+    assert flat.data_ptr() % 64 == 0
+    value = flat[value_offset: value_offset + n].view(B, Len, M, D)
+    Lq = Len if Lq is None else Lq
+    return value, torch.zeros(B, Lq, M, len(shapes), P, 2), torch.zeros(B, Lq, M, len(shapes), P)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_msdeform_plan_at_the_main_shapes(dtype):
+    """The encoder and the extractor take the vector kernel, a run of 2
+    queries a block, within the shared memory that lets eight blocks share
+    an SM."""
+    value, loc, attn = _msdeform_args(ENC, 1, 8, 32, 4, dtype)
+    msdeform._check(value, ENC, loc, attn, None)
+    plan = msdeform.kernel_plan(value, loc)
+    assert plan == (True, msdeform.MAX_RUN) == (True, 2)
+    assert plan.queries * 8 * 3 * 4 * msdeform.SAMPLE_BYTES <= msdeform.RUN_SMEM
+    value, loc, attn = _msdeform_args([(4, 6)], 1, 16, 64, 4, dtype, Lq=96 + 24 + 6)
+    msdeform._check(value, [(4, 6)], loc, attn, None)
+    assert msdeform.kernel_plan(value, loc) == (True, 2)
+
+
+@pytest.mark.parametrize("dtype,D,offset,vector", [
+    (torch.float32, 32, 0, True),
+    (torch.float32, 4, 0, True),      # a row of 16 bytes
+    (torch.float32, 4, 4, True),      # 16 bytes in
+    (torch.float32, 32, 1, False),    # 4 bytes past a 16-byte boundary
+    (torch.float32, 32, 2, False),    # 8 bytes past
+    (torch.float32, 6, 0, False),     # rows of 24 bytes
+    (torch.float32, 1, 0, False),
+    (torch.bfloat16, 64, 0, True),
+    (torch.bfloat16, 8, 0, True),     # a row of 16 bytes
+    (torch.bfloat16, 4, 0, False),    # rows of 8 bytes
+    (torch.bfloat16, 64, 1, False),   # 2 bytes past a 16-byte boundary
+    (torch.bfloat16, 64, 4, False),   # 8 bytes past
+    (torch.bfloat16, 64, 8, True),    # 16 bytes in
+    (torch.bfloat16, 12, 0, False),   # rows of 24 bytes
+])
+def test_msdeform_plan_takes_the_scalar_kernel_where_16_bytes_do_not_fit(dtype, D, offset, vector):
+    """No shape or alignment is refused: what the 16-byte loads cannot
+    address goes to the scalar instantiation."""
+    shapes = [(5, 7), (3, 3)]
+    value, loc, attn = _msdeform_args(shapes, 2, 2, D, 2, dtype, value_offset=offset)
+    assert value.is_contiguous()
+    msdeform._check(value, shapes, loc, attn, None)
+    plan = msdeform.kernel_plan(value, loc)
+    assert plan.vector == vector and plan.queries == msdeform.MAX_RUN
+
+
+@pytest.mark.parametrize("M,L,P,tq", [(8, 3, 4, 2), (16, 1, 4, 2), (8, 4, 4, 2), (32, 4, 8, 1),
+                                      (1, 1, 1, 2), (16, 4, 8, 2), (16, 4, 10, 1)])
+def test_msdeform_plan_holds_a_tile_to_its_shared_memory(M, L, P, tq):
+    shapes = [(6, 6), (3, 3), (2, 2), (1, 1)][:L]
+    value, loc, attn = _msdeform_args(shapes, 1, M, 8, P, torch.float32)
+    msdeform._check(value, shapes, loc, attn, None)
+    plan = msdeform.kernel_plan(value, loc)
+    one_query = M * L * P * msdeform.SAMPLE_BYTES
+    assert plan.queries == tq
+    assert tq * one_query <= max(msdeform.RUN_SMEM, one_query) <= msdeform.MAX_SMEM
+    assert tq == msdeform.MAX_RUN or 2 * tq * one_query > msdeform.RUN_SMEM  # no shorter than need be
+
+
+def test_msdeform_check_holds_the_kernels_limits():
+    value, loc, attn = _msdeform_args(ENC[1:], 1, 2, 8, 2, torch.float32)
+    msdeform._check(value, ENC[1:], loc, attn, 7)
+    msdeform._check(value, ENC[1:], loc, attn.bfloat16(), None)
+    with pytest.raises(ValueError):  # clamped: the queries are the level grids
+        msdeform._check(value, ENC[1:], loc[:, :-1], attn[:, :-1], 7)
+    wide = torch.zeros(1, 1, 64, 1)  # 64 * 4 * 8 samples a query: 48 KB and 24 bytes
+    with pytest.raises(ValueError):  # one query's samples exceed a block's shared memory
+        msdeform._check(wide.expand(1, 4, 64, 1), [(1, 1)] * 4, torch.zeros(1, 1, 64, 4, 8, 2),
+                        torch.zeros(1, 1, 64, 4, 8), None)
+    with pytest.raises(TypeError):
+        msdeform._check(value, ENC[1:], loc.double(), attn, None)
+    with pytest.raises(TypeError):
+        msdeform._check(value, ENC[1:], loc, attn.half(), None)
+    with pytest.raises(ValueError):  # B beyond the grid's second dimension
+        msdeform._check(value.expand(70000, -1, -1, -1), ENC[1:], loc.expand(70000, -1, -1, -1, -1, -1),
+                        attn.expand(70000, -1, -1, -1, -1), None)
+    big = torch.zeros(1, 1, 1).expand(1, 2**20, 2**11).unflatten(-1, (2, 2**10))
+    with pytest.raises(ValueError):  # Len * M * D overflows the kernel's 32-bit offsets
+        msdeform._check(big, [(2**10, 2**10)], torch.zeros(1, 1, 2, 1, 1, 2), torch.zeros(1, 1, 2, 1, 1), None)
+    with pytest.raises(ValueError):  # Len * M * D fits, a corner one row further down does not
+        msdeform._check(big[:, :-512], [(2**10 - 1, 2**10), (512, 1)], torch.zeros(1, 1, 2, 2, 1, 2),
+                        torch.zeros(1, 1, 2, 2, 1), None)
+    with pytest.raises(ValueError):  # an empty query set
+        msdeform._check(value, ENC[1:], loc[:, :0], attn[:, :0], None)
+
+
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+def test_msdeform_plan_for_what_the_pixel_decoder_passes(value_dtype, monkeypatch):
+    """The encoder layer hands the wrapper contiguous tensors that take the
+    vector kernel, and gets ``value_dtype`` back with no cast of its own."""
+    seen = []
+
+    def spy(value, shapes, loc, attn, radius=None):
+        msdeform._check(value, shapes, loc, attn, radius)
+        seen.append((msdeform.kernel_plan(value, loc), value.dtype, loc.dtype, attn.dtype, radius))
+        return msdeform.ms_deform_attn_torch(value, shapes, loc, attn, radius)
+
+    monkeypatch.setattr(pixel_decoder, "ms_deform_attn", spy)
+    shapes = [(4, 6), (2, 3)]
+    layer = pixel_decoder.MSDeformAttnLayer(32, 64, n_levels=2, n_heads=4, value_dtype=value_dtype,
+                                            impl="pallas_local")
+    src = torch.randn(2, 30, 32)
+    out = layer(src, torch.zeros(30, 32), pixel_decoder.reference_points(shapes), shapes)
+    assert out.shape == src.shape and out.dtype == torch.float32
+    (plan, vdt, ldt, adt, radius), = seen
+    assert plan.vector  # D = 8: rows of 32 bytes in fp32, of 16 in bf16
+    assert radius == pixel_decoder.LOCAL_RADIUS
+    assert (vdt, ldt, adt) == (pixel_decoder.dtype_of(value_dtype), torch.float32, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("coarse", [False, True])
+def test_msdeform_plan_for_what_the_extractor_passes(dtype, coarse, monkeypatch):
+    """The adapter's extractor (the coarse one with its pooled grid) passes
+    the weights in the query's dtype with no cast and takes the result as it
+    comes."""
+    seen = []
+
+    def spy(value, shapes, loc, attn, radius=None):
+        msdeform._check(value, shapes, loc, attn, radius)
+        seen.append((msdeform.kernel_plan(value, loc), value.dtype, loc.dtype, attn.dtype, loc.shape[1]))
+        return msdeform.ms_deform_attn_torch(value, shapes, loc, attn, radius)
+
+    monkeypatch.setattr(vit_adapter, "ms_deform_attn", spy)
+    shapes = ((8, 12), (4, 6), (2, 3))
+    Lq = sum(h * w for h, w in shapes)
+    ext = vit_adapter.Extractor(64, 2, coarse_s8=coarse)  # the layers cast their weights per call
+    refs = pixel_decoder.reference_points(shapes)[:, 1:2]
+    out = ext(torch.randn(2, Lq, 64).to(dtype), refs, torch.randn(2, 24, 64).to(dtype), (4, 6), shapes)
+    assert out.shape == (2, Lq, 64) and out.dtype == dtype
+    (plan, vdt, ldt, adt, lq), = seen
+    grids = ((4, 6), (4, 6), (2, 3)) if coarse else shapes
+    assert plan.vector and lq == sum(h * w for h, w in grids)
+    assert (vdt, ldt, adt) == (dtype, torch.float32, dtype)
 
 
 # ----------------------------------------------------------------------------

@@ -2,10 +2,11 @@
 
 On the CPU the wrapper computes the plain PyTorch twin; the CUDA kernel is
 held against the twin by ``tests/test_torch_cuda.py`` (skipped without a
-card) and by ``chip_smoke.py``. Tolerances: fp32 rel <= 1e-5 (reduction-order noise);
+card) and by ``chip_smoke.py``. Both packages return ``value.dtype``.
+Tolerances: fp32 rel <= 1e-5 (reduction-order noise);
 bf16 values rel <= 2e-2 against JAX, which rounds the weights and the
-accumulator to bf16 where the port accumulates in fp32 (8 mantissa bits:
-~4e-3 per rounding, a few roundings per output).
+accumulator to bf16 where the port accumulates in fp32 and rounds once at
+the end (8 mantissa bits: ~4e-3 per rounding, a few roundings per output).
 """
 import jax
 import jax.numpy as jnp
@@ -50,11 +51,14 @@ def _case(seed=0, B=1, M=2, D=8, P=4, spread=6.0):
     return value, loc, attn
 
 
-def _port(value, loc, attn, dtype, radius=None):
+def _port(value, loc, attn, dtype, radius=None, shapes=SHAPES, attn_dtype=torch.float32):
+    """The wrapper's result as float32 numpy, held to ``value.dtype`` first."""
     v = torch.from_numpy(value).to(getattr(torch, dtype))
-    return msdeform.ms_deform_attn(
-        v, SHAPES, torch.from_numpy(loc), torch.from_numpy(attn), radius=radius
-    ).numpy()
+    out = msdeform.ms_deform_attn(
+        v, shapes, torch.from_numpy(loc), torch.from_numpy(attn).to(attn_dtype), radius=radius
+    )
+    assert out.dtype == v.dtype and out.shape == (*loc.shape[:2], value.shape[2] * value.shape[3])
+    return out.float().numpy()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -91,20 +95,83 @@ def test_clamped_form_matches_pallas_kernel_interpret():
     assert rel_err(_port(value, loc, attn, "float32", radius=RADIUS), want) <= 1e-5
 
 
-def test_cpu_wrapper_runs_the_twin_and_counts_no_launch():
+def _extractor_case(seed, B=2, M=4, D=8, P=4, grid=(5, 7)):
+    """The ViT-Adapter extractor's form, small: three query grids (2x, 1x and
+    half the value grid) attend into one value level, so ``Lq != Len``."""
+    rng = np.random.RandomState(seed)
+    H, W = grid
+    qgrids = [(2 * H, 2 * W), (H, W), (H // 2, W // 2)]
+    Lq = sum(h * w for h, w in qgrids)
+    value = rng.randn(B, H * W, M, D).astype(np.float32)
+    loc = rng.uniform(-0.2, 1.2, (B, Lq, M, 1, P, 2)).astype(np.float32)
+    attn = rng.rand(B, Lq, M, 1, P).astype(np.float32)
+    attn /= attn.sum((-1, -2), keepdims=True)
+    return value, loc, attn, [grid]
+
+
+@pytest.mark.parametrize("grid", [(5, 7), (4, 1)], ids=["5x7", "one_pixel_wide"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_extractor_form_matches_jax(dtype, grid):
+    """``Lq != Len`` and one level."""
+    value, loc, attn, shapes = _extractor_case(seed=6, grid=grid)
+    assert loc.shape[1] != value.shape[1]
+    got = _port(value, loc, attn, dtype, shapes=shapes)
+    v = jnp.asarray(value).astype(dtype)
+    for fn in (jax_exact, jax_reference):
+        want = fn(v, shapes, jnp.asarray(loc), jnp.asarray(attn)).astype(jnp.float32)
+        assert rel_err(got, want) <= TOL[dtype], fn.__name__
+
+
+@pytest.mark.parametrize("form", ["exact", "clamped", "extractor"])
+def test_bfloat16_attention_weights_are_read_as_float32(form):
+    """The kernel and its twin take bfloat16 weights (the extractor's softmax
+    in a bfloat16 model) and read them as float32: the result equals the
+    float32 call on the rounded weights, and the JAX op's on them."""
+    if form == "extractor":
+        value, loc, attn, shapes = _extractor_case(seed=7)
+        radius = None
+    else:
+        value, loc, attn = _case(seed=7)
+        shapes, radius = SHAPES, RADIUS if form == "clamped" else None
+    rounded = torch.from_numpy(attn).bfloat16().float().numpy()
+    assert (rounded != attn).any()
+    got = _port(value, loc, attn, "float32", radius, shapes, attn_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(got, _port(value, loc, rounded, "float32", radius, shapes))
+    args = (jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(rounded))
+    want = jax_exact(*args) if radius is None else _local_exact_oracle(*args, radius)
+    assert rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_wrapper_runs_the_twin_and_counts_no_launch(dtype):
     value, loc, attn = _case(seed=4)
     msdeform.reset_launches()
-    got = _port(value, loc, attn, "float32", radius=RADIUS)
+    got = _port(value, loc, attn, dtype, radius=RADIUS)
     twin = msdeform.ms_deform_attn_torch(
-        torch.from_numpy(value), SHAPES, torch.from_numpy(loc), torch.from_numpy(attn), RADIUS
-    ).numpy()
-    np.testing.assert_array_equal(got, twin)
+        torch.from_numpy(value).to(getattr(torch, dtype)), SHAPES, torch.from_numpy(loc),
+        torch.from_numpy(attn), RADIUS
+    )
+    assert twin.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got, twin.float().numpy())
     assert msdeform.launches == 0
+
+
+def test_twin_rounds_once_from_float32_sums():
+    """The bfloat16 result is the float32-accumulated result of the same
+    bfloat16 values, rounded once."""
+    value, loc, attn = _case(seed=8)
+    v16 = torch.from_numpy(value).bfloat16()
+    args = (SHAPES, torch.from_numpy(loc), torch.from_numpy(attn))
+    np.testing.assert_array_equal(
+        msdeform.ms_deform_attn_torch(v16, *args).float().numpy(),
+        msdeform.ms_deform_attn_torch(v16.float(), *args).bfloat16().float().numpy(),
+    )
 
 
 @pytest.mark.parametrize(
     "bad",
-    ["value_dtype", "loc_dtype", "shapes", "noncontiguous", "radius_needs_grid"],
+    ["value_dtype", "loc_dtype", "attn_dtype", "shapes", "noncontiguous", "radius_needs_grid",
+     "empty_queries", "too_many_samples", "five_levels"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     value, loc, attn = (torch.from_numpy(x) for x in _case(seed=5))
@@ -118,6 +185,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         shapes = SHAPES[:2]
     elif bad == "noncontiguous":
         value = value.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "attn_dtype":
+        attn = attn.half()
+    elif bad == "empty_queries":
+        loc, attn = loc[:, :0].contiguous(), attn[:, :0].contiguous()
+    elif bad == "too_many_samples":  # one query's samples exceed a block's shared memory
+        P = msdeform.MAX_SMEM // (msdeform.SAMPLE_BYTES * value.shape[2] * len(SHAPES)) + 1
+        loc = torch.zeros(1, 1, value.shape[2], len(SHAPES), P, 2)
+        attn = torch.zeros(1, 1, value.shape[2], len(SHAPES), P)
+        value = value[:1].contiguous()
+    elif bad == "five_levels":
+        shapes = [(8, 8), (4, 4), (1, 1), (1, 1), (1, 2)]
+        loc, attn = torch.zeros(1, 84, 2, 5, 4, 2), torch.zeros(1, 84, 2, 5, 4)
     else:
         loc, attn, radius = loc[:, :10].contiguous(), attn[:, :10].contiguous(), RADIUS
     with pytest.raises((ValueError, TypeError)):

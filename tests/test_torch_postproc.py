@@ -58,6 +58,46 @@ def test_topk_select_matches_jax(aux):
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
 
 
+def _tied_logits(seed):
+    """Logits whose softmax saturates to exactly 1.0 in more (query, class)
+    cells than the top-K keeps, scattered so that the kept ones are not the
+    first rows, plus a second group of exactly equal smaller scores."""
+    rng = np.random.RandomState(seed)
+    Q, K1 = 16, 7
+    logits = rng.randn(Q, K1).astype(np.float32)
+    for q in (1, 3, 4, 8, 9, 12, 13, 15):  # eight saturated cells, K keeps five
+        logits[q] = -60.0
+        logits[q, rng.randint(K1 - 1)] = 60.0
+    logits[0] = 0.0
+    logits[0, 2] = 4.0  # about 0.9: above every random row, below the saturated
+    logits[[2, 6, 10]] = logits[0]  # four equal rows: equal unsaturated scores too
+    return logits
+
+
+@pytest.mark.parametrize("topk", [5, 11])
+@pytest.mark.parametrize("aux", [False, True])
+def test_topk_select_breaks_ties_as_jax(aux, topk):
+    """Equal scores across the K-th place: ``jax.lax.top_k`` returns the lower
+    flat index first, and so must the port, element for element (K = 5 cuts
+    the eight scores of exactly 1.0; K = 11 cuts a group of equal smaller
+    ones). With ``aux`` the ties come from the element-wise maximum of two
+    saturated softmaxes, the offline path's fusion."""
+    logits = _tied_logits(7)
+    aux_logits = np.roll(_tied_logits(8), 1, axis=0) if aux else None
+    s, l, q = topk_select(
+        torch.from_numpy(logits), topk, None if aux_logits is None else torch.from_numpy(aux_logits)
+    )
+    js, jl, jq = jax_topk(
+        jnp.asarray(logits), topk, None if aux_logits is None else jnp.asarray(aux_logits)
+    )
+    more = np.asarray(jax_topk(
+        jnp.asarray(logits), topk + 1, None if aux_logits is None else jnp.asarray(aux_logits))[0])
+    assert more[topk - 1] == more[topk] and (more[:5] == 1.0).all()  # the cut falls inside a tie
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6)
+    np.testing.assert_array_equal(l.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+
+
 @pytest.mark.parametrize("case", sorted(SIZES))
 def test_upsample_masks_matches_jax(case):
     img, out, pad = SIZES[case]
