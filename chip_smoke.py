@@ -14,7 +14,12 @@ kernels:
 - DVIS++ offline VIS at the full width of
   ``configs/dvis/dvis_offline_vitl_ytvis19.yaml`` with
   ``backbone.vit_flash_attention`` on (kernels B1 and B3), at 720x1280
-  frames padded to 736x1280.
+  frames padded to 736x1280;
+- MinVIS, CTVIS and Video Mask2Former VIS at the full width of
+  ``configs/dvis/{minvis,ctvis,video_maskformer}_r50_ytvis19.yaml`` (kernel
+  B1), MinVIS and Video Mask2Former timed at the JAX package's default eval
+  settings (``runs`` mask download, threaded eval pipeline), and the two
+  downloads against each other on the R50 online and MinVIS paths.
 
 Run from a checkout of the repository:
 
@@ -35,10 +40,13 @@ corners in common, and the offsets the model's own initialisation gives
 pixel), where they share most. Beside its bound the line gives the bytes it
 gathers (samples x 4 corners x D x itemsize) and the rate they imply.
 
-Each phase prints one JSON line. The ``kernels`` line gives, for every
-kernel, its launches on its main path, its time, its plain version's time,
-the time of the one PyTorch call that computes the same function
-(``library_ms``, timed here and called nowhere in the port) and its bound:
+The ``build`` phase also builds the port's native RLE codec
+(``dvis_plus_tpu_torch/native/rle.cpp``, g++), which encodes every
+``results.json`` row. Each phase prints one JSON line. The ``kernels`` line
+gives, for every kernel, its launches on its main path and by path, its
+time, its plain version's time, the time of the one PyTorch call that
+computes the same function (``library_ms``, timed here and called nowhere
+in the port) and its bound:
 the larger of bytes moved (each input read once, each output written once)
 over 3.35 TB/s and operations over the peak for the input type (989 TFLOP/s
 bf16, 67 TFLOP/s fp32), NVIDIA's published H100 SXM rates. The last line is
@@ -155,12 +163,18 @@ def phase_device():
 
 def phase_build():
     from dvis_plus_tpu_torch.ops import _build
+    from dvis_plus_tpu_torch.utils import rle
 
     t0 = time.perf_counter()
     path = _build.build()
     seconds = time.perf_counter() - t0
     _build.library()  # loads and binds every entry point
+    t0 = time.perf_counter()
+    codec = rle.build()
+    codec_seconds = time.perf_counter() - t0
+    rle.library()
     emit({"phase": "build", "seconds": seconds, "library": os.path.relpath(path, REPO),
+          "codec_seconds": codec_seconds, "codec": os.path.relpath(codec, REPO),
           "ptxas": _build.resource_usage()})
 
 
@@ -565,12 +579,10 @@ def synthetic_videos(n, T, H, W, Ho, Wo, seed, valid=None):
 def build_model(cfg, dev):
     import torch
 
-    from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline
-    from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
+    from dvis_plus_tpu_torch.cli import build_model as build_arch
 
     torch.manual_seed(SEED)
-    arch = DVISOffline if cfg.model.meta_architecture == "dvis_offline" else DVISOnline
-    model = arch(cfg.model)
+    model = build_arch(cfg.model)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith((".ls1.gamma", ".ls2.gamma")):  # ViT LayerScale
@@ -662,18 +674,29 @@ def timed_slice(cfg, dev, frames=FRAMES, canvas=(H_IN, W_IN), valid=None, out=(H
     """``VIDEOS`` synthetic videos x ``frames`` frames on a ``canvas`` input
     (by default 2 x 15 at 480x640, output 720x960) through
     ``run_vis_inference`` after one untimed warm-up video; every kernel's
-    launch count is set to 0 just before the timed run and read just after."""
+    launch count is set to 0 just before the timed run and read just after.
+    Returns (measurements, whether the rows are well formed, the
+    results.json bytes)."""
     import torch
 
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
     from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
+
+    class Counting(YTVISEvaluator):  # frames whose runs download fell back to packed pixels
+        frames = fallback = 0
+
+        def process(self, video_id, output):
+            masks = output["pred_masks"]
+            self.frames += masks.shape[0] * masks.shape[1]
+            self.fallback += len(getattr(masks, "fallback", ()))
+            super().process(video_id, output)
 
     model = model or build_model(cfg, dev)
     with tempfile.TemporaryDirectory() as tmp:
         # warm-up video (cuDNN / cuBLAS autotuning, allocator), not timed
         run_vis_inference(cfg, model, synthetic_videos(1, 5, *canvas, *out, 99, valid),
                           YTVISEvaluator("warmup", tmp))
-        evaluator = YTVISEvaluator("synthetic", tmp)
+        evaluator = Counting("synthetic", tmp)
         timings = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -685,7 +708,8 @@ def timed_slice(cfg, dev, frames=FRAMES, canvas=(H_IN, W_IN), valid=None, out=(H
         wall = time.perf_counter() - t0
         launches = read_launches()
         rows = evaluator.predictions
-        size = os.path.getsize(evaluator.write_results())
+        with open(evaluator.write_results(), "rb") as f:
+            results = f.read()
     topk = cfg.test.max_num
     videos = sorted({r["video_id"] for r in rows})
     rows_ok = (
@@ -698,11 +722,15 @@ def timed_slice(cfg, dev, frames=FRAMES, canvas=(H_IN, W_IN), valid=None, out=(H
     )
     res = {"compute_dtype": cfg.model.compute_dtype, "tf32": False, "videos": VIDEOS,
            "frames": frames, "input": list(canvas), "window": cfg.test.window_size,
+           "mask_download": cfg.test.mask_download, "rle_col_k": cfg.test.rle_col_k,
+           "eval_pipeline": cfg.test.eval_pipeline, "matcher": cfg.model.tracker.matcher_solver,
            "wall_s": wall, "fps": VIDEOS * frames / wall,
            "model_fps": VIDEOS * frames / timings["model_s"], "post_s": timings["post_s"],
+           "rows_s": timings["rows_s"], "fallback_frames": evaluator.fallback,
+           "masks": evaluator.frames,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "rows": len(rows),
-           "results_json_bytes": size, "launches": launches}
-    return res, rows_ok
+           "results_json_bytes": len(results), "launches": launches}
+    return res, rows_ok, results
 
 
 def phase_slice(dev, impl):
@@ -711,7 +739,7 @@ def phase_slice(dev, impl):
 
     cfg = dvis_online_r50_ytvis19()
     cfg.model.pixel_decoder.msdeform_impl = impl
-    res, rows_ok = timed_slice(cfg, dev)
+    res, rows_ok, _ = timed_slice(cfg, dev)
     windows = VIDEOS * -(-FRAMES // cfg.test.window_size)
     expect = {"msdeform_fwd": cfg.model.pixel_decoder.transformer_enc_layers * windows,
               "swin_window_attn_fwd": 0, "flash_attn_fwd": 0}
@@ -748,7 +776,7 @@ def phase_swinl_slice(dev):
         if isinstance(mod, WindowAttention):
             mod.register_forward_pre_hook(pre, with_kwargs=True)
             mod.register_forward_hook(post, with_kwargs=True)
-    res, rows_ok = timed_slice(cfg, dev, model=model)
+    res, rows_ok, _ = timed_slice(cfg, dev, model=model)
     res["b2_launches_by_shape"] = [
         {"B_": B_, "heads": H, "masked": masked, "launches": n}
         for (B_, H, masked), n in sorted(B2_BY_SHAPE.items())]
@@ -824,7 +852,7 @@ def phase_vitl_slice(dev):
 
     cfg = vitl_cfg()
     model = build_model(cfg, dev)
-    res, rows_ok = timed_slice(cfg, dev, frames=VIT_FRAMES, canvas=(VIT_H, VIT_W),
+    res, rows_ok, _ = timed_slice(cfg, dev, frames=VIT_FRAMES, canvas=(VIT_H, VIT_W),
                                valid=(VIT_H_OUT, VIT_W_OUT), out=(VIT_H_OUT, VIT_W_OUT), model=model)
     windows = VIDEOS * -(-VIT_FRAMES // cfg.test.window_size)
     b = cfg.model.backbone
@@ -879,6 +907,153 @@ def phase_vitl_slice(dev):
         if max(d["rms"].values()) > DENSE_TOL or max(d["max"].values()) > DENSE_MAX_TOL:
             raise AssertionError(f"ViT-L backbone features disagree ({pair}): {d}")
     return res
+
+
+# MinVIS, CTVIS and Video Mask2Former, each at the full width of its YAML
+def arch_presets():
+    from dvis_plus_tpu_torch.config import (
+        ctvis_r50_ytvis19,
+        minvis_r50_ytvis19,
+        video_maskformer_r50_ytvis19,
+    )
+
+    return {"minvis": minvis_r50_ytvis19, "ctvis": ctvis_r50_ytvis19,
+            "video_maskformer": video_maskformer_r50_ytvis19}
+
+
+def expected_b1(cfg, frames=FRAMES, videos=VIDEOS):
+    """B1 runs once per pixel-decoder encoder layer and forward: a forward
+    per window for the per-frame models, one per video for the clip model."""
+    forwards = videos if cfg.model.meta_architecture == "video_maskformer" else \
+        videos * -(-frames // cfg.test.window_size)
+    return {"msdeform_fwd": cfg.model.pixel_decoder.transformer_enc_layers * forwards,
+            "swin_window_attn_fwd": 0, "flash_attn_fwd": 0}
+
+
+def phase_minvis_slice_parity(dev):
+    """MinVIS, CTVIS and Video Mask2Former at full width, fp32, exact JV
+    matcher, on 7 frames at 128x160 with window 5 (two windows, the last
+    ragged; one clip-joint forward for the clip model): the GPU (kernel B1,
+    cuDNN) against the CPU (B1's plain version) on the video's logits and
+    its (aligned) masks, same seeded weights."""
+    import torch
+
+    from dvis_plus_tpu_torch.engine.inference import _clipformer_video, _minvis_video
+
+    images = next(synthetic_videos(1, 7, 128, 160, 128, 160, SEED + 5))["images"]
+    for arch, preset in arch_presets().items():
+        cfg = preset()
+        cfg.model.compute_dtype = "float32"
+        cfg.model.tracker.matcher_solver = "jv"
+        fn = _clipformer_video if arch == "video_maskformer" else _minvis_video
+        out, launches = {}, {}
+        with torch.inference_mode():
+            for d in (dev, torch.device("cpu")):
+                reset_launches()
+                logits, masks, _ = fn(cfg, build_model(cfg, d), images, cfg.test.window_size)
+                out[d.type], launches[d.type] = (logits.float().cpu(), masks.float().cpu()), read_launches()
+        errs = {}
+        for i, name in enumerate(("logits", "masks")):
+            a, b = out["cuda"][i], out["cpu"][i]
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"non-finite {name} on the GPU ({arch})")
+            errs[name] = ((a - b).abs().max() / b.abs().max()).item()
+        expect = expected_b1(cfg, frames=7, videos=1)
+        emit({"phase": "minvis_slice_parity", "arch": arch, "input": [7, 128, 160],
+              "window": cfg.test.window_size, "masks_shape": list(out["cuda"][1].shape),
+              "rel_err": errs, "tol": SLICE_TOL, "launches": launches, "expected_launches": expect})
+        if max(errs.values()) > SLICE_TOL:
+            raise AssertionError(f"GPU {arch} path disagrees with the CPU path: {errs}")
+        if launches["cuda"] != expect or any(launches["cpu"].values()):
+            raise AssertionError(f"{arch} parity run took the wrong path: {launches}")
+
+
+def phase_arch_slice(dev, arch, phase):
+    """Full-width ``arch`` over 2 videos x 15 frames at 480x640 (output
+    720x960), bf16, at the JAX package's default eval settings: the ``runs``
+    download, the threaded pipeline, the ``auction`` matcher."""
+    cfg = arch_presets()[arch]()
+    res, rows_ok, _ = timed_slice(cfg, dev)
+    expect = expected_b1(cfg)
+    res = {"phase": phase, "meta_architecture": arch, **res, "expected_launches": expect}
+    emit(res)
+    if not (rows_ok and res["launches"] == expect):
+        raise AssertionError(f"{phase} check failed: {res}")
+    return res
+
+
+# the downloads compared by phase_download: the port's earlier post-processing
+# (packed pixels, plain loop, numpy RLE), the same with the native codec, each
+# download with and without the pipeline (runs + pipeline: the JAX defaults),
+# and the defaults with one change row a column, which sends most frames to
+# the packed fallback
+DOWNLOADS = {
+    "packed_plain_numpy_codec": dict(mask_download="packed", eval_pipeline=False),
+    "packed_plain": dict(mask_download="packed", eval_pipeline=False),
+    "packed_pipeline": dict(mask_download="packed", eval_pipeline=True),
+    "runs_plain": dict(mask_download="runs", eval_pipeline=False),
+    "runs_pipeline": dict(mask_download="runs", eval_pipeline=True),
+    "runs_pipeline_k1": dict(mask_download="runs", eval_pipeline=True, rle_col_k=1),
+}
+
+
+def download_device_ms(dev):
+    """Device time of one chunk's download pass (the slices' top-20 x 5
+    frames of stride-4 logits, 120x160 -> 720x960) by download, on logits of
+    two kinds: noise (a sign change every pixel or two) and smooth (noise at
+    6x8, upsampled: a few boundaries a column, as a trained model's masks),
+    with the frames that overflow ``rle_col_k=8``."""
+    import torch
+    import torch.nn.functional as F
+
+    from dvis_plus_tpu_torch.engine.inference import _upsample_pack, _upsample_runs
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    sizes = ((H_IN, W_IN), (H_OUT, W_OUT), (H_IN, W_IN))
+    noise = torch.randn(20, 5, H_IN // 4, W_IN // 4, generator=g)
+    smooth = F.interpolate(torch.randn(20, 5, 6, 8, generator=g), size=noise.shape[-2:], mode="bilinear")
+    out = {}
+    for name, sel in (("noise", noise.to(dev)), ("smooth", smooth.to(dev))):
+        runs = _upsample_runs(sel, *sizes, 8)
+        out[name] = {"overflow_frames_k8": int((runs[..., 8].amax(-1) > 8).sum()), "frames": 100,
+                     "packed_ms": cuda_ms(lambda: _upsample_pack(sel, *sizes), 20),
+                     "runs_ms": cuda_ms(lambda: _upsample_runs(sel, *sizes, 8), 20)}
+    return out
+
+
+def phase_download(dev):
+    """On the R50 online and the MinVIS paths (2 videos x 15 frames at
+    480x640, output 720x960, bf16): every setting of ``DOWNLOADS`` writes the
+    same results.json bytes; their ``post_s``, ``fps`` and ``model_fps``
+    side by side, a record and no claim. ``packed_plain_numpy_codec`` swaps
+    the native codec for its numpy twin for that run only. Then the device
+    time of one chunk's download pass by download."""
+    from dvis_plus_tpu_torch.config import dvis_online_r50_ytvis19, minvis_r50_ytvis19
+    from dvis_plus_tpu_torch.utils import rle, rle_numpy
+
+    for path, preset in (("slice", dvis_online_r50_ytvis19), ("minvis_slice", minvis_r50_ytvis19)):
+        model = build_model(preset(), dev)
+        runs, outputs = {}, {}
+        for name, test in DOWNLOADS.items():
+            cfg = preset()
+            for k, v in test.items():
+                setattr(cfg.test, k, v)
+            native = rle.encode_packed
+            if name.endswith("numpy_codec"):
+                rle.encode_packed = rle_numpy.encode_packed
+            try:
+                res, rows_ok, outputs[name] = timed_slice(cfg, dev, model=model)
+            finally:
+                rle.encode_packed = native
+            if not rows_ok:
+                raise AssertionError(f"download {name} on {path}: malformed rows")
+            runs[name] = {k: res[k] for k in ("post_s", "rows_s", "fps", "model_fps", "wall_s",
+                                              "fallback_frames", "masks", "results_json_bytes")}
+        equal = {name: out == outputs["packed_plain"] for name, out in outputs.items()}
+        emit({"phase": "download", "path": path, "runs": runs, "same_bytes_as_packed_plain": equal})
+        if not all(equal.values()):
+            raise AssertionError(f"downloads disagree on {path}: {equal}")
+    emit({"phase": "download", "device_ms_a_chunk": download_device_ms(dev)})
 
 
 def phase_profile(dev, name):
@@ -1030,6 +1205,10 @@ def main() -> int:
     swinl = phase_swinl_slice(dev)
     phase_vitl_slice_parity(dev)
     vitl = phase_vitl_slice(dev)
+    phase_minvis_slice_parity(dev)
+    minvis = phase_arch_slice(dev, "minvis", "minvis_slice")
+    clip = phase_arch_slice(dev, "video_maskformer", "clip_slice")
+    phase_download(dev)
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
     # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2
@@ -1060,7 +1239,8 @@ def main() -> int:
     b3_shapes = {f"B{f['B']}_L{f['L']}": f for f in b3
                  if f["dtype"] == "bfloat16" and f["layout"] == "fused_qkv_views"}
     b3_main = b3_shapes["B5_L3681"]
-    paths = {"slice": runs["exact"], "swinl_slice": swinl, "vitl_slice": vitl}
+    paths = {"slice": runs["exact"], "swinl_slice": swinl, "vitl_slice": vitl,
+             "minvis_slice": minvis, "clip_slice": clip}
 
     def by_path(kernel):
         return {name: r["launches"][kernel] for name, r in paths.items()}

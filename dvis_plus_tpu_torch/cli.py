@@ -5,10 +5,11 @@
         --config-file configs/dvis/dvis_online_r50_ytvis19.yaml --eval-only \\
         [--device cuda|cpu] [weights=<state_dict .pth/.npz>] [key.path=value ...]
 
-(``configs/dvis/dvis_offline_swinl_ytvis19.yaml`` and
-``configs/dvis/dvis_offline_vitl_ytvis19.yaml`` run the offline Swin-L and
-ViT-L models the same way; ``model.meta_architecture`` picks ``DVISOnline``
-or ``DVISOffline``.)
+(``configs/dvis/dvis_offline_{swinl,vitl}_ytvis19.yaml``,
+``configs/dvis/{minvis,ctvis}_*_ytvis19.yaml`` and
+``configs/dvis/video_maskformer_r50_ytvis19.yaml`` run the same way;
+``model.meta_architecture`` picks ``DVISOnline``, ``DVISOffline``, the bare
+``Segmenter`` (``minvis``, ``ctvis``) or ``VideoMaskFormer``.)
 
 Loads the configuration (``config.load_config``) and the video datasets
 (``data.catalog``, ``data.datasets.ytvis``, ``data.mapper``) with the port's
@@ -52,6 +53,19 @@ def load_weights(model: torch.nn.Module, path: str) -> None:
                        path, len(missing), len(unexpected))
 
 
+def build_model(model_cfg) -> torch.nn.Module:
+    """The port's module for ``model_cfg.meta_architecture`` (the JAX
+    package's ``train_net_video.py::build_model``), randomly initialized."""
+    from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline
+    from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
+    from dvis_plus_tpu_torch.models.meta.video_maskformer import VideoMaskFormer
+    from dvis_plus_tpu_torch.models.segmenter.segmenter import Segmenter
+
+    archs = {"minvis": Segmenter, "ctvis": Segmenter, "video_maskformer": VideoMaskFormer,
+             "dvis_online": DVISOnline, "dvis_offline": DVISOffline}
+    return archs[model_cfg.meta_architecture](model_cfg)
+
+
 def _score(md, rows):
     from dvis_plus_tpu_torch.evaluation.ytvos_eval import evaluate_vis
 
@@ -73,9 +87,6 @@ def main(argv=None) -> dict:
     from dvis_plus_tpu_torch.data.mapper import YTVISDatasetMapper
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
     from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
-    from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline
-    from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
-
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config-file", required=True)
     parser.add_argument("--eval-only", action="store_true", required=True,
@@ -93,7 +104,7 @@ def main(argv=None) -> dict:
         raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
     dev = torch.device(args.device)
     torch.manual_seed(cfg.seed)
-    model = {"dvis_online": DVISOnline, "dvis_offline": DVISOffline}[cfg.model.meta_architecture](cfg.model)
+    model = build_model(cfg.model)
     if cfg.weights:
         load_weights(model, cfg.weights)
     model = model.to(dev).eval()

@@ -14,6 +14,9 @@ does: a setting it cannot honour raises ``NotImplementedError`` (the CLI and
 ``run_vis_inference`` call it), so no entry point gives way silently.
 
 The presets hold the values ``load_config`` resolves for their YAML:
+``configs/dvis/minvis_r50_ytvis19.yaml`` (base_video),
+``configs/dvis/ctvis_r50_ytvis19.yaml`` (minvis -> base_video),
+``configs/dvis/video_maskformer_r50_ytvis19.yaml`` (base_video),
 ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (ctvis -> minvis ->
 base_video), ``configs/dvis/dvis_offline_swinl_ytvis19.yaml``
 (dvis_online_swinl -> dvis_online_r50 -> ...) and
@@ -137,6 +140,9 @@ class TestConfig:
     window_size: int = 5
     max_num: int = 20
     offline_mf_budget_gb: float = 4.0
+    eval_pipeline: bool = True  # post-processing on a worker thread, loader prefetched
+    mask_download: str = "runs"  # runs | packed (engine/inference.py::paged_inference_video)
+    rle_col_k: int = 8  # per-column change capacity of the runs download
 
 
 @dataclass
@@ -148,8 +154,6 @@ class Config:
     output_dir: str = "./output"
     seed: int = 42
     weights: str = ""  # state dict to load (.npz or a torch checkpoint)
-    # dotted paths of the keys a YAML chain or an override set (load_config)
-    explicit_keys: Tuple[str, ...] = ()
 
 
 # ---------------------------------------------------------------------------
@@ -230,12 +234,9 @@ def load_config(path: Optional[str] = None, overrides: Optional[List[str]] = Non
     import yaml
 
     cfg = Config()
-    explicit = []
     if path:
-        data = _load_yaml_chain(path)
-        for k, v in data.items():
+        for k, v in _load_yaml_chain(path).items():
             _set(cfg, k.lower(), v)
-        explicit += _leaf_paths(data)
     for ov in overrides or []:
         if "=" not in ov:
             raise ValueError(f"Override must be key.path=value, got: {ov}")
@@ -251,17 +252,7 @@ def load_config(path: Optional[str] = None, overrides: Optional[List[str]] = Non
                 setattr(node, p, SimpleNamespace())
             node = getattr(node, p)
         _set(node, leaf, parsed)
-        explicit.append(key.strip().lower())
-    cfg.explicit_keys = tuple(dict.fromkeys(explicit))
     return cfg
-
-
-def _leaf_paths(data: Dict[str, Any], prefix: str = "") -> List[str]:
-    out = []
-    for k, v in data.items():
-        path = f"{prefix}{k.lower()}"
-        out += _leaf_paths(v, path + ".") if isinstance(v, dict) else [path]
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -278,16 +269,16 @@ def _all_video_instance(types) -> bool:
 
 
 # (key path, the values the port honours (a tuple, or a predicate), the
-# ROADMAP item that lifts the limit[, the JAX package's default where that
-# default names a path the port lacks but whose results are the same]).
-# One place to shrink as later slices land. A key that is absent is at the
+# ROADMAP item that lifts the limit). One place to shrink as later slices
+# land. A key that is absent is at the
 # JAX package's default, which every row honours. Keys that cannot change an
 # eval result (``solver.*``, the training input and datasets, the criterion,
 # ``parallel.*``, profiling and compile-cache directories) are not listed and
 # stay ignored.
 SUPPORTED = (
-    ("model.meta_architecture", ("dvis_online", "dvis_offline"),
-     "A7 (minvis, ctvis), A11 (maskformer, video_maskformer), A12 (daq_*)"),
+    ("model.meta_architecture",
+     ("dvis_online", "dvis_offline", "minvis", "ctvis", "video_maskformer"),
+     "A11 (maskformer), A12 (daq_*)"),
     ("model.backbone.name", _ported_backbone, "A13 (the CLIP trunks)"),
     ("model.backbone.swin_fast_softmax", (False,), "queue A, small pieces left open (bf16 scores)"),
     ("model.sem_seg_head", ("mask_former",), "A13 (fcclip)"),
@@ -297,12 +288,6 @@ SUPPORTED = (
     ("datasets.dataset_type_test", _all_video_instance, "A11 (panoptic, semantic), A12 (sot)"),
     ("test.refiner_shard_devices", (0, 1), "A15 (the object-sharded refiner pass)"),
     ("test.eval_devices", (1,), "A15 (video-parallel eval)"),
-    # ``runs`` and ``packed`` write the same results.json bytes, and the
-    # threaded pipeline the same rows as the plain loop: left at the JAX
-    # default they pass (the port serves them through its packed download and
-    # its plain loop); asked for by name in a YAML or an override they raise
-    ("test.mask_download", ("packed",), "A6 (the runs download)", "runs"),
-    ("test.eval_pipeline", (False,), "A6 (the threaded eval pipeline)", True),
 )
 
 _ABSENT = object()
@@ -321,15 +306,12 @@ def check_supported(cfg: Any) -> None:
     asks for something the port does not do (:data:`SUPPORTED`), with the
     value and the ROADMAP item that will lift the limit. ``cfg`` is a
     :class:`Config` or any object with the same attribute paths."""
-    explicit = getattr(cfg, "explicit_keys", ())
     faults = []
-    for key, honours, item, *inherited in SUPPORTED:
+    for key, honours, item in SUPPORTED:
         value = _lookup(cfg, key)
         if value is _ABSENT:
             continue
         if honours(value) if callable(honours) else value in honours:
-            continue
-        if inherited and value == inherited[0] and key not in explicit:
             continue
         faults.append(f"{key}={value!r} is not ported (ROADMAP {item})")
     if faults:
@@ -341,11 +323,33 @@ def check_supported(cfg: Any) -> None:
 # ---------------------------------------------------------------------------
 
 
+def minvis_r50_ytvis19() -> Config:
+    """MinVIS, ResNet-50, YouTube-VIS 2019 (40 classes): the bare segmenter,
+    its queries aligned frame to frame after the forward."""
+    return Config()
+
+
+def ctvis_r50_ytvis19() -> Config:
+    """CTVIS, ResNet-50, YouTube-VIS 2019: MinVIS with the ReID branch (the
+    embeddings it aligns are concat(decoder-normed, ReID MLP))."""
+    cfg = minvis_r50_ytvis19()
+    cfg.model.meta_architecture = "ctvis"
+    cfg.model.transformer_decoder.reid_branch = True
+    return cfg
+
+
+def video_maskformer_r50_ytvis19() -> Config:
+    """Video Mask2Former, ResNet-50, YouTube-VIS 2019: one clip-joint
+    forward over the whole video."""
+    cfg = Config()
+    cfg.model.meta_architecture = "video_maskformer"
+    return cfg
+
+
 def dvis_online_r50_ytvis19() -> Config:
     """DVIS++ online, ResNet-50, YouTube-VIS 2019 (40 classes)."""
-    cfg = Config()
+    cfg = ctvis_r50_ytvis19()
     cfg.model.meta_architecture = "dvis_online"
-    cfg.model.transformer_decoder.reid_branch = True
     return cfg
 
 

@@ -1,8 +1,14 @@
-"""JAX ``DVISOnline`` / ``DVISOffline`` parameter tree -> the port's
-``state_dict``.
+"""JAX parameter trees of the VIS models -> the port's ``state_dict``.
 
-Counterpart: the Flax trees of ``dvis_plus_tpu/models/meta/dvis_online.py::
-DVISOnline`` (:40, ``{"segmenter", "tracker"}``) and
+Counterpart: the Flax trees of ``dvis_plus_tpu/models/segmenter/segmenter.py::
+Segmenter`` (:41, the MinVIS and CTVIS model: ``{"backbone",
+"pixel_decoder", "transformer_decoder"}``, with ``reid_embed`` for CTVIS),
+``dvis_plus_tpu/models/meta/video_maskformer.py::VideoMaskFormer`` (:29, the
+same three with the clip decoder's ``level_embed`` / ``query_feat`` /
+``query_embed`` / ``input_proj_i`` / ``cross_i`` / ``self_i`` / ``ffn_i`` /
+heads under ``transformer_decoder``),
+``dvis_plus_tpu/models/meta/dvis_online.py::DVISOnline`` (:40,
+``{"segmenter", "tracker"}``) and
 ``dvis_plus_tpu/models/meta/dvis_offline.py::DVISOffline`` (:46,
 ``{"online": {"segmenter", "tracker"}, "refiner"}``), with a ResNet, Swin or
 ViT-Adapter backbone. The port's parameters carry the reference checkpoints' names, so
@@ -284,14 +290,15 @@ def _refiner(p, out: Dict[str, np.ndarray]) -> None:
 
 
 def state_dict_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
-    """JAX ``DVISOnline`` or ``DVISOffline`` params (``{"params": ...}`` or
-    the bare tree, numpy leaves) -> a ``state_dict`` for the port's
-    ``DVISOnline`` / ``DVISOffline``. ``cfg`` is accepted for symmetry with
-    the zoo converter; the tree itself carries every shape."""
+    """JAX ``Segmenter``, ``VideoMaskFormer``, ``DVISOnline`` or
+    ``DVISOffline`` params (``{"params": ...}`` or the bare tree, numpy
+    leaves) -> a ``state_dict`` for the port's model of the same name.
+    ``cfg`` is accepted for symmetry with the zoo converter; the tree itself
+    carries every shape."""
     p = params.get("params", params)
     out: Dict[str, np.ndarray] = {}
     online = p.get("online", p)
-    seg = online["segmenter"]
+    seg = online.get("segmenter", online)  # a bare segmenter or clip model tree
     if "patch_embed" in seg["backbone"]:
         _swin_backbone(seg["backbone"], out)
     elif "vit" in seg["backbone"]:
@@ -300,7 +307,8 @@ def state_dict_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
         _backbone(seg["backbone"], out)
     _pixel_decoder(seg["pixel_decoder"], out)
     _predictor(seg["transformer_decoder"], out)
-    _tracker(online["tracker"], out)
+    if "tracker" in online:
+        _tracker(online["tracker"], out)
     if "refiner" in p:
         _refiner(p["refiner"], out)
     return {

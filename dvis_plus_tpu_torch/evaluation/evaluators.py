@@ -27,8 +27,9 @@ class YTVISEvaluator:
 
     def process(self, video_id: int, output: dict) -> None:
         """output: {"pred_scores": [..], "pred_labels": [..], "pred_masks":
-        a bit-packed ``PackedMasks`` or N x (T, H, W) bool}; one row per
-        instance, one COCO RLE (or None when empty) per frame."""
+        a container with ``encode_frame`` / ``frame_any`` (``PackedMasks``,
+        ``ColRunMasks``) or N x (T, H, W) bool}; one row per instance, one
+        COCO RLE (or None when empty) per frame."""
         masks_in = output["pred_masks"]
         packed = hasattr(masks_in, "encode_frame")
         for i, (score, label) in enumerate(zip(output["pred_scores"], output["pred_labels"])):

@@ -21,11 +21,13 @@ import torch.nn as nn
 from dvis_plus_tpu_torch.models.backbones.resnet import resnet50, resnet101
 from dvis_plus_tpu_torch.models.backbones.swin import build_swin
 from dvis_plus_tpu_torch.models.backbones.vit_adapter import build_vit_adapter
+from dvis_plus_tpu_torch.models.segmenter.clip_decoder import ClipMaskedTransformerDecoder
 from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import (
     MSDeformAttnPixelDecoder,
     dtype_of,
 )
 from dvis_plus_tpu_torch.models.segmenter.transformer_decoder import MaskedTransformerDecoder
+
 
 def build_backbone(cfg) -> nn.Module:
     """cfg: a model config (``cfg.model`` of either config kind). The module
@@ -43,9 +45,12 @@ def build_backbone(cfg) -> nn.Module:
 
 
 class MaskFormerHead(nn.Module):
-    """Container for the reference ``sem_seg_head`` key group."""
+    """Container for the reference ``sem_seg_head`` key group. ``clip``: the
+    clip-joint query decoder of Video Mask2Former, whose pixel decoder the
+    JAX ``VideoMaskFormer`` builds without the ``msdeform_impl`` knob, so it
+    is always the exact form there."""
 
-    def __init__(self, cfg, in_channels: Dict[str, int]):
+    def __init__(self, cfg, in_channels: Dict[str, int], clip: bool = False):
         super().__init__()
         pd, td = cfg.pixel_decoder, cfg.transformer_decoder
         self.pixel_decoder = MSDeformAttnPixelDecoder(
@@ -59,9 +64,9 @@ class MaskFormerHead(nn.Module):
             transformer_in_features=tuple(pd.transformer_in_features),
             value_dtype=pd.msdeform_value_dtype,
             island_dtype=pd.island_dtype,
-            impl=pd.msdeform_impl,
+            impl="exact" if clip else pd.msdeform_impl,
         )
-        self.predictor = MaskedTransformerDecoder(
+        widths = dict(
             num_classes=cfg.num_classes,
             in_channels=pd.conv_dim,
             hidden_dim=td.hidden_dim,
@@ -70,9 +75,12 @@ class MaskFormerHead(nn.Module):
             dim_feedforward=td.dim_feedforward,
             num_layers=td.dec_layers,
             mask_dim=td.mask_dim,
-            reid_branch=td.reid_branch,
-            reid_hidden_dim=td.reid_hidden_dim,
         )
+        if clip:
+            self.predictor = ClipMaskedTransformerDecoder(**widths)
+        else:
+            self.predictor = MaskedTransformerDecoder(
+                **widths, reid_branch=td.reid_branch, reid_hidden_dim=td.reid_hidden_dim)
 
 
 class Segmenter(nn.Module):

@@ -8,6 +8,8 @@ the sampling offsets give generic sampling locations). The same weights
 load into the port through ``dvis_plus_tpu_torch.convert.state_dict_from_jax``.
 """
 import functools
+import os
+import sys
 
 import numpy as np
 import torch
@@ -191,3 +193,150 @@ def images(T: int, seed: int = 1) -> np.ndarray:
 
 def nchw(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, -3)))
+
+
+def tiny_minvis_cfg(arch: str = "minvis") -> Config:
+    """MinVIS (or CTVIS, with the ReID branch) at the tiny widths: the bare
+    segmenter with the exact JV matcher."""
+    cfg = tiny_cfg()
+    cfg.model.meta_architecture = arch
+    cfg.model.transformer_decoder.reid_branch = arch == "ctvis"
+    return cfg
+
+
+@functools.cache
+def jax_minvis_model_and_params(arch: str = "minvis"):
+    """(cfg, flax Segmenter, seeded numpy params) for tiny MinVIS / CTVIS."""
+    from dvis_plus_tpu.models.segmenter.segmenter import Segmenter
+
+    cfg = tiny_minvis_cfg(arch)
+    model = Segmenter(cfg.model)
+    shapes = jax.eval_shape(model.init, jax.random.key(0), jnp.zeros((2, H_IN, W_IN, 3), jnp.float32))
+    return cfg, model, random_params(shapes, seed=5)
+
+
+@functools.cache
+def jax_clip_model_and_params():
+    """(cfg, flax VideoMaskFormer, seeded numpy params) at the tiny widths."""
+    from dvis_plus_tpu.models.meta.video_maskformer import VideoMaskFormer
+
+    cfg = tiny_minvis_cfg("video_maskformer")
+    model = VideoMaskFormer(cfg.model)
+    shapes = jax.eval_shape(
+        model.init, jax.random.key(0), jnp.zeros((1, 2, H_IN, W_IN, 3), jnp.float32)
+    )
+    return cfg, model, random_params(shapes, seed=6)
+
+
+def port_arch_model(cfg, params):
+    """The port's model for ``cfg.model.meta_architecture`` (the CLI's
+    ``build_model``) with the JAX params loaded (strict)."""
+    from dvis_plus_tpu_torch.cli import build_model
+    from dvis_plus_tpu_torch.convert import state_dict_from_jax
+
+    model = build_model(cfg.model)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    return model.eval()
+
+
+# The CLIs end to end: ``train_net_video.py --eval-only`` and the port's
+# ``python -m dvis_plus_tpu_torch.cli --eval-only --device cpu`` on the
+# synthetic YouTube-VIS set, the same seeded weights on both sides (an orbax
+# checkpoint of the JAX tree for the JAX CLI, its conversion as ``.npz`` for
+# the port). Two videos of 8 frames at 64x96, resized to 48x72 and padded
+# back to 64x96; window 4, so MinVIS aligns across two windows and the JAX
+# loop's clip bucket holds exactly the 8 frames.
+E2E_TINY = [
+    "model.compute_dtype=float32",
+    "model.pixel_decoder.conv_dim=32", "model.pixel_decoder.mask_dim=32",
+    "model.pixel_decoder.transformer_enc_layers=1",
+    "model.pixel_decoder.transformer_dim_feedforward=64",
+    "model.transformer_decoder.hidden_dim=32", "model.transformer_decoder.num_queries=8",
+    "model.transformer_decoder.nheads=4", "model.transformer_decoder.dim_feedforward=64",
+    "model.transformer_decoder.dec_layers=2", "model.transformer_decoder.mask_dim=32",
+    "model.transformer_decoder.reid_hidden_dim=32",
+    "input.min_size_test=48", "input.max_size_test=80",
+    "test.window_size=4", "test.max_num=5", "datasets.test=[ytvis_2019_val]",
+]
+E2E_SETTINGS = {"defaults": [], "packed_plain": ["test.mask_download=packed",
+                                                "test.eval_pipeline=false"]}
+
+
+def e2e_weights(arch: str, root: str):
+    """Seeded random weights for the tiny ``arch`` of the configuration the
+    CLIs load: (orbax checkpoint directory, ``.npz`` state dict)."""
+    import orbax.checkpoint as ocp
+
+    from dvis_plus_tpu.core.config import load_config
+    from dvis_plus_tpu_torch.convert import state_dict_from_jax
+    from train_net_video import build_model
+
+    cfg = load_config(f"configs/dvis/{arch}_r50_ytvis19.yaml", E2E_TINY)
+    model = build_model(cfg)
+    x = jnp.zeros((2, H_IN, W_IN, 3), jnp.float32)
+    shapes = jax.eval_shape(model.init, jax.random.key(0), x if arch != "video_maskformer" else x[None])
+    params = {"params": random_params(shapes["params"], seed=11)}
+    ckpt = os.path.join(root, f"{arch}_orbax")
+    ocp.PyTreeCheckpointer().save(ckpt, params)
+    npz = os.path.join(root, f"{arch}.npz")
+    np.savez(npz, **{k: v.numpy() for k, v in state_dict_from_jax(params).items()})
+    return ckpt, npz
+
+
+def e2e_rows(arch: str, tmp: str, setting: str):
+    """results.json rows of the JAX CLI and of the port's CLI for ``arch``
+    under ``setting`` (a key of ``E2E_SETTINGS``). ``tmp`` may be shared by
+    the settings of one architecture: the data set, the weights and the JAX
+    compile cache are made once there."""
+    import json
+    import subprocess
+
+    from dvis_plus_tpu.data.datasets.categories import YTVIS_2019_CLASSES
+    from dvis_plus_tpu_torch import cli
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(repo, "tools"))
+    from synth_data import make_ytvis
+
+    data = os.path.join(tmp, "data")
+    if not os.path.isdir(data):
+        make_ytvis(data, "ytvis_2019", YTVIS_2019_CLASSES, n_videos=2, length=8)
+    ckpt, npz = os.path.join(tmp, f"{arch}_orbax"), os.path.join(tmp, f"{arch}.npz")
+    if not os.path.exists(npz):
+        e2e_weights(arch, tmp)
+    yaml = f"configs/dvis/{arch}_r50_ytvis19.yaml"
+    opts = E2E_TINY + E2E_SETTINGS[setting]
+    env = dict(os.environ, DVIS_DATASETS=data, JAX_PLATFORMS="cpu", PYTHONPATH=repo,
+               DVIS_COMPILE_CACHE_DIR=os.path.join(tmp, "jax_cache"))
+    env.pop("XLA_FLAGS", None)
+    jax_out = os.path.join(tmp, f"jax_{setting}")
+    res = subprocess.run(
+        [sys.executable, "train_net_video.py", "--config-file", yaml, "--eval-only", *opts,
+         f"weights={ckpt}", f"output_dir={jax_out}"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    old = os.environ.get("DVIS_DATASETS")
+    os.environ["DVIS_DATASETS"] = data
+    try:
+        port = cli.main(["--config-file", yaml, "--eval-only", "--device", "cpu", *opts,
+                         f"weights={npz}", f"output_dir={os.path.join(tmp, 'port_' + setting)}"])
+    finally:
+        if old is None:
+            del os.environ["DVIS_DATASETS"]
+        else:
+            os.environ["DVIS_DATASETS"] = old
+    with open(port["ytvis_2019_val"]["results_json"]) as f:
+        got = json.load(f)
+    with open(os.path.join(jax_out, "inference", "ytvis_2019_val", "results.json")) as f:
+        want = json.load(f)
+    return got, want
+
+
+def assert_rows_equal(got, want, score_rtol: float = 1e-4):
+    """Row for row: video ids, categories and RLE strings equal, scores
+    within ``score_rtol``."""
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert (g["video_id"], g["category_id"]) == (w["video_id"], w["category_id"])
+        assert g["segmentations"] == w["segmentations"]
+        assert abs(g["score"] - w["score"]) <= score_rtol * abs(w["score"])

@@ -13,9 +13,12 @@ import pytest
 from dvis_plus_tpu.core.config import load_config
 from dvis_plus_tpu_torch import config as port_config
 from dvis_plus_tpu_torch.config import (
+    ctvis_r50_ytvis19,
     dvis_offline_swinl_ytvis19,
     dvis_offline_vitl_ytvis19,
     dvis_online_r50_ytvis19,
+    minvis_r50_ytvis19,
+    video_maskformer_r50_ytvis19,
 )
 
 YAML = "configs/dvis/dvis_online_r50_ytvis19.yaml"
@@ -63,6 +66,13 @@ def test_swinl_offline_preset_matches_yaml(group):
 def test_vitl_offline_preset_matches_yaml(group):
     want = _get(load_config("configs/dvis/dvis_offline_vitl_ytvis19.yaml"), group)
     _assert_fields_equal(_get(dvis_offline_vitl_ytvis19(), group), want, group)
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("preset", [minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19])
+def test_minvis_ctvis_clip_presets_match_yaml(preset, group):
+    want = _get(load_config(f"configs/dvis/{preset.__name__}.yaml"), group)
+    _assert_fields_equal(_get(preset(), group), want, group)
 
 
 OVERRIDES = [
@@ -115,7 +125,8 @@ def _expected_fault(cfg):
     """The first key that puts a YAML outside the ported slices, from the
     JAX package's own reading of it; None where the port runs it."""
     m = cfg.model
-    if m.meta_architecture not in ("dvis_online", "dvis_offline"):
+    if m.meta_architecture not in ("dvis_online", "dvis_offline", "minvis", "ctvis",
+                                   "video_maskformer"):
         return "model.meta_architecture"
     if m.backbone.name.startswith("clip"):
         return "model.backbone.name"
@@ -129,8 +140,9 @@ def _expected_fault(cfg):
 @pytest.mark.parametrize("yaml_name", ALL_YAMLS)
 def test_every_yaml_loads_and_is_run_or_refused(yaml_name):
     """Every YAML of the repository loads; the port runs it exactly when the
-    JAX package's reading of it stays inside the ported slices (DVIS++ online
-    and offline VIS on ResNet, Swin and ViT-Adapter backbones), and otherwise
+    JAX package's reading of it stays inside the ported slices (VIS with
+    DVIS++ online and offline, MinVIS, CTVIS and Video Mask2Former on
+    ResNet, Swin and ViT-Adapter backbones), and otherwise
     raises with the offending key in the message."""
     path = os.path.join("configs", yaml_name)
     cfg = port_config.load_config(path)
@@ -164,6 +176,16 @@ SLICE_CASES = [
     # keys that cannot change an eval result stay ignored
     ("dvis/dvis_online_r50_ytvis19.yaml", ["solver.max_iter=3", "parallel.model_parallel_size=2",
                                           "input.sampling_frame_num=3", "datasets.train=[ovis_train]"]),
+    ("dvis/minvis_r50_ytvis19.yaml", []),
+    ("dvis/ctvis_r50_ytvis19.yaml", []),
+    ("dvis/video_maskformer_r50_ytvis19.yaml", []),
+    ("dvis/minvis_vitl_ytvis19.yaml", ["model.tracker.matcher_solver=jv"]),
+    ("dvis/ctvis_r50_ovis.yaml", []),
+    # the JAX defaults asked for by name: the runs download and the pipeline
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.mask_download=runs", "test.eval_pipeline=true",
+                                          "test.rle_col_k=1"]),
+    ("dvis/video_maskformer_r50_ytvis19.yaml", ["test.mask_download=packed",
+                                               "test.eval_pipeline=false"]),
 ]
 
 
@@ -179,9 +201,9 @@ REFUSED_CASES = [
     ("daq/daq_vos_r50_ytvos.yaml", [], "test.task"),  # VOS
     ("ov/ov_online_r50_zeroshot_ytvis19.yaml", [], "model.ov.enabled"),  # OV
     ("ov/ov_online_r50_zeroshot_ytvis19.yaml", [], "model.backbone.name"),
-    ("dvis/minvis_r50_ytvis19.yaml", [], "model.meta_architecture"),
-    ("dvis/ctvis_r50_ytvis19.yaml", [], "model.meta_architecture"),
-    ("dvis/video_maskformer_r50_ytvis19.yaml", [], "model.meta_architecture"),
+    ("dvis/minvis_r50_vipseg.yaml", [], "test.task"),  # MinVIS VPS
+    ("dvis/ctvis_r50_vspw.yaml", [], "test.task"),  # CTVIS VSS
+    ("dvis/maskformer_r50_coco.yaml", [], "model.meta_architecture"),  # image Mask2Former
     ("dvis/dvis_online_r50_vipseg.yaml", [], "datasets.dataset_type_test"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["test.refiner_shard_devices=2"], "test.refiner_shard_devices"),
@@ -193,10 +215,10 @@ REFUSED_CASES = [
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.backbone.name=clip_rn50"], "model.backbone.name"),
     ("dvis/dvis_offline_swinl_ytvis19.yaml", ["model.backbone.swin_fast_softmax=true"],
      "model.backbone.swin_fast_softmax"),
-    # asked for by name: a path the port lacks, though its bytes would be the same
-    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.mask_download=runs"], "test.mask_download"),
-    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_pipeline=true"], "test.eval_pipeline"),
-    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.mask_download=raw"], "test.mask_download"),
+    # the limits hold for the MinVIS, CTVIS and Video Mask2Former slices too
+    ("dvis/minvis_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
+    ("dvis/video_maskformer_r50_ytvis19.yaml", ["test.eval_devices=2"], "test.eval_devices"),
+    ("dvis/ctvis_r50_ytvis19.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
 ]
 
 
@@ -219,28 +241,22 @@ def test_check_names_every_fault_at_once():
 
 def test_inherited_jax_defaults_pass_and_presets_pass():
     """The JAX package's own Config (``test.mask_download='runs'``,
-    ``test.eval_pipeline=True`` by default) passes where nothing asked for
-    them by name: the parity tests hand such a config to ``run_vis_inference``.
-    The YAML-free presets pass too."""
+    ``test.eval_pipeline=True`` by default, the port's defaults too) passes:
+    the parity tests hand such a config to ``run_vis_inference``. The
+    YAML-free presets pass too."""
     jax_cfg = load_config(YAML)
     assert jax_cfg.test.mask_download == "runs" and jax_cfg.test.eval_pipeline is True
     port_config.check_supported(jax_cfg)
     jax_cfg.test.task = "vps"
     with pytest.raises(NotImplementedError, match=r"test\.task"):
         port_config.check_supported(jax_cfg)
-    for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19):
+    for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
+                   minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19):
         port_config.check_supported(preset())
 
 
-def test_load_config_records_what_was_set_by_name():
-    cfg = port_config.load_config(YAML, ["test.mask_download=packed", "seed=3"])
-    assert "test.mask_download" in cfg.explicit_keys and "seed" in cfg.explicit_keys
-    assert "model.meta_architecture" in cfg.explicit_keys  # from the YAML chain
-    assert "test.eval_pipeline" not in cfg.explicit_keys
-
-
 @pytest.mark.parametrize("key,value", [("test.task", "vps"), ("model.pixel_decoder.name", "fpn"),
-                                       ("model.meta_architecture", "minvis")])
+                                       ("model.meta_architecture", "daq_online")])
 def test_run_vis_inference_refuses_before_it_reads_a_video(key, value):
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
 
@@ -260,6 +276,6 @@ def test_cli_refuses_an_unported_setting(tmp_path):
     with pytest.raises(NotImplementedError, match=r"test\.task='vps'"):
         cli.main(["--config-file", "configs/dvis/dvis_online_r50_vipseg.yaml", "--eval-only",
                   "--device", "cpu", f"output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match=r"model\.meta_architecture='minvis'"):
-        cli.main(["--config-file", "configs/dvis/minvis_r50_ytvis19.yaml", "--eval-only",
+    with pytest.raises(NotImplementedError, match=r"model\.meta_architecture='daq_online'"):
+        cli.main(["--config-file", "configs/daq/daq_online_r50_ytvis19.yaml", "--eval-only",
                   "--device", "cpu", f"output_dir={tmp_path}"])

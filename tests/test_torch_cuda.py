@@ -452,3 +452,124 @@ def test_flash_attn_wrapper_raises_instead_of_falling_back(cuda_device):
     want = flash_attn.attention_torch(qs, ks, vs, -0.05)
     assert flash_attn.launches == 1
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# MinVIS, CTVIS, Video Mask2Former and the runs download on the card
+# ---------------------------------------------------------------------------
+
+
+def _tiny_arch(arch, compute_dtype="float32"):
+    """A tiny preset of ``arch`` (the port's presets with small widths)."""
+    from dvis_plus_tpu_torch import config
+
+    cfg = getattr(config, f"{arch}_r50_ytvis19")()
+    m = cfg.model
+    m.compute_dtype = compute_dtype
+    m.pixel_decoder.conv_dim = m.pixel_decoder.mask_dim = 32
+    m.pixel_decoder.transformer_enc_layers = 2
+    m.pixel_decoder.transformer_dim_feedforward = 64
+    td = m.transformer_decoder
+    td.hidden_dim = td.mask_dim = 32
+    td.num_queries, td.nheads, td.dim_feedforward, td.dec_layers = 8, 4, 64, 2
+    td.reid_hidden_dim = 32
+    m.tracker.num_layers, m.tracker.feedforward_dim, m.tracker.matcher_solver = 1, 64, "jv"
+    cfg.test.window_size = 3
+    return cfg
+
+
+def _arch_models(cfg, dev):
+    from dvis_plus_tpu_torch.cli import build_model
+
+    torch.manual_seed(0)
+    cpu = build_model(cfg.model).eval()
+    card = build_model(cfg.model).eval()
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minvis", "ctvis", "video_maskformer"])
+def test_minvis_and_clip_paths_on_the_card_match_the_cpu(cuda_device, arch):
+    """7 frames at 64x96 in windows of 3 (one clip-joint forward for the
+    clip model): logits and (aligned) masks on the card (B1, cuDNN) against
+    the CPU (B1's plain version), fp32, rel <= 1e-3; B1 ran on the card only."""
+    from dvis_plus_tpu_torch.engine.inference import _clipformer_video, _minvis_video
+
+    cfg = _tiny_arch(arch)
+    fn = _clipformer_video if arch == "video_maskformer" else _minvis_video
+    x = np.random.RandomState(1).randn(7, 64, 96, 3).astype(np.float32)
+    cpu, card = _arch_models(cfg, cuda_device)
+    with torch.inference_mode():
+        msdeform.reset_launches()
+        want = fn(cfg, cpu, x, 3)
+        assert msdeform.launches == 0
+        got = fn(cfg, card, x, 3)
+        torch.cuda.synchronize()
+    assert msdeform.launches == 2 * (1 if arch == "video_maskformer" else 3)
+    for g, w in zip(got[:2], want[:2]):
+        assert g.is_cuda and g.shape == w.shape
+        assert _rel(g.cpu(), w) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_col", [8, 1])
+def test_runs_download_equals_packed_on_the_card(cuda_device, k_col):
+    from dvis_plus_tpu_torch.engine.inference import paged_inference_video
+
+    rng = np.random.RandomState(2)
+    coarse = torch.from_numpy(rng.randn(40, 9, 6, 8).astype(np.float32))
+    masks = torch.nn.functional.interpolate(coarse, size=(120, 160), mode="bilinear").to(cuda_device)
+    logits = torch.from_numpy(rng.randn(40, 41).astype(np.float32)).to(cuda_device)
+    kw = dict(img_size=(480, 620), output_size=(720, 930), padded_size=(480, 640), topk=20, chunk=4)
+    _, _, pk = paged_inference_video(logits, masks, download="packed", **kw)
+    _, _, cr = paged_inference_video(logits, masks, download="runs", k_col=k_col, **kw)
+    frames = [(i, t) for i in range(20) for t in range(9)]
+    assert [cr.frame_any(*f) for f in frames] == [pk.frame_any(*f) for f in frames]
+    assert all(cr.encode_frame(*f) == pk.encode_frame(*f) for f in frames if pk.frame_any(*f))
+    assert (len(cr.fallback) < len(frames) // 2) if k_col == 8 else cr.fallback
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minvis", "video_maskformer"])
+def test_pipeline_and_runs_write_the_plain_loops_bytes_on_the_card(cuda_device, arch, tmp_path):
+    """The threaded pipeline (its worker enters the card's device itself)
+    and the runs download write the bytes of the plain loop's packed
+    download."""
+    from dvis_plus_tpu_torch.engine.inference import run_vis_inference
+    from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
+
+    outs = []
+    for download, pipeline in (("packed", False), ("runs", True)):
+        cfg = _tiny_arch(arch)
+        cfg.test.mask_download, cfg.test.eval_pipeline = download, pipeline
+        _, card = _arch_models(cfg, cuda_device)
+        rng = np.random.RandomState(3)
+        videos = [{"images": rng.randn(T, 64, 96, 3).astype(np.float32), "image_size": [56, 96],
+                   "height": 90, "width": 144, "video_id": v} for v, T in ((1, 5), (2, 3))]
+        ev = YTVISEvaluator("synthetic", str(tmp_path / download))
+        run_vis_inference(cfg, card, iter(videos), ev)
+        with open(ev.write_results(), "rb") as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1] and len(outs[0]) > 100
+
+
+@pytest.mark.cuda
+def test_b1_launches_on_the_minvis_slice_shape(cuda_device):
+    """Full-width R50 MinVIS, bf16, one 5-frame window at 480x640 (the
+    timed slice's shape): B1 runs once per encoder layer, 6 times."""
+    from dvis_plus_tpu_torch.cli import build_model
+    from dvis_plus_tpu_torch.config import minvis_r50_ytvis19
+    from dvis_plus_tpu_torch.engine.inference import _minvis_video
+
+    cfg = minvis_r50_ytvis19()
+    torch.manual_seed(0)
+    model = build_model(cfg.model).to(cuda_device).eval()
+    x = np.random.RandomState(4).randn(5, 480, 640, 3).astype(np.float32)
+    with torch.inference_mode():
+        msdeform.reset_launches()
+        logits, masks, _ = _minvis_video(cfg, model, x, 5)
+        torch.cuda.synchronize()
+    assert msdeform.launches == cfg.model.pixel_decoder.transformer_enc_layers == 6
+    assert logits.shape == (100, 41) and masks.shape == (100, 5, 120, 160)
+    assert torch.isfinite(logits.float()).all() and torch.isfinite(masks.float()).all()

@@ -1,7 +1,10 @@
 """The port imports no jax, flax or JAX-package module, and no triton, and
-builds nothing, when every module is imported, its CPU path runs for the
-three presets at a small size, and its CLI evaluates the synthetic
-YouTube-VIS set with ``--device cpu``.
+builds no CUDA library, when every module is imported (the RLE codec's
+loader among them), its CPU path runs for the DVIS++ online, offline Swin,
+offline ViT, MinVIS, CTVIS and Video Mask2Former presets at a small size
+(the JAX default eval settings: ``runs`` download, threaded pipeline), and
+its CLI evaluates the synthetic YouTube-VIS set with ``--device cpu``. The
+rows are encoded by the native codec, built with g++ on first use.
 
 Runs in a subprocess: the pytest process itself has jax loaded (conftest).
 The synthetic set is written by the pytest process (``tools/synth_data.py``
@@ -23,17 +26,17 @@ for m in pkgutil.walk_packages(dvis_plus_tpu_torch.__path__, "dvis_plus_tpu_torc
 
 from dvis_plus_tpu_torch import cli
 from dvis_plus_tpu_torch.config import (
-    dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19, dvis_online_r50_ytvis19,
+    ctvis_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
+    dvis_online_r50_ytvis19, minvis_r50_ytvis19, video_maskformer_r50_ytvis19,
 )
 from dvis_plus_tpu_torch.engine.inference import run_vis_inference
 from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
-from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline
-from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
 from dvis_plus_tpu_torch.ops import _build, flash_attn, msdeform, swin_window_attn
+from dvis_plus_tpu_torch.utils import rle
 
-rows = []
-for preset, arch in ((dvis_online_r50_ytvis19, DVISOnline), (dvis_offline_swinl_ytvis19, DVISOffline),
-                     (dvis_offline_vitl_ytvis19, DVISOffline)):
+rows, containers = [], []
+for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
+               minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19):
     cfg = preset()
     m = cfg.model
     m.compute_dtype = "float32"
@@ -61,12 +64,14 @@ for preset, arch in ((dvis_online_r50_ytvis19, DVISOnline), (dvis_offline_swinl_
     m.tracker.feedforward_dim = m.refiner.feedforward_dim = 64
     cfg.test.window_size = 2
     torch.manual_seed(0)
-    model = arch(m).eval()
+    model = cli.build_model(m).eval()
     rng = np.random.RandomState(0)
     video = {"images": rng.randn(3, 64, 64, 3).astype(np.float32), "image_size": [64, 64],
              "height": 48, "width": 48, "video_id": 1}
     with tempfile.TemporaryDirectory() as tmp:
         ev = YTVISEvaluator("synthetic", tmp)
+        seen = ev.process
+        ev.process = lambda vid, out: (containers.append(type(out["pred_masks"]).__name__), seen(vid, out))
         run_vis_inference(cfg, model, iter([video]), ev)
         ev.write_results()
     rows.append(len(ev.predictions))
@@ -92,7 +97,9 @@ print(json.dumps({
     "rows": rows,
     "cli": [res["device"], res["predictions"], "AP" in res],
     "loaded": sorted(k for k in sys.modules if k.split(".")[0] in roots),
+    "containers": containers,
     "built": _build.library.cache_info().currsize,
+    "codec": rle.library.cache_info().currsize,
     "launches": [msdeform.launches, swin_window_attn.launches, flash_attn.launches],
 }))
 """
@@ -113,7 +120,8 @@ def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    # top-20 rows from the online R50, the offline Swin and the offline ViT
-    # model each; the CLI scored 2 videos x top-3 on the CPU
-    assert out == {"rows": [20, 20, 20], "cli": ["cpu", 6, True], "loaded": [], "built": 0,
+    # top-20 rows from each of the six models, their masks downloaded as
+    # per-column runs; the CLI scored 2 videos x top-3 on the CPU
+    assert out == {"rows": [20] * 6, "cli": ["cpu", 6, True], "loaded": [],
+                   "containers": ["ColRunMasks"] * 6, "built": 0, "codec": 1,
                    "launches": [0, 0, 0]}
