@@ -19,7 +19,11 @@ kernels:
   ``configs/dvis/{minvis,ctvis,video_maskformer}_r50_ytvis19.yaml`` (kernel
   B1), MinVIS and Video Mask2Former timed at the JAX package's default eval
   settings (``runs`` mask download, threaded eval pipeline), and the two
-  downloads against each other on the R50 online and MinVIS paths.
+  downloads against each other on the R50 online and MinVIS paths;
+- DVIS++ online video panoptic (VPS) and video semantic (VSS) segmentation
+  at the full width of ``configs/dvis/dvis_online_r50_{vipseg,vspw}.yaml``
+  (124 classes, kernel B1) through ``run_vps_inference`` /
+  ``run_vss_inference`` and the real evaluators, at 720x1280.
 
 Run from a checkout of the repository:
 
@@ -1056,6 +1060,186 @@ def phase_download(dev):
     emit({"phase": "download", "device_ms_a_chunk": download_device_ms(dev)})
 
 
+# VPS and VSS: the VIPSeg geometry (720x1280 frames on a 736x1280 canvas, ids
+# written at 720x1280) and VSPW's (480x853 frames resized to 720x1280, class
+# maps written at 480x853, so the second resize downsamples)
+TASK_OUT = {"vps": (720, 1280), "vss": (480, 853)}
+TASK_PIXEL_TOL = 0.999  # GPU against CPU: least share of equal pixels (id or class maps)
+
+
+def task_cfg(task, arch="dvis_online"):
+    from dvis_plus_tpu_torch.config import dvis_online_r50_vipseg, dvis_online_r50_vspw
+
+    cfg = {"vps": dvis_online_r50_vipseg, "vss": dvis_online_r50_vspw}[task]()
+    cfg.model.meta_architecture = arch
+    return cfg
+
+
+def task_videos(n, T, H, W, Ho, Wo, seed, valid=None):
+    """``synthetic_videos`` with frame names, as the VPS and VSS evaluators
+    name their PNGs by them."""
+    for video in synthetic_videos(n, T, H, W, Ho, Wo, seed, valid):
+        video["file_names"] = [f"{video['video_id']}/{t:05d}.jpg" for t in range(T)]
+        yield video
+
+
+def run_task(cfg, model, videos, evaluator, timings=None):
+    from dvis_plus_tpu_torch.engine.inference import run_vps_inference, run_vss_inference
+
+    if cfg.test.task == "vps":
+        run_vps_inference(cfg, model, videos, evaluator, 58, timings)  # VIPSeg's thing classes
+    else:
+        run_vss_inference(cfg, model, videos, evaluator, timings)
+
+
+class TaskRecorder:
+    """Keeps what a VPS or VSS loop hands its evaluator, per video."""
+
+    def __init__(self):
+        self.maps, self.segments = [], []
+
+    def process(self, video_id, frame_names, maps, segments_infos=None):
+        self.maps.append(maps)
+        self.segments.append(segments_infos)
+
+
+def phase_vps_slice_parity(dev):
+    """The full-width R50 VPS network (124 classes) at fp32 with the JV
+    matcher, on 7 frames of 128x160 (window 5: two windows, the last
+    ragged): the GPU (kernel B1, cuDNN) against the CPU (B1's plain version),
+    same seeded weights, through ``run_vps_inference`` and
+    ``run_vss_inference``: the panoptic id maps give the same (id, category,
+    isthing) segments and agree on at least 99.9 % of the pixels, the VSS
+    class maps too, and DVIS++ offline on VPS (the aux fusion) as well. Then
+    on the GPU's own chunk outputs, the device segment bookkeeping against
+    the plain host version: equal."""
+    import torch
+
+    from dvis_plus_tpu_torch.engine.inference import video_logits_masks
+    from dvis_plus_tpu_torch.models.meta import dvis_online as heads
+
+    rows = []
+    for task, arch in (("vps", "dvis_online"), ("vss", "dvis_online"), ("vps", "dvis_offline")):
+        cfg = task_cfg(task, arch)
+        cfg.model.compute_dtype = "float32"
+        cfg.model.tracker.matcher_solver = "jv"
+        recs, launches = [], {}
+        for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            recs.append(TaskRecorder())
+            reset_launches()
+            run_task(cfg, build_model(cfg, d), task_videos(1, 7, 128, 160, 128, 160, SEED + 6), recs[-1])
+            launches[name] = read_launches()
+        got, want = recs
+        equal = float((got.maps[0] == want.maps[0]).mean())
+        same_segments = got.segments == want.segments
+        row = {"task": task, "arch": arch, "pixels_equal": equal, "same_segments": same_segments,
+               "segments": None if task == "vss" else len(want.segments[0]),
+               "classes": sorted(int(c) for c in np.unique(got.maps[0])) if task == "vss" else None,
+               "launches": launches, "expected_launches": expected_b1(cfg, frames=7, videos=1)}
+        rows.append(row)
+        emit({"phase": "vps_slice_parity", "input": [7, 128, 160], "tol": TASK_PIXEL_TOL, **row})
+        if equal < TASK_PIXEL_TOL or (task == "vps" and not same_segments):
+            raise AssertionError(f"GPU {task} ({arch}) disagrees with the CPU: {row}")
+        if launches["cuda"] != row["expected_launches"] or any(launches["cpu"].values()):
+            raise AssertionError(f"{task} ({arch}) parity run took the wrong path: {launches}")
+
+    # the bookkeeping alone, on the card's chunk outputs of one video
+    cfg = task_cfg("vps")
+    cfg.model.compute_dtype = "float32"
+    cfg.model.tracker.matcher_solver = "jv"
+    video = next(task_videos(1, 7, 128, 160, 128, 160, SEED + 6))
+    with torch.inference_mode():
+        logits, masks, aux = video_logits_masks(cfg, build_model(cfg, dev), video["images"], 5)
+        geometry = ((128, 160), (128, 160), (128, 160))
+        outs = [heads.panoptic_probs(logits, masks[:, s : s + 5], *geometry, 0.0, aux) for s in (0, 5)]
+        seg, infos, kept = heads.panoptic_segments_device(*outs[0][:3], [o[3:] for o in outs], 58, 0.8)
+        want = heads.panoptic_segments_host(
+            *(x.cpu().numpy() for x in outs[0][:3]), torch.cat([o[3] for o in outs], 1).half().cpu().numpy(),
+            torch.cat([o[4] for o in outs]).cpu().numpy(), 58, 0.8)
+    equal = bool(np.array_equal(seg.cpu().numpy(), want[0]) and infos == want[1] and kept == want[2])
+    emit({"phase": "vps_slice_parity", "bookkeeping": "device vs plain host", "equal": equal,
+          "segments": len(infos)})
+    if not equal:
+        raise AssertionError("the device segment bookkeeping disagrees with the plain host version")
+    return rows
+
+
+def phase_task_slice(dev, task):
+    """Full-width R50 DVIS++ online VPS (``dvis_online_r50_vipseg``) or VSS
+    (``dvis_online_r50_vspw``), bf16 at the YAML's settings, 2 videos x 15
+    frames of 720x1280 on a 736x1280 canvas (made before the timed run: the
+    VPS and VSS loops, as the JAX package's, read the loader on the main
+    thread), through ``run_vps_inference`` / ``run_vss_inference`` with the
+    real evaluator writing its PNGs (and ``pred.json``) into a temporary
+    directory, after one untimed warm-up video. Every frame's PNG must exist and decode (``utils.png.read_png``)
+    to the map computed on the device; B1 runs 6 times a window."""
+    import torch
+
+    from dvis_plus_tpu_torch.evaluation.evaluators import VPSEvaluator, VSSEvaluator
+    from dvis_plus_tpu_torch.utils.png import read_png
+
+    cfg = task_cfg(task)
+    model = build_model(cfg, dev)
+    out = TASK_OUT[task]
+    base = VPSEvaluator if task == "vps" else VSSEvaluator
+
+    class Keeping(base):  # the maps handed over, to check the files against
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.kept = []
+
+        def process(self, video_id, frame_names, maps, *rest):
+            self.kept.append((video_id, frame_names, maps.copy(), *rest))
+            super().process(video_id, frame_names, maps, *rest)
+
+    canvas, valid = (VIT_H, VIT_W), (VIT_H_OUT, VIT_W_OUT)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_task(cfg, model, task_videos(1, 5, *canvas, *out, 99, valid), base("warmup", tmp + "/w"))
+        evaluator = Keeping("synthetic", tmp + "/run")
+        timings = {}
+        videos = list(task_videos(VIDEOS, FRAMES, *canvas, *out, SEED, valid))  # made before the clock
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        run_task(cfg, model, iter(videos), evaluator, timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        scores = evaluator.evaluate()
+        files_ok = True
+        for video_id, names, maps, *rest in evaluator.kept:
+            for t, name in enumerate(names):
+                stem = os.path.splitext(os.path.basename(name))[0] + ".png"
+                path = os.path.join(tmp, "run", *(["pan_pred"] if task == "vps" else []), str(video_id), stem)
+                if not os.path.exists(path):
+                    files_ok = False
+                    continue
+                img = read_png(path).astype(np.int64)
+                decoded = img[..., 0] + 256 * img[..., 1] + 65536 * img[..., 2] if task == "vps" else img
+                files_ok &= bool(np.array_equal(decoded, maps[t].astype(np.int64)))
+        pngs = sum(f.endswith(".png") for _, _, fs in os.walk(os.path.join(tmp, "run")) for f in fs)
+        segments = [len(rest[0]) for _, _, _, *rest in evaluator.kept] if task == "vps" else None
+        classes = [len(np.unique(m)) for _, _, m, *_ in evaluator.kept]
+    expect = expected_b1(cfg)
+    post = timings["post_s"]
+    res = {"phase": f"{task}_slice", "meta_architecture": cfg.model.meta_architecture,
+           "num_classes": cfg.model.num_classes, "compute_dtype": cfg.model.compute_dtype, "tf32": False,
+           "videos": VIDEOS, "frames": FRAMES, "input": list(canvas), "valid": list(valid),
+           "output": list(out), "window": cfg.test.window_size, "wall_s": wall,
+           "fps": VIDEOS * FRAMES / wall, "model_fps": VIDEOS * FRAMES / timings["model_s"],
+           "post_s": post, "post_split_s": {
+               "device_pass": post - timings.get("segments_s", 0.0) - timings["png_s"],
+               "host_bookkeeping": timings.get("segments_s", 0.0), "png_writes": timings["png_s"]},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "segments_per_video": segments,
+           "classes_per_video": classes, "pngs": pngs, "files_match_device_maps": files_ok,
+           "evaluate": scores, "launches": launches, "expected_launches": expect}
+    emit(res)
+    if not (files_ok and pngs == VIDEOS * FRAMES and res["launches"] == expect and res["evaluate"]["videos"] == VIDEOS):
+        raise AssertionError(f"{task}_slice check failed: {res}")
+    return res
+
+
 def phase_profile(dev, name):
     """One video of slice ``name`` (``vitl``: 5 frames at 736x1280, one
     window; ``swinl`` and ``r50``: 15 frames at 480x640, three windows),
@@ -1209,6 +1393,9 @@ def main() -> int:
     minvis = phase_arch_slice(dev, "minvis", "minvis_slice")
     clip = phase_arch_slice(dev, "video_maskformer", "clip_slice")
     phase_download(dev)
+    phase_vps_slice_parity(dev)
+    vps = phase_task_slice(dev, "vps")
+    vss = phase_task_slice(dev, "vss")
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
     # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2
@@ -1240,7 +1427,7 @@ def main() -> int:
                  if f["dtype"] == "bfloat16" and f["layout"] == "fused_qkv_views"}
     b3_main = b3_shapes["B5_L3681"]
     paths = {"slice": runs["exact"], "swinl_slice": swinl, "vitl_slice": vitl,
-             "minvis_slice": minvis, "clip_slice": clip}
+             "minvis_slice": minvis, "clip_slice": clip, "vps_slice": vps, "vss_slice": vss}
 
     def by_path(kernel):
         return {name: r["launches"][kernel] for name, r in paths.items()}

@@ -1,5 +1,5 @@
-"""VIS evaluation CLI of the PyTorch port (the counterpart of
-``train_net_video.py --eval-only`` for the ported slice):
+"""Evaluation CLI of the PyTorch port (the counterpart of
+``train_net_video.py --eval-only`` for the ported slices):
 
     DVIS_DATASETS=<root> python -m dvis_plus_tpu_torch.cli \\
         --config-file configs/dvis/dvis_online_r50_ytvis19.yaml --eval-only \\
@@ -9,18 +9,25 @@
 ``configs/dvis/{minvis,ctvis}_*_ytvis19.yaml`` and
 ``configs/dvis/video_maskformer_r50_ytvis19.yaml`` run the same way;
 ``model.meta_architecture`` picks ``DVISOnline``, ``DVISOffline``, the bare
-``Segmenter`` (``minvis``, ``ctvis``) or ``VideoMaskFormer``.)
+``Segmenter`` (``minvis``, ``ctvis``), ``VideoMaskFormer`` or
+``ImageMaskFormer`` (``maskformer``); the VIPSeg and VSPW YAMLs,
+``configs/dvis/*_{vipseg,vspw}.yaml``, run the VPS and VSS tasks.)
 
 Loads the configuration (``config.load_config``) and the video datasets
-(``data.catalog``, ``data.datasets.ytvis``, ``data.mapper``) with the port's
-own host-side modules, runs ``run_vis_inference`` on the card and writes
-``<output_dir>/inference/<dataset>/results.json``. ``--device cuda`` (the
-default) raises when no card is present; only ``--device cpu`` runs on the
-CPU. Weights are a state dict in the reference checkpoints' key space (the
-port's own ``state_dict()``, a zoo ``.pth``, or the same as ``.npz``);
-without ``weights=`` the model keeps its random initialization from
-``seed``. AP is scored (``evaluation.ytvos_eval``) when the dataset has
-ground truth.
+(``data.catalog``, ``data.datasets.{ytvis,vps_vss}``, ``data.mapper``) with
+the port's own host-side modules and routes each test set by task, as
+``train_net_video.py::run_task_eval`` does: ``test.task=vps`` or a
+``video_panoptic`` set runs ``run_vps_inference`` and writes
+``<output_dir>/inference/<dataset>/{pred.json,pan_pred/}`` (VPQ and STQ
+when the ground truth is on disk); ``vss`` or ``video_semantic`` runs
+``run_vss_inference`` and writes one class PNG a frame (mIoU and VC); any
+other set runs ``run_vis_inference`` and writes ``results.json`` (AP,
+``evaluation.ytvos_eval``). ``--device cuda`` (the default) raises when no
+card is present; only ``--device cpu`` runs on the CPU. Weights are a state
+dict in the reference checkpoints' key space (the port's own
+``state_dict()``, a zoo ``.pth``, or the same as ``.npz``); without
+``weights=`` the model keeps its random initialization from ``seed``. The
+CLI prints each set's result dict and returns them.
 """
 from __future__ import annotations
 
@@ -58,11 +65,12 @@ def build_model(model_cfg) -> torch.nn.Module:
     package's ``train_net_video.py::build_model``), randomly initialized."""
     from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline
     from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
-    from dvis_plus_tpu_torch.models.meta.video_maskformer import VideoMaskFormer
+    from dvis_plus_tpu_torch.models.meta.video_maskformer import ImageMaskFormer, VideoMaskFormer
     from dvis_plus_tpu_torch.models.segmenter.segmenter import Segmenter
 
-    archs = {"minvis": Segmenter, "ctvis": Segmenter, "video_maskformer": VideoMaskFormer,
-             "dvis_online": DVISOnline, "dvis_offline": DVISOffline}
+    archs = {"minvis": Segmenter, "ctvis": Segmenter, "maskformer": ImageMaskFormer,
+             "video_maskformer": VideoMaskFormer, "dvis_online": DVISOnline,
+             "dvis_offline": DVISOffline}
     return archs[model_cfg.meta_architecture](model_cfg)
 
 
@@ -80,13 +88,55 @@ def _score(md, rows):
     return evaluate_vis(gt_anns, rows, nframes)
 
 
+def _eval_vis(cfg, model, md, loader, out_dir):
+    from dvis_plus_tpu_torch.engine.inference import run_vis_inference
+    from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
+
+    evaluator = YTVISEvaluator(md.name, out_dir, contiguous_to_dataset_id={
+        v: k for k, v in getattr(md, "thing_dataset_id_to_contiguous_id", {}).items()})
+    run_vis_inference(cfg, model, loader, evaluator)
+    res = {"predictions": len(evaluator.predictions), "results_json": evaluator.write_results()}
+    json_file = getattr(md, "json_file", None)
+    if json_file and os.path.exists(json_file):
+        res.update(_score(md, evaluator.predictions))
+    return res
+
+
+def _eval_vps(cfg, model, md, loader, out_dir):
+    """The thing-class count and the contiguous -> dataset id map come from
+    the registered categories; without them, VIPSeg's 58 thing classes."""
+    from dvis_plus_tpu_torch.data.datasets.vps_vss import panoptic_contiguous_maps
+    from dvis_plus_tpu_torch.engine.inference import run_vps_inference
+    from dvis_plus_tpu_torch.evaluation.evaluators import VPSEvaluator
+
+    cats = getattr(md, "categories", None) or []
+    if cats:
+        _, contig_to_dataset, n_thing = panoptic_contiguous_maps(cats)
+    else:
+        contig_to_dataset, n_thing = {}, 58
+    evaluator = VPSEvaluator(md.name, out_dir, contiguous_to_dataset_id=contig_to_dataset,
+                             gt_json=getattr(md, "json_file", None), gt_dir=getattr(md, "gt_dir", None))
+    run_vps_inference(cfg, model, loader, evaluator, n_thing)
+    return evaluator.evaluate()
+
+
+def _eval_vss(cfg, model, md, loader, out_dir):
+    from dvis_plus_tpu_torch.engine.inference import run_vss_inference
+    from dvis_plus_tpu_torch.evaluation.evaluators import VSSEvaluator
+
+    evaluator = VSSEvaluator(md.name, out_dir, gt_root=getattr(md, "gt_root", None),
+                             split=getattr(md, "split", "val"),
+                             num_classes=getattr(md, "num_classes", cfg.model.num_classes))
+    run_vss_inference(cfg, model, loader, evaluator)
+    return evaluator.evaluate()
+
+
 def main(argv=None) -> dict:
     from dvis_plus_tpu_torch.config import check_supported, load_config
     from dvis_plus_tpu_torch.data.catalog import get_dataset, get_metadata
+    from dvis_plus_tpu_torch.data.datasets.vps_vss import register_all_vipseg, register_all_vspw
     from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
-    from dvis_plus_tpu_torch.data.mapper import YTVISDatasetMapper
-    from dvis_plus_tpu_torch.engine.inference import run_vis_inference
-    from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
+    from dvis_plus_tpu_torch.data.mapper import mapper_for_type
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config-file", required=True)
     parser.add_argument("--eval-only", action="store_true", required=True,
@@ -99,7 +149,9 @@ def main(argv=None) -> dict:
 
     cfg = load_config(args.config_file, args.opts)
     check_supported(cfg)  # a setting the port cannot honour raises here
-    register_all_ytvis(os.environ.get("DVIS_DATASETS", "datasets"))
+    root = os.environ.get("DVIS_DATASETS", "datasets")
+    for register in (register_all_ytvis, register_all_vipseg, register_all_vspw):
+        register(root)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
     dev = torch.device(args.device)
@@ -110,24 +162,22 @@ def main(argv=None) -> dict:
     model = model.to(dev).eval()
 
     results = {}
-    for name in cfg.datasets.test:
-        md = get_metadata(name)
-        mapper = YTVISDatasetMapper(cfg)
+    types = list(cfg.datasets.dataset_type_test)
+    for idx, name in enumerate(cfg.datasets.test):
+        # the task follows test.task or the dataset's type, as in the JAX CLI
+        dataset_type = types[idx] if idx < len(types) else "video_instance"
+        mapper = mapper_for_type(cfg, dataset_type)
         loader = (mapper(rec, seed=0) for rec in get_dataset(name))
-        evaluator = YTVISEvaluator(
-            name, os.path.join(cfg.output_dir, "inference", name),
-            contiguous_to_dataset_id={
-                v: k for k, v in getattr(md, "thing_dataset_id_to_contiguous_id", {}).items()
-            },
-        )
-        run_vis_inference(cfg, model, loader, evaluator)
-        res = {"predictions": len(evaluator.predictions),
-               "results_json": evaluator.write_results(), "device": str(dev)}
-        json_file = getattr(md, "json_file", None)
-        if json_file and os.path.exists(json_file):
-            res.update(_score(md, evaluator.predictions))
-        results[name] = res
-        logger.info("%s: %s", name, res)
+        out_dir = os.path.join(cfg.output_dir, "inference", name)
+        if cfg.test.task == "vps" or dataset_type == "video_panoptic":
+            run = _eval_vps
+        elif cfg.test.task == "vss" or dataset_type == "video_semantic":
+            run = _eval_vss
+        else:
+            run = _eval_vis
+        res = run(cfg, model, get_metadata(name), loader, out_dir)
+        results[name] = {**res, "device": str(dev)}
+        logger.info("%s: %s", name, results[name])
     print(json.dumps(results, indent=2))
     return results
 

@@ -18,7 +18,8 @@ The presets hold the values ``load_config`` resolves for their YAML:
 ``configs/dvis/ctvis_r50_ytvis19.yaml`` (minvis -> base_video),
 ``configs/dvis/video_maskformer_r50_ytvis19.yaml`` (base_video),
 ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (ctvis -> minvis ->
-base_video), ``configs/dvis/dvis_offline_swinl_ytvis19.yaml``
+base_video), ``configs/dvis/dvis_online_r50_{vipseg,vspw}.yaml`` (vspw ->
+vipseg -> dvis_online_r50_ytvis19), ``configs/dvis/dvis_offline_swinl_ytvis19.yaml``
 (dvis_online_swinl -> dvis_online_r50 -> ...) and
 ``configs/dvis/dvis_offline_vitl_ytvis19.yaml`` (dvis_online_vitl ->
 dvis_online_r50 -> ...). ``tests/test_torch_config.py`` holds each preset
@@ -133,10 +134,14 @@ class InputConfig:
 @dataclass
 class DatasetsConfig:
     test: Tuple[str, ...] = ("ytvis_2019_val",)
+    dataset_type_test: Tuple[str, ...] = ("video_instance",)
 
 
 @dataclass
 class TestConfig:
+    task: str = "vis"  # vis | vps | vss (the CLI routes by it and by the dataset type)
+    object_mask_threshold: float = 0.0  # VPS: a query is kept above this score
+    overlap_threshold: float = 0.8  # VPS: least share of a query's mask it keeps
     window_size: int = 5
     max_num: int = 20
     offline_mf_budget_gb: float = 4.0
@@ -264,8 +269,10 @@ def _ported_backbone(name) -> bool:
     return name in ("resnet50", "resnet101", "vit_adapter_dinov2") or str(name).startswith("swin")
 
 
-def _all_video_instance(types) -> bool:
-    return all(t == "video_instance" for t in types)
+def _eval_dataset_types(types) -> bool:
+    from dvis_plus_tpu_torch.data.mapper import EVAL_DATASET_TYPES
+
+    return all(t in EVAL_DATASET_TYPES for t in types)
 
 
 # (key path, the values the port honours (a tuple, or a predicate), the
@@ -277,15 +284,16 @@ def _all_video_instance(types) -> bool:
 # stay ignored.
 SUPPORTED = (
     ("model.meta_architecture",
-     ("dvis_online", "dvis_offline", "minvis", "ctvis", "video_maskformer"),
-     "A11 (maskformer), A12 (daq_*)"),
+     ("dvis_online", "dvis_offline", "minvis", "ctvis", "video_maskformer", "maskformer"),
+     "A12 (daq_*)"),
     ("model.backbone.name", _ported_backbone, "A13 (the CLIP trunks)"),
     ("model.backbone.swin_fast_softmax", (False,), "queue A, small pieces left open (bf16 scores)"),
     ("model.sem_seg_head", ("mask_former",), "A13 (fcclip)"),
     ("model.pixel_decoder.name", ("msdeform",), "A6 (FPNPixelDecoder)"),
     ("model.ov.enabled", (False,), "A13 (open vocabulary)"),
-    ("test.task", ("vis",), "A11 (vps, vss), A12 (vos, mots)"),
-    ("datasets.dataset_type_test", _all_video_instance, "A11 (panoptic, semantic), A12 (sot)"),
+    ("test.task", ("vis", "vps", "vss"), "A12 (vos, mots)"),
+    ("datasets.dataset_type_test", _eval_dataset_types,
+     "A12 (video_sot), A14 (image_*: the pseudo-video mappers)"),
     ("test.refiner_shard_devices", (0, 1), "A15 (the object-sharded refiner pass)"),
     ("test.eval_devices", (1,), "A15 (video-parallel eval)"),
 )
@@ -350,6 +358,28 @@ def dvis_online_r50_ytvis19() -> Config:
     """DVIS++ online, ResNet-50, YouTube-VIS 2019 (40 classes)."""
     cfg = ctvis_r50_ytvis19()
     cfg.model.meta_architecture = "dvis_online"
+    return cfg
+
+
+def dvis_online_r50_vipseg() -> Config:
+    """DVIS++ online, ResNet-50, VIPSeg video panoptic segmentation: 124
+    classes, 720p test input (shorter edge 720, longer at most 1280)."""
+    cfg = dvis_online_r50_ytvis19()
+    cfg.model.num_classes = 124
+    cfg.datasets.test = ("panoVSPW_vps_video_val",)
+    cfg.datasets.dataset_type_test = ("video_panoptic",)
+    cfg.test.task = "vps"
+    cfg.input.min_size_test, cfg.input.max_size_test = 720, 1280
+    return cfg
+
+
+def dvis_online_r50_vspw() -> Config:
+    """DVIS++ online, ResNet-50, VSPW video semantic segmentation: the VIPSeg
+    model's widths and input size on VSPW's 124 classes."""
+    cfg = dvis_online_r50_vipseg()
+    cfg.datasets.test = ("VSPW_vss_video_val",)
+    cfg.datasets.dataset_type_test = ("video_semantic",)
+    cfg.test.task = "vss"
     return cfg
 
 

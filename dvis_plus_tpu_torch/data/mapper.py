@@ -8,6 +8,12 @@ its shorter edge is ``input.min_size_test`` (the longer at most
 ``input.max_size_test``), normalized, and zero-padded at the bottom and the
 right up to a multiple of ``model.size_divisibility``. Clip sampling, the
 training augmentations and the instance tables come with training.
+
+:func:`mapper_for_type` is the eval half of
+``dvis_plus_tpu/data/build.py::mapper_for_type`` (:26-53): the video
+instance, panoptic and semantic sets all map through this mapper at eval
+(the JAX panoptic and semantic mappers also decode the ground-truth masks,
+which no inference reads).
 """
 from __future__ import annotations
 
@@ -73,3 +79,18 @@ class YTVISDatasetMapper:
             "file_names": record["file_names"],
             "frame_indices": np.arange(len(frames), dtype=np.int32),
         }
+
+
+EVAL_DATASET_TYPES = ("video_instance", "video_panoptic", "video_semantic")
+
+
+def mapper_for_type(cfg, dataset_type: str) -> YTVISDatasetMapper:
+    """The eval mapper of a ``datasets.dataset_type_test`` entry."""
+    if dataset_type in EVAL_DATASET_TYPES:
+        return YTVISDatasetMapper(cfg)
+    if dataset_type.startswith("image_"):
+        raise NotImplementedError(
+            f"dataset type {dataset_type!r} is not ported (ROADMAP A14: the pseudo-video mappers)")
+    if dataset_type == "video_sot":
+        raise NotImplementedError("dataset type 'video_sot' is not ported (ROADMAP A12: the SOT mapper)")
+    raise NotImplementedError(f"dataset_type {dataset_type}")

@@ -1,11 +1,14 @@
-"""VIS inference loop: windowed streaming eval over whole videos.
+"""Eval loops: windowed streaming inference over whole videos for the VIS,
+VPS and VSS tasks.
 
 Counterpart: ``dvis_plus_tpu/engine/inference.py`` (``resolve_window_size``
 :27, ``eval_mask_budget_bytes`` :45, ``_upsample_runs`` :83,
 ``paged_inference_video`` :132, ``_prefetch`` :244, ``run_vis_inference``
-:274, ``_minvis_video`` :520, ``_clipformer_video`` :595, ``_online_video``
-:620-777 with its online and offline halves). Signatures are the JAX ones
-without ``params``: the module holds its weights.
+:274, ``video_logits_masks`` :375, ``run_vps_inference`` :395,
+``run_vss_inference`` :456, ``_minvis_video`` :520, ``_clipformer_video``
+:595, ``_online_video`` :620-777 with its online and offline halves).
+Signatures are the JAX ones without ``params``: the module holds its
+weights.
 
 Frames are cut into windows of ``test.window_size`` (the tail window is
 padded by repeating the last frame). DVIS++ streams the tracker carry across
@@ -46,7 +49,13 @@ import numpy as np
 import torch
 
 from dvis_plus_tpu_torch.config import check_supported
-from dvis_plus_tpu_torch.models.meta.dvis_online import online_post_processing
+from dvis_plus_tpu_torch.models.meta.dvis_online import (
+    online_post_processing,
+    panoptic_probs,
+    panoptic_scores,
+    panoptic_segments_device,
+    semantic_inference,
+)
 from dvis_plus_tpu_torch.models.meta.minvis import (
     minvis_alignment,
     minvis_post_processing,
@@ -348,7 +357,15 @@ def _online_video(cfg, model, images: np.ndarray, W_sz: int):
 
 
 _VIDEO_FNS = {"minvis": _minvis_video, "ctvis": _minvis_video,
-              "video_maskformer": _clipformer_video}
+              "maskformer": _clipformer_video, "video_maskformer": _clipformer_video}
+
+
+def video_logits_masks(cfg, model, images: np.ndarray, W_sz: int):
+    """The video's forward for ``model.meta_architecture``: (class logits
+    (Q, K+1), masks (Q, T, H4, W4) on the device or paged to host fp16, aux
+    logits (Q, K+1) or None). Only DVIS++ offline gives aux logits (the
+    online tracker's logits averaged over time)."""
+    return _VIDEO_FNS.get(cfg.model.meta_architecture, _online_video)(cfg, model, images, W_sz)
 
 
 def _prefetch(it: Iterator, depth: int = 1) -> Iterator:
@@ -400,7 +417,6 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
     check_supported(cfg)
     W_sz = resolve_window_size(cfg)
     dev = next(model.parameters()).device
-    video_fn = _VIDEO_FNS.get(cfg.model.meta_architecture, _online_video)
     download = getattr(cfg.test, "mask_download", "runs")
     k_col = getattr(cfg.test, "rle_col_k", 8)
 
@@ -444,7 +460,7 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
                 images = sample["images"]  # (T, H, W, 3) numpy
                 H, W = images.shape[1:3]
                 t0 = time.perf_counter()
-                logits, masks, aux = video_fn(cfg, model, images, W_sz)
+                logits, masks, aux = video_logits_masks(cfg, model, images, W_sz)
                 sync()
                 if timings is not None:
                     timings["model_s"] = timings.get("model_s", 0.0) + time.perf_counter() - t0
@@ -459,3 +475,83 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
     finally:
         if executor is not None:
             executor.shutdown(wait=True)
+
+
+def _task_chunks(cfg, model, loader, timings):
+    """Shared by the VPS and VSS loops: per video (sample, logits, aux,
+    chunk iterator, padded (H, W)), where the iterator yields each
+    ``W_sz``-frame time chunk of the masks on the model's device (masks
+    paged to host fp16 come back one chunk at a time). ``model_s`` in
+    ``timings`` accumulates the synchronized forwards."""
+    check_supported(cfg)
+    W_sz = resolve_window_size(cfg)
+    dev = next(model.parameters()).device
+    for sample in loader:
+        images = sample["images"]  # (T, H, W, 3) numpy
+        T, H, W = images.shape[:3]
+        t0 = time.perf_counter()
+        logits, masks, aux = video_logits_masks(cfg, model, images, W_sz)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if timings is not None:
+            timings["model_s"] = timings.get("model_s", 0.0) + time.perf_counter() - t0
+        masks = masks[:, :T]
+        chunks = (masks[:, s0 : s0 + W_sz].to(dev) for s0 in range(0, T, W_sz))
+        yield sample, logits, aux, chunks, (H, W)
+
+
+def run_vps_inference(cfg, model, loader: Iterator[dict], evaluator, num_thing_classes: int,
+                      timings: Optional[dict] = None):
+    """VPS eval loop: the video's forward, then per time chunk of ``W_sz``
+    frames the upsampled mask probabilities and the per-pixel argmax query
+    (``panoptic_probs``), the segment bookkeeping on the device
+    (``panoptic_segments_device``), and the (T, H, W) int32 id map with its
+    ``segments_infos`` to ``evaluator.process``. ``timings`` (optional dict)
+    accumulates ``model_s`` (the forwards), ``post_s`` (everything after),
+    of it ``segments_s`` (the host loop over the queries) and ``png_s`` (the
+    evaluator: PNGs and rows), in wall seconds."""
+    with torch.inference_mode():
+        for sample, logits, aux, chunks, padded in _task_chunks(cfg, model, loader, timings):
+            t1 = time.perf_counter()
+            h, w = [int(v) for v in sample["image_size"]]
+            out_size = (int(sample["height"]), int(sample["width"]))
+            thr = cfg.test.object_mask_threshold
+            per_chunk = (panoptic_probs(logits, chunk, img_size=(h, w), output_size=out_size,
+                                        padded_size=padded, object_mask_threshold=thr,
+                                        aux_pred_cls=aux)[3:]
+                         for chunk in chunks)
+            panoptic_seg, segments_infos, _ = panoptic_segments_device(
+                *panoptic_scores(logits, thr, aux), per_chunk, num_thing_classes,
+                cfg.test.overlap_threshold, timings)
+            panoptic_seg = panoptic_seg.cpu().numpy()
+            t2 = time.perf_counter()
+            evaluator.process(sample.get("video_id", 0), sample["file_names"], panoptic_seg,
+                              segments_infos)
+            if timings is not None:
+                t3 = time.perf_counter()
+                timings["post_s"] = timings.get("post_s", 0.0) + t3 - t1
+                timings["png_s"] = timings.get("png_s", 0.0) + t3 - t2
+
+
+def run_vss_inference(cfg, model, loader: Iterator[dict], evaluator,
+                      timings: Optional[dict] = None):
+    """VSS eval loop: the video's forward, then per time chunk the per-pixel
+    semantic argmax (``semantic_inference``) on the device; only the
+    (T, H, W) class map, as uint8 (the class ids the evaluator writes),
+    leaves the card. ``timings`` as in :func:`run_vps_inference`, without
+    ``segments_s``."""
+    with torch.inference_mode():
+        for sample, logits, aux, chunks, padded in _task_chunks(cfg, model, loader, timings):
+            t1 = time.perf_counter()
+            h, w = [int(v) for v in sample["image_size"]]
+            out_size = (int(sample["height"]), int(sample["width"]))
+            sem = torch.cat([
+                semantic_inference(logits, chunk, img_size=(h, w), output_size=out_size,
+                                   padded_size=padded, aux_pred_cls=aux).to(torch.uint8)
+                for chunk in chunks]).cpu().numpy()
+            t2 = time.perf_counter()
+            evaluator.process(sample.get("video_id", 0), sample["file_names"], sem)
+            if timings is not None:
+                t3 = time.perf_counter()
+                timings["post_s"] = timings.get("post_s", 0.0) + t3 - t1
+                timings["png_s"] = timings.get("png_s", 0.0) + t3 - t2

@@ -1,13 +1,13 @@
-"""Video Mask2Former: the clip-level pretraining meta-architecture, inference
-path.
+"""Video Mask2Former (the clip-level pretraining meta-architecture) and the
+image Mask2Former, inference path.
 
 Counterpart: ``dvis_plus_tpu/models/meta/video_maskformer.py::VideoMaskFormer``
 (:29-69): backbone and pixel decoder per frame, then the clip-joint query
 decoder (:class:`~dvis_plus_tpu_torch.models.segmenter.clip_decoder.ClipMaskedTransformerDecoder`)
 over the whole clip. The module holds its weights under the reference
 checkpoints' names (``backbone.*``, ``sem_seg_head.pixel_decoder.*``,
-``sem_seg_head.predictor.*``). The image model of the same file
-(``ImageMaskFormer``, COCO tasks) is not ported.
+``sem_seg_head.predictor.*``). ``ImageMaskFormer`` (:89-95, the COCO image
+pretraining model) is the same module on one-frame clips.
 """
 from __future__ import annotations
 
@@ -39,3 +39,14 @@ class VideoMaskFormer(nn.Module):
         return self.sem_seg_head.predictor(
             [m.to(cdt) for m in multi_scale], mask_features.to(cdt), num_frames=T
         )
+
+
+class ImageMaskFormer(VideoMaskFormer):
+    """The image Mask2Former: the video model with one frame. A 4-D input
+    (B, 3, H, W) is B clips of one frame; a 5-D input is taken as it is (the
+    eval loop hands it a whole video as one clip, as the JAX loop does)."""
+
+    def forward(self, images: torch.Tensor) -> Dict[str, Any]:
+        if images.dim() == 4:
+            images = images[:, None]
+        return super().forward(images)

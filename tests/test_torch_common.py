@@ -240,10 +240,10 @@ def port_arch_model(cfg, params):
 
 
 # The CLIs end to end: ``train_net_video.py --eval-only`` and the port's
-# ``python -m dvis_plus_tpu_torch.cli --eval-only --device cpu`` on the
-# synthetic YouTube-VIS set, the same seeded weights on both sides (an orbax
-# checkpoint of the JAX tree for the JAX CLI, its conversion as ``.npz`` for
-# the port). Two videos of 8 frames at 64x96, resized to 48x72 and padded
+# ``python -m dvis_plus_tpu_torch.cli --eval-only --device cpu`` on a
+# synthetic set, the same seeded weights on both sides (an orbax checkpoint
+# of the JAX tree for the JAX CLI, its conversion as ``.npz`` for the port).
+# YouTube-VIS: two videos of 8 frames at 64x96, resized to 48x72 and padded
 # back to 64x96; window 4, so MinVIS aligns across two windows and the JAX
 # loop's clip bucket holds exactly the 8 frames.
 E2E_TINY = [
@@ -256,43 +256,96 @@ E2E_TINY = [
     "model.transformer_decoder.dec_layers=2", "model.transformer_decoder.mask_dim=32",
     "model.transformer_decoder.reid_hidden_dim=32",
     "input.min_size_test=48", "input.max_size_test=80",
-    "test.window_size=4", "test.max_num=5", "datasets.test=[ytvis_2019_val]",
+    "test.window_size=4", "test.max_num=5",
 ]
 E2E_SETTINGS = {"defaults": [], "packed_plain": ["test.mask_download=packed",
                                                 "test.eval_pipeline=false"]}
 
 
-def e2e_weights(arch: str, root: str):
-    """Seeded random weights for the tiny ``arch`` of the configuration the
-    CLIs load: (orbax checkpoint directory, ``.npz`` state dict)."""
+def _scaled(tree, scales, path=()):
+    if isinstance(tree, dict):
+        return {k: _scaled(v, scales, path + (k,)) for k, v in tree.items()}
+    return tree * np.prod([m for name, m in scales.items() if name in path], dtype=np.float32)
+
+
+def e2e_weights(yaml: str, root: str, opts=(), tag: str = "model", scales=None):
+    """Seeded random weights for the tiny model of ``yaml`` with ``opts``
+    (the configuration the CLIs load): (orbax checkpoint directory, ``.npz``
+    state dict), written under ``root`` as ``<tag>_orbax`` and ``<tag>.npz``.
+    ``scales`` ({module name: factor}) multiplies every leaf under a module
+    of that name, e.g. to give the masks and classes more contrast."""
     import orbax.checkpoint as ocp
 
     from dvis_plus_tpu.core.config import load_config
     from dvis_plus_tpu_torch.convert import state_dict_from_jax
     from train_net_video import build_model
 
-    cfg = load_config(f"configs/dvis/{arch}_r50_ytvis19.yaml", E2E_TINY)
+    cfg = load_config(yaml, list(opts))
     model = build_model(cfg)
-    x = jnp.zeros((2, H_IN, W_IN, 3), jnp.float32)
-    shapes = jax.eval_shape(model.init, jax.random.key(0), x if arch != "video_maskformer" else x[None])
-    params = {"params": random_params(shapes["params"], seed=11)}
-    ckpt = os.path.join(root, f"{arch}_orbax")
+    x = jnp.zeros((2, H_IN, W_IN, 3), jnp.float32)  # per-frame models: frames; the rest: one clip
+    shapes = jax.eval_shape(model.init, jax.random.key(0),
+                            x if cfg.model.meta_architecture in ("minvis", "ctvis") else x[None])
+    params = {"params": _scaled(random_params(shapes["params"], seed=11), scales or {})}
+    ckpt = os.path.join(root, f"{tag}_orbax")
     ocp.PyTreeCheckpointer().save(ckpt, params)
-    npz = os.path.join(root, f"{arch}.npz")
+    npz = os.path.join(root, f"{tag}.npz")
     np.savez(npz, **{k: v.numpy() for k, v in state_dict_from_jax(params).items()})
     return ckpt, npz
 
 
-def e2e_rows(arch: str, tmp: str, setting: str):
-    """results.json rows of the JAX CLI and of the port's CLI for ``arch``
-    under ``setting`` (a key of ``E2E_SETTINGS``). ``tmp`` may be shared by
-    the settings of one architecture: the data set, the weights and the JAX
-    compile cache are made once there."""
+def e2e_run(yaml: str, dataset: str, data: str, tmp: str, opts, tag: str, weights_tag: str = None,
+            scales=None):
+    """Both CLIs on ``yaml`` with ``opts`` and ``datasets.test=[<dataset>]``
+    over the synthetic root ``data``, the same weights (made once under
+    ``tmp`` as ``weights_tag``, default ``tag``, with ``scales`` as in
+    :func:`e2e_weights`). Returns (the port's result
+    dict for the set, the JAX CLI's printed one, the port's output directory
+    for the set, the JAX CLI's)."""
     import json
     import subprocess
 
-    from dvis_plus_tpu.data.datasets.categories import YTVIS_2019_CLASSES
     from dvis_plus_tpu_torch import cli
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    opts = [*opts, f"datasets.test=[{dataset}]"]
+    weights_tag = weights_tag or tag
+    ckpt, npz = os.path.join(tmp, f"{weights_tag}_orbax"), os.path.join(tmp, f"{weights_tag}.npz")
+    if not os.path.exists(npz):
+        e2e_weights(yaml, tmp, opts, weights_tag, scales)
+    env = dict(os.environ, DVIS_DATASETS=data, JAX_PLATFORMS="cpu", PYTHONPATH=repo,
+               DVIS_COMPILE_CACHE_DIR=os.path.join(tmp, "jax_cache"))
+    env.pop("XLA_FLAGS", None)
+    jax_out = os.path.join(tmp, f"jax_{tag}")
+    res = subprocess.run(
+        [sys.executable, "train_net_video.py", "--config-file", yaml, "--eval-only", *opts,
+         f"weights={ckpt}", f"output_dir={jax_out}"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    want = json.loads(res.stdout[res.stdout.index("{\n"):])[dataset]  # the results it prints last
+    port_out = os.path.join(tmp, f"port_{tag}")
+    old = os.environ.get("DVIS_DATASETS")
+    os.environ["DVIS_DATASETS"] = data
+    try:
+        got = cli.main(["--config-file", yaml, "--eval-only", "--device", "cpu", *opts,
+                        f"weights={npz}", f"output_dir={port_out}"])[dataset]
+    finally:
+        if old is None:
+            del os.environ["DVIS_DATASETS"]
+        else:
+            os.environ["DVIS_DATASETS"] = old
+    return (got, want, os.path.join(port_out, "inference", dataset),
+            os.path.join(jax_out, "inference", dataset))
+
+
+def e2e_rows(arch: str, tmp: str, setting: str):
+    """results.json rows of the JAX CLI and of the port's CLI for ``arch``
+    on ``configs/dvis/<arch>_r50_ytvis19.yaml`` under ``setting`` (a key of
+    ``E2E_SETTINGS``). ``tmp`` may be shared by the settings of one
+    architecture: the data set, the weights and the JAX compile cache are
+    made once there."""
+    import json
+
+    from dvis_plus_tpu.data.datasets.categories import YTVIS_2019_CLASSES
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, os.path.join(repo, "tools"))
@@ -301,33 +354,11 @@ def e2e_rows(arch: str, tmp: str, setting: str):
     data = os.path.join(tmp, "data")
     if not os.path.isdir(data):
         make_ytvis(data, "ytvis_2019", YTVIS_2019_CLASSES, n_videos=2, length=8)
-    ckpt, npz = os.path.join(tmp, f"{arch}_orbax"), os.path.join(tmp, f"{arch}.npz")
-    if not os.path.exists(npz):
-        e2e_weights(arch, tmp)
-    yaml = f"configs/dvis/{arch}_r50_ytvis19.yaml"
-    opts = E2E_TINY + E2E_SETTINGS[setting]
-    env = dict(os.environ, DVIS_DATASETS=data, JAX_PLATFORMS="cpu", PYTHONPATH=repo,
-               DVIS_COMPILE_CACHE_DIR=os.path.join(tmp, "jax_cache"))
-    env.pop("XLA_FLAGS", None)
-    jax_out = os.path.join(tmp, f"jax_{setting}")
-    res = subprocess.run(
-        [sys.executable, "train_net_video.py", "--config-file", yaml, "--eval-only", *opts,
-         f"weights={ckpt}", f"output_dir={jax_out}"],
-        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    old = os.environ.get("DVIS_DATASETS")
-    os.environ["DVIS_DATASETS"] = data
-    try:
-        port = cli.main(["--config-file", yaml, "--eval-only", "--device", "cpu", *opts,
-                         f"weights={npz}", f"output_dir={os.path.join(tmp, 'port_' + setting)}"])
-    finally:
-        if old is None:
-            del os.environ["DVIS_DATASETS"]
-        else:
-            os.environ["DVIS_DATASETS"] = old
-    with open(port["ytvis_2019_val"]["results_json"]) as f:
+    _, _, port_dir, jax_dir = e2e_run(f"configs/dvis/{arch}_r50_ytvis19.yaml", "ytvis_2019_val",
+                                      data, tmp, E2E_TINY + E2E_SETTINGS[setting], setting, arch)
+    with open(os.path.join(port_dir, "results.json")) as f:
         got = json.load(f)
-    with open(os.path.join(jax_out, "inference", "ytvis_2019_val", "results.json")) as f:
+    with open(os.path.join(jax_dir, "results.json")) as f:
         want = json.load(f)
     return got, want
 

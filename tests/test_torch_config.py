@@ -16,6 +16,8 @@ from dvis_plus_tpu_torch.config import (
     ctvis_r50_ytvis19,
     dvis_offline_swinl_ytvis19,
     dvis_offline_vitl_ytvis19,
+    dvis_online_r50_vipseg,
+    dvis_online_r50_vspw,
     dvis_online_r50_ytvis19,
     minvis_r50_ytvis19,
     video_maskformer_r50_ytvis19,
@@ -75,6 +77,13 @@ def test_minvis_ctvis_clip_presets_match_yaml(preset, group):
     _assert_fields_equal(_get(preset(), group), want, group)
 
 
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("preset", [dvis_online_r50_vipseg, dvis_online_r50_vspw])
+def test_vps_vss_presets_match_yaml(preset, group):
+    want = _get(load_config(f"configs/dvis/{preset.__name__}.yaml"), group)
+    _assert_fields_equal(_get(preset(), group), want, group)
+
+
 OVERRIDES = [
     "model.compute_dtype=float32",
     "model.backbone.vit_flash_attention=true",
@@ -126,24 +135,27 @@ def _expected_fault(cfg):
     JAX package's own reading of it; None where the port runs it."""
     m = cfg.model
     if m.meta_architecture not in ("dvis_online", "dvis_offline", "minvis", "ctvis",
-                                   "video_maskformer"):
+                                   "video_maskformer", "maskformer"):
         return "model.meta_architecture"
     if m.backbone.name.startswith("clip"):
         return "model.backbone.name"
     if m.ov.enabled:
         return "model.ov.enabled"
-    if cfg.test.task != "vis":
+    if cfg.test.task not in ("vis", "vps", "vss"):
         return "test.task"
+    if any(t not in ("video_instance", "video_panoptic", "video_semantic")
+           for t in cfg.datasets.dataset_type_test):
+        return "datasets.dataset_type_test"
     return None
 
 
 @pytest.mark.parametrize("yaml_name", ALL_YAMLS)
 def test_every_yaml_loads_and_is_run_or_refused(yaml_name):
     """Every YAML of the repository loads; the port runs it exactly when the
-    JAX package's reading of it stays inside the ported slices (VIS with
-    DVIS++ online and offline, MinVIS, CTVIS and Video Mask2Former on
-    ResNet, Swin and ViT-Adapter backbones), and otherwise
-    raises with the offending key in the message."""
+    JAX package's reading of it stays inside the ported slices (VIS, VPS and
+    VSS with DVIS++ online and offline, MinVIS, CTVIS, Video Mask2Former and
+    the image Mask2Former on ResNet, Swin and ViT-Adapter backbones), and
+    otherwise raises with the offending key in the message."""
     path = os.path.join("configs", yaml_name)
     cfg = port_config.load_config(path)
     fault = _expected_fault(load_config(path))
@@ -156,7 +168,8 @@ def test_every_yaml_loads_and_is_run_or_refused(yaml_name):
 
 def test_some_yamls_of_every_kind_exist():
     kinds = {_expected_fault(load_config(os.path.join("configs", y))) for y in ALL_YAMLS}
-    assert kinds == {None, "model.meta_architecture", "model.backbone.name", "test.task"}
+    # the VOS YAMLs are DAQ's: their architecture is the first fault
+    assert kinds == {None, "model.meta_architecture", "model.backbone.name"}
     assert len(ALL_YAMLS) > 100
 
 
@@ -186,6 +199,12 @@ SLICE_CASES = [
                                           "test.rle_col_k=1"]),
     ("dvis/video_maskformer_r50_ytvis19.yaml", ["test.mask_download=packed",
                                                "test.eval_pipeline=false"]),
+    # VPS and VSS (VIPSeg, VSPW) of every ported architecture and backbone,
+    # and the image Mask2Former
+    *[(f"dvis/{arch}_{bb}_{ds}.yaml", []) for arch in ("dvis_online", "dvis_offline", "minvis", "ctvis")
+      for bb in ("r50", "vitl") for ds in ("vipseg", "vspw")],
+    ("dvis/maskformer_r50_coco.yaml", []),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.task=vps", "datasets.dataset_type_test=[video_panoptic]"]),
 ]
 
 
@@ -195,21 +214,23 @@ def test_ported_slices_pass_the_check(yaml_name, overrides):
 
 
 REFUSED_CASES = [
-    ("dvis/dvis_online_r50_vipseg.yaml", [], "test.task"),  # VPS
-    ("dvis/dvis_offline_r50_vspw.yaml", [], "test.task"),  # VSS
+    ("dvis/dvis_online_r50_vipseg.yaml", ["test.task=vos"], "test.task"),  # VOS
+    ("dvis/dvis_offline_r50_vspw.yaml", ["test.task=mots"], "test.task"),  # MOTS
     ("daq/daq_online_r50_ytvis19.yaml", [], "model.meta_architecture"),  # DAQ
     ("daq/daq_vos_r50_ytvos.yaml", [], "test.task"),  # VOS
     ("ov/ov_online_r50_zeroshot_ytvis19.yaml", [], "model.ov.enabled"),  # OV
     ("ov/ov_online_r50_zeroshot_ytvis19.yaml", [], "model.backbone.name"),
-    ("dvis/minvis_r50_vipseg.yaml", [], "test.task"),  # MinVIS VPS
-    ("dvis/ctvis_r50_vspw.yaml", [], "test.task"),  # CTVIS VSS
-    ("dvis/maskformer_r50_coco.yaml", [], "model.meta_architecture"),  # image Mask2Former
-    ("dvis/dvis_online_r50_vipseg.yaml", [], "datasets.dataset_type_test"),
+    ("dvis/minvis_r50_vipseg.yaml", ["datasets.dataset_type_test=[video_sot]"],
+     "datasets.dataset_type_test"),  # SOT
+    ("dvis/ctvis_r50_vspw.yaml", ["model.meta_architecture=daq_offline"], "model.meta_architecture"),
+    ("dvis/maskformer_r50_coco.yaml", ["datasets.dataset_type_test=[image_instance]"],
+     "datasets.dataset_type_test"),  # COCO images as pseudo-videos
+    ("dvis/dvis_online_r50_vipseg.yaml", ["model.meta_architecture=daq_online"], "model.meta_architecture"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["test.refiner_shard_devices=2"], "test.refiner_shard_devices"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_devices=4"], "test.eval_devices"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_devices=0"], "test.eval_devices"),
-    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.task=vss"], "test.task"),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.task=mots"], "test.task"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.sem_seg_head=fcclip"], "model.sem_seg_head"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.backbone.name=clip_rn50"], "model.backbone.name"),
@@ -233,10 +254,10 @@ def test_unported_settings_raise_with_the_key(yaml_name, overrides, key):
 
 def test_check_names_every_fault_at_once():
     cfg = port_config.load_config(
-        "configs/dvis/dvis_online_r50_ytvis19.yaml", ["test.task=vps", "model.pixel_decoder.name=fpn"])
+        "configs/dvis/dvis_online_r50_ytvis19.yaml", ["test.task=vos", "model.pixel_decoder.name=fpn"])
     with pytest.raises(NotImplementedError) as exc:
         port_config.check_supported(cfg)
-    assert "test.task='vps'" in str(exc.value) and "model.pixel_decoder.name='fpn'" in str(exc.value)
+    assert "test.task='vos'" in str(exc.value) and "model.pixel_decoder.name='fpn'" in str(exc.value)
 
 
 def test_inherited_jax_defaults_pass_and_presets_pass():
@@ -247,15 +268,16 @@ def test_inherited_jax_defaults_pass_and_presets_pass():
     jax_cfg = load_config(YAML)
     assert jax_cfg.test.mask_download == "runs" and jax_cfg.test.eval_pipeline is True
     port_config.check_supported(jax_cfg)
-    jax_cfg.test.task = "vps"
+    jax_cfg.test.task = "vos"
     with pytest.raises(NotImplementedError, match=r"test\.task"):
         port_config.check_supported(jax_cfg)
     for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
-                   minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19):
+                   minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19,
+                   dvis_online_r50_vipseg, dvis_online_r50_vspw):
         port_config.check_supported(preset())
 
 
-@pytest.mark.parametrize("key,value", [("test.task", "vps"), ("model.pixel_decoder.name", "fpn"),
+@pytest.mark.parametrize("key,value", [("test.task", "vos"), ("model.pixel_decoder.name", "fpn"),
                                        ("model.meta_architecture", "daq_online")])
 def test_run_vis_inference_refuses_before_it_reads_a_video(key, value):
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
@@ -273,9 +295,9 @@ def test_run_vis_inference_refuses_before_it_reads_a_video(key, value):
 def test_cli_refuses_an_unported_setting(tmp_path):
     from dvis_plus_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match=r"test\.task='vps'"):
+    with pytest.raises(NotImplementedError, match=r"test\.task='vos'"):
         cli.main(["--config-file", "configs/dvis/dvis_online_r50_vipseg.yaml", "--eval-only",
-                  "--device", "cpu", f"output_dir={tmp_path}"])
+                  "--device", "cpu", "test.task=vos", f"output_dir={tmp_path}"])
     with pytest.raises(NotImplementedError, match=r"model\.meta_architecture='daq_online'"):
         cli.main(["--config-file", "configs/daq/daq_online_r50_ytvis19.yaml", "--eval-only",
                   "--device", "cpu", f"output_dir={tmp_path}"])

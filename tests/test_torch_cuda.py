@@ -573,3 +573,88 @@ def test_b1_launches_on_the_minvis_slice_shape(cuda_device):
     assert msdeform.launches == cfg.model.pixel_decoder.transformer_enc_layers == 6
     assert logits.shape == (100, 41) and masks.shape == (100, 5, 120, 160)
     assert torch.isfinite(logits.float()).all() and torch.isfinite(masks.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# VPS and VSS on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_panoptic_bookkeeping_on_the_card_equals_the_plain_version(cuda_device, seed):
+    """The card's head outputs, three time chunks: the device bookkeeping
+    gives the id map and segments of the plain host version run on the same
+    outputs (fp16 masks on the host), exactly."""
+    from dvis_plus_tpu_torch.models.meta import dvis_online as heads
+
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy((3.0 * rng.randn(20, 7)).astype(np.float32)).to(cuda_device)
+    masks = torch.from_numpy((4.0 * rng.randn(20, 5, 30, 40)).astype(np.float32)).to(cuda_device)
+    geometry = ((112, 150), (170, 230), (120, 160))
+    outs = [heads.panoptic_probs(logits, masks[:, s : s + 2], *geometry, 0.0) for s in (0, 2, 4)]
+    scores, labels, keep = outs[0][:3]
+    seg, infos, kept = heads.panoptic_segments_device(scores, labels, keep, [o[3:] for o in outs], 4, 0.3)
+    assert seg.is_cuda and seg.dtype == torch.int32 and seg.shape == (5, 170, 230)
+    want = heads.panoptic_segments_host(
+        scores.cpu().numpy(), labels.cpu().numpy(), keep.cpu().numpy(),
+        torch.cat([o[3] for o in outs], 1).half().cpu().numpy(),
+        torch.cat([o[4] for o in outs]).cpu().numpy(), 4, 0.3)
+    np.testing.assert_array_equal(seg.cpu().numpy(), want[0])
+    assert infos == want[1] and list(kept) == list(want[2]) and len(infos) > 1
+
+
+def _tiny_task(preset):
+    """A tiny VIPSeg / VSPW preset (``dvis_online_r50_{vipseg,vspw}``) with
+    the widths of ``_tiny_arch`` and 5 classes."""
+    from dvis_plus_tpu_torch import config
+
+    cfg = getattr(config, preset)()
+    m = cfg.model
+    m.compute_dtype, m.num_classes = "float32", 5
+    m.pixel_decoder.conv_dim = m.pixel_decoder.mask_dim = 32
+    m.pixel_decoder.transformer_enc_layers = 2
+    m.pixel_decoder.transformer_dim_feedforward = 64
+    td = m.transformer_decoder
+    td.hidden_dim = td.mask_dim = 32
+    td.num_queries, td.nheads, td.dim_feedforward, td.dec_layers = 8, 4, 64, 2
+    td.reid_hidden_dim = 32
+    m.tracker.num_layers, m.tracker.feedforward_dim, m.tracker.matcher_solver = 1, 64, "jv"
+    cfg.test.window_size = 3
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["dvis_online_r50_vipseg", "dvis_online_r50_vspw"])
+def test_vps_and_vss_on_the_card_match_the_cpu(cuda_device, preset):
+    """7 frames at 64x96 (valid 56x96, output 90x144), windows of 3: the id
+    maps (VPS) or class maps (VSS) of the card and of the CPU agree on at
+    least 99.9 % of the pixels, and VPS gives the same segments; B1 ran on
+    the card only."""
+    from dvis_plus_tpu_torch.engine.inference import run_vps_inference, run_vss_inference
+
+    cfg = _tiny_task(preset)
+    cpu, card = _arch_models(cfg, cuda_device)
+    x = np.random.RandomState(5).randn(7, 64, 96, 3).astype(np.float32)
+    video = {"images": x, "image_size": [56, 96], "height": 90, "width": 144, "video_id": "v",
+             "file_names": [f"{t}.jpg" for t in range(7)]}
+    outs = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        seen = []
+
+        class Recorder:
+            def process(self, video_id, frame_names, *maps):
+                seen.append(maps)
+
+        msdeform.reset_launches()
+        if cfg.test.task == "vps":
+            run_vps_inference(cfg, model, iter([video]), Recorder(), 2)
+        else:
+            run_vss_inference(cfg, model, iter([video]), Recorder())
+        outs[name] = (seen[0], msdeform.launches)
+    assert outs["cpu"][1] == 0 and outs["card"][1] == 2 * 3
+    got, want = outs["card"][0], outs["cpu"][0]
+    assert got[0].shape == want[0].shape == (7, 90, 144)
+    assert (got[0] == want[0]).mean() >= 0.999
+    if cfg.test.task == "vps":
+        assert got[1] == want[1]

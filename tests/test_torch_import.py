@@ -2,9 +2,11 @@
 builds no CUDA library, when every module is imported (the RLE codec's
 loader among them), its CPU path runs for the DVIS++ online, offline Swin,
 offline ViT, MinVIS, CTVIS and Video Mask2Former presets at a small size
-(the JAX default eval settings: ``runs`` download, threaded pipeline), and
-its CLI evaluates the synthetic YouTube-VIS set with ``--device cpu``. The
-rows are encoded by the native codec, built with g++ on first use.
+(the JAX default eval settings: ``runs`` download, threaded pipeline), its
+VPS and VSS loops run for the VIPSeg and VSPW presets with their evaluators
+(PNGs by the port's own writer), and its CLI evaluates the synthetic
+YouTube-VIS set with ``--device cpu``. The rows are encoded by the native
+codec, built with g++ on first use.
 
 Runs in a subprocess: the pytest process itself has jax loaded (conftest).
 The synthetic set is written by the pytest process (``tools/synth_data.py``
@@ -17,7 +19,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import importlib, json, pkgutil, sys, tempfile
+import importlib, json, os, pkgutil, sys, tempfile
 import numpy as np, torch
 torch.set_num_threads(2)
 import dvis_plus_tpu_torch
@@ -27,17 +29,15 @@ for m in pkgutil.walk_packages(dvis_plus_tpu_torch.__path__, "dvis_plus_tpu_torc
 from dvis_plus_tpu_torch import cli
 from dvis_plus_tpu_torch.config import (
     ctvis_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
-    dvis_online_r50_ytvis19, minvis_r50_ytvis19, video_maskformer_r50_ytvis19,
+    dvis_online_r50_vipseg, dvis_online_r50_vspw, dvis_online_r50_ytvis19, minvis_r50_ytvis19,
+    video_maskformer_r50_ytvis19,
 )
-from dvis_plus_tpu_torch.engine.inference import run_vis_inference
-from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
+from dvis_plus_tpu_torch.engine.inference import run_vis_inference, run_vps_inference, run_vss_inference
+from dvis_plus_tpu_torch.evaluation.evaluators import VPSEvaluator, VSSEvaluator, YTVISEvaluator
 from dvis_plus_tpu_torch.ops import _build, flash_attn, msdeform, swin_window_attn
 from dvis_plus_tpu_torch.utils import rle
 
-rows, containers = [], []
-for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
-               minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19):
-    cfg = preset()
+def small(cfg):
     m = cfg.model
     m.compute_dtype = "float32"
     m.backbone.vit_embed_dim = 32
@@ -64,7 +64,13 @@ for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline
     m.tracker.feedforward_dim = m.refiner.feedforward_dim = 64
     cfg.test.window_size = 2
     torch.manual_seed(0)
-    model = cli.build_model(m).eval()
+    return cli.build_model(m).eval()
+
+rows, containers, tasks = [], [], []
+for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
+               minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19):
+    cfg = preset()
+    model = small(cfg)
     rng = np.random.RandomState(0)
     video = {"images": rng.randn(3, 64, 64, 3).astype(np.float32), "image_size": [64, 64],
              "height": 48, "width": 48, "video_id": 1}
@@ -75,6 +81,19 @@ for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline
         run_vis_inference(cfg, model, iter([video]), ev)
         ev.write_results()
     rows.append(len(ev.predictions))
+for preset, run, evaluator in ((dvis_online_r50_vipseg, run_vps_inference, VPSEvaluator),
+                               (dvis_online_r50_vspw, run_vss_inference, VSSEvaluator)):
+    cfg = preset()
+    model = small(cfg)
+    video = {"images": np.random.RandomState(1).randn(3, 64, 64, 3).astype(np.float32),
+             "image_size": [64, 64], "height": 48, "width": 48, "video_id": "v1",
+             "file_names": [f"v1/{t:05d}.jpg" for t in range(3)]}
+    with tempfile.TemporaryDirectory() as tmp:
+        ev = evaluator("synthetic", tmp)
+        run(cfg, model, iter([video]), ev, *([58] if run is run_vps_inference else []))
+        res = ev.evaluate()
+        pngs = sum(f.endswith(".png") for _, _, fs in os.walk(tmp) for f in fs)
+    tasks.append([cfg.test.task, res["videos"], pngs])
 small = [
     "model.compute_dtype=float32", "model.backbone.vit_embed_dim=32", "model.backbone.vit_depth=2",
     "model.backbone.vit_num_heads=2", "model.backbone.vit_deform_num_heads=2",
@@ -98,6 +117,7 @@ print(json.dumps({
     "cli": [res["device"], res["predictions"], "AP" in res],
     "loaded": sorted(k for k in sys.modules if k.split(".")[0] in roots),
     "containers": containers,
+    "tasks": tasks,
     "built": _build.library.cache_info().currsize,
     "codec": rle.library.cache_info().currsize,
     "launches": [msdeform.launches, swin_window_attn.launches, flash_attn.launches],
@@ -123,5 +143,6 @@ def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
     # top-20 rows from each of the six models, their masks downloaded as
     # per-column runs; the CLI scored 2 videos x top-3 on the CPU
     assert out == {"rows": [20] * 6, "cli": ["cpu", 6, True], "loaded": [],
-                   "containers": ["ColRunMasks"] * 6, "built": 0, "codec": 1,
+                   "containers": ["ColRunMasks"] * 6, "tasks": [["vps", 1, 3], ["vss", 1, 3]],
+                   "built": 0, "codec": 1,
                    "launches": [0, 0, 0]}

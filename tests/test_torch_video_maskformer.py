@@ -148,3 +148,34 @@ def test_clip_run_vis_inference_matches_jax(monkeypatch):
         for bits in (g["pred_masks"].unpack(), w["pred_masks"].unpack()):
             differ = bits != (pre > 0)
             assert np.all(np.abs(pre[differ]) < 1e-4)
+
+
+def test_image_maskformer_matches_jax():
+    """The image Mask2Former (``maskformer``): B images as B one-frame
+    clips, on Video Mask2Former's weights (the same tree): logits and masks
+    rel <= 1e-5; and the eval loop's forward (``video_logits_masks``, the
+    whole video as one clip) against the JAX loop's, 6 frames in windows of
+    3 (the bucket holds them exactly): rel <= 1e-4."""
+    from dvis_plus_tpu.models.meta.video_maskformer import ImageMaskFormer as JaxImageMaskFormer
+
+    import copy
+
+    cfg, _, params = jax_clip_model_and_params()
+    cfg = copy.deepcopy(cfg)  # the cached configuration stays video_maskformer's
+    cfg.model.meta_architecture = "maskformer"
+    jax_model = JaxImageMaskFormer(cfg.model)
+    port = port_arch_model(cfg, params)
+    assert type(port).__name__ == "ImageMaskFormer"
+    x = images(2, seed=44)
+    want = jax.jit(jax_model.apply)(params, jnp.asarray(x))
+    with torch.inference_mode():
+        got = port(nchw(x))
+    assert got["pred_masks"].shape == np.asarray(want["pred_masks"]).shape == (2, 8, 1, 16, 24)
+    for k in ("pred_logits", "pred_masks"):
+        assert rel_err(got[k], want[k]) <= 1e-5, k
+    video = images(6, seed=45)
+    wl, wm, _ = jax_inference.video_logits_masks(cfg, jax_model, params, video, {}, 3)
+    with torch.inference_mode():
+        gl, gm, aux = port_inference.video_logits_masks(cfg, port, video, 3)
+    assert aux is None and gm.shape == (8, 6, 16, 24)
+    assert rel_err(gl, wl) <= 1e-4 and rel_err(gm, np.asarray(wm)[:, :6]) <= 1e-4
