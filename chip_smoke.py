@@ -23,18 +23,24 @@ kernels:
 - DVIS++ online video panoptic (VPS) and video semantic (VSS) segmentation
   at the full width of ``configs/dvis/dvis_online_r50_{vipseg,vspw}.yaml``
   (124 classes, kernel B1) through ``run_vps_inference`` /
-  ``run_vss_inference`` and the real evaluators, at 720x1280.
+  ``run_vss_inference`` and the real evaluators, at 720x1280;
+- DVIS-DAQ online and offline VIS at the full width of
+  ``configs/daq/daq_online_r50_ytvis19.yaml`` and
+  ``daq_offline_r50_ovis.yaml`` (kernel B1; the Video Instance Cutter with a
+  table of 50 slots, the refiner over the 20 best sequences), its VPS
+  route and its VOS writer, GPU against CPU first.
 
 Run from a checkout of the repository:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # build, then only the kernels against their
                                      # plain versions and the wrappers' host time
-    python3 chip_smoke.py --profile [vitl] [swinl] [r50]
+    python3 chip_smoke.py --profile [vitl] [swinl] [r50] [daq]
                                      # build, then stage times and a torch.profiler
                                      # breakdown of one video of each slice named
     python3 chip_smoke.py --b1-runs  # build, then kernel B1's time at its main shapes
                                      # by the run of queries a block takes
+    python3 chip_smoke.py --daq      # build, then only the DVIS-DAQ phases
 
 Kernel B1 (deformable attention) is held and timed at each of its three
 main shapes under two distributions of sampling offsets: uniform over +-10
@@ -62,8 +68,13 @@ fp32 parts (the deformable encoder island, mask products) run in full fp32;
 the timed slices run the configuration's ``compute_dtype`` (bfloat16). The
 seeded random ViT-L gets LayerScale gains of 0.1 (a trained checkpoint's
 order) instead of the 1e-5 initial value, so that trunk attention carries
-weight in what the phases compare.
+weight in what the phases compare. The seeded random DVIS-DAQ models get
+their class heads' no-object logits shifted and the cutter's class head
+scaled (``DAQ_HEADS``, ``DAQ_PARITY_HEADS`` say how and why), so that the
+first frame starts no sequence, the second fills the table, and the
+selection thresholds separate queries.
 """
+import contextlib
 import json
 import math
 import os
@@ -674,13 +685,14 @@ def read_launches() -> dict:
 
 
 def timed_slice(cfg, dev, frames=FRAMES, canvas=(H_IN, W_IN), valid=None, out=(H_OUT, W_OUT),
-                model=None):
+                model=None, around=contextlib.nullcontext):
     """``VIDEOS`` synthetic videos x ``frames`` frames on a ``canvas`` input
     (by default 2 x 15 at 480x640, output 720x960) through
     ``run_vis_inference`` after one untimed warm-up video; every kernel's
     launch count is set to 0 just before the timed run and read just after.
-    Returns (measurements, whether the rows are well formed, the
-    results.json bytes)."""
+    The timed run is made inside the context ``around()``. Returns
+    (measurements, whether the rows are well formed, the results.json
+    bytes)."""
     import torch
 
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
@@ -705,11 +717,12 @@ def timed_slice(cfg, dev, frames=FRAMES, canvas=(H_IN, W_IN), valid=None, out=(H
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        t0 = time.perf_counter()
-        run_vis_inference(cfg, model, synthetic_videos(VIDEOS, frames, *canvas, *out, SEED, valid),
-                          evaluator, timings)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with around():
+            t0 = time.perf_counter()
+            run_vis_inference(cfg, model, synthetic_videos(VIDEOS, frames, *canvas, *out, SEED, valid),
+                              evaluator, timings)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         launches = read_launches()
         rows = evaluator.predictions
         with open(evaluator.write_results(), "rb") as f:
@@ -1240,26 +1253,340 @@ def phase_task_slice(dev, task):
     return res
 
 
+# DVIS-DAQ. The seeded random heads (torch's initialisation) give every
+# query of a frame nearly the same class scores, so the cutter's class head
+# is scaled x8 with its no-object logit raised by 3, and the segmenter's
+# no-object logit is raised by 7: the first frame starts no sequence (its
+# validity is the segmenter's score against 0.01), the second starts as many
+# as the table of 50 holds, and from then on the slot branch's scores of the
+# live tracks sit a few thousandths from their threshold of 0.01, so some
+# tracks miss frames and are kept (DAQ_HEADS: module, weight scale,
+# no-object shift).
+DAQ_HEADS = (("tracker.class_embed", 8.0, 3.0), ("sem_seg_head.predictor.class_embed", 1.0, 7.0))
+# The GPU against CPU runs lower the cutter's no-object logit by 4 instead,
+# so that every live track's slot-branch score sits far (0.17 and more)
+# above its gate: the slot-to-query auction settles nearly tied assignments
+# by the last bits of the costs, so the two devices may pair a slot with
+# another of the segmenter's queries, which moves that slot's gate score.
+DAQ_PARITY_HEADS = (("tracker.class_embed", 8.0, -4.0), ("sem_seg_head.predictor.class_embed", 1.0, 7.0))
+
+
+def daq_model(cfg, dev, heads=DAQ_HEADS):
+    import torch
+
+    model = build_model(cfg, dev)
+    with torch.no_grad():
+        for name, scale, shift in heads:
+            head = model.get_submodule(name)
+            head.weight.mul_(scale)
+            head.bias[-1] += shift
+    return model
+
+
+def daq_presets():
+    from dvis_plus_tpu_torch.config import daq_offline_r50_ovis, daq_online_r50_ytvis19
+
+    return {"daq_online": daq_online_r50_ytvis19, "daq_offline": daq_offline_r50_ovis}
+
+
+def daq_vps_cfg():
+    """DAQ online through the VPS loop at ``configs/daq/daq_online_r50_vipseg.yaml``'s
+    settings: 124 classes, every threshold 0.01, no slot gate, sequences
+    shorter than 5 frames that end early dropped."""
+    cfg = daq_presets()["daq_online"]()
+    m, d = cfg.model, cfg.model.daq
+    m.num_classes = 124
+    d.inference_select_thr = d.aux_inference_select_thr = d.training_select_thr = 0.01
+    d.noise_frame_num, d.ovis_infer = 5, False
+    cfg.test.task = "vps"
+    return cfg
+
+
+def daq_stream(cfg, model, images):
+    """``stream_video`` with every frame's slot state and how far the
+    scores that decide a live track's survival (the selection score, and
+    the slot branch's against ``keep_threshold``) lie from their
+    thresholds. Returns (records, [(alive, seq_id, invalid_frames) per
+    frame, on the device], (T, (H4, W4), features), margins)."""
+    from dvis_plus_tpu_torch.engine.daq_inference import stream_video
+
+    d, cutter, states, margins = cfg.model.daq, model.tracker, [], {}
+    step, pred, cls = cutter.inference_step, cutter._prediction, cutter._class_logits
+    live = []
+
+    def recording_step(state, *args, **kwargs):
+        live[:] = [state.alive]
+        out, state = step(state, *args, **kwargs)
+        states.append((state.alive, state.seq_id, state.invalid_frames))
+        return out, state
+
+    def distance(logits, thr, key):
+        alive = live[0][: cutter.num_track_slots]
+        if alive.any():
+            score = logits.float().softmax(-1)[: cutter.num_track_slots, :-1].max(-1).values
+            margins[key] = min(margins.get(key, 1.0), float((score[alive] - thr).abs().min()))
+
+    def recording_pred(h, mf):
+        logits, masks = pred(h, mf)
+        distance(logits, d.inference_select_thr, "select")
+        return logits, masks
+
+    def recording_cls(h):
+        logits = cls(h)
+        distance(logits, d.keep_threshold, "keep")
+        return logits
+
+    cutter.inference_step, cutter._prediction, cutter._class_logits = recording_step, recording_pred, recording_cls
+    try:
+        records, T, shape4, features = stream_video(cfg, model, images,
+                                                    keep_features=cfg.model.meta_architecture == "daq_offline")
+    finally:
+        del cutter.inference_step, cutter._prediction, cutter._class_logits
+    return records, states, (T, shape4, features), margins
+
+
+def host_states(states):
+    return [tuple(t.cpu().numpy() for t in s) for s in states]
+
+
+def daq_events(states):
+    """One video's frames of slot state on the host -> its sequences,
+    those started after frame 0, those that left the table before the video
+    ended (kick-outs), and live tracks kept through a miss (summed over
+    frames)."""
+    first, last = {}, {}
+    for t, (alive, seq, _) in enumerate(states):
+        for sid in seq[alive].tolist():
+            first.setdefault(sid, t)
+            last[sid] = t
+    return {"sequences": len(first), "started_after_frame_0": sum(t > 0 for t in first.values()),
+            "kicked_out": sum(t + 1 < len(states) for t in last.values()),
+            "kept_through_a_miss": int(sum((a & (inv > 0)).sum() for a, _, inv in states))}
+
+
+def phase_daq_slice_parity(dev):
+    """DVIS-DAQ at full width (R50, Q = 100, 100 new-instance queries, a
+    table of 50, 6-layer cutter), fp32, TF32 off, 7 frames at 128x160,
+    window 5 (two windows, the last ragged): the GPU (kernel B1, cuDNN)
+    against the CPU (B1's plain version), same seeded weights, the heads
+    set by ``DAQ_PARITY_HEADS``.
+
+    - online and offline: every frame's slot state (alive, seq ids,
+      missed-frame counts) equal (the line gives how far the CPU's scores
+      that decide a live track's survival lie from their thresholds: a
+      flip within the GPU's rounding would be no fault), the same
+      sequences on the same frames,
+      their logits and embeds within SLICE_TOL, their fp16 masks within
+      SLICE_TOL of the largest; offline, the refiner's logits and masks of
+      each sequence too. The random model's sequences score alike to 1e-7,
+      so a top-20 cut would pick rows by rounding: the offline run refines
+      all of them (``offline_topk_num`` 50) and compares them by sequence.
+    - DAQ through ``run_vps_inference`` (124 classes): at least 99.9 % of
+      the id-map pixels equal, the same segments.
+    - ``_vos_output`` fed given objects directly (three sequences' masks of
+      frame 1, upsampled; the video from frame 1 on, since frame 0 starts no
+      sequence) on each device's sequences: the label PNGs, written without
+      OpenCV and read back, give the same foreground on at least 99.9 % of
+      the pixels, with the given objects' labels. Which object a foreground
+      pixel takes is the argmax of the objects' logits, which the random
+      model makes nearly equal, so rounding decides it: the line gives the
+      share of equal labels, which no bar holds."""
+    import torch
+
+    from dvis_plus_tpu_torch.engine import daq_inference as daq
+    from dvis_plus_tpu_torch.utils.png import read_png
+
+    images = next(synthetic_videos(1, 7, 128, 160, 128, 160, SEED + 7))["images"]
+    rows, seqs = [], {}
+    for arch, preset in daq_presets().items():
+        cfg = preset()
+        cfg.model.compute_dtype = "float32"
+        cfg.model.daq.offline_topk_num = 50
+        out, launches = {}, {}
+        with torch.inference_mode():
+            for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+                model = daq_model(cfg, d, DAQ_PARITY_HEADS)
+                reset_launches()
+                records, states, (T, shape4, features), margins = daq_stream(cfg, model, images)
+                states = host_states(states)
+                pred_cls, masks, embeds, _, ids = daq.collect_sequences(cfg, records, T, shape4)
+                refined = None
+                if arch == "daq_offline":
+                    order = np.argsort(-daq._softmax(pred_cls)[:, :-1].max(axis=1))
+                    r_cls, r_masks = daq._offline_refine(cfg, model, pred_cls, embeds, features)
+                    refined = {ids[i]: (r_cls[j], r_masks[j]) for j, i in enumerate(order)}
+                launches[name] = read_launches()
+                out[name] = (records, states, dict(zip(ids, zip(pred_cls, masks))), refined, margins)
+        got, want = out["cuda"], out["cpu"]
+        states_equal = len(got[1]) == len(want[1]) == 7 and all(
+            all(np.array_equal(a, b) for a, b in zip(g, w)) for g, w in zip(got[1], want[1]))
+        same = sorted(got[0]) == sorted(want[0]) and all(
+            got[0][k].frames == want[0][k].frames for k in want[0])
+        errs = {}
+        if same:
+            def rel(pairs):
+                a = np.stack([p[0] for p in pairs]).astype(np.float32)
+                b = np.stack([p[1] for p in pairs]).astype(np.float32)
+                return float(np.abs(a - b).max() / np.abs(b).max())
+
+            keys = sorted(want[0])
+            for field in ("logits", "embeds", "masks"):
+                errs[field] = rel([(np.stack(getattr(got[0][k], field)), np.stack(getattr(want[0][k], field)))
+                                   for k in keys])
+            if want[3] is not None:
+                errs["refined_logits"] = rel([(got[3][k][0], want[3][k][0]) for k in keys])
+                errs["refined_masks"] = rel([(got[3][k][1], want[3][k][1]) for k in keys])
+        expect = expected_b1(cfg, frames=7, videos=1)
+        row = {"phase": "daq_slice_parity", "arch": arch, "input": [7, 128, 160],
+               "window": cfg.test.window_size, "states_equal": states_equal, "same_sequences": same,
+               "cpu_threshold_margins": want[4],
+               "events": daq_events(want[1]), "rel_err": errs, "tol": SLICE_TOL,
+               "launches": launches, "expected_launches": expect}
+        rows.append(row)
+        emit(row)
+        if not (states_equal and same and errs and max(errs.values()) <= SLICE_TOL):
+            raise AssertionError(f"GPU {arch} disagrees with the CPU: {row}")
+        if launches["cuda"] != expect or any(launches["cpu"].values()):
+            raise AssertionError(f"{arch} parity run took the wrong path: {launches}")
+        seqs[arch] = (got[2], want[2])
+
+    # DAQ through the VPS loop
+    cfg = daq_vps_cfg()
+    cfg.model.compute_dtype = "float32"
+    recs, launches = [], {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        recs.append(TaskRecorder())
+        reset_launches()
+        run_task(cfg, daq_model(cfg, d, DAQ_PARITY_HEADS), task_videos(1, 7, 128, 160, 128, 160, SEED + 7),
+                 recs[-1])
+        launches[name] = read_launches()
+    got, want = recs
+    row = {"phase": "daq_slice_parity", "task": "vps", "input": [7, 128, 160],
+           "pixels_equal": float((got.maps[0] == want.maps[0]).mean()),
+           "same_segments": got.segments == want.segments, "segments": len(want.segments[0]),
+           "tol": TASK_PIXEL_TOL, "launches": launches}
+    emit(row)
+    if row["pixels_equal"] < TASK_PIXEL_TOL or not row["same_segments"]:
+        raise AssertionError(f"GPU DAQ VPS disagrees with the CPU: {row}")
+
+    # the VOS writer on given objects, frames 1-6 of the online sequences
+    cfg = daq_presets()["daq_online"]()
+    online_got, online_want = seqs["daq_online"]
+    keys = sorted(online_want)[:3]
+    gt = np.stack([np.kron(online_want[k][1][1].astype(np.float32) > 0, np.ones((4, 4))) > 0 for k in keys])
+    pngs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, seq in (("cuda", online_got), ("cpu", online_want)):
+            cfg.output_dir = os.path.join(tmp, name)
+            ks = sorted(seq)
+            sample = {"images": images[1:], "image_size": [128, 160], "height": 128, "width": 160,
+                      "video_name": "v", "file_names": [f"v/{t:05d}.jpg" for t in range(6)],
+                      "first_frame_masks": gt, "first_frame_ids": [1, 2, 3]}
+            daq._vos_output(cfg, sample, np.stack([seq[k][0] for k in ks]),
+                            np.stack([seq[k][1][1:] for k in ks]))
+            pngs[name] = [read_png(os.path.join(cfg.output_dir, "inference", "v", f"{t:05d}.png"))
+                          for t in range(6)]
+    got, want = np.stack(pngs["cuda"]), np.stack(pngs["cpu"])
+    row = {"phase": "daq_slice_parity", "task": "vos", "pngs": len(got),
+           "foreground_equal": float(((got > 0) == (want > 0)).mean()),
+           "labels_equal": float((got == want).mean()),
+           "labels": sorted(int(v) for v in np.unique(got)), "tol": TASK_PIXEL_TOL}
+    emit(row)
+    if row["foreground_equal"] < TASK_PIXEL_TOL or not set(row["labels"]) <= {0, 1, 2, 3} \
+            or len(row["labels"]) < 3:
+        raise AssertionError(f"VOS label maps of the GPU sequences disagree with the CPU's: {row}")
+    return rows
+
+
+def phase_daq_slice(dev, arch, phase):
+    """Full-width DVIS-DAQ (``daq_online_r50_ytvis19``, or
+    ``daq_offline_r50_ovis``: the refiner over the 20 best sequences) in
+    bf16 over 2 videos x 15 frames at 480x640, output 720x960, through
+    ``run_vis_inference`` (the DAQ loop: no pipeline, the ``runs``
+    download), after one untimed warm-up video. The timed run also counts
+    its host syncs (PyTorch's sync debug mode, plus the waits on the events
+    of the window reads and downloads) and keeps every frame's slot state on
+    the device, for each video's bookkeeping events. B1 runs 6 times a
+    window: the offline pass reuses the streaming pass's frame queries and
+    mask features."""
+    import torch
+
+    cfg = daq_presets()[arch]()
+    model = daq_model(cfg, dev)
+    cutter, states, waits = model.tracker, [], [0]
+    step, synchronize = cutter.inference_step, torch.cuda.Event.synchronize
+
+    def recording_step(*args, **kwargs):
+        out, state = step(*args, **kwargs)
+        states.append((state.alive, state.seq_id, state.invalid_frames))
+        return out, state
+
+    def counting(event):
+        waits[0] += 1
+        return synchronize(event)
+
+    @contextlib.contextmanager
+    def counted():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            cutter.inference_step, torch.cuda.Event.synchronize = recording_step, counting
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.Event.synchronize = synchronize
+                del cutter.inference_step
+            waits.append(sum("synchroniz" in str(w.message) for w in caught))
+
+    res, rows_ok, _ = timed_slice(cfg, dev, model=model, around=counted)
+    expect = expected_b1(cfg)
+    host = host_states(states)
+    syncs = waits[0] + waits[1]
+    res = {"phase": phase, "meta_architecture": arch, "table": cfg.model.daq.max_num_instances,
+           "new_instance_queries": cfg.model.daq.num_new_ins, **res,
+           "eval_pipeline": "none: the DAQ loop is plain, as in the JAX package",
+           "host_syncs": {"total": syncs, "per_frame": syncs / (VIDEOS * FRAMES), "event_waits": waits[0]},
+           "events_per_video": [daq_events(host[v * FRAMES : (v + 1) * FRAMES]) for v in range(VIDEOS)],
+           "expected_launches": expect}
+    emit(res)
+    if not (rows_ok and res["launches"] == expect and len(host) == VIDEOS * FRAMES):
+        raise AssertionError(f"{phase} check failed: {res}")
+    return res
+
 def phase_profile(dev, name):
     """One video of slice ``name`` (``vitl``: 5 frames at 736x1280, one
-    window; ``swinl`` and ``r50``: 15 frames at 480x640, three windows),
-    bf16: CUDA-event time of every stage (device work plus dispatch gaps),
-    then ``torch.profiler`` over the same video: the device-busy share (sum
-    of kernel times over wall) and the time by kernel and by operator."""
+    window; ``swinl`` and ``r50``: 15 frames at 480x640, three windows;
+    ``daq``: DVIS-DAQ online's streaming pass over 5 frames at 480x640),
+    bf16: CUDA-event time of
+    every stage (device work plus dispatch gaps), then ``torch.profiler``
+    over the same video: the device-busy share (sum of kernel times over
+    wall) and the time by kernel and by operator."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dvis_plus_tpu_torch.config import dvis_offline_swinl_ytvis19, dvis_online_r50_ytvis19
+    from dvis_plus_tpu_torch.engine.daq_inference import stream_video
     from dvis_plus_tpu_torch.engine.inference import _online_video
 
-    cfg = {"vitl": vitl_cfg, "swinl": dvis_offline_swinl_ytvis19, "r50": dvis_online_r50_ytvis19}[name]()
-    T, H, W = (5, VIT_H, VIT_W) if name == "vitl" else (FRAMES, H_IN, W_IN)
-    model = build_model(cfg, dev)
+    cfg = {"vitl": vitl_cfg, "swinl": dvis_offline_swinl_ytvis19, "r50": dvis_online_r50_ytvis19,
+           "daq": daq_presets()["daq_online"]}[name]()
+    # DAQ: one window, since the random model's slot auctions run 1,000 and
+    # more bidding rounds of about 25 launches a frame
+    T, H, W = (5, VIT_H, VIT_W) if name == "vitl" else (5, H_IN, W_IN) if name == "daq" else (FRAMES, H_IN, W_IN)
+    model = daq_model(cfg, dev) if name == "daq" else build_model(cfg, dev)
     images = next(synthetic_videos(1, T, H, W, H, W, SEED + 4))["images"]
     head = model.sem_seg_head
     stages = [("backbone", model.backbone, "forward"), ("pixel_decoder", head.pixel_decoder, "forward"),
-              ("query_decoder", head.predictor, "forward"), ("tracker", model.tracker, "forward")]
+              ("query_decoder", head.predictor, "forward")]
+    if name == "daq":  # the cutter's step and three of its parts
+        stages += [("cutter_step", model.tracker, "inference_step"),
+                   ("cutter_decode", model.tracker, "_decode"),
+                   ("slot_auction", model.tracker, "_match_slots_to_seg"),
+                   ("slot_decode", model.tracker, "_slot_decode")]
+    else:
+        stages.append(("tracker", model.tracker, "forward"))
     if hasattr(model, "refiner"):
         stages += [("refiner_embed_pass", model.refiner, "embed_pass"),
                    ("refiner_mask_window", model.refiner, "mask_window")]
@@ -1281,7 +1608,10 @@ def phase_profile(dev, name):
     def run():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _online_video(cfg, model, images, cfg.test.window_size)
+        if name == "daq":
+            stream_video(cfg, model, images)
+        else:
+            _online_video(cfg, model, images, cfg.test.window_size)
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0)
 
@@ -1378,6 +1708,11 @@ def main() -> int:
     if "--b1-runs" in sys.argv[1:]:
         phase_b1_runs(dev)
         return 0
+    if "--daq" in sys.argv[1:]:
+        phase_daq_slice_parity(dev)
+        phase_daq_slice(dev, "daq_online", "daq_slice")
+        phase_daq_slice(dev, "daq_offline", "daq_offline_slice")
+        return 0
     b1, b2, b3 = phase_kernels(dev)
     phase_host_call(dev)
     if "--kernels" in sys.argv[1:]:
@@ -1396,6 +1731,9 @@ def main() -> int:
     phase_vps_slice_parity(dev)
     vps = phase_task_slice(dev, "vps")
     vss = phase_task_slice(dev, "vss")
+    phase_daq_slice_parity(dev)
+    daq_online = phase_daq_slice(dev, "daq_online", "daq_slice")
+    daq_offline = phase_daq_slice(dev, "daq_offline", "daq_offline_slice")
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
     # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2
@@ -1427,7 +1765,8 @@ def main() -> int:
                  if f["dtype"] == "bfloat16" and f["layout"] == "fused_qkv_views"}
     b3_main = b3_shapes["B5_L3681"]
     paths = {"slice": runs["exact"], "swinl_slice": swinl, "vitl_slice": vitl,
-             "minvis_slice": minvis, "clip_slice": clip, "vps_slice": vps, "vss_slice": vss}
+             "minvis_slice": minvis, "clip_slice": clip, "vps_slice": vps, "vss_slice": vss,
+             "daq_slice": daq_online, "daq_offline_slice": daq_offline}
 
     def by_path(kernel):
         return {name: r["launches"][kernel] for name, r in paths.items()}

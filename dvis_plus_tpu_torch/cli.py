@@ -6,17 +6,21 @@
         [--device cuda|cpu] [weights=<state_dict .pth/.npz>] [key.path=value ...]
 
 (``configs/dvis/dvis_offline_{swinl,vitl}_ytvis19.yaml``,
-``configs/dvis/{minvis,ctvis}_*_ytvis19.yaml`` and
-``configs/dvis/video_maskformer_r50_ytvis19.yaml`` run the same way;
-``model.meta_architecture`` picks ``DVISOnline``, ``DVISOffline``, the bare
-``Segmenter`` (``minvis``, ``ctvis``), ``VideoMaskFormer`` or
-``ImageMaskFormer`` (``maskformer``); the VIPSeg and VSPW YAMLs,
+``configs/dvis/{minvis,ctvis}_*_ytvis19.yaml``,
+``configs/dvis/video_maskformer_r50_ytvis19.yaml`` and ``configs/daq/*.yaml``
+run the same way; ``model.meta_architecture`` picks ``DVISOnline``,
+``DVISOffline``, the bare ``Segmenter`` (``minvis``, ``ctvis``),
+``VideoMaskFormer``, ``ImageMaskFormer`` (``maskformer``), ``DAQOnline`` or
+``DAQOffline``; the VIPSeg and VSPW YAMLs,
 ``configs/dvis/*_{vipseg,vspw}.yaml``, run the VPS and VSS tasks.)
 
 Loads the configuration (``config.load_config``) and the video datasets
 (``data.catalog``, ``data.datasets.{ytvis,vps_vss}``, ``data.mapper``) with
 the port's own host-side modules and routes each test set by task, as
-``train_net_video.py::run_task_eval`` does: ``test.task=vps`` or a
+``train_net_video.py::run_task_eval`` does: ``test.task=vos`` or ``mots``
+(DVIS-DAQ only) runs ``engine.daq_inference.run_daq_inference``, MOTS
+writing ``results.json`` through ``UniYTVISEvaluator``, VOS its PNGs;
+``test.task=vps`` or a
 ``video_panoptic`` set runs ``run_vps_inference`` and writes
 ``<output_dir>/inference/<dataset>/{pred.json,pan_pred/}`` (VPQ and STQ
 when the ground truth is on disk); ``vss`` or ``video_semantic`` runs
@@ -63,6 +67,7 @@ def load_weights(model: torch.nn.Module, path: str) -> None:
 def build_model(model_cfg) -> torch.nn.Module:
     """The port's module for ``model_cfg.meta_architecture`` (the JAX
     package's ``train_net_video.py::build_model``), randomly initialized."""
+    from dvis_plus_tpu_torch.models.meta.daq import DAQOffline, DAQOnline
     from dvis_plus_tpu_torch.models.meta.dvis_offline import DVISOffline
     from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
     from dvis_plus_tpu_torch.models.meta.video_maskformer import ImageMaskFormer, VideoMaskFormer
@@ -70,7 +75,7 @@ def build_model(model_cfg) -> torch.nn.Module:
 
     archs = {"minvis": Segmenter, "ctvis": Segmenter, "maskformer": ImageMaskFormer,
              "video_maskformer": VideoMaskFormer, "dvis_online": DVISOnline,
-             "dvis_offline": DVISOffline}
+             "dvis_offline": DVISOffline, "daq_online": DAQOnline, "daq_offline": DAQOffline}
     return archs[model_cfg.meta_architecture](model_cfg)
 
 
@@ -89,12 +94,20 @@ def _score(md, rows):
 
 
 def _eval_vis(cfg, model, md, loader, out_dir):
+    """VIS (``run_vis_inference``), and VOS and MOTS (the DAQ eval loop with the
+    MOTS evaluator, as ``train_net_video.py::run_task_eval``): VOS writes
+    its PNGs and returns ``{"task": "vos"}``."""
+    from dvis_plus_tpu_torch.engine.daq_inference import run_daq_inference
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
-    from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
+    from dvis_plus_tpu_torch.evaluation.evaluators import UniYTVISEvaluator, YTVISEvaluator
 
-    evaluator = YTVISEvaluator(md.name, out_dir, contiguous_to_dataset_id={
+    task = cfg.test.task
+    kind = UniYTVISEvaluator if task in ("vos", "mots") else YTVISEvaluator
+    evaluator = kind(md.name, out_dir, contiguous_to_dataset_id={
         v: k for k, v in getattr(md, "thing_dataset_id_to_contiguous_id", {}).items()})
-    run_vis_inference(cfg, model, loader, evaluator)
+    (run_daq_inference if task in ("vos", "mots") else run_vis_inference)(cfg, model, loader, evaluator)
+    if task == "vos":
+        return {"task": "vos"}
     res = {"predictions": len(evaluator.predictions), "results_json": evaluator.write_results()}
     json_file = getattr(md, "json_file", None)
     if json_file and os.path.exists(json_file):
@@ -169,7 +182,9 @@ def main(argv=None) -> dict:
         mapper = mapper_for_type(cfg, dataset_type)
         loader = (mapper(rec, seed=0) for rec in get_dataset(name))
         out_dir = os.path.join(cfg.output_dir, "inference", name)
-        if cfg.test.task == "vps" or dataset_type == "video_panoptic":
+        if cfg.test.task in ("vos", "mots"):
+            run = _eval_vis
+        elif cfg.test.task == "vps" or dataset_type == "video_panoptic":
             run = _eval_vps
         elif cfg.test.task == "vss" or dataset_type == "video_semantic":
             run = _eval_vss

@@ -20,11 +20,14 @@ The presets hold the values ``load_config`` resolves for their YAML:
 ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (ctvis -> minvis ->
 base_video), ``configs/dvis/dvis_online_r50_{vipseg,vspw}.yaml`` (vspw ->
 vipseg -> dvis_online_r50_ytvis19), ``configs/dvis/dvis_offline_swinl_ytvis19.yaml``
-(dvis_online_swinl -> dvis_online_r50 -> ...) and
+(dvis_online_swinl -> dvis_online_r50 -> ...),
 ``configs/dvis/dvis_offline_vitl_ytvis19.yaml`` (dvis_online_vitl ->
-dvis_online_r50 -> ...). ``tests/test_torch_config.py`` holds each preset
-equal to its YAML field by field, and this ``load_config`` equal to the JAX
-package's.
+dvis_online_r50 -> ...) and ``configs/daq/daq_online_r50_ytvis19.yaml`` /
+``daq_offline_r50_ovis.yaml`` (daq_online_r50_ovis -> dvis_online_r50_ovis
+-> dvis_online_r50_ytvis19 -> ...), but for the ReID branch the DAQ YAMLs
+inherit and no DAQ model can use (see :func:`daq_online_r50_ytvis19`).
+``tests/test_torch_config.py`` holds each preset equal to its YAML field by
+field, and this ``load_config`` equal to the JAX package's.
 """
 from __future__ import annotations
 
@@ -109,6 +112,30 @@ class RefinerConfig:
 
 
 @dataclass
+class DAQConfig:
+    """DVIS-DAQ's Video Instance Cutter (the JAX package's ``DAQConfig``,
+    every field a YAML under ``configs/daq/`` sets). The curriculum and
+    training thresholds are read only by training."""
+
+    num_new_ins: int = 10
+    num_slots: int = 5
+    offline_topk_num: int = 20
+    mask_nms_thr: float = 0.6
+    match_score_thr: float = 0.3
+    inference_select_thr: float = 0.1
+    aux_inference_select_thr: float = 0.01  # the first frame's segmenter scores
+    training_select_thr: float = 0.1
+    keep_threshold: float = 0.01  # slot-branch survival gate (ovis_infer)
+    noise_frame_num: int = 1  # sequences shorter than this that end early are dropped
+    kick_out_frame_num: int = 8  # a track missed this many frames in a row leaves the table
+    ovis_infer: bool = False
+    max_num_instances: int = 50  # capacity of the slot table
+    using_frame_num: Tuple[int, ...] = ()
+    steps: Tuple[int, ...] = ()
+    increasing_step: Tuple[int, ...] = (8000,)
+
+
+@dataclass
 class ModelConfig:
     meta_architecture: str = "minvis"
     num_classes: int = 40
@@ -123,6 +150,7 @@ class ModelConfig:
     )
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
     refiner: RefinerConfig = field(default_factory=RefinerConfig)
+    daq: DAQConfig = field(default_factory=DAQConfig)
 
 
 @dataclass
@@ -139,7 +167,7 @@ class DatasetsConfig:
 
 @dataclass
 class TestConfig:
-    task: str = "vis"  # vis | vps | vss (the CLI routes by it and by the dataset type)
+    task: str = "vis"  # vis | vps | vss | vos | mots (the CLI routes by it and by the dataset type)
     object_mask_threshold: float = 0.0  # VPS: a query is kept above this score
     overlap_threshold: float = 0.8  # VPS: least share of a query's mask it keeps
     window_size: int = 5
@@ -265,39 +293,6 @@ def load_config(path: Optional[str] = None, overrides: Optional[List[str]] = Non
 # ---------------------------------------------------------------------------
 
 
-def _ported_backbone(name) -> bool:
-    return name in ("resnet50", "resnet101", "vit_adapter_dinov2") or str(name).startswith("swin")
-
-
-def _eval_dataset_types(types) -> bool:
-    from dvis_plus_tpu_torch.data.mapper import EVAL_DATASET_TYPES
-
-    return all(t in EVAL_DATASET_TYPES for t in types)
-
-
-# (key path, the values the port honours (a tuple, or a predicate), the
-# ROADMAP item that lifts the limit). One place to shrink as later slices
-# land. A key that is absent is at the
-# JAX package's default, which every row honours. Keys that cannot change an
-# eval result (``solver.*``, the training input and datasets, the criterion,
-# ``parallel.*``, profiling and compile-cache directories) are not listed and
-# stay ignored.
-SUPPORTED = (
-    ("model.meta_architecture",
-     ("dvis_online", "dvis_offline", "minvis", "ctvis", "video_maskformer", "maskformer"),
-     "A12 (daq_*)"),
-    ("model.backbone.name", _ported_backbone, "A13 (the CLIP trunks)"),
-    ("model.backbone.swin_fast_softmax", (False,), "queue A, small pieces left open (bf16 scores)"),
-    ("model.sem_seg_head", ("mask_former",), "A13 (fcclip)"),
-    ("model.pixel_decoder.name", ("msdeform",), "A6 (FPNPixelDecoder)"),
-    ("model.ov.enabled", (False,), "A13 (open vocabulary)"),
-    ("test.task", ("vis", "vps", "vss"), "A12 (vos, mots)"),
-    ("datasets.dataset_type_test", _eval_dataset_types,
-     "A12 (video_sot), A14 (image_*: the pseudo-video mappers)"),
-    ("test.refiner_shard_devices", (0, 1), "A15 (the object-sharded refiner pass)"),
-    ("test.eval_devices", (1,), "A15 (video-parallel eval)"),
-)
-
 _ABSENT = object()
 
 
@@ -309,6 +304,51 @@ def _lookup(cfg: Any, path: str) -> Any:
     return cfg
 
 
+def _ported_backbone(name, cfg) -> bool:
+    return name in ("resnet50", "resnet101", "vit_adapter_dinov2") or str(name).startswith("swin")
+
+
+def _eval_dataset_types(types, cfg) -> bool:
+    from dvis_plus_tpu_torch.data.mapper import EVAL_DATASET_TYPES
+
+    return all(t in EVAL_DATASET_TYPES for t in types)
+
+
+def _ported_task(task, cfg) -> bool:
+    """VOS and MOTS run through the DAQ eval loop, which needs the cutter's
+    ``segment_only`` (``train_net_video.py::run_task_eval`` sends both tasks
+    there whatever the architecture), so they run only with a ``daq_*``
+    architecture, in the JAX package as here."""
+    if task in ("vis", "vps", "vss"):
+        return True
+    arch = str(_lookup(cfg, "model.meta_architecture"))
+    return task in ("vos", "mots") and arch.startswith("daq_")
+
+
+# (key path, the values the port honours (a tuple, or a predicate of the
+# value and the whole configuration), the ROADMAP item that lifts the
+# limit). One place to shrink as later slices land. A key that is absent is at the
+# JAX package's default, which every row honours. Keys that cannot change an
+# eval result (``solver.*``, the training input and datasets, the criterion,
+# ``parallel.*``, profiling and compile-cache directories) are not listed and
+# stay ignored.
+SUPPORTED = (
+    ("model.meta_architecture",
+     ("dvis_online", "dvis_offline", "minvis", "ctvis", "video_maskformer", "maskformer",
+      "daq_online", "daq_offline"),
+     "A13 (*_ov: open vocabulary)"),
+    ("model.backbone.name", _ported_backbone, "A13 (the CLIP trunks)"),
+    ("model.backbone.swin_fast_softmax", (False,), "queue A, small pieces left open (bf16 scores)"),
+    ("model.sem_seg_head", ("mask_former",), "A13 (fcclip)"),
+    ("model.pixel_decoder.name", ("msdeform",), "A6 (FPNPixelDecoder)"),
+    ("model.ov.enabled", (False,), "A13 (open vocabulary)"),
+    ("test.task", _ported_task,
+     "A12: vos and mots run through the DAQ eval loop, so only with a daq_* architecture"),
+    ("datasets.dataset_type_test", _eval_dataset_types, "A14 (image_*: the pseudo-video mappers)"),
+    ("test.refiner_shard_devices", (0, 1), "A15 (the object-sharded refiner pass)"),
+    ("test.eval_devices", (1,), "A15 (video-parallel eval)"),
+)
+
 def check_supported(cfg: Any) -> None:
     """Raise ``NotImplementedError`` naming every key of ``cfg`` whose value
     asks for something the port does not do (:data:`SUPPORTED`), with the
@@ -319,7 +359,7 @@ def check_supported(cfg: Any) -> None:
         value = _lookup(cfg, key)
         if value is _ABSENT:
             continue
-        if honours(value) if callable(honours) else value in honours:
+        if honours(value, cfg) if callable(honours) else value in honours:
             continue
         faults.append(f"{key}={value!r} is not ported (ROADMAP {item})")
     if faults:
@@ -406,4 +446,41 @@ def dvis_offline_vitl_ytvis19() -> Config:
     m.meta_architecture = "dvis_offline"
     m.backbone = BackboneConfig(name="vit_adapter_dinov2")
     m.transformer_decoder.num_queries = 200
+    return cfg
+
+
+def daq_online_r50_ytvis19() -> Config:
+    """DVIS-DAQ online, ResNet-50, YouTube-VIS 2019 (40 classes): the R50
+    segmenter (Q = 100) and the 6-layer Video Instance Cutter with a slot
+    table of 50 tracks, 100 new-instance queries and 5 background slots,
+    the slot branch gating survival (``ovis_infer``), kick-out after 8
+    missed frames.
+
+    One field differs from what ``load_config`` resolves for
+    ``configs/daq/daq_online_r50_ytvis19.yaml``: the YAML inherits
+    ``transformer_decoder.reid_branch: true`` from the DVIS++ chain, which
+    makes the segmenter's queries 2C wide where the cutter takes C (the JAX
+    package fails on it when it builds the model, and so does the port);
+    the reference DVIS-DAQ segmenter has no ReID branch, and the Swin-L and
+    ViT-L DAQ YAMLs turn it off. Here it is off."""
+    cfg = dvis_online_r50_ytvis19()
+    m = cfg.model
+    m.meta_architecture = "daq_online"
+    m.transformer_decoder.reid_branch = False
+    m.daq = DAQConfig(num_new_ins=100, num_slots=5, max_num_instances=50, kick_out_frame_num=8,
+                      ovis_infer=True, mask_nms_thr=0.6, using_frame_num=(3, 5), steps=(10000,))
+    return cfg
+
+
+def daq_offline_r50_ovis() -> Config:
+    """DVIS-DAQ offline, ResNet-50, OVIS (25 classes): the online cutter of
+    :func:`daq_online_r50_ytvis19`, then the 6-layer temporal refiner over
+    the 20 best sequences (``configs/daq/daq_offline_r50_ovis.yaml``, with
+    ``reid_branch`` off for the reason given there)."""
+    cfg = daq_online_r50_ytvis19()
+    m = cfg.model
+    m.meta_architecture = "daq_offline"
+    m.num_classes = 25
+    m.daq.offline_topk_num = 20
+    cfg.datasets.test = ("ovis_val",)
     return cfg

@@ -10,12 +10,16 @@ heads under ``transformer_decoder``),
 ``dvis_plus_tpu/models/meta/dvis_online.py::DVISOnline`` (:40,
 ``{"segmenter", "tracker"}``) and
 ``dvis_plus_tpu/models/meta/dvis_offline.py::DVISOffline`` (:46,
-``{"online": {"segmenter", "tracker"}, "refiner"}``), with a ResNet, Swin or
-ViT-Adapter backbone. The port's parameters carry the reference checkpoints' names, so
-this is the inverse of ``dvis_plus_tpu/core/zoo_convert.py::
-convert_reference_checkpoint`` (with ``convert_torch_swin``,
-``convert_torch_vit_adapter`` and ``convert_refiner``), and the port's ``state_dict()`` converts back with
-that function. Numpy in, torch out; no jax needed.
+``{"online": {"segmenter", "tracker"}, "refiner"}``) and
+``dvis_plus_tpu/models/meta/daq.py::{DAQOnline,DAQOffline}`` (:37, :196:
+``{"segmenter", "cutter"}`` and ``{"online": {...}, "refiner"}``, the cutter
+becoming ``tracker.*`` as in the reference DAQ checkpoints), with a ResNet,
+Swin or ViT-Adapter backbone. The port's parameters carry the reference
+checkpoints' names, so this is the inverse of
+``dvis_plus_tpu/core/zoo_convert.py::convert_reference_checkpoint`` (with
+``convert_torch_swin``, ``convert_torch_vit_adapter``,
+``convert_daq_cutter`` and ``convert_refiner``), and the port's
+``state_dict()`` converts back with that function. Numpy in, torch out; no jax needed.
 
 Layout changes: Flax ``Dense`` kernel (in, out) -> ``Linear.weight``
 (out, in); conv HWIO -> OIHW, conv1d (k, in, out) -> (out, in, k);
@@ -261,6 +265,37 @@ def _tracker(p, out: Dict[str, np.ndarray]) -> None:
     out[f"{pre}mask_feature_proj.bias"] = _a(p["mask_feature_proj"]["bias"])
 
 
+def _cutter(p, out: Dict[str, np.ndarray]) -> None:
+    """The DAQ ``VideoInstanceCutter`` tree -> ``tracker.*`` (the inverse of
+    ``zoo_convert.py::convert_daq_cutter``)."""
+    pre = "tracker."
+    _layers(p, pre, out)
+    for name, sub in p.items():
+        kind, _, i = name.rpartition("_")
+        if kind == "slot_cross":
+            layer = f"{pre}slot_cross_attention_layers.{i}"
+            _mha(sub["attn"], f"{layer}.multihead_attn", out)
+            _norm(sub["norm"], f"{layer}.norm", out)
+            sa = sub["slot_attn"]
+            _norm(sa["norm_inputs"], f"{layer}.slot_attn.norm_inputs", out)
+            _norm(sa["project_q_norm"], f"{layer}.slot_attn.project_q.0", out)
+            _dense(sa["project_q_dense"], f"{layer}.slot_attn.project_q.1", out)
+            _dense(sa["project_k"], f"{layer}.slot_attn.project_k", out)
+        elif kind == "slot_ffn":
+            for lin in ("linear1", "linear2"):
+                _dense(sub[lin], f"{pre}slot_ffn_layers.{i}.{lin}", out)
+            _norm(sub["norm"], f"{pre}slot_ffn_layers.{i}.norm", out)
+    _norm(p["decoder_norm"], f"{pre}decoder_norm", out)
+    _dense(p["class_embed"], f"{pre}class_embed", out)
+    _mlp(p["mask_embed"], f"{pre}mask_embed", out)
+    _mlp(p["pos_embed"], f"{pre}pos_embed", out)
+    k = _a(p["mask_feature_proj"]["kernel"])  # Dense (C_in, C_out) = 1x1 conv
+    out[f"{pre}mask_feature_proj.weight"] = k.T[:, :, None, None]
+    out[f"{pre}mask_feature_proj.bias"] = _a(p["mask_feature_proj"]["bias"])
+    out[f"{pre}new_ins_embeds.weight"] = _a(p["new_ins_embeds"])
+    out[f"{pre}bg_slots.weight"] = _a(p["bg_slots"])
+
+
 def _refiner(p, out: Dict[str, np.ndarray]) -> None:
     pre = "refiner."
     for name, sub in p.items():
@@ -290,8 +325,8 @@ def _refiner(p, out: Dict[str, np.ndarray]) -> None:
 
 
 def state_dict_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
-    """JAX ``Segmenter``, ``VideoMaskFormer``, ``DVISOnline`` or
-    ``DVISOffline`` params (``{"params": ...}`` or the bare tree, numpy
+    """JAX ``Segmenter``, ``VideoMaskFormer``, ``DVISOnline``,
+    ``DVISOffline``, ``DAQOnline`` or ``DAQOffline`` params (``{"params": ...}`` or the bare tree, numpy
     leaves) -> a ``state_dict`` for the port's model of the same name.
     ``cfg`` is accepted for symmetry with the zoo converter; the tree itself
     carries every shape."""
@@ -309,6 +344,8 @@ def state_dict_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
     _predictor(seg["transformer_decoder"], out)
     if "tracker" in online:
         _tracker(online["tracker"], out)
+    if "cutter" in online:
+        _cutter(online["cutter"], out)
     if "refiner" in p:
         _refiner(p["refiner"], out)
     return {

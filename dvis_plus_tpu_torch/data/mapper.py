@@ -13,7 +13,8 @@ training augmentations and the instance tables come with training.
 ``dvis_plus_tpu/data/build.py::mapper_for_type`` (:26-53): the video
 instance, panoptic and semantic sets all map through this mapper at eval
 (the JAX panoptic and semantic mappers also decode the ground-truth masks,
-which no inference reads).
+which no inference reads), and the class-agnostic VOS sets through
+:class:`SOTDatasetMapper`.
 """
 from __future__ import annotations
 
@@ -81,16 +82,34 @@ class YTVISDatasetMapper:
         }
 
 
-EVAL_DATASET_TYPES = ("video_instance", "video_panoptic", "video_semantic")
+class SOTDatasetMapper:
+    """Class-agnostic video object segmentation sets (YouTube-VOS, MOSE),
+    eval half: the eval half of ``dvis_plus_tpu/data/mapper_sot.py::
+    SOTDatasetMapper`` (:19), which relabels every annotation to category 0
+    and maps the record through the video mapper. The eval mapper reads no
+    annotation, so its output is the video mapper's; like the JAX mapper it
+    gives no first-frame masks (``engine.daq_inference._vos_output``)."""
+
+    def __init__(self, cfg):
+        self._base = YTVISDatasetMapper(cfg)
+
+    def __call__(self, record: dict, seed: Optional[int] = None) -> Dict[str, np.ndarray]:
+        rec = dict(record)
+        if rec.get("annotations") is not None:
+            rec["annotations"] = [[dict(a, category_id=0) for a in frame] for frame in rec["annotations"]]
+        return self._base(rec, seed)
 
 
-def mapper_for_type(cfg, dataset_type: str) -> YTVISDatasetMapper:
+EVAL_DATASET_TYPES = ("video_instance", "video_panoptic", "video_semantic", "video_sot")
+
+
+def mapper_for_type(cfg, dataset_type: str):
     """The eval mapper of a ``datasets.dataset_type_test`` entry."""
+    if dataset_type == "video_sot":
+        return SOTDatasetMapper(cfg)
     if dataset_type in EVAL_DATASET_TYPES:
         return YTVISDatasetMapper(cfg)
     if dataset_type.startswith("image_"):
         raise NotImplementedError(
             f"dataset type {dataset_type!r} is not ported (ROADMAP A14: the pseudo-video mappers)")
-    if dataset_type == "video_sot":
-        raise NotImplementedError("dataset type 'video_sot' is not ported (ROADMAP A12: the SOT mapper)")
     raise NotImplementedError(f"dataset_type {dataset_type}")

@@ -6,7 +6,8 @@ Counterpart: ``dvis_plus_tpu/engine/inference.py`` (``resolve_window_size``
 ``paged_inference_video`` :132, ``_prefetch`` :244, ``run_vis_inference``
 :274, ``video_logits_masks`` :375, ``run_vps_inference`` :395,
 ``run_vss_inference`` :456, ``_minvis_video`` :520, ``_clipformer_video``
-:595, ``_online_video`` :620-777 with its online and offline halves).
+:595, ``_online_video`` :620-777 with its online and offline halves); the
+DVIS-DAQ eval loop is ``engine/daq_inference.py``.
 Signatures are the JAX ones without ``params``: the module holds its
 weights.
 
@@ -364,7 +365,13 @@ def video_logits_masks(cfg, model, images: np.ndarray, W_sz: int):
     """The video's forward for ``model.meta_architecture``: (class logits
     (Q, K+1), masks (Q, T, H4, W4) on the device or paged to host fp16, aux
     logits (Q, K+1) or None). Only DVIS++ offline gives aux logits (the
-    online tracker's logits averaged over time)."""
+    online tracker's logits averaged over time). DVIS-DAQ gives its
+    sequences, padded to a multiple of 16 rows
+    (``daq_inference.daq_video_logits_masks``)."""
+    if cfg.model.meta_architecture.startswith("daq_"):
+        from dvis_plus_tpu_torch.engine.daq_inference import daq_video_logits_masks
+
+        return (*daq_video_logits_masks(cfg, model, images), None)
     return _VIDEO_FNS.get(cfg.model.meta_architecture, _online_video)(cfg, model, images, W_sz)
 
 
@@ -398,7 +405,7 @@ def _prefetch(it: Iterator, depth: int = 1) -> Iterator:
 def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
                       timings: Optional[dict] = None):
     """VIS eval loop: the video's forward (by ``model.meta_architecture``:
-    DVIS++ online or offline, MinVIS / CTVIS, Video Mask2Former) -> top-K
+    DVIS++ online or offline, MinVIS / CTVIS, Video Mask2Former, DVIS-DAQ) -> top-K
     masks (``test.mask_download``) -> ``evaluator.process`` per video.
     With ``test.eval_pipeline`` (the default) the post-processing of a video
     runs on one worker thread while the main thread runs the next video's
@@ -413,8 +420,14 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
     RLE encoding) in wall seconds; with the pipeline on, the forwards and the
     post-processing overlap, and the synchronization that ends ``model_s``
     also waits for the worker's device work queued before it. A setting the port cannot honour raises
-    ``NotImplementedError`` (``config.check_supported``)."""
+    ``NotImplementedError`` (``config.check_supported``). DVIS-DAQ goes to
+    ``daq_inference.run_daq_inference``, a plain loop, as in the JAX
+    package."""
     check_supported(cfg)
+    if cfg.model.meta_architecture.startswith("daq_"):
+        from dvis_plus_tpu_torch.engine.daq_inference import run_daq_inference
+
+        return run_daq_inference(cfg, model, loader, evaluator, timings)
     W_sz = resolve_window_size(cfg)
     dev = next(model.parameters()).device
     download = getattr(cfg.test, "mask_download", "runs")

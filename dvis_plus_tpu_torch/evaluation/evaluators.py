@@ -4,10 +4,10 @@ PNGs and ``pred.json``; VSS semantic PNGs.
 Counterpart: ``dvis_plus_tpu/evaluation/evaluators.py`` (``YTVISEvaluator``,
 whose ``process`` builds the same rows, the reference being
 ``ytvis_eval.py::instances_to_coco_json_video``; ``VPSEvaluator`` :109;
-``VSSEvaluator`` :193). The CLI scores VIS rows with
-``evaluation.ytvos_eval``; the VPS and VSS evaluators score in-process
-(``evaluation.offline_scoring``) when the ground truth is on disk. All three
-are single-process: the cross-host gather comes with multi-device eval
+``VSSEvaluator`` :193; ``UniYTVISEvaluator`` :237, MOTS). The CLI scores
+VIS and MOTS rows with ``evaluation.ytvos_eval``; the VPS and VSS evaluators
+score in-process (``evaluation.offline_scoring``) when the ground truth is
+on disk. All are single-process: the cross-host gather comes with multi-device eval
 (ROADMAP A15). PNGs are written by ``utils.png`` (no OpenCV).
 """
 from __future__ import annotations
@@ -61,6 +61,29 @@ class YTVISEvaluator:
         path = os.path.join(self.output_dir, "results.json")
         with open(path, "w") as f:
             json.dump(self.predictions, f)
+        return path
+
+
+class UniYTVISEvaluator(YTVISEvaluator):
+    """MOTS evaluator (``dvis_plus_tpu/evaluation/evaluators.py::
+    UniYTVISEvaluator`` :237): the YTVIS rows, and BDD-format dict outputs
+    (``process_bdd``) passed through per key, each key written as
+    ``<output_dir>/<key>.json`` beside ``results.json``. Single-process: the
+    cross-host gather of the keys comes with ROADMAP A15."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._bdd: Dict[str, List] = {}
+
+    def process_bdd(self, outputs: Dict[str, List]) -> None:
+        for k, v in outputs.items():
+            self._bdd.setdefault(k, []).extend(v)
+
+    def write_results(self) -> str:
+        path = super().write_results()
+        for k, v in sorted(self._bdd.items()):
+            with open(os.path.join(self.output_dir, f"{k}.json"), "w") as f:
+                json.dump(v, f)
         return path
 
 

@@ -16,7 +16,10 @@ features, which the eval loop applies one window at a time
 replicating the last real frame: padded frames are excluded as keys of the
 temporal attention and from the class pooling, and the conv block resets
 the pad region to the last real frame before each conv. The port's eval loop
-runs the true length and passes none.
+runs the true length and passes none. ``instance_mask`` (B, Q), False =
+padded query row (the DAQ offline pass pads its sequences to a fixed count),
+excludes those rows as keys of the object self-attention
+(``_body`` :142-170).
 
 Parameter names follow the reference ``dvis_Plus/refiner.py``
 (``transformer_time_self_attention_layers``,
@@ -24,8 +27,7 @@ Parameter names follow the reference ``dvis_Plus/refiner.py``
 ``transformer_cross_attention_layers``, ``transformer_ffn_layers``,
 ``conv_short_aggregate_layers.{i}.{0,2}``, ``conv_norms``,
 ``decoder_norm``, ``mask_embed``, ``activation_proj``, ``class_embed``).
-Not ported: the OV class head, the object-sharded pass and
-``instance_mask`` (ROADMAP). Every layer computes in its input's dtype.
+Not ported: the OV class head and the object-sharded pass (ROADMAP). Every layer computes in its input's dtype.
 """
 from __future__ import annotations
 
@@ -98,10 +100,16 @@ class TemporalRefiner(nn.Module):
         return self.conv_norms[i](x + y.transpose(1, 2))
 
     def _body(self, instance_embeds: torch.Tensor, frame_embeds: torch.Tensor,
-              time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              time_mask: Optional[torch.Tensor] = None,
+              instance_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """instance_embeds (B, T, Q, C), frame_embeds (B, T, fQ, C) ->
         the last layer's output (B, T, Q, C)."""
         B, T, Q, C = instance_embeds.shape
+        obj_bias = None
+        if instance_mask is not None:
+            key_ok = instance_mask.repeat_interleave(T, dim=0)  # (B*T, Q)
+            obj_bias = torch.zeros(key_ok.shape, dtype=torch.float32, device=key_ok.device)
+            obj_bias = obj_bias.masked_fill(~key_ok, _NEG_INF)[:, None, None, :]
         tmask_bias = key_ok_t = None
         if time_mask is not None:
             key_ok_t = time_mask.repeat_interleave(Q, dim=0)  # (B*Q, T)
@@ -114,7 +122,7 @@ class TemporalRefiner(nn.Module):
             x = self.transformer_time_self_attention_layers[i](x, mask=tmask_bias)
             x = self._conv_block(i, x, key_ok_t)
             x = x.reshape(B, Q, T, C).transpose(1, 2).reshape(B * T, Q, C)
-            x = self.transformer_obj_self_attention_layers[i](x)
+            x = self.transformer_obj_self_attention_layers[i](x, mask=obj_bias)
             x = self.transformer_cross_attention_layers[i](x, mem, 0.0, 0.0)
             x = self.transformer_ffn_layers[i](x)
             output = x.reshape(B, T, Q, C)
@@ -142,10 +150,11 @@ class TemporalRefiner(nn.Module):
         }
 
     def embed_pass(self, instance_embeds: torch.Tensor, frame_embeds: torch.Tensor,
-                   time_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   time_mask: Optional[torch.Tensor] = None,
+                   instance_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Embeds only: video-level class logits (B, Q, K+1) and the mask-head
         embeddings (B, T, Q, mask_dim) for :meth:`mask_window`."""
-        x = self.decoder_norm(self._body(instance_embeds, frame_embeds, time_mask))
+        x = self.decoder_norm(self._body(instance_embeds, frame_embeds, time_mask, instance_mask))
         fused = self._pred_class(x, time_mask)
         return {
             "pred_logits": self.class_embed(fused)[:, 0],

@@ -4,24 +4,32 @@ Counterpart: ``dvis_plus_tpu/ops/assignment.py::auction_lap`` (Bertsekas'
 forward auction, one stage with eps = cost_span / 5000, at most 3000 rounds,
 then a fix-up pass for rows left unassigned at the round cap). Every bidding
 round is dense (n, m) tensor work on the cost's device. The JAX version runs
-the rounds inside a ``lax.while_loop``; in eager PyTorch each round's
-convergence check reads one boolean back to the host, so a solve costs one
-host sync per round plus the check that ends it (two per frame when one
-bidding round suffices, as on tracker costs, whose optimum is well
-separated).
+the rounds inside a ``lax.while_loop``; in eager PyTorch a convergence check
+reads one boolean back to the host. ``first_check`` sets how many rounds
+run before the first check; the run between checks then doubles, up to
+``_MAX_RUN`` rounds. A round on a converged auction (every row assigned)
+bids nothing and changes nothing, so the extra rounds leave the result of a
+check after every round; the rounds stop at ``max_rounds`` all the same.
+Tracker costs, whose optimum is well separated, converge in one round (one
+sync a solve at ``first_check=1``); the DAQ cutter's slot costs, whose dead
+rows tie, take tens of rounds and check first after 16, and hundreds to
+thousands where the live rows are nearly equal too (a random model's).
 """
 from __future__ import annotations
 
 import torch
 
 _NEG = -1e30
+_MAX_RUN = 128  # most rounds between two convergence checks
 
 
-def auction_lap(cost: torch.Tensor, max_rounds: int = 3000) -> torch.Tensor:
+def auction_lap(cost: torch.Tensor, max_rounds: int = 3000, first_check: int = 1) -> torch.Tensor:
     """Minimize sum of cost[i, col4row[i]] over injective assignments; n <= m.
 
     Returns col4row (n,) int64 on the cost's device. Ties resolve to the
     lowest column index, as ``jax.lax.top_k`` and ``jnp.argmax`` do.
+    ``first_check``: rounds before the first convergence check (the result
+    does not depend on it).
     """
     n, m = cost.shape
     if n > m:
@@ -39,10 +47,8 @@ def auction_lap(cost: torch.Tensor, max_rounds: int = 3000) -> torch.Tensor:
     owner = torch.full((m,), -1, dtype=torch.long, device=dev)
     prices = torch.zeros(m, dtype=torch.float32, device=dev)
 
-    for _ in range(max_rounds):
+    def bidding_round(col4row, owner, prices):
         unassigned = col4row < 0
-        if not bool(unassigned.any()):  # one host sync per round
-            break
         values = benefit - prices[None, :]
         best_j = torch.argmax(values, dim=1)  # first maximum, like lax.top_k
         best = values.gather(1, best_j[:, None])[:, 0]
@@ -66,7 +72,15 @@ def auction_lap(cost: torch.Tensor, max_rounds: int = 3000) -> torch.Tensor:
         # a spare slot n (a scatter, not a boolean index, so no host sync)
         slots = torch.cat([col4row, col4row.new_zeros(1)])
         slots.scatter_(0, torch.where(has_bid, winner, n), torch.where(has_bid, cols, 0))
-        col4row = slots[:n]
+        return slots[:n], owner, prices
+
+    done, run = 0, max(1, first_check)
+    while done < max_rounds:
+        for _ in range(min(run, max_rounds - done)):
+            col4row, owner, prices = bidding_round(col4row, owner, prices)
+        done, run = done + min(run, max_rounds - done), min(2 * run, max(_MAX_RUN, first_check))
+        if not bool((col4row < 0).any()):  # one host sync per check
+            break
     else:  # round cap reached: place leftovers on free columns
         taken = torch.zeros(m, dtype=torch.bool, device=dev)
         taken[col4row[col4row >= 0]] = True

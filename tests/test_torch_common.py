@@ -8,6 +8,7 @@ the sampling offsets give generic sampling locations). The same weights
 load into the port through ``dvis_plus_tpu_torch.convert.state_dict_from_jax``.
 """
 import functools
+import json
 import os
 import sys
 
@@ -283,8 +284,19 @@ def e2e_weights(yaml: str, root: str, opts=(), tag: str = "model", scales=None):
     cfg = load_config(yaml, list(opts))
     model = build_model(cfg)
     x = jnp.zeros((2, H_IN, W_IN, 3), jnp.float32)  # per-frame models: frames; the rest: one clip
-    shapes = jax.eval_shape(model.init, jax.random.key(0),
-                            x if cfg.model.meta_architecture in ("minvis", "ctvis") else x[None])
+    arch = cfg.model.meta_architecture
+    if arch.startswith("daq_"):  # the DAQ init traces its training forward: frames, targets, a key
+        from dvis_plus_tpu.losses.targets import VideoTargets
+
+        N = cfg.model.criterion.max_num_instances
+        targets = VideoTargets(
+            labels=jnp.zeros((N,), jnp.int32), masks=jnp.zeros((N, 2, H_IN // 4, W_IN // 4), bool),
+            valid=jnp.zeros((N,), bool).at[0].set(True),
+            frame_valid=jnp.zeros((N, 2), bool).at[0].set(True))
+        shapes = jax.eval_shape(model.init, jax.random.key(0), x, targets, jax.random.key(1))
+    else:
+        shapes = jax.eval_shape(model.init, jax.random.key(0),
+                                x if arch in ("minvis", "ctvis") else x[None])
     params = {"params": _scaled(random_params(shapes["params"], seed=11), scales or {})}
     ckpt = os.path.join(root, f"{tag}_orbax")
     ocp.PyTreeCheckpointer().save(ckpt, params)
@@ -301,6 +313,15 @@ def e2e_run(yaml: str, dataset: str, data: str, tmp: str, opts, tag: str, weight
     :func:`e2e_weights`). Returns (the port's result
     dict for the set, the JAX CLI's printed one, the port's output directory
     for the set, the JAX CLI's)."""
+    return e2e_start(yaml, dataset, data, tmp, opts, tag, weights_tag, scales)()
+
+
+def e2e_start(yaml: str, dataset: str, data: str, tmp: str, opts, tag: str, weights_tag: str = None,
+              scales=None):
+    """:func:`e2e_run` in two halves: this makes the weights and starts the
+    JAX CLI in a subprocess; the function it returns runs the port's CLI,
+    waits for the JAX CLI and returns what :func:`e2e_run` does. Several
+    runs may be started before the first is finished."""
     import json
     import subprocess
 
@@ -316,25 +337,31 @@ def e2e_run(yaml: str, dataset: str, data: str, tmp: str, opts, tag: str, weight
                DVIS_COMPILE_CACHE_DIR=os.path.join(tmp, "jax_cache"))
     env.pop("XLA_FLAGS", None)
     jax_out = os.path.join(tmp, f"jax_{tag}")
-    res = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "train_net_video.py", "--config-file", yaml, "--eval-only", *opts,
          f"weights={ckpt}", f"output_dir={jax_out}"],
-        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    want = json.loads(res.stdout[res.stdout.index("{\n"):])[dataset]  # the results it prints last
-    port_out = os.path.join(tmp, f"port_{tag}")
-    old = os.environ.get("DVIS_DATASETS")
-    os.environ["DVIS_DATASETS"] = data
-    try:
-        got = cli.main(["--config-file", yaml, "--eval-only", "--device", "cpu", *opts,
-                        f"weights={npz}", f"output_dir={port_out}"])[dataset]
-    finally:
-        if old is None:
-            del os.environ["DVIS_DATASETS"]
-        else:
-            os.environ["DVIS_DATASETS"] = old
-    return (got, want, os.path.join(port_out, "inference", dataset),
-            os.path.join(jax_out, "inference", dataset))
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish():
+        port_out = os.path.join(tmp, f"port_{tag}")
+        old = os.environ.get("DVIS_DATASETS")
+        os.environ["DVIS_DATASETS"] = data
+        try:
+            got = cli.main(["--config-file", yaml, "--eval-only", "--device", "cpu", *opts,
+                            f"weights={npz}", f"output_dir={port_out}"])[dataset]
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            proc.kill()  # no-op once it has ended
+            if old is None:
+                del os.environ["DVIS_DATASETS"]
+            else:
+                os.environ["DVIS_DATASETS"] = old
+        assert proc.returncode == 0, stderr[-3000:]
+        want = json.loads(stdout[stdout.index("{\n"):])[dataset]  # the results it prints last
+        return (got, want, os.path.join(port_out, "inference", dataset),
+                os.path.join(jax_out, "inference", dataset))
+
+    return finish
 
 
 def e2e_rows(arch: str, tmp: str, setting: str):
@@ -363,11 +390,139 @@ def e2e_rows(arch: str, tmp: str, setting: str):
     return got, want
 
 
-def assert_rows_equal(got, want, score_rtol: float = 1e-4):
+def assert_rows_equal(got, want, score_rtol: float = 1e-4, max_pixels: int = 0):
     """Row for row: video ids, categories and RLE strings equal, scores
-    within ``score_rtol``."""
+    within ``score_rtol``. ``max_pixels`` > 0 lets the decoded masks of a
+    frame differ in at most that many pixels (and returns how many differ
+    in all) instead of asking for equal RLE strings."""
+    from dvis_plus_tpu_torch.utils import rle_numpy
+
     assert len(got) == len(want) > 0
+    flips = 0
     for g, w in zip(got, want):
         assert (g["video_id"], g["category_id"]) == (w["video_id"], w["category_id"])
-        assert g["segmentations"] == w["segmentations"]
         assert abs(g["score"] - w["score"]) <= score_rtol * abs(w["score"])
+        if not max_pixels:
+            assert g["segmentations"] == w["segmentations"]
+            continue
+        assert len(g["segmentations"]) == len(w["segmentations"])
+        for a, b in zip(g["segmentations"], w["segmentations"]):
+            if a == b:
+                continue
+            dec = [np.zeros(0, bool) if s is None else rle_numpy.decode(s).astype(bool) for s in (a, b)]
+            if None in (a, b):  # one side empty: the other's pixels are the difference
+                n = int(max(m.sum() for m in dec))
+            else:
+                n = int((dec[0] != dec[1]).sum())
+            assert n <= max_pixels, n
+            flips += n
+    return flips
+
+
+# DVIS-DAQ: a cutter of 2 layers with a table of 6 slots (2 background slots,
+# 8 new-instance queries, kick-out after 2 missed frames, sequences shorter
+# than 3 frames dropped as noise); no ReID branch (with it neither package
+# can build a DAQ model); class heads x8, mask heads x5 a layer
+DAQ_TINY = E2E_TINY + [
+    "model.transformer_decoder.reid_branch=false",
+    "model.tracker.num_layers=2", "model.tracker.feedforward_dim=64", "model.tracker.num_heads=4",
+    "model.refiner.num_layers=1", "model.refiner.feedforward_dim=64",
+    "model.daq.max_num_instances=6", "model.daq.num_new_ins=8", "model.daq.num_slots=2",
+    "model.daq.kick_out_frame_num=2", "model.daq.noise_frame_num=3",
+    # the JAX model's init traces its training forward: keep it small
+    "model.criterion.max_num_instances=4", "model.criterion.train_num_points=64",
+    "input.sampling_frame_num=2", "input.min_size_train=[64]", "input.max_size_train=96",
+]
+DAQ_SCALES = {"class_embed": 8.0, "mask_embed": 5.0}
+# the DAQ CLIs' masks may differ in this many pixels in a run: both
+# packages round the mask logits to fp16 before the upsampling
+# (tests/test_torch_e2e_daq.py says why that can move a pixel)
+DAQ_FLIP_PIXELS = 2
+
+
+def e2e_daq_runs(tmp: str, data: str, runs: dict):
+    """Start every JAX CLI of ``runs``, then run the port's CLI of each and
+    wait for its JAX twin: {tag: what ``e2e_run`` returns}."""
+    finish = {tag: e2e_start(yaml, dataset, data, tmp, DAQ_TINY + extra, tag, scales=DAQ_SCALES)
+              for tag, (yaml, dataset, extra) in runs.items()}
+    return {tag: f() for tag, f in finish.items()}
+
+
+def e2e_results_rows(run):
+    """results.json rows of the port's CLI and of the JAX CLI of one run."""
+    _, _, port_dir, jax_dir = run
+    with open(os.path.join(port_dir, "results.json")) as f:
+        got = json.load(f)
+    with open(os.path.join(jax_dir, "results.json")) as f:
+        want = json.load(f)
+    return got, want
+
+
+DAQ_K, DAQ_FQ, DAQ_QC, DAQ_NS, DAQ_C = 5, 8, 6, 2, 32  # the tiny DAQ's sizes
+
+
+def tiny_daq_cfg(arch: str = "daq_online") -> Config:
+    """DVIS-DAQ at the tiny widths, fp32: a 2-layer cutter with a table of
+    6 slots, 2 background slots and 8 new-instance queries (the segmenter's
+    query count), the slot branch gating survival, kick-out after 2 missed
+    frames, sequences shorter than 3 frames dropped as noise; window 4."""
+    cfg = Config()
+    m = cfg.model
+    m.meta_architecture = arch
+    m.num_classes = DAQ_K
+    m.compute_dtype = "float32"
+    pd = m.pixel_decoder
+    pd.conv_dim = pd.mask_dim = 32
+    pd.transformer_enc_layers = 1
+    pd.transformer_dim_feedforward = 64
+    pd.transformer_nheads = 4
+    td = m.transformer_decoder
+    td.hidden_dim = td.mask_dim = DAQ_C
+    td.num_queries = DAQ_FQ
+    td.nheads = 4
+    td.dim_feedforward = 64
+    td.dec_layers = 2
+    m.tracker.num_layers = m.refiner.num_layers = 2
+    m.tracker.feedforward_dim = m.refiner.feedforward_dim = 64
+    m.tracker.num_heads = m.refiner.num_heads = 4
+    d = m.daq
+    d.num_new_ins, d.num_slots, d.max_num_instances = DAQ_FQ, DAQ_NS, DAQ_QC
+    d.kick_out_frame_num, d.noise_frame_num = 2, 3
+    d.ovis_infer = True  # the slot branch gates survival, as in the R50 YAMLs
+    d.offline_topk_num = 20
+    m.criterion.max_num_instances = 4
+    m.criterion.train_num_points = 64
+    cfg.test.window_size = 4
+    cfg.test.max_num = 5
+    return cfg
+
+
+@functools.cache
+def jax_daq_model_and_params(arch: str = "daq_online"):
+    """(cfg, JAX DAQOnline or DAQOffline, seeded numpy params, the port's
+    model with them). The cutter's class head is scaled x8 (some queries
+    pass the selection threshold, some do not), both mask heads x10 a layer
+    (mask logits of a trained model's order)."""
+    from dvis_plus_tpu.losses.targets import VideoTargets
+    from dvis_plus_tpu.models.meta.daq import DAQOffline as JaxOffline
+    from dvis_plus_tpu.models.meta.daq import DAQOnline as JaxOnline
+    from dvis_plus_tpu_torch.cli import build_model
+    from dvis_plus_tpu_torch.convert import state_dict_from_jax
+
+    cfg = tiny_daq_cfg(arch)
+    jm = (JaxOffline if arch == "daq_offline" else JaxOnline)(cfg.model)
+    N = cfg.model.criterion.max_num_instances
+    targets = VideoTargets(
+        labels=jnp.zeros((N,), jnp.int32), masks=jnp.zeros((N, 2, H_IN // 4, W_IN // 4), bool),
+        valid=jnp.zeros((N,), bool).at[0].set(True), frame_valid=jnp.zeros((N, 2), bool).at[0].set(True))
+    x = jnp.zeros((2, H_IN, W_IN, 3), jnp.float32)
+    shapes = jax.eval_shape(jm.init, jax.random.key(0), x, targets, jax.random.key(1))
+    params = random_params(shapes, seed=3)
+    online = params["params"].get("online", params["params"])
+    online["cutter"]["class_embed"] = {k: v * 8.0 for k, v in online["cutter"]["class_embed"].items()}
+    for head in (online["cutter"]["mask_embed"], online["segmenter"]["transformer_decoder"]["mask_embed"]):
+        for layer in head.values():
+            layer["kernel"] = layer["kernel"] * 10.0
+    pm = build_model(cfg.model)
+    pm.load_state_dict(state_dict_from_jax(params), strict=True)
+    return cfg, jm, params, pm.eval()

@@ -14,6 +14,8 @@ from dvis_plus_tpu.core.config import load_config
 from dvis_plus_tpu_torch import config as port_config
 from dvis_plus_tpu_torch.config import (
     ctvis_r50_ytvis19,
+    daq_offline_r50_ovis,
+    daq_online_r50_ytvis19,
     dvis_offline_swinl_ytvis19,
     dvis_offline_vitl_ytvis19,
     dvis_online_r50_vipseg,
@@ -84,6 +86,19 @@ def test_vps_vss_presets_match_yaml(preset, group):
     _assert_fields_equal(_get(preset(), group), want, group)
 
 
+@pytest.mark.parametrize("group", GROUPS + ["model.refiner", "model.daq"])
+@pytest.mark.parametrize("preset", [daq_online_r50_ytvis19, daq_offline_r50_ovis])
+def test_daq_presets_match_yaml(preset, group):
+    """The DAQ presets equal their YAMLs but for the one field their
+    docstring names: the YAMLs inherit the DVIS++ ReID branch, with which
+    no DAQ model builds (in the JAX package either)."""
+    want = _get(load_config(f"configs/daq/{preset.__name__}.yaml"), group)
+    if group == "model.transformer_decoder":
+        assert want.reid_branch and not preset().model.transformer_decoder.reid_branch
+        want.reid_branch = False
+    _assert_fields_equal(_get(preset(), group), want, group)
+
+
 OVERRIDES = [
     "model.compute_dtype=float32",
     "model.backbone.vit_flash_attention=true",
@@ -104,11 +119,12 @@ OVERRIDES = [
 @pytest.mark.parametrize("overrides", [[], OVERRIDES], ids=["plain", "overrides"])
 @pytest.mark.parametrize("yaml_name", [
     "dvis_online_r50_ytvis19", "dvis_offline_swinl_ytvis19", "dvis_offline_vitl_ytvis19",
+    "../daq/daq_offline_r50_ovis", "../daq/daq_online_r50_vipseg",
 ])
 def test_load_config_matches_jax(yaml_name, overrides):
     path = f"configs/dvis/{yaml_name}.yaml"
     got, want = port_config.load_config(path, overrides), load_config(path, overrides)
-    for group in GROUPS + ["model.refiner"]:
+    for group in GROUPS + ["model.refiner", "model.daq"]:
         _assert_fields_equal(_get(got, group), _get(want, group), group)
     assert (got.output_dir, got.seed, got.weights) == (want.output_dir, want.seed, want.weights)
     if overrides:
@@ -135,15 +151,17 @@ def _expected_fault(cfg):
     JAX package's own reading of it; None where the port runs it."""
     m = cfg.model
     if m.meta_architecture not in ("dvis_online", "dvis_offline", "minvis", "ctvis",
-                                   "video_maskformer", "maskformer"):
+                                   "video_maskformer", "maskformer", "daq_online", "daq_offline"):
         return "model.meta_architecture"
     if m.backbone.name.startswith("clip"):
         return "model.backbone.name"
     if m.ov.enabled:
         return "model.ov.enabled"
-    if cfg.test.task not in ("vis", "vps", "vss"):
+    # vos and mots go to the DAQ eval loop, in the JAX CLI as here
+    if cfg.test.task not in ("vis", "vps", "vss") and not (
+            cfg.test.task in ("vos", "mots") and m.meta_architecture.startswith("daq_")):
         return "test.task"
-    if any(t not in ("video_instance", "video_panoptic", "video_semantic")
+    if any(t not in ("video_instance", "video_panoptic", "video_semantic", "video_sot")
            for t in cfg.datasets.dataset_type_test):
         return "datasets.dataset_type_test"
     return None
@@ -153,9 +171,10 @@ def _expected_fault(cfg):
 def test_every_yaml_loads_and_is_run_or_refused(yaml_name):
     """Every YAML of the repository loads; the port runs it exactly when the
     JAX package's reading of it stays inside the ported slices (VIS, VPS and
-    VSS with DVIS++ online and offline, MinVIS, CTVIS, Video Mask2Former and
-    the image Mask2Former on ResNet, Swin and ViT-Adapter backbones), and
-    otherwise raises with the offending key in the message."""
+    VSS with DVIS++ online and offline, MinVIS, CTVIS, Video Mask2Former,
+    the image Mask2Former and DVIS-DAQ online and offline, the last also for
+    VOS and MOTS, on ResNet, Swin and ViT-Adapter backbones), and otherwise
+    raises with the offending key in the message."""
     path = os.path.join("configs", yaml_name)
     cfg = port_config.load_config(path)
     fault = _expected_fault(load_config(path))
@@ -168,9 +187,10 @@ def test_every_yaml_loads_and_is_run_or_refused(yaml_name):
 
 def test_some_yamls_of_every_kind_exist():
     kinds = {_expected_fault(load_config(os.path.join("configs", y))) for y in ALL_YAMLS}
-    # the VOS YAMLs are DAQ's: their architecture is the first fault
-    assert kinds == {None, "model.meta_architecture", "model.backbone.name"}
+    # the open-vocabulary YAMLs: the CLIP trunk is the first fault
+    assert kinds == {None, "model.backbone.name"}
     assert len(ALL_YAMLS) > 100
+    assert sum(y.startswith("daq/") for y in ALL_YAMLS) == 18
 
 
 # the tiny variants the CLI tests run
@@ -205,6 +225,14 @@ SLICE_CASES = [
       for bb in ("r50", "vitl") for ds in ("vipseg", "vspw")],
     ("dvis/maskformer_r50_coco.yaml", []),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["test.task=vps", "datasets.dataset_type_test=[video_panoptic]"]),
+    # DVIS-DAQ (VIS, VPS, VOS, MOTS), and the class-agnostic SOT sets
+    ("daq/daq_online_r50_ytvis19.yaml", []),
+    ("daq/daq_vos_r50_ytvos.yaml", []),
+    ("dvis/minvis_r50_vipseg.yaml", ["datasets.dataset_type_test=[video_sot]"]),
+    ("dvis/ctvis_r50_vspw.yaml", ["model.meta_architecture=daq_offline"]),
+    ("dvis/dvis_online_r50_vipseg.yaml", ["model.meta_architecture=daq_online"]),
+    ("daq/daq_online_r50_ytvis19.yaml", ["test.task=mots"]),
+    ("daq/daq_offline_r50_ovis.yaml", ["test.task=vos"]),
 ]
 
 
@@ -214,18 +242,20 @@ def test_ported_slices_pass_the_check(yaml_name, overrides):
 
 
 REFUSED_CASES = [
+    # VOS and MOTS go to the DAQ eval loop: only with a daq_* architecture
     ("dvis/dvis_online_r50_vipseg.yaml", ["test.task=vos"], "test.task"),  # VOS
     ("dvis/dvis_offline_r50_vspw.yaml", ["test.task=mots"], "test.task"),  # MOTS
-    ("daq/daq_online_r50_ytvis19.yaml", [], "model.meta_architecture"),  # DAQ
-    ("daq/daq_vos_r50_ytvos.yaml", [], "test.task"),  # VOS
+    ("daq/daq_vos_r50_ytvos.yaml", ["model.meta_architecture=dvis_online"], "test.task"),
+    ("daq/daq_online_r50_ytvis19.yaml", ["test.task=vos", "model.meta_architecture=minvis"], "test.task"),
     ("ov/ov_online_r50_zeroshot_ytvis19.yaml", [], "model.ov.enabled"),  # OV
     ("ov/ov_online_r50_zeroshot_ytvis19.yaml", [], "model.backbone.name"),
-    ("dvis/minvis_r50_vipseg.yaml", ["datasets.dataset_type_test=[video_sot]"],
-     "datasets.dataset_type_test"),  # SOT
-    ("dvis/ctvis_r50_vspw.yaml", ["model.meta_architecture=daq_offline"], "model.meta_architecture"),
+    ("daq/daq_online_r50_ytvis19.yaml", ["model.meta_architecture=daq_online_ov"],
+     "model.meta_architecture"),  # an OV architecture
+    ("daq/daq_offline_r50_ovis.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
     ("dvis/maskformer_r50_coco.yaml", ["datasets.dataset_type_test=[image_instance]"],
      "datasets.dataset_type_test"),  # COCO images as pseudo-videos
-    ("dvis/dvis_online_r50_vipseg.yaml", ["model.meta_architecture=daq_online"], "model.meta_architecture"),
+    ("daq/daq_vos_r50_ytvos.yaml", ["datasets.dataset_type_test=[image_panoptic]"],
+     "datasets.dataset_type_test"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["test.refiner_shard_devices=2"], "test.refiner_shard_devices"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_devices=4"], "test.eval_devices"),
@@ -240,6 +270,9 @@ REFUSED_CASES = [
     ("dvis/minvis_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
     ("dvis/video_maskformer_r50_ytvis19.yaml", ["test.eval_devices=2"], "test.eval_devices"),
     ("dvis/ctvis_r50_ytvis19.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
+    # and for DVIS-DAQ
+    ("daq/daq_online_r50_vipseg.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
+    ("daq/daq_offline_r50_ovis.yaml", ["test.eval_devices=2"], "test.eval_devices"),
 ]
 
 
@@ -273,12 +306,13 @@ def test_inherited_jax_defaults_pass_and_presets_pass():
         port_config.check_supported(jax_cfg)
     for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
                    minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19,
-                   dvis_online_r50_vipseg, dvis_online_r50_vspw):
+                   dvis_online_r50_vipseg, dvis_online_r50_vspw, daq_online_r50_ytvis19,
+                   daq_offline_r50_ovis):
         port_config.check_supported(preset())
 
 
 @pytest.mark.parametrize("key,value", [("test.task", "vos"), ("model.pixel_decoder.name", "fpn"),
-                                       ("model.meta_architecture", "daq_online")])
+                                       ("model.ov.enabled", "true")])
 def test_run_vis_inference_refuses_before_it_reads_a_video(key, value):
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
 
@@ -298,6 +332,6 @@ def test_cli_refuses_an_unported_setting(tmp_path):
     with pytest.raises(NotImplementedError, match=r"test\.task='vos'"):
         cli.main(["--config-file", "configs/dvis/dvis_online_r50_vipseg.yaml", "--eval-only",
                   "--device", "cpu", "test.task=vos", f"output_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match=r"model\.meta_architecture='daq_online'"):
+    with pytest.raises(NotImplementedError, match=r"model\.ov\.enabled=True"):
         cli.main(["--config-file", "configs/daq/daq_online_r50_ytvis19.yaml", "--eval-only",
-                  "--device", "cpu", f"output_dir={tmp_path}"])
+                  "--device", "cpu", "model.ov.enabled=true", f"output_dir={tmp_path}"])

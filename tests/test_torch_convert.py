@@ -6,6 +6,7 @@ converts back to the JAX tree with the JAX package's own zoo converter."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from dvis_plus_tpu.core.zoo_convert import convert_reference_checkpoint
@@ -14,6 +15,7 @@ from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline as TorchDVISO
 from tests.test_torch_common import (
     H_IN,
     W_IN,
+    jax_daq_model_and_params,
     jax_model_and_params,
     random_params,
     tiny_cfg,
@@ -122,3 +124,25 @@ def test_offline_vit_round_trip_through_zoo_converter():
     assert sorted(back) == sorted(orig)
     for k in orig:
         np.testing.assert_array_equal(back[k], orig[k], err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ["daq_online", "daq_offline"])
+def test_daq_round_trip_through_zoo_converter(arch):
+    """DVIS-DAQ (the cutter as ``tracker.*``, the refiner as ``refiner.*``):
+    the JAX tree loads into the port strictly, every JAX leaf lands in the
+    state dict, and the port's state dict converts back through
+    ``convert_reference_checkpoint`` (its ``convert_daq_cutter`` branch)
+    leaf for leaf."""
+    from dvis_plus_tpu_torch.cli import build_model
+    cfg, _, params, _ = jax_daq_model_and_params(arch)
+    model = build_model(cfg.model)
+    missing, unexpected = model.load_state_dict(state_dict_from_jax(params), strict=True)
+    assert not missing and not unexpected
+    orig = _flat(params)
+    assert sum(v.size for v in orig.values()) == sum(t.numel() for t in model.state_dict().values())
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    back = _flat(convert_reference_checkpoint(sd, cfg))
+    assert sorted(back) == sorted(orig)
+    for k in orig:
+        np.testing.assert_array_equal(back[k], orig[k], err_msg=k)
+    assert any("slot_cross_1/slot_attn/project_q_dense" in k for k in orig)

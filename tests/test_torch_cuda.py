@@ -658,3 +658,112 @@ def test_vps_and_vss_on_the_card_match_the_cpu(cuda_device, preset):
     assert (got[0] == want[0]).mean() >= 0.999
     if cfg.test.task == "vps":
         assert got[1] == want[1]
+
+
+def _tiny_daq(arch="daq_online"):
+    """The tiny DAQ preset: a table of 6 slots, 2 background slots, 8
+    new-instance queries (the segmenter's count), kick-out after 2 missed
+    frames."""
+    cfg = _tiny_arch(arch)
+    d = cfg.model.daq
+    d.num_new_ins, d.max_num_instances, d.num_slots, d.kick_out_frame_num = 8, 6, 2, 2
+    return cfg
+
+
+def _daq_stream(cfg, model, x):
+    """stream_video with every frame's slot state and the distance of every
+    value the stream compared with a threshold from it."""
+    from dvis_plus_tpu_torch.engine.daq_inference import stream_video
+
+    d, cutter, states, margins = cfg.model.daq, model.tracker, [], []
+    step, pred, cls, seg = cutter.inference_step, cutter._prediction, cutter._class_logits, model.segment_only
+
+    def score(logits):
+        return logits.float().softmax(-1)[:, :-1].max(-1).values.cpu()
+
+    def recording_step(*args, **kwargs):
+        out, state = step(*args, **kwargs)
+        states.append([t.cpu() for t in (state.alive, state.seq_id, state.invalid_frames)])
+        return out, state
+
+    def recording_pred(h, mf):
+        logits, masks = pred(h, mf)
+        if states:  # the first frame's validity comes from the segmenter
+            margins.append(float((score(logits) - d.inference_select_thr).abs().min()))
+        return logits, masks
+
+    def recording_cls(h):
+        out = cls(h)
+        margins.append(float((score(out) - d.keep_threshold).abs().min()))
+        return out
+
+    def recording_seg(images):
+        out = seg(images)
+        if not states:
+            margins.append(float((score(out["pred_logits"][0]) - d.aux_inference_select_thr).abs().min()))
+        return out
+
+    cutter.inference_step, cutter._prediction, cutter._class_logits = recording_step, recording_pred, recording_cls
+    model.segment_only = recording_seg
+    try:
+        with torch.inference_mode():
+            records, *_ = stream_video(cfg, model, x)
+    finally:
+        del cutter.inference_step, cutter._prediction, cutter._class_logits, model.segment_only
+    return records, states, margins
+
+
+@pytest.mark.cuda
+def test_daq_cutter_stream_on_the_card_matches_the_cpu(cuda_device):
+    """7 frames at 64x96 in windows of 3 through ``stream_video``: the slot
+    state of every frame (alive, seq ids, missed-frame counts) equal on the
+    card and on the CPU, the sequences' frames equal, their logits and
+    embeds rel <= 1e-3; B1 ran on the card only. Every score the CPU
+    compared with a threshold lies more than 1e-4 from it, and the stream
+    starts sequences after frame 0, kicks tracks out and keeps tracks
+    through missed frames."""
+    cfg = _tiny_daq()
+    cpu, card = _arch_models(cfg, cuda_device)
+    with torch.no_grad():
+        for m in (cpu, card):
+            m.tracker.class_embed.weight.mul_(1.5)
+    x = np.random.RandomState(6).randn(7, 64, 96, 3).astype(np.float32)
+    msdeform.reset_launches()
+    want, want_states, margins = _daq_stream(cfg, cpu, x)
+    assert msdeform.launches == 0
+    got, got_states, _ = _daq_stream(cfg, card, x)
+    assert msdeform.launches == 2 * 3
+    assert min(margins) > 1e-4
+    assert len(got_states) == len(want_states) == 7
+    for t, (g, w) in enumerate(zip(got_states, want_states)):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b), t
+    assert any(int(s[2].max()) > 0 for s in want_states)
+    assert sorted(got) == sorted(want) and any(r.start > 0 for r in want.values())
+    assert any(r.frames[-1] < 6 for r in want.values())
+    for sid, r in want.items():
+        assert got[sid].frames == r.frames
+        for key in ("logits", "embeds"):
+            assert _rel(torch.from_numpy(np.stack(getattr(got[sid], key))),
+                        torch.from_numpy(np.stack(getattr(r, key)))) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alive", [50, 20, 0])
+def test_auction_on_daq_slot_costs_on_the_card(cuda_device, alive):
+    """The cutter's 55 x 100 slot costs (dead rows all 2.0): the card's
+    auction, checked first after 16 rounds, equals the CPU's checked every
+    round."""
+    from dvis_plus_tpu_torch.ops.assignment import auction_lap
+
+    rng = np.random.RandomState(alive)
+    a = rng.randn(55, 32).astype(np.float32)
+    b = rng.randn(100, 32).astype(np.float32)
+    a /= np.linalg.norm(a, axis=1, keepdims=True) + 1e-6
+    b /= np.linalg.norm(b, axis=1, keepdims=True) + 1e-6
+    live = np.zeros(55, bool)
+    live[:alive] = live[50:] = True
+    cost = torch.from_numpy(np.where(live[:, None], 1.0 - a @ b.T, 2.0).astype(np.float32))
+    want = auction_lap(cost)
+    got = auction_lap(cost.to(cuda_device), first_check=16)
+    assert got.is_cuda and torch.equal(got.cpu(), want)

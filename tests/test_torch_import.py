@@ -1,11 +1,12 @@
 """The port imports no jax, flax or JAX-package module, and no triton, and
 builds no CUDA library, when every module is imported (the RLE codec's
 loader among them), its CPU path runs for the DVIS++ online, offline Swin,
-offline ViT, MinVIS, CTVIS and Video Mask2Former presets at a small size
-(the JAX default eval settings: ``runs`` download, threaded pipeline), its
-VPS and VSS loops run for the VIPSeg and VSPW presets with their evaluators
-(PNGs by the port's own writer), and its CLI evaluates the synthetic
-YouTube-VIS set with ``--device cpu``. The rows are encoded by the native
+offline ViT, MinVIS, CTVIS, Video Mask2Former and DVIS-DAQ online and
+offline presets at a small size (the JAX default eval settings: ``runs``
+download, threaded pipeline), its VPS and VSS loops run for the VIPSeg and
+VSPW presets with their evaluators (PNGs by the port's own writer), DVIS-DAQ
+runs the VPS loop, MOTS and the VOS writer, and its CLI evaluates the
+synthetic YouTube-VIS set with ``--device cpu``. The rows are encoded by the native
 codec, built with g++ on first use.
 
 Runs in a subprocess: the pytest process itself has jax loaded (conftest).
@@ -28,12 +29,15 @@ for m in pkgutil.walk_packages(dvis_plus_tpu_torch.__path__, "dvis_plus_tpu_torc
 
 from dvis_plus_tpu_torch import cli
 from dvis_plus_tpu_torch.config import (
-    ctvis_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
-    dvis_online_r50_vipseg, dvis_online_r50_vspw, dvis_online_r50_ytvis19, minvis_r50_ytvis19,
-    video_maskformer_r50_ytvis19,
+    ctvis_r50_ytvis19, daq_offline_r50_ovis, daq_online_r50_ytvis19, dvis_offline_swinl_ytvis19,
+    dvis_offline_vitl_ytvis19, dvis_online_r50_vipseg, dvis_online_r50_vspw, dvis_online_r50_ytvis19,
+    minvis_r50_ytvis19, video_maskformer_r50_ytvis19,
 )
+from dvis_plus_tpu_torch.engine import daq_inference
 from dvis_plus_tpu_torch.engine.inference import run_vis_inference, run_vps_inference, run_vss_inference
-from dvis_plus_tpu_torch.evaluation.evaluators import VPSEvaluator, VSSEvaluator, YTVISEvaluator
+from dvis_plus_tpu_torch.evaluation.evaluators import (
+    UniYTVISEvaluator, VPSEvaluator, VSSEvaluator, YTVISEvaluator,
+)
 from dvis_plus_tpu_torch.ops import _build, flash_attn, msdeform, swin_window_attn
 from dvis_plus_tpu_torch.utils import rle
 
@@ -62,13 +66,15 @@ def small(cfg):
     m.transformer_decoder.reid_hidden_dim = 32
     m.tracker.num_layers = m.refiner.num_layers = 1
     m.tracker.feedforward_dim = m.refiner.feedforward_dim = 64
+    m.daq.num_new_ins, m.daq.max_num_instances, m.daq.num_slots = 4, 3, 2
     cfg.test.window_size = 2
     torch.manual_seed(0)
     return cli.build_model(m).eval()
 
 rows, containers, tasks = [], [], []
 for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
-               minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19):
+               minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19,
+               daq_online_r50_ytvis19, daq_offline_r50_ovis):
     cfg = preset()
     model = small(cfg)
     rng = np.random.RandomState(0)
@@ -94,6 +100,28 @@ for preset, run, evaluator in ((dvis_online_r50_vipseg, run_vps_inference, VPSEv
         res = ev.evaluate()
         pngs = sum(f.endswith(".png") for _, _, fs in os.walk(tmp) for f in fs)
     tasks.append([cfg.test.task, res["videos"], pngs])
+# DVIS-DAQ through the VPS loop, MOTS (the DAQ eval loop, UniYTVISEvaluator)
+# and the VOS writer on given first-frame objects
+cfg = daq_online_r50_ytvis19()
+model = small(cfg)
+video = {"images": np.random.RandomState(1).randn(3, 64, 64, 3).astype(np.float32),
+         "image_size": [64, 64], "height": 48, "width": 48, "video_id": "v1",
+         "file_names": [f"v1/{t:05d}.jpg" for t in range(3)]}
+with tempfile.TemporaryDirectory() as tmp:
+    ev = VPSEvaluator("synthetic", tmp)
+    run_vps_inference(cfg, model, iter([video]), ev, 40)
+    tasks.append(["daq_vps", ev.evaluate()["videos"],
+                  sum(f.endswith(".png") for _, _, fs in os.walk(tmp) for f in fs)])
+    cfg.test.task = "mots"
+    ev = UniYTVISEvaluator("synthetic", tmp)
+    daq_inference.run_daq_inference(cfg, model, iter([dict(video, video_id=1)]), ev)
+    tasks.append(["mots", len(ev.predictions), os.path.exists(ev.write_results())])
+    cfg.output_dir = tmp
+    daq_inference._vos_output(cfg, dict(video, first_frame_masks=np.ones((1, 64, 64), bool),
+                                        first_frame_ids=[1]),
+                              np.random.RandomState(2).randn(4, 41).astype(np.float32),
+                              np.random.RandomState(3).randn(4, 3, 16, 16).astype(np.float16))
+    tasks.append(["vos", sum(f.endswith(".png") for f in os.listdir(os.path.join(tmp, "inference", "v1")))])
 small = [
     "model.compute_dtype=float32", "model.backbone.vit_embed_dim=32", "model.backbone.vit_depth=2",
     "model.backbone.vit_num_heads=2", "model.backbone.vit_deform_num_heads=2",
@@ -140,9 +168,12 @@ def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    # top-20 rows from each of the six models, their masks downloaded as
+    # top-20 rows from each of the six models and 16 from each DAQ model
+    # (its sequences padded to 16 rows), their masks downloaded as
     # per-column runs; the CLI scored 2 videos x top-3 on the CPU
-    assert out == {"rows": [20] * 6, "cli": ["cpu", 6, True], "loaded": [],
-                   "containers": ["ColRunMasks"] * 6, "tasks": [["vps", 1, 3], ["vss", 1, 3]],
+    assert out == {"rows": [20] * 6 + [16] * 2, "cli": ["cpu", 6, True], "loaded": [],
+                   "containers": ["ColRunMasks"] * 8,
+                   "tasks": [["vps", 1, 3], ["vss", 1, 3], ["daq_vps", 1, 3], ["mots", 16, True],
+                             ["vos", 3]],
                    "built": 0, "codec": 1,
                    "launches": [0, 0, 0]}

@@ -122,7 +122,7 @@ def test_eval_mapper_equals_jax(synth_root, task):
 
 
 @pytest.mark.parametrize("dataset_type,item", [("image_instance", "A14"), ("image_panoptic", "A14"),
-                                               ("video_sot", "A12")])
+                                               ("video_unknown", "video_unknown")])
 def test_mapper_refuses_unported_types(dataset_type, item):
     with pytest.raises(NotImplementedError, match=item):
         mapper_for_type(load_config(None), dataset_type)
