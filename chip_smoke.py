@@ -28,19 +28,26 @@ kernels:
   ``configs/daq/daq_online_r50_ytvis19.yaml`` and
   ``daq_offline_r50_ovis.yaml`` (kernel B1; the Video Instance Cutter with a
   table of 50 slots, the refiner over the 20 best sequences), its VPS
-  route and its VOS writer, GPU against CPU first.
+  route and its VOS writer, GPU against CPU first;
+- OV-DVIS++ online and offline open-vocabulary VIS at the full width of
+  ``configs/ov/ov_{online,offline}_convnextl_zeroshot_ytvis19.yaml`` (the
+  CLIP ConvNeXt-L trunk, the FC-CLIP decoder, kernel B1; the YouTube-VIS 2019
+  classifier from the seeded 16-layer text tower, fused with the CLIP head
+  against the COCO seen vocabulary) through ``run_ov_inference``, MinVIS OV
+  beside them in the GPU-against-CPU phase.
 
 Run from a checkout of the repository:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # build, then only the kernels against their
                                      # plain versions and the wrappers' host time
-    python3 chip_smoke.py --profile [vitl] [swinl] [r50] [daq]
+    python3 chip_smoke.py --profile [vitl] [swinl] [r50] [daq] [ov]
                                      # build, then stage times and a torch.profiler
                                      # breakdown of one video of each slice named
     python3 chip_smoke.py --b1-runs  # build, then kernel B1's time at its main shapes
                                      # by the run of queries a block takes
     python3 chip_smoke.py --daq      # build, then only the DVIS-DAQ phases
+    python3 chip_smoke.py --ov       # build, then only the open-vocabulary phases
 
 Kernel B1 (deformable attention) is held and timed at each of its three
 main shapes under two distributions of sampling offsets: uniform over +-10
@@ -72,7 +79,9 @@ weight in what the phases compare. The seeded random DVIS-DAQ models get
 their class heads' no-object logits shifted and the cutter's class head
 scaled (``DAQ_HEADS``, ``DAQ_PARITY_HEADS`` say how and why), so that the
 first frame starts no sequence, the second fills the table, and the
-selection thresholds separate queries.
+selection thresholds separate queries. The seeded random OV models get
+ConvNeXt layer scales of 0.1 and every ``logit_scale`` at 4 (``ov_model``).
+The whole script's wall time is printed before the card's name.
 """
 import contextlib
 import json
@@ -685,18 +694,21 @@ def read_launches() -> dict:
 
 
 def timed_slice(cfg, dev, frames=FRAMES, canvas=(H_IN, W_IN), valid=None, out=(H_OUT, W_OUT),
-                model=None, around=contextlib.nullcontext):
+                model=None, around=contextlib.nullcontext, run=None):
     """``VIDEOS`` synthetic videos x ``frames`` frames on a ``canvas`` input
-    (by default 2 x 15 at 480x640, output 720x960) through
-    ``run_vis_inference`` after one untimed warm-up video; every kernel's
-    launch count is set to 0 just before the timed run and read just after.
-    The timed run is made inside the context ``around()``. Returns
+    (by default 2 x 15 at 480x640, output 720x960) through ``run`` (by
+    default ``run_vis_inference``; ``run(cfg, model, loader, evaluator,
+    timings)``) after one untimed warm-up video; every kernel's launch
+    count is set to 0 just before the timed run and read just after. The
+    timed run is made inside the context ``around()``. Returns
     (measurements, whether the rows are well formed, the results.json
     bytes)."""
     import torch
 
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
     from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
+
+    run_vis_inference = run or run_vis_inference
 
     class Counting(YTVISEvaluator):  # frames whose runs download fell back to packed pixels
         frames = fallback = 0
@@ -1554,11 +1566,302 @@ def phase_daq_slice(dev, arch, phase):
         raise AssertionError(f"{phase} check failed: {res}")
     return res
 
+# ---------------------------------------------------------------------------
+# Open vocabulary (OV-DVIS++): the CLIP ConvNeXt-L trunk, the FC-CLIP
+# decoder, the OV tracker / refiner heads and the geometric ensemble
+# ---------------------------------------------------------------------------
+
+# the text tower of the ConvNeXt-L CLIP model (open_clip convnext_large_d_320:
+# width 768, 12 heads, 16 layers, CLIP's vocabulary and context), seeded
+TEXT_TOWER = dict(vocab_size=49408, context_length=77, width=768, heads=12, layers=16, embed_dim=768)
+OV_LOGIT_SCALE = 4.0  # every logit_scale of the random models: exp(4) = 54.6, scores spread
+
+
+def ov_presets():
+    from dvis_plus_tpu_torch.config import (
+        ov_minvis_convnextl_zeroshot_ytvis19,
+        ov_offline_convnextl_zeroshot_ytvis19,
+        ov_online_convnextl_zeroshot_ytvis19,
+    )
+
+    return {"dvis_online_ov": ov_online_convnextl_zeroshot_ytvis19,
+            "minvis_ov": ov_minvis_convnextl_zeroshot_ytvis19,
+            "dvis_offline_ov": ov_offline_convnextl_zeroshot_ytvis19}
+
+
+def ov_model(cfg, dev):
+    """The seeded random OV model of ``cfg`` on ``dev``: ConvNeXt layer
+    scales 0.1 (a trained checkpoint's order, not the 1e-6 initial value, so
+    that the trunk's blocks carry weight) and every ``logit_scale`` at
+    ``OV_LOGIT_SCALE``."""
+    import torch
+
+    from dvis_plus_tpu_torch.cli_ov import build_ov_model
+
+    torch.manual_seed(SEED)
+    model = build_ov_model(cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma") and "clip_model" in name:
+                p.fill_(0.1)
+            elif name.endswith("logit_scale"):
+                p.fill_(OV_LOGIT_SCALE)
+    return model.to(dev).eval()
+
+
+def ov_classifier(dev):
+    """The YouTube-VIS 2019 test classifier (40 classes x 14 templates, each
+    the mean of its normalized synonym embeddings, ``models/ov/text.py``)
+    from the seeded full-width random text tower on the card, fed seeded
+    token ids (no tokenizer: a prompt's ids are drawn from its crc32, 6 to
+    20 of them, the end-of-text id last and highest), and the seen mask
+    against the COCO panoptic vocabulary (the zero-shot models' training
+    set). Returns (classifier (R, 768) float32, num_templates, overlap (40,),
+    build seconds, prompts encoded)."""
+    import zlib
+
+    import torch
+
+    from dvis_plus_tpu_torch.cli_ov import VOCAB_DIR, _VOCAB_BY_DATASET
+    from dvis_plus_tpu_torch.models.ov.clip_backbone import CLIPTextEncoder
+    from dvis_plus_tpu_torch.models.ov.text import (
+        build_text_classifier,
+        category_overlapping_mask,
+        load_vocabulary_file,
+    )
+
+    def vocab(prefix):
+        classes = load_vocabulary_file(os.path.join(VOCAB_DIR, _VOCAB_BY_DATASET[prefix]))
+        return classes[1:] if classes[0] == ["invalid_class_id"] else classes
+
+    torch.manual_seed(SEED + 7)
+    enc = CLIPTextEncoder(**TEXT_TOWER).to(dev).eval()
+    eot = TEXT_TOWER["vocab_size"] - 1
+    count = [0]
+
+    def encode(prompts):
+        tokens = np.zeros((len(prompts), TEXT_TOWER["context_length"]), np.int64)
+        for i, p in enumerate(prompts):
+            rng = np.random.RandomState(zlib.crc32(p.encode()))
+            n = rng.randint(6, 21)
+            tokens[i, 0] = eot - 1  # start of text
+            tokens[i, 1:n] = rng.randint(1, eot - 1, size=n - 1)
+            tokens[i, n] = eot
+        count[0] += len(prompts)
+        with torch.inference_mode():
+            return enc(torch.from_numpy(tokens).to(dev)).float().cpu().numpy()
+
+    test_classes = vocab("ytvis_2019")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tc, nt = build_text_classifier(encode, test_classes)
+    seconds = time.perf_counter() - t0
+    overlap = category_overlapping_mask(vocab("coco"), test_classes)
+    return tc, nt, overlap, seconds, count[0]
+
+
+def ov_video(cfg, model, images, classifier):
+    """One video through the port's OV loop: (fused log-probs (Q, K+1),
+    masks (Q, T, H4, W4), the CLIP embeddings ``pool_clip`` gave, the masks
+    it thresholded)."""
+    import torch
+
+    from dvis_plus_tpu_torch.engine.ov_inference import ov_video_logits_masks_fn
+
+    tc, nt, overlap = classifier[:3]
+    pooled, pooled_masks = [], []
+    pool = model.pool_clip
+
+    def recording_pool(dense, masks):
+        out = pool(dense, masks)
+        pooled.append(out.float().cpu())
+        pooled_masks.append(masks.float().cpu())
+        return out
+
+    model.pool_clip = recording_pool
+    try:
+        logits, masks = ov_video_logits_masks_fn(cfg, model, tc, nt, overlap)(images)
+    finally:
+        del model.pool_clip
+    return logits, masks, torch.cat(pooled), torch.cat(pooled_masks)
+
+
+def replay_attention(predictor, decisions, replay):
+    """Wrap the query decoder's heads: record each layer's additive
+    attention mask into ``decisions`` (``replay`` False), or replace the
+    mask by the recorded one, in the same order (``replay`` True). Returns
+    the running counts: calls, keys whose recorded decision the run would
+    have made otherwise, keys, and the least |resized mask logit| it
+    thresholded."""
+    import torch.nn.functional as F
+
+    heads = predictor._prediction_heads
+    stats = {"calls": 0, "differ": 0, "keys": 0, "margin": float("inf")}
+
+    def call(output, mask_features, attn_size):
+        x, masks, additive = heads(output, mask_features, attn_size)
+        am = F.interpolate(masks, size=attn_size, mode="bilinear", align_corners=False)
+        stats["margin"] = min(stats["margin"], am.abs().min().item())
+        if replay:
+            ref = decisions[stats["calls"]].to(additive.device)
+            stats["differ"] += int((ref != additive).sum())
+            stats["keys"] += additive.numel()
+            additive = ref
+        else:
+            decisions.append(additive.cpu())
+        stats["calls"] += 1
+        return x, masks, additive
+
+    predictor._prediction_heads = call
+    return stats
+
+
+def phase_ov_slice_parity(dev, classifier):
+    """The three OV architectures (ConvNeXt-L, full width) in fp32, exact JV
+    matcher, on 7 frames at 128x160 with window 5 (two windows, the last
+    ragged): the GPU (kernel B1, cuDNN) against the CPU (B1's plain version)
+    on the fused log-probs, the masks, the pooled CLIP embeddings and the
+    top-20 labels, same seeded weights and classifier.
+
+    The query decoder's masked attention blocks a key where the resized
+    mask logit is below 0; with random weights some of the hundreds of
+    thousands of logits a window thresholds lie within 1e-7 of 0, under the
+    two devices' fp32 difference (about 1e-6 of the pixel decoder's
+    outputs), and one flipped key moves its query's embedding by 1e-3 (on
+    an NVIDIA H100 80GB HBM3 at 700 W, without the replay: the decoder's
+    embeds 4.5e-3 apart at a CPU margin of 1.6e-7, while the trunk and the
+    pixel decoder agreed to 2.6e-6). So the CPU
+    runs first and the card replays its attention decisions: the comparison
+    holds the arithmetic of the same decisions, and the line counts the keys
+    the card would have decided otherwise (``attention``). It also gives the
+    least |value| the CPU thresholded into the pooled sets (the masks at
+    stride 4 and their resize onto the stride-32 CLIP map)."""
+    import torch
+
+    from dvis_plus_tpu_torch.models.meta.minvis import topk_select
+    from dvis_plus_tpu_torch.models.ov.heads import resize_masks
+
+    images = next(synthetic_videos(1, 7, 128, 160, 128, 160, SEED + 8))["images"]
+    results, faults = {}, []
+    for arch, preset in ov_presets().items():
+        cfg = preset()
+        cfg.model.compute_dtype = "float32"
+        cfg.model.tracker.matcher_solver = "jv"
+        out, launches, attention, decisions = {}, {}, {}, []
+        with torch.inference_mode():
+            for d in (torch.device("cpu"), dev):
+                model = ov_model(cfg, d)
+                predictor = model.sem_seg_head.predictor
+                attention[d.type] = replay_attention(predictor, decisions, replay=d.type == "cuda")
+                reset_launches()
+                try:
+                    res = ov_video(cfg, model, images, classifier)
+                finally:
+                    del predictor._prediction_heads
+                out[d.type], launches[d.type] = [x.float().cpu() for x in res], read_launches()
+        errs = {}
+        for i, name in enumerate(("log_probs", "masks", "pooled_clip")):
+            a, b = out["cuda"][i], out["cpu"][i]
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"non-finite {name} on the GPU ({arch})")
+            errs[name] = ((a - b).abs().max() / b.abs().max()).item()
+        labels = [topk_select(out[k][0], cfg.test.max_num)[1].tolist() for k in ("cuda", "cpu")]
+        cpu_masks = out["cpu"][3]
+        margins = {"stride4": cpu_masks.abs().min().item(),
+                   "stride32": resize_masks(cpu_masks, (4, 5)).abs().min().item()}
+        card = attention["cuda"]
+        expect = expected_b1(cfg, frames=7, videos=1)
+        emit({"phase": "ov_slice_parity", "arch": arch, "input": [7, 128, 160],
+              "window": cfg.test.window_size, "queries": cfg.model.transformer_decoder.num_queries,
+              "rel_err": errs, "tol": SLICE_TOL, "labels_equal": labels[0] == labels[1],
+              "labels": sorted(set(labels[1])), "threshold_margin": margins,
+              "attention": {"layers_replayed": card["calls"], "keys": card["keys"],
+                            "keys_the_card_decides_otherwise": card["differ"],
+                            "cpu_margin": attention["cpu"]["margin"]},
+              "launches": launches, "expected_launches": expect})
+        if max(errs.values()) > SLICE_TOL or labels[0] != labels[1]:
+            faults.append(f"GPU {arch} path disagrees with the CPU path: {errs}, {labels}")
+        if launches["cuda"] != expect or any(launches["cpu"].values()):
+            faults.append(f"{arch} parity run took the wrong path: {launches}")
+        if card["calls"] != attention["cpu"]["calls"]:
+            faults.append(f"{arch}: the card ran {card['calls']} decoder layers, the CPU "
+                          f"{attention['cpu']['calls']}")
+        results[arch] = errs
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return results
+
+
+@contextlib.contextmanager
+def counting_syncs(counts):
+    """Count host synchronizations: PyTorch's sync debug warnings plus the
+    waits on CUDA events (the window reads and downloads), appended to
+    ``counts`` as [event waits, debug-mode syncs]."""
+    import torch
+
+    synchronize, waits = torch.cuda.Event.synchronize, [0]
+
+    def counting(event):
+        waits[0] += 1
+        return synchronize(event)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.Event.synchronize = counting
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.Event.synchronize = synchronize
+    counts += [waits[0], sum("synchroniz" in str(w.message) for w in caught)]
+
+
+def phase_ov_slice(dev, arch, phase, classifier):
+    """Full-width OV-DVIS++ (``ov_online_convnextl_zeroshot_ytvis19`` or the
+    offline YAML) in bf16 over 2 videos x 15 frames at 480x640, output
+    720x960, at the default eval settings (the ``runs`` download, the
+    pipeline) through ``run_ov_inference`` and the real YTVISEvaluator,
+    after an untimed warm-up video; the text classifier of
+    :func:`ov_classifier`. An untimed pass of the same videos then counts
+    host syncs a frame. B1 runs 6 times a window: the offline refiner pass
+    reuses the streaming pass's mask features."""
+    import torch
+
+    from dvis_plus_tpu_torch.engine.ov_inference import run_ov_inference
+
+    cfg = ov_presets()[arch]()
+    model = ov_model(cfg, dev)
+    tc, nt, overlap, build_s, prompts = classifier
+
+    def run(cfg, model, loader, evaluator, timings=None):
+        run_ov_inference(cfg, model, loader, evaluator, tc, nt, overlap, timings=timings)
+
+    res, rows_ok, _ = timed_slice(cfg, dev, model=model, run=run)
+    counts = []
+    with tempfile.TemporaryDirectory() as tmp, torch.inference_mode(), counting_syncs(counts):
+        from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
+
+        run(cfg, model, synthetic_videos(VIDEOS, FRAMES, H_IN, W_IN, H_OUT, W_OUT, SEED),
+            YTVISEvaluator("syncs", tmp))
+    expect = expected_b1(cfg)
+    syncs = sum(counts)
+    res = {"phase": phase, "meta_architecture": arch, "classes": len(nt) - 1,
+           "classifier_rows": int(tc.shape[0]), "text_classifier_s": build_s, "prompts": prompts,
+           **res, "host_syncs": {"total": syncs, "per_frame": syncs / (VIDEOS * FRAMES),
+                                 "event_waits": counts[0]},
+           "expected_launches": expect}
+    emit(res)
+    if not (rows_ok and res["launches"] == expect):
+        raise AssertionError(f"{phase} check failed: {res}")
+    return res
+
+
 def phase_profile(dev, name):
     """One video of slice ``name`` (``vitl``: 5 frames at 736x1280, one
-    window; ``swinl`` and ``r50``: 15 frames at 480x640, three windows;
-    ``daq``: DVIS-DAQ online's streaming pass over 5 frames at 480x640),
-    bf16: CUDA-event time of
+    window; ``swinl``, ``r50`` and ``ov`` (OV-DVIS++ online, ConvNeXt-L):
+    15 frames at 480x640, three windows; ``daq``: DVIS-DAQ online's
+    streaming pass over 5 frames at 480x640), bf16: CUDA-event time of
     every stage (device work plus dispatch gaps), then ``torch.profiler``
     over the same video: the device-busy share (sum of kernel times over
     wall) and the time by kernel and by operator."""
@@ -1571,11 +1874,12 @@ def phase_profile(dev, name):
     from dvis_plus_tpu_torch.engine.inference import _online_video
 
     cfg = {"vitl": vitl_cfg, "swinl": dvis_offline_swinl_ytvis19, "r50": dvis_online_r50_ytvis19,
-           "daq": daq_presets()["daq_online"]}[name]()
+           "daq": daq_presets()["daq_online"], "ov": ov_presets()["dvis_online_ov"]}[name]()
     # DAQ: one window, since the random model's slot auctions run 1,000 and
     # more bidding rounds of about 25 launches a frame
     T, H, W = (5, VIT_H, VIT_W) if name == "vitl" else (5, H_IN, W_IN) if name == "daq" else (FRAMES, H_IN, W_IN)
-    model = daq_model(cfg, dev) if name == "daq" else build_model(cfg, dev)
+    model = daq_model(cfg, dev) if name == "daq" else ov_model(cfg, dev) if name == "ov" else \
+        build_model(cfg, dev)
     images = next(synthetic_videos(1, T, H, W, H, W, SEED + 4))["images"]
     head = model.sem_seg_head
     stages = [("backbone", model.backbone, "forward"), ("pixel_decoder", head.pixel_decoder, "forward"),
@@ -1587,6 +1891,12 @@ def phase_profile(dev, name):
                    ("slot_decode", model.tracker, "_slot_decode")]
     else:
         stages.append(("tracker", model.tracker, "forward"))
+    if name == "ov":  # the out-of-vocabulary head: mask pooling + MLP into CLIP space
+        from dvis_plus_tpu_torch.engine.ov_inference import ov_video_logits_masks_fn
+
+        stages.append(("clip_pool", model.backbone, "pool_clip"))
+        tc, nt, overlap = ov_classifier(dev)[:3]
+        ov_fn = ov_video_logits_masks_fn(cfg, model, tc, nt, overlap)
     if hasattr(model, "refiner"):
         stages += [("refiner_embed_pass", model.refiner, "embed_pass"),
                    ("refiner_mask_window", model.refiner, "mask_window")]
@@ -1610,6 +1920,8 @@ def phase_profile(dev, name):
         t0 = time.perf_counter()
         if name == "daq":
             stream_video(cfg, model, images)
+        elif name == "ov":
+            ov_fn(images)
         else:
             _online_video(cfg, model, images, cfg.test.window_size)
         torch.cuda.synchronize()
@@ -1688,6 +2000,7 @@ def phase_host_syncs(dev):
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1713,6 +2026,13 @@ def main() -> int:
         phase_daq_slice(dev, "daq_online", "daq_slice")
         phase_daq_slice(dev, "daq_offline", "daq_offline_slice")
         return 0
+    if "--ov" in sys.argv[1:]:
+        classifier = ov_classifier(dev)
+        phase_ov_slice_parity(dev, classifier)
+        phase_ov_slice(dev, "dvis_online_ov", "ov_slice", classifier)
+        phase_ov_slice(dev, "dvis_offline_ov", "ov_offline_slice", classifier)
+        emit({"phase": "wall", "seconds": time.perf_counter() - start})
+        return 0
     b1, b2, b3 = phase_kernels(dev)
     phase_host_call(dev)
     if "--kernels" in sys.argv[1:]:
@@ -1734,6 +2054,10 @@ def main() -> int:
     phase_daq_slice_parity(dev)
     daq_online = phase_daq_slice(dev, "daq_online", "daq_slice")
     daq_offline = phase_daq_slice(dev, "daq_offline", "daq_offline_slice")
+    classifier = ov_classifier(dev)
+    phase_ov_slice_parity(dev, classifier)
+    ov_online = phase_ov_slice(dev, "dvis_online_ov", "ov_slice", classifier)
+    ov_offline = phase_ov_slice(dev, "dvis_offline_ov", "ov_offline_slice", classifier)
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
     # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2
@@ -1766,7 +2090,8 @@ def main() -> int:
     b3_main = b3_shapes["B5_L3681"]
     paths = {"slice": runs["exact"], "swinl_slice": swinl, "vitl_slice": vitl,
              "minvis_slice": minvis, "clip_slice": clip, "vps_slice": vps, "vss_slice": vss,
-             "daq_slice": daq_online, "daq_offline_slice": daq_offline}
+             "daq_slice": daq_online, "daq_offline_slice": daq_offline,
+             "ov_slice": ov_online, "ov_offline_slice": ov_offline}
 
     def by_path(kernel):
         return {name: r["launches"][kernel] for name, r in paths.items()}
@@ -1817,6 +2142,7 @@ def main() -> int:
         "by_shape": {name: {k: f[k] for k in timing_keys + ("library_ms",)}
                      for name, f in b3_shapes.items()},
     }]})
+    emit({"phase": "wall", "seconds": time.perf_counter() - start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

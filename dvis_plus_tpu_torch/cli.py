@@ -93,10 +93,11 @@ def _score(md, rows):
     return evaluate_vis(gt_anns, rows, nframes)
 
 
-def _eval_vis(cfg, model, md, loader, out_dir):
+def _eval_vis(cfg, model, md, loader, out_dir, logits_masks_fn=None):
     """VIS (``run_vis_inference``), and VOS and MOTS (the DAQ eval loop with the
     MOTS evaluator, as ``train_net_video.py::run_task_eval``): VOS writes
-    its PNGs and returns ``{"task": "vos"}``."""
+    its PNGs and returns ``{"task": "vos"}``. ``logits_masks_fn``: the
+    open-vocabulary forward (``cli_ov``)."""
     from dvis_plus_tpu_torch.engine.daq_inference import run_daq_inference
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
     from dvis_plus_tpu_torch.evaluation.evaluators import UniYTVISEvaluator, YTVISEvaluator
@@ -105,7 +106,10 @@ def _eval_vis(cfg, model, md, loader, out_dir):
     kind = UniYTVISEvaluator if task in ("vos", "mots") else YTVISEvaluator
     evaluator = kind(md.name, out_dir, contiguous_to_dataset_id={
         v: k for k, v in getattr(md, "thing_dataset_id_to_contiguous_id", {}).items()})
-    (run_daq_inference if task in ("vos", "mots") else run_vis_inference)(cfg, model, loader, evaluator)
+    if task in ("vos", "mots"):
+        run_daq_inference(cfg, model, loader, evaluator)
+    else:
+        run_vis_inference(cfg, model, loader, evaluator, logits_masks_fn=logits_masks_fn)
     if task == "vos":
         return {"task": "vos"}
     res = {"predictions": len(evaluator.predictions), "results_json": evaluator.write_results()}
@@ -115,7 +119,7 @@ def _eval_vis(cfg, model, md, loader, out_dir):
     return res
 
 
-def _eval_vps(cfg, model, md, loader, out_dir):
+def _eval_vps(cfg, model, md, loader, out_dir, logits_masks_fn=None):
     """The thing-class count and the contiguous -> dataset id map come from
     the registered categories; without them, VIPSeg's 58 thing classes."""
     from dvis_plus_tpu_torch.data.datasets.vps_vss import panoptic_contiguous_maps
@@ -129,23 +133,23 @@ def _eval_vps(cfg, model, md, loader, out_dir):
         contig_to_dataset, n_thing = {}, 58
     evaluator = VPSEvaluator(md.name, out_dir, contiguous_to_dataset_id=contig_to_dataset,
                              gt_json=getattr(md, "json_file", None), gt_dir=getattr(md, "gt_dir", None))
-    run_vps_inference(cfg, model, loader, evaluator, n_thing)
+    run_vps_inference(cfg, model, loader, evaluator, n_thing, logits_masks_fn=logits_masks_fn)
     return evaluator.evaluate()
 
 
-def _eval_vss(cfg, model, md, loader, out_dir):
+def _eval_vss(cfg, model, md, loader, out_dir, logits_masks_fn=None):
     from dvis_plus_tpu_torch.engine.inference import run_vss_inference
     from dvis_plus_tpu_torch.evaluation.evaluators import VSSEvaluator
 
     evaluator = VSSEvaluator(md.name, out_dir, gt_root=getattr(md, "gt_root", None),
                              split=getattr(md, "split", "val"),
                              num_classes=getattr(md, "num_classes", cfg.model.num_classes))
-    run_vss_inference(cfg, model, loader, evaluator)
+    run_vss_inference(cfg, model, loader, evaluator, logits_masks_fn=logits_masks_fn)
     return evaluator.evaluate()
 
 
 def main(argv=None) -> dict:
-    from dvis_plus_tpu_torch.config import check_supported, load_config
+    from dvis_plus_tpu_torch.config import check_supported, is_ov, load_config
     from dvis_plus_tpu_torch.data.catalog import get_dataset, get_metadata
     from dvis_plus_tpu_torch.data.datasets.vps_vss import register_all_vipseg, register_all_vspw
     from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
@@ -162,6 +166,9 @@ def main(argv=None) -> dict:
 
     cfg = load_config(args.config_file, args.opts)
     check_supported(cfg)  # a setting the port cannot honour raises here
+    if is_ov(cfg):
+        raise SystemExit("open-vocabulary configurations run through "
+                         "python -m dvis_plus_tpu_torch.cli_ov")
     root = os.environ.get("DVIS_DATASETS", "datasets")
     for register in (register_all_ytvis, register_all_vipseg, register_all_vspw):
         register(root)

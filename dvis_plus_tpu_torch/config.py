@@ -25,7 +25,10 @@ vipseg -> dvis_online_r50_ytvis19), ``configs/dvis/dvis_offline_swinl_ytvis19.ya
 dvis_online_r50 -> ...) and ``configs/daq/daq_online_r50_ytvis19.yaml`` /
 ``daq_offline_r50_ovis.yaml`` (daq_online_r50_ovis -> dvis_online_r50_ovis
 -> dvis_online_r50_ytvis19 -> ...), but for the ReID branch the DAQ YAMLs
-inherit and no DAQ model can use (see :func:`daq_online_r50_ytvis19`).
+inherit and no DAQ model can use (see :func:`daq_online_r50_ytvis19`), and
+``configs/ov/ov_{online,minvis,offline}_convnextl_zeroshot_ytvis19.yaml``
+(ov_online_convnextl_coco -> base_video; fcclip_convnextl_coco;
+ov_offline_convnextl_coco).
 ``tests/test_torch_config.py`` holds each preset equal to its YAML field by
 field, and this ``load_config`` equal to the JAX package's.
 """
@@ -67,6 +70,13 @@ class BackboneConfig:
     vit_deform_ratio: float = 0.5
     vit_flash_attention: bool = False  # serving: trunk attention through kernel B3
     vit_extractor_coarse: bool = False  # serving: coarse stride-8 extractor queries
+    # CLIP trunks of the open-vocabulary models (clip_* names): read when
+    # model.ov.enabled, whatever the name says, as in the JAX package
+    clip_model_type: str = "convnext"  # convnext | resnet (ModifiedResNet)
+    clip_depths: Tuple[int, ...] = (3, 3, 27, 3)  # ConvNeXt-L; RN50: (3, 4, 6, 3)
+    clip_dims: Tuple[int, ...] = (192, 384, 768, 1536)
+    clip_resnet_width: int = 64  # RN50 stem width (res5 = 32x)
+    clip_attnpool_spacial: int = 7  # the attention pool's table: input_resolution // 32
 
 
 @dataclass
@@ -136,6 +146,20 @@ class DAQConfig:
 
 
 @dataclass
+class OVConfig:
+    """The open-vocabulary head (the JAX package's ``OVConfig`` but for
+    ``ensemble_on_valid_mask``, which nothing there reads)."""
+
+    enabled: bool = False
+    geometric_ensemble_alpha: float = 0.4  # classes seen in training
+    geometric_ensemble_beta: float = 0.8  # the others
+    clip_embed_dim: int = 768
+    test2train: str = ""  # the training set whose private void row a test set takes
+    num_void_embeddings: int = 1  # one learned void row a training dataset
+    void_merge_mode: str = "coco"  # coco | mean | max: the rows of a set with none of its own
+
+
+@dataclass
 class ModelConfig:
     meta_architecture: str = "minvis"
     num_classes: int = 40
@@ -151,6 +175,7 @@ class ModelConfig:
     tracker: TrackerConfig = field(default_factory=TrackerConfig)
     refiner: RefinerConfig = field(default_factory=RefinerConfig)
     daq: DAQConfig = field(default_factory=DAQConfig)
+    ov: OVConfig = field(default_factory=OVConfig)
 
 
 @dataclass
@@ -161,6 +186,7 @@ class InputConfig:
 
 @dataclass
 class DatasetsConfig:
+    train: Tuple[str, ...] = ("ytvis_2019_train",)  # OV eval: the seen vocabulary, void rows
     test: Tuple[str, ...] = ("ytvis_2019_val",)
     dataset_type_test: Tuple[str, ...] = ("video_instance",)
 
@@ -304,8 +330,44 @@ def _lookup(cfg: Any, path: str) -> Any:
     return cfg
 
 
+OV_ARCHS = ("minvis_ov", "dvis_online_ov", "dvis_offline_ov")
+
+
+def is_ov(cfg) -> bool:
+    """An open-vocabulary configuration: ``model.ov.enabled`` or a ``*_ov``
+    architecture (``train_net_video_ov.py::_ov_arch``)."""
+    return (_lookup(cfg, "model.ov.enabled") is True
+            or str(_lookup(cfg, "model.meta_architecture")).endswith("_ov"))
+
+
+def ov_arch(cfg) -> str:
+    """The open-vocabulary model of ``model.meta_architecture``
+    (``train_net_video_ov.py::_ov_arch``): ``minvis``, ``dvis_online`` and
+    ``dvis_offline`` become their ``*_ov`` forms when ``model.ov.enabled``;
+    ``ctvis`` and the ``*_ov`` names stay."""
+    arch = cfg.model.meta_architecture
+    if cfg.model.ov.enabled and not arch.endswith("_ov"):
+        arch = {"minvis": "minvis_ov", "dvis_online": "dvis_online_ov",
+                "dvis_offline": "dvis_offline_ov"}.get(arch, arch)
+    return arch
+
+
 def _ported_backbone(name, cfg) -> bool:
+    """The CLIP trunks (``clip_*``) serve the open-vocabulary models only."""
+    if str(name).startswith("clip"):
+        return is_ov(cfg)
     return name in ("resnet50", "resnet101", "vit_adapter_dinov2") or str(name).startswith("swin")
+
+
+def _ported_ov(enabled, cfg) -> bool:
+    """Open vocabulary runs the CLIP trunks (the JAX package builds one from
+    the ``clip_*`` fields whatever ``backbone.name`` says, so the port asks
+    for a ``clip_*`` name) and no DVIS-DAQ model (the JAX package has no DAQ
+    OV model)."""
+    if not enabled:
+        return True
+    arch = str(_lookup(cfg, "model.meta_architecture"))
+    return str(_lookup(cfg, "model.backbone.name")).startswith("clip") and not arch.startswith("daq_")
 
 
 def _eval_dataset_types(types, cfg) -> bool:
@@ -335,13 +397,17 @@ def _ported_task(task, cfg) -> bool:
 SUPPORTED = (
     ("model.meta_architecture",
      ("dvis_online", "dvis_offline", "minvis", "ctvis", "video_maskformer", "maskformer",
-      "daq_online", "daq_offline"),
-     "A13 (*_ov: open vocabulary)"),
-    ("model.backbone.name", _ported_backbone, "A13 (the CLIP trunks)"),
+      "daq_online", "daq_offline") + OV_ARCHS,
+     "A13 (open vocabulary: minvis, dvis_online and dvis_offline; A12: no daq_* OV model)"),
+    ("model.backbone.name", _ported_backbone,
+     "A13 (the clip_* trunks serve the open-vocabulary models only)"),
+    ("model.backbone.clip_model_type", ("convnext", "resnet"), "A13 (the CLIP trunk families)"),
     ("model.backbone.swin_fast_softmax", (False,), "queue A, small pieces left open (bf16 scores)"),
-    ("model.sem_seg_head", ("mask_former",), "A13 (fcclip)"),
+    ("model.sem_seg_head", ("mask_former",),
+     "A13 (read by nothing: the FC-CLIP head comes with model.ov.enabled)"),
     ("model.pixel_decoder.name", ("msdeform",), "A6 (FPNPixelDecoder)"),
-    ("model.ov.enabled", (False,), "A13 (open vocabulary)"),
+    ("model.ov.enabled", _ported_ov,
+     "A13 (open vocabulary runs a clip_* backbone; A12: the JAX package has no DAQ OV model)"),
     ("test.task", _ported_task,
      "A12: vos and mots run through the DAQ eval loop, so only with a daq_* architecture"),
     ("datasets.dataset_type_test", _eval_dataset_types, "A14 (image_*: the pseudo-video mappers)"),
@@ -406,6 +472,7 @@ def dvis_online_r50_vipseg() -> Config:
     classes, 720p test input (shorter edge 720, longer at most 1280)."""
     cfg = dvis_online_r50_ytvis19()
     cfg.model.num_classes = 124
+    cfg.datasets.train = ("panoVSPW_vps_video_train",)
     cfg.datasets.test = ("panoVSPW_vps_video_val",)
     cfg.datasets.dataset_type_test = ("video_panoptic",)
     cfg.test.task = "vps"
@@ -417,6 +484,7 @@ def dvis_online_r50_vspw() -> Config:
     """DVIS++ online, ResNet-50, VSPW video semantic segmentation: the VIPSeg
     model's widths and input size on VSPW's 124 classes."""
     cfg = dvis_online_r50_vipseg()
+    cfg.datasets.train = ("VSPW_vss_video_train",)
     cfg.datasets.test = ("VSPW_vss_video_val",)
     cfg.datasets.dataset_type_test = ("video_semantic",)
     cfg.test.task = "vss"
@@ -482,5 +550,40 @@ def daq_offline_r50_ovis() -> Config:
     m.meta_architecture = "daq_offline"
     m.num_classes = 25
     m.daq.offline_topk_num = 20
+    cfg.datasets.train = ("ovis_train",)
     cfg.datasets.test = ("ovis_val",)
+    return cfg
+
+
+def ov_online_convnextl_zeroshot_ytvis19() -> Config:
+    """OV-DVIS++ online, CLIP ConvNeXt-L (depths (3, 3, 27, 3), widths 192 to
+    1536, CLIP embedding 768), zero-shot on YouTube-VIS 2019: trained on COCO
+    panoptic pseudo-videos (133 classes, the seen vocabulary), evaluated
+    against the YTVIS-19 vocabulary with the geometric ensemble (alpha 0.4,
+    beta 0.8); Q = 100, 9 decoder layers, a 6-layer tracker."""
+    cfg = Config()
+    m = cfg.model
+    m.meta_architecture = "dvis_online"
+    m.num_classes = 133
+    m.backbone.name = "clip_convnext_l"
+    m.ov = OVConfig(enabled=True, geometric_ensemble_alpha=0.4, geometric_ensemble_beta=0.8,
+                    clip_embed_dim=768)
+    cfg.datasets.train = ("coco_panoptic_video_ov",)
+    return cfg
+
+
+def ov_minvis_convnextl_zeroshot_ytvis19() -> Config:
+    """The bare FC-CLIP segmenter of :func:`ov_online_convnextl_zeroshot_ytvis19`
+    (MinVIS OV: queries aligned frame to frame after the forward), Q = 250."""
+    cfg = ov_online_convnextl_zeroshot_ytvis19()
+    cfg.model.meta_architecture = "minvis"
+    cfg.model.transformer_decoder.num_queries = 250
+    return cfg
+
+
+def ov_offline_convnextl_zeroshot_ytvis19() -> Config:
+    """:func:`ov_online_convnextl_zeroshot_ytvis19` plus the 6-layer OV
+    temporal refiner (OV-DVIS++ offline)."""
+    cfg = ov_online_convnextl_zeroshot_ytvis19()
+    cfg.model.meta_architecture = "dvis_offline"
     return cfg

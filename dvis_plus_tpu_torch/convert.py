@@ -14,11 +14,16 @@ heads under ``transformer_decoder``),
 ``dvis_plus_tpu/models/meta/daq.py::{DAQOnline,DAQOffline}`` (:37, :196:
 ``{"segmenter", "cutter"}`` and ``{"online": {...}, "refiner"}``, the cutter
 becoming ``tracker.*`` as in the reference DAQ checkpoints), with a ResNet,
-Swin or ViT-Adapter backbone. The port's parameters carry the reference
-checkpoints' names, so this is the inverse of
+Swin or ViT-Adapter backbone; and the open-vocabulary trees of
+``dvis_plus_tpu/models/meta/ov.py::{OVSegmenter,DVISOnlineOV,DVISOfflineOV}``
+(:38, :163, :230: the CLIP trunk under ``backbone``, the FC-CLIP head under
+``transformer_decoder/ov_head``, ``void_embedding``; the tracker's and
+refiner's ``class_embed_ov`` heads). The port's parameters carry the
+reference checkpoints' names, so this is the inverse of
 ``dvis_plus_tpu/core/zoo_convert.py::convert_reference_checkpoint`` (with
 ``convert_torch_swin``, ``convert_torch_vit_adapter``,
-``convert_daq_cutter`` and ``convert_refiner``), and the port's
+``convert_daq_cutter``, ``convert_refiner`` and the ``convert_ov_*``
+functions), and the port's
 ``state_dict()`` converts back with that function. Numpy in, torch out; no jax needed.
 
 Layout changes: Flax ``Dense`` kernel (in, out) -> ``Linear.weight``
@@ -321,31 +326,147 @@ def _refiner(p, out: Dict[str, np.ndarray]) -> None:
     _norm(p["decoder_norm"], f"{pre}decoder_norm", out)
     _mlp(p["mask_embed"], f"{pre}mask_embed", out)
     _dense(p["activation_proj"], f"{pre}activation_proj", out)
-    _dense(p["class_embed"], f"{pre}class_embed", out)
+    if "class_embed_ov" in p:  # the OV refiner (zoo_convert.py::convert_ov_refiner)
+        _ov_head(p["maskpool_norm"], p["maskpool_proj"], p["class_embed_ov"], p["logit_scale"],
+                 pre, out)
+    else:
+        _dense(p["class_embed"], f"{pre}class_embed", out)
+
+
+def _clip_backbone(p, out: Dict[str, np.ndarray]) -> None:
+    """Flax ``CLIPBackbone`` (ConvNeXt trunk + visual head, or ModifiedResNet
+    + attention pool) -> ``backbone.clip_model.*`` in open_clip's names (the
+    inverse of ``convert_open_clip_convnext`` / ``convert_clip_visual_head``,
+    ``convert_open_clip_resnet`` / ``convert_clip_attnpool``)."""
+    pre = "backbone.clip_model."
+    out[f"{pre}logit_scale"] = _a(p["logit_scale"])
+    trunk = p["trunk"]
+    if "attnpool" in p:  # ModifiedResNet (RN50)
+        v = f"{pre}visual."
+        for name, sub in trunk.items():
+            if name.startswith("layer"):
+                layer, _, b = name.partition("_")
+                blk = f"{v}{layer}.{b}"
+                for i in (1, 2, 3):
+                    _conv(sub[f"conv{i}"], f"{blk}.conv{i}", out)
+                    _frozen_bn(sub[f"bn{i}"], f"{blk}.bn{i}", out)
+                if "downsample_conv" in sub:
+                    _conv(sub["downsample_conv"], f"{blk}.downsample.0", out)
+                    _frozen_bn(sub["downsample_bn"], f"{blk}.downsample.1", out)
+            elif name.startswith("conv"):
+                _conv(sub, f"{v}{name}", out)
+            elif name.startswith("bn"):
+                _frozen_bn(sub, f"{v}{name}", out)
+        ap, a = p["attnpool"], f"{v}attnpool."
+        out[f"{a}positional_embedding"] = _a(ap["positional_embedding"])
+        for name in ("q_proj", "k_proj", "v_proj"):
+            k = _a(ap[name]["kernel"])  # (C, H, Dh)
+            out[f"{a}{name}.weight"] = k.reshape(k.shape[0], -1).T
+            out[f"{a}{name}.bias"] = _a(ap[name]["bias"]).reshape(-1)
+        k = _a(ap["c_proj"]["kernel"])  # (H, Dh, out)
+        out[f"{a}c_proj.weight"] = k.reshape(-1, k.shape[-1]).T
+        out[f"{a}c_proj.bias"] = _a(ap["c_proj"]["bias"])
+        return
+    t = f"{pre}visual.trunk."
+    _conv(trunk["stem_conv"], f"{t}stem.0", out)
+    _norm(trunk["stem_norm"], f"{t}stem.1", out)
+    for name, sub in trunk.items():
+        if name.startswith("downsample_norm"):
+            _norm(sub, f"{t}stages.{name[len('downsample_norm'):]}.downsample.0", out)
+        elif name.startswith("downsample_conv"):
+            _conv(sub, f"{t}stages.{name[len('downsample_conv'):]}.downsample.1", out)
+        elif name.startswith("stage"):
+            stage, _, b = name[len("stage"):].partition("_block")
+            blk = f"{t}stages.{stage}.blocks.{b}"
+            _conv(sub["dwconv"], f"{blk}.conv_dw", out)  # (7, 7, 1, C) -> (C, 1, 7, 7)
+            _norm(sub["norm"], f"{blk}.norm", out)
+            _dense(sub["pwconv1"], f"{blk}.mlp.fc1", out)
+            _dense(sub["pwconv2"], f"{blk}.mlp.fc2", out)
+            out[f"{blk}.gamma"] = _a(sub["gamma"])
+    head = p["visual_head"]
+    _norm(head["head_norm"], f"{t}head.norm", out)
+    _dense(head["proj_fc1"], f"{pre}visual.head.mlp.fc1", out)
+    _dense(head["proj_fc2"], f"{pre}visual.head.mlp.fc2", out)
+
+
+def _ov_head(norm, proj, mlp, scale, pre: str, out: Dict[str, np.ndarray]) -> None:
+    """The FC-CLIP class head group under ``pre`` (``_mask_pooling_proj.{0,1}``,
+    ``class_embed``, ``logit_scale``; ``zoo_convert.py::_ov_head``)."""
+    _norm(norm, f"{pre}_mask_pooling_proj.0", out)
+    _dense(proj, f"{pre}_mask_pooling_proj.1", out)
+    _mlp(mlp, f"{pre}class_embed", out)
+    out[f"{pre}logit_scale"] = _a(scale)
+
+
+def _ov_predictor(p, out: Dict[str, np.ndarray]) -> None:
+    pre = "sem_seg_head.predictor."
+    for name in ("query_feat", "query_embed", "level_embed"):
+        out[f"{pre}{name}.weight"] = _a(p[name])
+    _norm(p["decoder_norm"], f"{pre}decoder_norm", out)
+    _mlp(p["mask_embed"], f"{pre}mask_embed", out)
+    h = p["ov_head"]
+    _ov_head(h["maskpool_norm"], h["maskpool_proj"], h["class_embed"], h["logit_scale"], pre, out)
+    for name, sub in p.items():
+        if name.startswith("input_proj_"):
+            _conv(sub, f"{pre}input_proj.{name.split('_')[2]}", out)
+    _layers(p, pre, out)
+
+
+def _ov_segmenter(seg, out: Dict[str, np.ndarray]) -> None:
+    """Flax ``OVSegmenter`` -> the reference key space (the inverse of
+    ``zoo_convert.py::convert_ov_segmenter``): the void rows split into
+    ``void_embedding`` (row 0) and ``additional_void_embedding``."""
+    _clip_backbone(seg["backbone"], out)
+    _pixel_decoder(seg["pixel_decoder"], out)
+    _ov_predictor(seg["transformer_decoder"], out)
+    void = _a(seg["void_embedding"])
+    out["void_embedding.weight"] = void[:1]
+    if void.shape[0] > 1:
+        out["additional_void_embedding.weight"] = void[1:]
+
+
+def _ov_tracker(p, out: Dict[str, np.ndarray]) -> None:
+    """The OV tracker (no ``mask_feature_proj``; ``merge`` + the FC-CLIP
+    head) -> ``tracker.*`` (``zoo_convert.py::convert_ov_tracker``)."""
+    pre = "tracker."
+    step = p["frame_step"]
+    _layers(step, pre, out)
+    _mlp(step["ref_proj"], f"{pre}ref_proj", out)
+    _norm(p["decoder_norm"], f"{pre}decoder_norm", out)
+    _mlp(p["mask_embed"], f"{pre}mask_embed", out)
+    _dense(p["merge"], f"{pre}merge", out)
+    _ov_head(p["maskpool_norm"], p["maskpool_proj"], p["class_embed_ov"], p["logit_scale"], pre, out)
 
 
 def state_dict_from_jax(params: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
     """JAX ``Segmenter``, ``VideoMaskFormer``, ``DVISOnline``,
-    ``DVISOffline``, ``DAQOnline`` or ``DAQOffline`` params (``{"params": ...}`` or the bare tree, numpy
-    leaves) -> a ``state_dict`` for the port's model of the same name.
+    ``DVISOffline``, ``DAQOnline``, ``DAQOffline``, ``OVSegmenter``,
+    ``DVISOnlineOV`` or ``DVISOfflineOV`` params (``{"params": ...}`` or the
+    bare tree, numpy leaves) -> a ``state_dict`` for the port's model of the
+    same name.
     ``cfg`` is accepted for symmetry with the zoo converter; the tree itself
     carries every shape."""
     p = params.get("params", params)
     out: Dict[str, np.ndarray] = {}
     online = p.get("online", p)
     seg = online.get("segmenter", online)  # a bare segmenter or clip model tree
-    if "patch_embed" in seg["backbone"]:
-        _swin_backbone(seg["backbone"], out)
-    elif "vit" in seg["backbone"]:
-        _vit_backbone(seg["backbone"], out)
+    if "trunk" in seg["backbone"]:  # the open-vocabulary models' CLIP trunk
+        _ov_segmenter(seg, out)
+        if "tracker" in online:
+            _ov_tracker(online["tracker"], out)
     else:
-        _backbone(seg["backbone"], out)
-    _pixel_decoder(seg["pixel_decoder"], out)
-    _predictor(seg["transformer_decoder"], out)
-    if "tracker" in online:
-        _tracker(online["tracker"], out)
-    if "cutter" in online:
-        _cutter(online["cutter"], out)
+        if "patch_embed" in seg["backbone"]:
+            _swin_backbone(seg["backbone"], out)
+        elif "vit" in seg["backbone"]:
+            _vit_backbone(seg["backbone"], out)
+        else:
+            _backbone(seg["backbone"], out)
+        _pixel_decoder(seg["pixel_decoder"], out)
+        _predictor(seg["transformer_decoder"], out)
+        if "tracker" in online:
+            _tracker(online["tracker"], out)
+        if "cutter" in online:
+            _cutter(online["cutter"], out)
     if "refiner" in p:
         _refiner(p["refiner"], out)
     return {

@@ -49,7 +49,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from dvis_plus_tpu_torch.config import check_supported
+from dvis_plus_tpu_torch.config import check_supported, is_ov
 from dvis_plus_tpu_torch.models.meta.dvis_online import (
     online_post_processing,
     panoptic_probs,
@@ -254,11 +254,20 @@ def _frames(images: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(images)).to(dev).permute(0, 3, 1, 2)
 
 
-def _minvis_video(cfg, model, images: np.ndarray, W_sz: int):
-    """MinVIS / CTVIS: the segmenter per window, then the query alignment
-    over all frames. Returns (mean logits (Q, K+1), aligned masks
-    (Q, T, H4, W4) on the device or, beyond the memory budget, paged to host
-    fp16 and aligned there with the per-frame permutations, None)."""
+def _segmenter_window(model, frames: torch.Tensor):
+    """MinVIS / CTVIS window: (logits (Tw, Q, K+1), masks (Tw, Q, H4, W4),
+    embeds (Tw, Q, C))."""
+    out = model(frames)
+    return out["pred_logits"], out["pred_masks"], out["pred_embds"]
+
+
+def _minvis_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_segmenter_window):
+    """MinVIS / CTVIS: the segmenter per window (``window_fn(model, frames)``,
+    by default :func:`_segmenter_window`; the open-vocabulary loop passes
+    its ensemble), then the query alignment over all frames. Returns (mean
+    logits (Q, K+1), aligned masks (Q, T, H4, W4) on the device or, beyond
+    the memory budget, paged to host fp16 and aligned there with the
+    per-frame permutations, None)."""
     dev = next(model.parameters()).device
     solver = cfg.model.tracker.matcher_solver
     T = images.shape[0]
@@ -270,11 +279,10 @@ def _minvis_video(cfg, model, images: np.ndarray, W_sz: int):
 
     logits_l, masks_l, embds_l = [], [], []
     for i in range(n_windows):
-        out = model(_frames(images[i * W_sz : (i + 1) * W_sz], dev))
-        logits_l.append(out["pred_logits"])
-        mk = out["pred_masks"]  # (W_sz, Q, H4, W4)
-        masks_l.append(mk.to("cpu", torch.float16) if page_to_host else mk)
-        embds_l.append(out["pred_embds"])
+        lg, mk, em = window_fn(model, _frames(images[i * W_sz : (i + 1) * W_sz], dev))
+        logits_l.append(lg)
+        masks_l.append(mk.to("cpu", torch.float16) if page_to_host else mk)  # (W_sz, Q, H4, W4)
+        embds_l.append(em)
     logits = torch.cat(logits_l)[:T]  # (T, Q, K+1)
     embds = torch.cat(embds_l)[:T]
     masks = torch.cat(masks_l)[:T]  # (T, Q, H4, W4)
@@ -293,12 +301,21 @@ def _clipformer_video(cfg, model, images: np.ndarray, W_sz: int):
     return out["pred_logits"][0], out["pred_masks"][0], None
 
 
-def _online_video(cfg, model, images: np.ndarray, W_sz: int):
-    """DVIS online: the tracker carry streams across windows; offline: the
-    window outputs accumulate, then one refiner pass over the whole video.
-    images (T, H, W, 3) normalized numpy. Returns (class logits (Q, K+1),
-    masks (Q, T, H4, W4) on the device or paged to host fp16, aux logits
-    (Q, K+1) or None)."""
+def _tracker_window(model, frames: torch.Tensor, state):
+    """DVIS++ online window: (logits (Tw, Q, K+1), masks (Q, Tw, H4, W4),
+    the carry)."""
+    _, track_out, state = model(frames[None], state=state)
+    return track_out["pred_logits"][0], track_out["pred_masks"][0], state
+
+
+def _online_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_tracker_window):
+    """DVIS online: the tracker carry streams across windows
+    (``window_fn(model, frames, state)``, by default :func:`_tracker_window`;
+    the open-vocabulary loop passes its ensemble); offline: the window
+    outputs accumulate, then one refiner pass over the whole video. images
+    (T, H, W, 3) normalized numpy. Returns (class logits (Q, K+1), masks
+    (Q, T, H4, W4) on the device or paged to host fp16, aux logits (Q, K+1)
+    or None)."""
     dev = next(model.parameters()).device
     td = cfg.model.transformer_decoder
     C2 = td.hidden_dim * (2 if td.reid_branch else 1)
@@ -310,7 +327,7 @@ def _online_video(cfg, model, images: np.ndarray, W_sz: int):
     Him, Wim = images.shape[1:3]
 
     def window(i):
-        return _frames(images[i * W_sz : (i + 1) * W_sz], dev)[None]  # (1, W_sz, 3, H, W)
+        return _frames(images[i * W_sz : (i + 1) * W_sz], dev)  # (W_sz, 3, H, W)
 
     if cfg.model.meta_architecture != "dvis_offline":
         # beyond the memory budget each window's masks page to host fp16
@@ -318,9 +335,8 @@ def _online_video(cfg, model, images: np.ndarray, W_sz: int):
         page_to_host = mask_bytes > eval_mask_budget_bytes(cfg)
         logits_l, masks_l = [], []
         for i in range(n_windows):
-            _, track_out, state = model(window(i), state=state)
-            logits_l.append(track_out["pred_logits"][0])
-            mk = track_out["pred_masks"][0]
+            lg, mk, state = window_fn(model, window(i), state)
+            logits_l.append(lg)
             masks_l.append(mk.to("cpu", torch.float16) if page_to_host else mk)
         logits = torch.cat(logits_l, dim=0)[:T]  # (T, Q, K+1)
         masks = torch.cat(masks_l, dim=1)[:, :T]  # (Q, T, H4, W4)
@@ -334,7 +350,7 @@ def _online_video(cfg, model, images: np.ndarray, W_sz: int):
     keep_on_device = n_windows * mf_bytes_per_window < eval_mask_budget_bytes(cfg)
     online_logits_l, inst_l, frame_l, mf_l = [], [], [], []
     for i in range(n_windows):
-        lg, inst, frame, mf, state = model.online_step(window(i), state)
+        lg, inst, frame, mf, state = model.online_step(window(i)[None], state)
         online_logits_l.append(lg[0])
         inst_l.append(inst)
         frame_l.append(frame)
@@ -403,7 +419,7 @@ def _prefetch(it: Iterator, depth: int = 1) -> Iterator:
 
 
 def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
-                      timings: Optional[dict] = None):
+                      timings: Optional[dict] = None, logits_masks_fn=None):
     """VIS eval loop: the video's forward (by ``model.meta_architecture``:
     DVIS++ online or offline, MinVIS / CTVIS, Video Mask2Former, DVIS-DAQ) -> top-K
     masks (``test.mask_download``) -> ``evaluator.process`` per video.
@@ -422,8 +438,12 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
     also waits for the worker's device work queued before it. A setting the port cannot honour raises
     ``NotImplementedError`` (``config.check_supported``). DVIS-DAQ goes to
     ``daq_inference.run_daq_inference``, a plain loop, as in the JAX
-    package."""
+    package. ``logits_masks_fn(images) -> (logits, masks)`` replaces the
+    closed-vocabulary forward (the open-vocabulary loop,
+    ``engine/ov_inference.py``, passes its ensemble); an open-vocabulary
+    configuration needs it."""
     check_supported(cfg)
+    _check_ov(cfg, logits_masks_fn)
     if cfg.model.meta_architecture.startswith("daq_"):
         from dvis_plus_tpu_torch.engine.daq_inference import run_daq_inference
 
@@ -473,7 +493,7 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
                 images = sample["images"]  # (T, H, W, 3) numpy
                 H, W = images.shape[1:3]
                 t0 = time.perf_counter()
-                logits, masks, aux = video_logits_masks(cfg, model, images, W_sz)
+                logits, masks, aux = _forward(cfg, model, images, W_sz, logits_masks_fn)
                 sync()
                 if timings is not None:
                     timings["model_s"] = timings.get("model_s", 0.0) + time.perf_counter() - t0
@@ -490,20 +510,35 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
             executor.shutdown(wait=True)
 
 
-def _task_chunks(cfg, model, loader, timings):
+def _check_ov(cfg, logits_masks_fn) -> None:
+    if is_ov(cfg) and logits_masks_fn is None:
+        raise ValueError("an open-vocabulary model needs its text classifier: run it through "
+                         "engine.ov_inference (python -m dvis_plus_tpu_torch.cli_ov)")
+
+
+def _forward(cfg, model, images, W_sz, logits_masks_fn):
+    """(logits, masks, aux) of the video: ``logits_masks_fn``'s, without aux,
+    when given, else :func:`video_logits_masks`'s."""
+    if logits_masks_fn is None:
+        return video_logits_masks(cfg, model, images, W_sz)
+    return (*logits_masks_fn(images), None)
+
+
+def _task_chunks(cfg, model, loader, timings, logits_masks_fn=None):
     """Shared by the VPS and VSS loops: per video (sample, logits, aux,
     chunk iterator, padded (H, W)), where the iterator yields each
     ``W_sz``-frame time chunk of the masks on the model's device (masks
     paged to host fp16 come back one chunk at a time). ``model_s`` in
     ``timings`` accumulates the synchronized forwards."""
     check_supported(cfg)
+    _check_ov(cfg, logits_masks_fn)
     W_sz = resolve_window_size(cfg)
     dev = next(model.parameters()).device
     for sample in loader:
         images = sample["images"]  # (T, H, W, 3) numpy
         T, H, W = images.shape[:3]
         t0 = time.perf_counter()
-        logits, masks, aux = video_logits_masks(cfg, model, images, W_sz)
+        logits, masks, aux = _forward(cfg, model, images, W_sz, logits_masks_fn)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         if timings is not None:
@@ -514,7 +549,7 @@ def _task_chunks(cfg, model, loader, timings):
 
 
 def run_vps_inference(cfg, model, loader: Iterator[dict], evaluator, num_thing_classes: int,
-                      timings: Optional[dict] = None):
+                      timings: Optional[dict] = None, logits_masks_fn=None):
     """VPS eval loop: the video's forward, then per time chunk of ``W_sz``
     frames the upsampled mask probabilities and the per-pixel argmax query
     (``panoptic_probs``), the segment bookkeeping on the device
@@ -522,9 +557,11 @@ def run_vps_inference(cfg, model, loader: Iterator[dict], evaluator, num_thing_c
     ``segments_infos`` to ``evaluator.process``. ``timings`` (optional dict)
     accumulates ``model_s`` (the forwards), ``post_s`` (everything after),
     of it ``segments_s`` (the host loop over the queries) and ``png_s`` (the
-    evaluator: PNGs and rows), in wall seconds."""
+    evaluator: PNGs and rows), in wall seconds. ``logits_masks_fn`` as in
+    :func:`run_vis_inference` (the open-vocabulary route)."""
     with torch.inference_mode():
-        for sample, logits, aux, chunks, padded in _task_chunks(cfg, model, loader, timings):
+        for sample, logits, aux, chunks, padded in _task_chunks(cfg, model, loader, timings,
+                                                                logits_masks_fn):
             t1 = time.perf_counter()
             h, w = [int(v) for v in sample["image_size"]]
             out_size = (int(sample["height"]), int(sample["width"]))
@@ -547,14 +584,15 @@ def run_vps_inference(cfg, model, loader: Iterator[dict], evaluator, num_thing_c
 
 
 def run_vss_inference(cfg, model, loader: Iterator[dict], evaluator,
-                      timings: Optional[dict] = None):
+                      timings: Optional[dict] = None, logits_masks_fn=None):
     """VSS eval loop: the video's forward, then per time chunk the per-pixel
     semantic argmax (``semantic_inference``) on the device; only the
     (T, H, W) class map, as uint8 (the class ids the evaluator writes),
     leaves the card. ``timings`` as in :func:`run_vps_inference`, without
-    ``segments_s``."""
+    ``segments_s``; ``logits_masks_fn`` as in :func:`run_vis_inference`."""
     with torch.inference_mode():
-        for sample, logits, aux, chunks, padded in _task_chunks(cfg, model, loader, timings):
+        for sample, logits, aux, chunks, padded in _task_chunks(cfg, model, loader, timings,
+                                                                logits_masks_fn):
             t1 = time.perf_counter()
             h, w = [int(v) for v in sample["image_size"]]
             out_size = (int(sample["height"]), int(sample["width"]))

@@ -27,17 +27,25 @@ Parameter names follow the reference ``dvis_Plus/refiner.py``
 ``transformer_cross_attention_layers``, ``transformer_ffn_layers``,
 ``conv_short_aggregate_layers.{i}.{0,2}``, ``conv_norms``,
 ``decoder_norm``, ``mask_embed``, ``activation_proj``, ``class_embed``).
-Not ported: the OV class head and the object-sharded pass (ROADMAP). Every layer computes in its input's dtype.
+``ov=True`` is the open-vocabulary refiner (:94-126, :247-262, ``ov_classify``
+:299-340; the reference ``TemporalRefiner_OV``): the class head is the
+FC-CLIP one (``models/ov/ov_decoder.py::add_ov_head``), fed the mask
+features pooled under the video's masks plus the time-pooled query;
+:meth:`embed_pass` then returns the time-pooled query (``fused``) for
+:meth:`ov_classify`, which the eval loop calls with features it pooled
+window by window. Not ported: the object-sharded pass (ROADMAP). Every
+layer computes in its input's dtype.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from dvis_plus_tpu_torch.models.layers import Conv1d, LayerNorm, Linear
+from dvis_plus_tpu_torch.models.ov.ov_decoder import add_ov_head, ov_head_logits
 from dvis_plus_tpu_torch.models.segmenter.transformer_decoder import (
     MLP,
     CrossAttentionLayer,
@@ -56,7 +64,8 @@ def _edge_pad(y: torch.Tensor, n: int) -> torch.Tensor:
 
 class TemporalRefiner(nn.Module):
     def __init__(self, num_classes: int, hidden_dim: int = 256, feedforward_dim: int = 2048,
-                 num_heads: int = 8, num_layers: int = 6, mask_dim: int = 256):
+                 num_heads: int = 8, num_layers: int = 6, mask_dim: int = 256, ov: bool = False,
+                 clip_embed_dim: int = 768):
         super().__init__()
         C = hidden_dim
         self.num_layers = num_layers
@@ -80,7 +89,11 @@ class TemporalRefiner(nn.Module):
         self.decoder_norm = LayerNorm(C, eps=1e-5)
         self.mask_embed = MLP(C, C, mask_dim, 3)
         self.activation_proj = Linear(C, 1)
-        self.class_embed = Linear(C, num_classes + 1)
+        self.ov = ov
+        if ov:
+            add_ov_head(self, mask_dim, C, clip_embed_dim)
+        else:
+            self.class_embed = Linear(C, num_classes + 1)
 
     def _conv_block(self, i: int, x: torch.Tensor, time_ok: Optional[torch.Tensor]) -> torch.Tensor:
         """x (B', T, C); time_ok (B', T) or None."""
@@ -137,30 +150,47 @@ class TemporalRefiner(nn.Module):
         return (x * a.softmax(dim=1)).sum(dim=1, keepdim=True)
 
     def forward(self, instance_embeds: torch.Tensor, frame_embeds: torch.Tensor,
-                mask_features: torch.Tensor) -> Dict[str, torch.Tensor]:
+                mask_features: torch.Tensor, text_classifier: Optional[torch.Tensor] = None,
+                num_templates: Optional[Sequence[int]] = None) -> Dict[str, torch.Tensor]:
         """Whole-video forward (eval): instance_embeds (B, T, Q, C),
-        frame_embeds (B, T, fQ, C), mask_features (B, T, mask_dim, H, W)."""
+        frame_embeds (B, T, fQ, C), mask_features (B, T, mask_dim, H, W);
+        with ``ov`` the text classifier (R, Cc) and ``num_templates``."""
         x = self.decoder_norm(self._body(instance_embeds, frame_embeds))
         fused = self._pred_class(x)
-        logits = self.class_embed(fused.expand(x.shape))  # (B, T, Q, K+1)
-        return {
-            "pred_logits": logits,
-            "pred_masks": self.mask_window(self.mask_embed(x), mask_features),
-            "pred_embds": x,
-        }
+        masks = self.mask_window(self.mask_embed(x), mask_features)  # (B, Q, T, H, W)
+        if self.ov:
+            # the video's binary masks pool the mask features (fp32 sums)
+            m = (masks > 0.0).float()
+            pooled = torch.einsum("bqthw,btchw->bqc", m, mask_features.float())
+            pooled = pooled / (m.sum(dim=(-1, -2, -3))[..., None] + 1e-8)
+            logits = self.ov_classify(fused, pooled.to(x.dtype), text_classifier, num_templates)
+            logits = logits[:, None].expand(*x.shape[:3], logits.shape[-1])
+        else:
+            logits = self.class_embed(fused.expand(x.shape))  # (B, T, Q, K+1)
+        return {"pred_logits": logits, "pred_masks": masks, "pred_embds": x}
 
     def embed_pass(self, instance_embeds: torch.Tensor, frame_embeds: torch.Tensor,
                    time_mask: Optional[torch.Tensor] = None,
                    instance_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """Embeds only: video-level class logits (B, Q, K+1) and the mask-head
-        embeddings (B, T, Q, mask_dim) for :meth:`mask_window`."""
+        """Embeds only: video-level class logits (B, Q, K+1) (with ``ov``
+        instead the time-pooled query ``fused`` (B, 1, Q, C) for
+        :meth:`ov_classify`) and the mask-head embeddings (B, T, Q, mask_dim)
+        for :meth:`mask_window`."""
         x = self.decoder_norm(self._body(instance_embeds, frame_embeds, time_mask, instance_mask))
         fused = self._pred_class(x, time_mask)
-        return {
-            "pred_logits": self.class_embed(fused)[:, 0],
-            "mask_embed": self.mask_embed(x),
-            "pred_embds": x,
-        }
+        out = {"mask_embed": self.mask_embed(x), "pred_embds": x}
+        if self.ov:
+            out["fused"] = fused
+        else:
+            out["pred_logits"] = self.class_embed(fused)[:, 0]
+        return out
+
+    def ov_classify(self, fused: torch.Tensor, pooled: torch.Tensor,
+                    text_classifier: torch.Tensor, num_templates: Sequence[int]) -> torch.Tensor:
+        """Video-level open-vocabulary logits (B, Q, K+1) fp32 from ``fused``
+        (B, 1, Q, C) and the mask features pooled under the video's masks
+        (B, Q, mask_dim)."""
+        return ov_head_logits(self, pooled[:, None], fused, text_classifier, num_templates)[:, 0]
 
     def mask_window(self, mask_embed: torch.Tensor, mask_features: torch.Tensor) -> torch.Tensor:
         """Mask head on one time window: mask_embed (B, Tw, Q, Cm),

@@ -21,6 +21,7 @@ import torch.nn as nn
 from dvis_plus_tpu_torch.models.backbones.resnet import resnet50, resnet101
 from dvis_plus_tpu_torch.models.backbones.swin import build_swin
 from dvis_plus_tpu_torch.models.backbones.vit_adapter import build_vit_adapter
+from dvis_plus_tpu_torch.models.ov.ov_decoder import OVMaskedTransformerDecoder
 from dvis_plus_tpu_torch.models.segmenter.clip_decoder import ClipMaskedTransformerDecoder
 from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import (
     MSDeformAttnPixelDecoder,
@@ -48,9 +49,10 @@ class MaskFormerHead(nn.Module):
     """Container for the reference ``sem_seg_head`` key group. ``clip``: the
     clip-joint query decoder of Video Mask2Former, whose pixel decoder the
     JAX ``VideoMaskFormer`` builds without the ``msdeform_impl`` knob, so it
-    is always the exact form there."""
+    is always the exact form there. ``ov``: the FC-CLIP query decoder of
+    the open-vocabulary models (``models/ov/ov_decoder.py``)."""
 
-    def __init__(self, cfg, in_channels: Dict[str, int], clip: bool = False):
+    def __init__(self, cfg, in_channels: Dict[str, int], clip: bool = False, ov: bool = False):
         super().__init__()
         pd, td = cfg.pixel_decoder, cfg.transformer_decoder
         self.pixel_decoder = MSDeformAttnPixelDecoder(
@@ -78,6 +80,9 @@ class MaskFormerHead(nn.Module):
         )
         if clip:
             self.predictor = ClipMaskedTransformerDecoder(**widths)
+        elif ov:
+            del widths["num_classes"]
+            self.predictor = OVMaskedTransformerDecoder(clip_embed_dim=cfg.ov.clip_embed_dim, **widths)
         else:
             self.predictor = MaskedTransformerDecoder(
                 **widths, reid_branch=td.reid_branch, reid_hidden_dim=td.reid_hidden_dim)

@@ -159,8 +159,9 @@ class MaskedTransformerDecoder(nn.Module):
         )
 
     def _prediction_heads(self, output, mask_features, attn_size):
+        """(normed queries, mask logits (BT, Q, H4, W4) fp32, the next
+        layer's additive attention mask (BT, 1, Q, h·w))."""
         x = self.decoder_norm(output)
-        logits = self.class_embed(x)
         memb = self.mask_embed(x)
         masks = torch.einsum("bqc,bchw->bqhw", memb.float(), mask_features.float())
         am = F.interpolate(masks, size=attn_size, mode="bilinear", align_corners=False)
@@ -168,12 +169,20 @@ class MaskedTransformerDecoder(nn.Module):
         blocked = blocked & ~blocked.all(dim=-1, keepdim=True)
         additive = torch.zeros(blocked.shape, dtype=torch.float32, device=blocked.device)
         additive = additive.masked_fill(blocked, _NEG_INF)[:, None]  # (BT, 1, Q, HW)
-        return logits, masks, additive
+        return x, masks, additive
 
-    def forward(self, multi_scale: Sequence[torch.Tensor],
-                mask_features: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _class_head(self, x, masks, mask_features, **classifier):
+        """Class logits of the normed queries ``x``; only the last layer's
+        are returned, so only they are computed (the JAX module's earlier
+        layers' logits are auxiliary outputs the eval path drops)."""
+        return self.class_embed(x)
+
+    def forward(self, multi_scale: Sequence[torch.Tensor], mask_features: torch.Tensor,
+                **classifier) -> Dict[str, torch.Tensor]:
         """multi_scale: 3 x (BT, C, H_l, W_l), strides 32, 16, 8;
-        mask_features: (BT, mask_dim, H4, W4)."""
+        mask_features: (BT, mask_dim, H4, W4); ``classifier``: keyword
+        arguments of the class head (the open-vocabulary one's text
+        classifier)."""
         BT = multi_scale[0].shape[0]
         C = self.hidden_dim
         dtype = multi_scale[0].dtype
@@ -190,7 +199,7 @@ class MaskedTransformerDecoder(nn.Module):
 
         output = self.query_feat.weight[None].expand(BT, -1, -1).to(dtype)
         qpos = self.query_embed.weight[None].expand(BT, -1, -1).to(dtype)
-        logits, masks, attn_mask = self._prediction_heads(output, mask_features, sizes[0])
+        x, masks, attn_mask = self._prediction_heads(output, mask_features, sizes[0])
         for i in range(self.num_layers):
             li = i % self.num_levels
             output = self.transformer_cross_attention_layers[i](
@@ -198,11 +207,12 @@ class MaskedTransformerDecoder(nn.Module):
             )
             output = self.transformer_self_attention_layers[i](output, qpos)
             output = self.transformer_ffn_layers[i](output)
-            logits, masks, attn_mask = self._prediction_heads(
+            x, masks, attn_mask = self._prediction_heads(
                 output, mask_features, sizes[(i + 1) % self.num_levels]
             )
+        logits = self._class_head(x, masks, mask_features, **classifier)
 
-        embds = self.decoder_norm(output)
+        embds = x
         out = {
             "pred_logits": logits,
             "pred_masks": masks,

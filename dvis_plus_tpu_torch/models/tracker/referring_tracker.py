@@ -10,15 +10,25 @@ JAX ``nn.scan`` over frames is a Python loop here, and the carry
 
 Eval only: no training noiser and no rematerialisation (training is not
 ported yet). Parameter names follow the reference ``dvis_Plus/tracker.py``.
+
+``ov=True`` is the open-vocabulary tracker (:263-345, the reference
+``ReferringTracker_noiser_OV``): no ``mask_feature_proj`` (the masks are
+taken against the segmenter's raw mask features), and the class head is
+``merge`` (concat(reference, output) -> C), plus the raw mask features
+pooled under each predicted mask through ``_mask_pooling_proj``, mapped
+into CLIP space by ``class_embed`` and scored against the text classifier
+(``models/ov/ov_decoder.py::add_ov_head``; ``zoo_convert.py::convert_ov_tracker``).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from dvis_plus_tpu_torch.models.layers import Conv2d, LayerNorm, Linear
+from dvis_plus_tpu_torch.models.ov.heads import mask_pooling
+from dvis_plus_tpu_torch.models.ov.ov_decoder import add_ov_head, ov_head_logits
 from dvis_plus_tpu_torch.models.segmenter.transformer_decoder import (
     MLP,
     FFNLayer,
@@ -71,7 +81,8 @@ class ReferringCrossAttentionLayer(nn.Module):
 class ReferringTracker(nn.Module):
     def __init__(self, num_classes: int, hidden_dim: int = 256, feedforward_dim: int = 2048,
                  num_heads: int = 8, num_layers: int = 6, mask_dim: int = 256,
-                 mask_in_dim: int = 256, matcher: str = "auction"):
+                 mask_in_dim: int = 256, matcher: str = "auction", ov: bool = False,
+                 clip_embed_dim: int = 768):
         super().__init__()
         C = hidden_dim
         self.num_layers, self.matcher = num_layers, matcher
@@ -86,9 +97,14 @@ class ReferringTracker(nn.Module):
         )
         self.ref_proj = MLP(C, C, C, 3)
         self.decoder_norm = LayerNorm(C, eps=1e-5)
-        self.class_embed = Linear(2 * C, num_classes + 1)
         self.mask_embed = MLP(C, C, mask_dim, 3)
-        self.mask_feature_proj = Conv2d(mask_in_dim, mask_dim, 1)
+        self.ov = ov
+        if ov:
+            self.merge = Linear(2 * C, C)
+            add_ov_head(self, mask_in_dim, C, clip_embed_dim)
+        else:
+            self.class_embed = Linear(2 * C, num_classes + 1)
+            self.mask_feature_proj = Conv2d(mask_in_dim, mask_dim, 1)
 
     def frame_step(self, state: TrackerState, cur: torch.Tensor, cur_nn: torch.Tensor):
         """One recurrent frame: cur / cur_nn (B, Q, C) normed / raw segmenter
@@ -125,7 +141,11 @@ class ReferringTracker(nn.Module):
         frame_embeds_no_norm: Optional[torch.Tensor] = None,
         state: Optional[TrackerState] = None,  # None = video start
         predict_masks: bool = True,  # False: no mask head (the offline path)
+        text_classifier: Optional[torch.Tensor] = None,  # ov: (R, Cc) with the void rows
+        num_templates: Optional[Sequence[int]] = None,  # ov
     ) -> Tuple[Dict[str, torch.Tensor], TrackerState]:
+        """With ``ov`` the class logits need the masks: without
+        ``predict_masks`` there are none."""
         B, T, Q, C = frame_embeds.shape
         if frame_embeds_no_norm is None:
             frame_embeds_no_norm = frame_embeds
@@ -149,17 +169,26 @@ class ReferringTracker(nn.Module):
         refs = torch.stack(references, dim=1)
 
         x = self.decoder_norm(emit)
-        logits = self.class_embed(torch.cat([refs, x], dim=-1))  # (B, T, Q, K+1)
+        cls_in = torch.cat([refs, x], dim=-1)
         out = {
-            "pred_logits": logits,
             "pred_embds": emit,
             "pred_references": refs,
             "indices": torch.stack(indices, dim=1),  # (B, T, Q)
         }
+        if not self.ov:
+            out["pred_logits"] = self.class_embed(cls_in)  # (B, T, Q, K+1)
         if predict_masks:
-            mf = self.mask_feature_proj(mask_features.flatten(0, 1))
-            mf = mf.reshape(B, T, *mf.shape[1:])
+            mf = mask_features
+            if not self.ov:
+                mf = self.mask_feature_proj(mask_features.flatten(0, 1))
+                mf = mf.reshape(B, T, *mf.shape[1:])
             membd = self.mask_embed(x)
             # (B, Q, T, H, W) fp32
-            out["pred_masks"] = torch.einsum("btqc,btchw->bqthw", membd.float(), mf.float())
+            masks = torch.einsum("btqc,btchw->bqthw", membd.float(), mf.float())
+            out["pred_masks"] = masks
+            if self.ov:
+                pooled = mask_pooling(mf.flatten(0, 1), masks.transpose(1, 2).flatten(0, 1))
+                out["pred_logits"] = ov_head_logits(
+                    self, pooled.reshape(B, T, Q, -1), self.merge(cls_in), text_classifier,
+                    num_templates)  # (B, T, Q, K+1) fp32
         return out, state

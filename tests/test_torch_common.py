@@ -72,7 +72,7 @@ def random_params(shapes, seed: int = 0, scale: float = 0.05):
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
-        x = (scale * rng.randn(*tree.shape)).astype(np.float32)
+        x = np.asarray(scale * rng.randn(*tree.shape), np.float32)  # () leaves too
         if path[-1] == "var":
             return np.abs(x) + 0.5
         if path[-1] == "scale":
@@ -526,3 +526,117 @@ def jax_daq_model_and_params(arch: str = "daq_online"):
     pm = build_model(cfg.model)
     pm.load_state_dict(state_dict_from_jax(params), strict=True)
     return cfg, jm, params, pm.eval()
+
+
+# Open vocabulary: ConvNeXt depths (1, 1, 2, 1) at widths (16, 24, 32, 40),
+# or a ModifiedResNet of width 8 (res5 = 256 channels: 4 attention-pool heads
+# of 64, a 3x3 positional table), CLIP embedding 24, 5 classes x 3 templates
+OV_K, OV_R, OV_CC = 5, 3, 24
+OV_NT = (OV_R,) * OV_K + (1,)
+
+
+def tiny_ov_cfg(kind: str = "convnext", arch: str = "dvis_online_ov") -> Config:
+    """An open-vocabulary model at the tiny widths of :func:`tiny_cfg`
+    (without the ReID branch, which no OV model has), fp32, window 3, and
+    the default ``auction`` matcher: in a fresh process the JAX package's
+    jitted OV window with the in-graph JV solver fails to run ("Execution
+    supplied N buffers but compiled program expected M", jax 0.9.0; ROADMAP
+    "Tree state"), and the two packages' auctions agree."""
+    cfg = tiny_cfg()
+    m = cfg.model
+    m.meta_architecture = arch
+    m.tracker.matcher_solver = "auction"
+    m.num_classes = OV_K
+    m.transformer_decoder.reid_branch = False
+    m.ov.enabled = True
+    m.ov.clip_embed_dim = OV_CC
+    b = m.backbone
+    if kind == "resnet":
+        b.name, b.clip_model_type = "clip_rn50", "resnet"
+        b.clip_depths, b.clip_resnet_width, b.clip_attnpool_spacial = (1, 1, 2, 1), 8, 3
+    else:
+        b.name, b.clip_depths, b.clip_dims = "clip_convnext_l", (1, 1, 2, 1), (16, 24, 32, 40)
+    m.refiner.num_layers = 2
+    m.refiner.feedforward_dim = 64
+    m.refiner.num_heads = 4
+    return cfg
+
+
+def ov_text_classifier(seed: int = 0):
+    """(text classifier (K·R, Cc) float32 without the void row, num_templates,
+    category overlap (K,): classes 0 and 2 seen)."""
+    tc = np.random.RandomState(seed).randn(OV_K * OV_R, OV_CC).astype(np.float32)
+    return tc, OV_NT, np.array([1, 0, 1, 0, 0], np.float32)
+
+
+def _scale_kernels(tree, factor):
+    return {k: _scale_kernels(v, factor) if isinstance(v, dict) else (v * factor if k == "kernel" else v)
+            for k, v in tree.items()}
+
+
+@functools.cache
+def jax_ov_model_and_params(kind: str = "convnext", arch: str = "dvis_online_ov", seed: int = 3):
+    """(cfg, JAX OVSegmenter / DVISOnlineOV / DVISOfflineOV, seeded numpy
+    params, the port's model with them). The mask heads are scaled x10 a
+    layer (below). The RN50 trunk's conv kernels are
+    scaled x3: at width 8 the random convolutions leave the ReLU maps nearly
+    constant over the 2x3 stride-32 positions, where the pixel decoder's
+    one-channel GroupNorm groups amplify rounding (the JAX model moves 5e-5
+    under a 1e-7 perturbation of its features)."""
+    from dvis_plus_tpu.models.meta.ov import DVISOfflineOV, DVISOnlineOV, OVSegmenter
+    from dvis_plus_tpu_torch.cli_ov import build_ov_model
+    from dvis_plus_tpu_torch.convert import state_dict_from_jax
+
+    cfg = tiny_ov_cfg(kind, arch)
+    jm = {"minvis_ov": OVSegmenter, "dvis_online_ov": DVISOnlineOV,
+          "dvis_offline_ov": DVISOfflineOV}[arch](cfg.model)
+    tc, nt, _ = ov_text_classifier()
+    x = jnp.zeros((2, H_IN, W_IN, 3)) if arch == "minvis_ov" else jnp.zeros((1, 2, H_IN, W_IN, 3))
+    shapes = jax.eval_shape(lambda r, x, t: jm.init(r, x, t, nt), jax.random.key(0), x, jnp.asarray(tc))
+    params = random_params(shapes, seed=seed)
+    online = params["params"].get("online", params["params"])
+    seg = online.get("segmenter", online)
+    if kind == "resnet":
+        seg["backbone"]["trunk"] = _scale_kernels(seg["backbone"]["trunk"], 3.0)
+    # mask heads x10 a layer: mask logits of a trained model's order, so that
+    # few lie within 1e-4 of the threshold
+    for owner in (seg["transformer_decoder"], online.get("tracker"), params["params"].get("refiner")):
+        if owner is not None:
+            owner["mask_embed"] = _scale_kernels(owner["mask_embed"], 10.0)
+    pm = build_ov_model(cfg)
+    pm.load_state_dict(state_dict_from_jax(params), strict=True)
+    return cfg, jm, params, pm.eval()
+
+
+def margin(x) -> float:
+    """Least |value| of a thresholded (> 0) tensor: above 1e-4 the two
+    packages' binary masks cannot differ by rounding."""
+    return float(np.abs(np.asarray(x, np.float64)).min())
+
+
+def open_clip_text_state_dict(prefix: str = "", seed: int = 7, vocab: int = 100, context: int = 16):
+    """A seeded open_clip text tower in its own names (``prefix`` ``text.``
+    for the CustomTextCLIP layout), numpy float32: ``vocab`` tokens,
+    ``context`` positions, width 64 (one 64-channel head), 2 layers,
+    projection to ``OV_CC``; with a visual key and ``logit_scale``, which
+    the loaders skip."""
+    rng = np.random.RandomState(seed)
+    W, V, L = 64, vocab, context
+
+    def r(*shape, s=0.1):
+        return (s * rng.randn(*shape)).astype(np.float32)
+
+    sd = {"token_embedding.weight": r(V, W, s=0.5), "positional_embedding": r(L, W),
+          "ln_final.weight": 1 + r(W), "ln_final.bias": r(W), "text_projection": r(W, OV_CC, s=0.2)}
+    for i in range(2):
+        pre = f"transformer.resblocks.{i}"
+        sd.update({f"{pre}.ln_1.weight": 1 + r(W), f"{pre}.ln_1.bias": r(W),
+                   f"{pre}.attn.in_proj_weight": r(3 * W, W, s=0.3), f"{pre}.attn.in_proj_bias": r(3 * W),
+                   f"{pre}.attn.out_proj.weight": r(W, W), f"{pre}.attn.out_proj.bias": r(W),
+                   f"{pre}.ln_2.weight": 1 + r(W), f"{pre}.ln_2.bias": r(W),
+                   f"{pre}.mlp.c_fc.weight": r(4 * W, W), f"{pre}.mlp.c_fc.bias": r(4 * W),
+                   f"{pre}.mlp.c_proj.weight": r(W, 4 * W), f"{pre}.mlp.c_proj.bias": r(W)})
+    sd = {prefix + k: v for k, v in sd.items()}
+    sd["visual.proj"] = r(8, 8)
+    sd["logit_scale"] = np.float32(4.6)
+    return sd

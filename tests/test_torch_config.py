@@ -22,6 +22,9 @@ from dvis_plus_tpu_torch.config import (
     dvis_online_r50_vspw,
     dvis_online_r50_ytvis19,
     minvis_r50_ytvis19,
+    ov_minvis_convnextl_zeroshot_ytvis19,
+    ov_offline_convnextl_zeroshot_ytvis19,
+    ov_online_convnextl_zeroshot_ytvis19,
     video_maskformer_r50_ytvis19,
 )
 
@@ -99,6 +102,20 @@ def test_daq_presets_match_yaml(preset, group):
     _assert_fields_equal(_get(preset(), group), want, group)
 
 
+OV_PRESETS = [ov_online_convnextl_zeroshot_ytvis19, ov_minvis_convnextl_zeroshot_ytvis19,
+              ov_offline_convnextl_zeroshot_ytvis19]
+
+
+@pytest.mark.parametrize("group", GROUPS + ["model.refiner", "model.ov"])
+@pytest.mark.parametrize("preset", OV_PRESETS)
+def test_ov_presets_match_yaml(preset, group):
+    """The open-vocabulary presets equal their YAMLs (the ConvNeXt-L
+    ``clip_*`` fields under ``model.backbone``, ``datasets.train`` = the COCO
+    pseudo-videos whose vocabulary is the seen one)."""
+    want = _get(load_config(f"configs/ov/{preset.__name__}.yaml"), group)
+    _assert_fields_equal(_get(preset(), group), want, group)
+
+
 OVERRIDES = [
     "model.compute_dtype=float32",
     "model.backbone.vit_flash_attention=true",
@@ -120,11 +137,12 @@ OVERRIDES = [
 @pytest.mark.parametrize("yaml_name", [
     "dvis_online_r50_ytvis19", "dvis_offline_swinl_ytvis19", "dvis_offline_vitl_ytvis19",
     "../daq/daq_offline_r50_ovis", "../daq/daq_online_r50_vipseg",
+    "../ov/ov_online_r50_zeroshot_ytvis19", "../ov/ov_online_convnextl_supervised",
 ])
 def test_load_config_matches_jax(yaml_name, overrides):
     path = f"configs/dvis/{yaml_name}.yaml"
     got, want = port_config.load_config(path, overrides), load_config(path, overrides)
-    for group in GROUPS + ["model.refiner", "model.daq"]:
+    for group in GROUPS + ["model.refiner", "model.daq", "model.ov"]:
         _assert_fields_equal(_get(got, group), _get(want, group), group)
     assert (got.output_dir, got.seed, got.weights) == (want.output_dir, want.seed, want.weights)
     if overrides:
@@ -151,11 +169,15 @@ def _expected_fault(cfg):
     JAX package's own reading of it; None where the port runs it."""
     m = cfg.model
     if m.meta_architecture not in ("dvis_online", "dvis_offline", "minvis", "ctvis",
-                                   "video_maskformer", "maskformer", "daq_online", "daq_offline"):
+                                   "video_maskformer", "maskformer", "daq_online", "daq_offline",
+                                   "minvis_ov", "dvis_online_ov", "dvis_offline_ov"):
         return "model.meta_architecture"
-    if m.backbone.name.startswith("clip"):
+    # the CLIP trunks serve open vocabulary only, and open vocabulary runs
+    # them, on no DAQ model (the JAX package has none)
+    ov = m.ov.enabled or m.meta_architecture.endswith("_ov")
+    if m.backbone.name.startswith("clip") and not ov:
         return "model.backbone.name"
-    if m.ov.enabled:
+    if m.ov.enabled and (not m.backbone.name.startswith("clip") or m.meta_architecture.startswith("daq_")):
         return "model.ov.enabled"
     # vos and mots go to the DAQ eval loop, in the JAX CLI as here
     if cfg.test.task not in ("vis", "vps", "vss") and not (
@@ -173,8 +195,9 @@ def test_every_yaml_loads_and_is_run_or_refused(yaml_name):
     JAX package's reading of it stays inside the ported slices (VIS, VPS and
     VSS with DVIS++ online and offline, MinVIS, CTVIS, Video Mask2Former,
     the image Mask2Former and DVIS-DAQ online and offline, the last also for
-    VOS and MOTS, on ResNet, Swin and ViT-Adapter backbones), and otherwise
-    raises with the offending key in the message."""
+    VOS and MOTS, on ResNet, Swin and ViT-Adapter backbones; open vocabulary
+    with MinVIS, DVIS++ online and offline on the CLIP ConvNeXt and RN50
+    trunks), and otherwise raises with the offending key in the message."""
     path = os.path.join("configs", yaml_name)
     cfg = port_config.load_config(path)
     fault = _expected_fault(load_config(path))
@@ -187,10 +210,12 @@ def test_every_yaml_loads_and_is_run_or_refused(yaml_name):
 
 def test_some_yamls_of_every_kind_exist():
     kinds = {_expected_fault(load_config(os.path.join("configs", y))) for y in ALL_YAMLS}
-    # the open-vocabulary YAMLs: the CLIP trunk is the first fault
-    assert kinds == {None, "model.backbone.name"}
+    # every YAML of the repository is in a ported slice, the 48
+    # open-vocabulary ones (ConvNeXt-L and RN50, VIS, VPS and VSS) too
+    assert kinds == {None}
     assert len(ALL_YAMLS) > 100
     assert sum(y.startswith("daq/") for y in ALL_YAMLS) == 18
+    assert sum(y.startswith("ov/") for y in ALL_YAMLS) == 48
 
 
 # the tiny variants the CLI tests run
@@ -233,6 +258,17 @@ SLICE_CASES = [
     ("dvis/dvis_online_r50_vipseg.yaml", ["model.meta_architecture=daq_online"]),
     ("daq/daq_online_r50_ytvis19.yaml", ["test.task=mots"]),
     ("daq/daq_offline_r50_ovis.yaml", ["test.task=vos"]),
+    # open vocabulary: the three architectures on ConvNeXt-L and RN50, VIS,
+    # VPS and VSS, the *_ov names and the void-row settings
+    ("ov/ov_online_convnextl_zeroshot_ytvis19.yaml", []),
+    ("ov/ov_minvis_convnextl_zeroshot_ytvis19.yaml", []),
+    ("ov/ov_offline_convnextl_zeroshot_ytvis19.yaml", []),
+    ("ov/ov_online_r50_zeroshot_ytvis19.yaml", []),
+    ("ov/ov_offline_r50_zeroshot_vipseg.yaml", []),
+    ("ov/ov_online_convnextl_zeroshot_vspw.yaml", []),
+    ("ov/ov_online_convnextl_supervised.yaml", ["model.ov.void_merge_mode=max"]),
+    ("ov/ov_online_convnextl_coco.yaml", ["model.meta_architecture=dvis_offline_ov"]),
+    ("ov/fcclip_r50_coco.yaml", ["model.meta_architecture=ctvis"]),
 ]
 
 
@@ -247,8 +283,9 @@ REFUSED_CASES = [
     ("dvis/dvis_offline_r50_vspw.yaml", ["test.task=mots"], "test.task"),  # MOTS
     ("daq/daq_vos_r50_ytvos.yaml", ["model.meta_architecture=dvis_online"], "test.task"),
     ("daq/daq_online_r50_ytvis19.yaml", ["test.task=vos", "model.meta_architecture=minvis"], "test.task"),
-    ("ov/ov_online_r50_zeroshot_ytvis19.yaml", [], "model.ov.enabled"),  # OV
-    ("ov/ov_online_r50_zeroshot_ytvis19.yaml", [], "model.backbone.name"),
+    # open vocabulary on a DAQ model (the JAX package has none); a CLIP trunk without it
+    ("ov/ov_online_r50_zeroshot_ytvis19.yaml", ["model.meta_architecture=daq_online"], "model.ov.enabled"),
+    ("ov/ov_online_r50_zeroshot_ytvis19.yaml", ["model.ov.enabled=false"], "model.backbone.name"),
     ("daq/daq_online_r50_ytvis19.yaml", ["model.meta_architecture=daq_online_ov"],
      "model.meta_architecture"),  # an OV architecture
     ("daq/daq_offline_r50_ovis.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
@@ -273,6 +310,10 @@ REFUSED_CASES = [
     # and for DVIS-DAQ
     ("daq/daq_online_r50_vipseg.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
     ("daq/daq_offline_r50_ovis.yaml", ["test.eval_devices=2"], "test.eval_devices"),
+    # and for open vocabulary
+    ("ov/ov_online_convnextl_coco.yaml", ["model.backbone.clip_model_type=vit"],
+     "model.backbone.clip_model_type"),
+    ("ov/ov_offline_convnextl_zeroshot_ytvis19.yaml", ["test.eval_devices=2"], "test.eval_devices"),
 ]
 
 
@@ -307,7 +348,7 @@ def test_inherited_jax_defaults_pass_and_presets_pass():
     for preset in (dvis_online_r50_ytvis19, dvis_offline_swinl_ytvis19, dvis_offline_vitl_ytvis19,
                    minvis_r50_ytvis19, ctvis_r50_ytvis19, video_maskformer_r50_ytvis19,
                    dvis_online_r50_vipseg, dvis_online_r50_vspw, daq_online_r50_ytvis19,
-                   daq_offline_r50_ovis):
+                   daq_offline_r50_ovis, *OV_PRESETS):
         port_config.check_supported(preset())
 
 

@@ -767,3 +767,66 @@ def test_auction_on_daq_slot_costs_on_the_card(cuda_device, alive):
     want = auction_lap(cost)
     got = auction_lap(cost.to(cuda_device), first_check=16)
     assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# Open vocabulary on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["online", "offline"])
+def test_ov_stream_on_the_card_matches_the_cpu(cuda_device, arch):
+    """OV-DVIS++ with a tiny ConvNeXt (depths (1, 1, 2, 1)), 6 frames at
+    64x96 in windows of 3, a random 5-class classifier: the fused log-probs
+    and masks on the card (B1, cuDNN) against the CPU (B1's plain version),
+    fp32, rel <= 1e-3, the same top-10 labels; B1 ran on the card only.
+    Every mask value the CPU thresholded (at stride 4, and resized onto the
+    stride-32 CLIP map) lies more than 1e-4 from 0."""
+    from dvis_plus_tpu_torch import config
+    from dvis_plus_tpu_torch.cli_ov import build_ov_model
+    from dvis_plus_tpu_torch.engine.ov_inference import ov_video_logits_masks_fn
+    from dvis_plus_tpu_torch.models.meta.minvis import topk_select
+    from dvis_plus_tpu_torch.models.ov.heads import resize_masks
+
+    cfg = getattr(config, f"ov_{arch}_convnextl_zeroshot_ytvis19")()
+    m = cfg.model
+    m.compute_dtype = "float32"
+    m.backbone.clip_depths, m.backbone.clip_dims = (1, 1, 2, 1), (16, 24, 32, 40)
+    m.ov.clip_embed_dim = 24
+    m.pixel_decoder.conv_dim = m.pixel_decoder.mask_dim = 32
+    m.pixel_decoder.transformer_enc_layers = 2
+    m.pixel_decoder.transformer_dim_feedforward = 64
+    td = m.transformer_decoder
+    td.hidden_dim = td.mask_dim = 32
+    td.num_queries, td.nheads, td.dim_feedforward, td.dec_layers = 8, 4, 64, 2
+    m.tracker.num_layers = m.refiner.num_layers = 1
+    m.tracker.feedforward_dim = m.refiner.feedforward_dim = 64
+    cfg.test.window_size = 3
+    torch.manual_seed(0)
+    cpu = build_ov_model(cfg).eval()
+    with torch.no_grad():  # mask logits of a trained model's order
+        for name, p in cpu.named_parameters():
+            if "mask_embed" in name and name.endswith("weight"):
+                p.mul_(10.0)
+    card = build_ov_model(cfg).eval()
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda_device)
+    rng = np.random.RandomState(2)
+    tc, nt = rng.randn(15, 24).astype(np.float32), (3,) * 5 + (1,)
+    overlap = np.array([1, 0, 1, 0, 0], np.float32)
+    x = rng.randn(6, 64, 96, 3).astype(np.float32)
+    with torch.inference_mode():
+        msdeform.reset_launches()
+        want = ov_video_logits_masks_fn(cfg, cpu, tc, nt, overlap)(x)
+        assert msdeform.launches == 0
+        got = ov_video_logits_masks_fn(cfg, card, tc, nt, overlap)(x)
+        torch.cuda.synchronize()
+    assert msdeform.launches == 2 * 2
+    w_masks = want[1].float()
+    assert w_masks.abs().min().item() > 1e-4
+    assert resize_masks(w_masks, (2, 3)).abs().min().item() > 1e-4
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape
+        assert _rel(g.cpu(), w) <= 1e-3
+    assert topk_select(got[0].cpu(), 10)[1].tolist() == topk_select(want[0], 10)[1].tolist()

@@ -5,7 +5,9 @@ offline ViT, MinVIS, CTVIS, Video Mask2Former and DVIS-DAQ online and
 offline presets at a small size (the JAX default eval settings: ``runs``
 download, threaded pipeline), its VPS and VSS loops run for the VIPSeg and
 VSPW presets with their evaluators (PNGs by the port's own writer), DVIS-DAQ
-runs the VPS loop, MOTS and the VOS writer, and its CLI evaluates the
+runs the VPS loop, MOTS and the VOS writer, the three open-vocabulary
+presets run ``run_ov_inference`` and the RN50 trunk the OV route of the VSS
+loop, and its CLIs (``cli``; ``cli_ov --random-text``) evaluate the
 synthetic YouTube-VIS set with ``--device cpu``. The rows are encoded by the native
 codec, built with g++ on first use.
 
@@ -122,6 +124,61 @@ with tempfile.TemporaryDirectory() as tmp:
                               np.random.RandomState(2).randn(4, 41).astype(np.float32),
                               np.random.RandomState(3).randn(4, 3, 16, 16).astype(np.float16))
     tasks.append(["vos", sum(f.endswith(".png") for f in os.listdir(os.path.join(tmp, "inference", "v1")))])
+# open vocabulary: the three presets through run_ov_inference, the RN50
+# trunk through the VSS route (random text classifiers over 40 classes)
+from dvis_plus_tpu_torch import cli_ov
+from dvis_plus_tpu_torch.config import (
+    ov_minvis_convnextl_zeroshot_ytvis19, ov_offline_convnextl_zeroshot_ytvis19,
+    ov_online_convnextl_zeroshot_ytvis19,
+)
+from dvis_plus_tpu_torch.engine.ov_inference import ov_video_logits_masks_fn, run_ov_inference
+
+def small_ov(cfg, resnet=False):
+    m = cfg.model
+    m.compute_dtype = "float32"
+    m.pixel_decoder.conv_dim = m.pixel_decoder.mask_dim = 32
+    m.pixel_decoder.transformer_enc_layers = 1
+    m.pixel_decoder.transformer_dim_feedforward = 64
+    m.transformer_decoder.hidden_dim = m.transformer_decoder.mask_dim = 32
+    m.transformer_decoder.num_queries = 4
+    m.transformer_decoder.nheads = 4
+    m.transformer_decoder.dim_feedforward = 64
+    m.transformer_decoder.dec_layers = 1
+    m.tracker.num_layers = m.refiner.num_layers = 1
+    m.tracker.feedforward_dim = m.refiner.feedforward_dim = 64
+    cfg.test.window_size = 2
+    b = m.backbone
+    b.clip_depths, b.clip_dims, b.clip_resnet_width = (1, 1, 1, 1), (8, 16, 24, 32), 8
+    if resnet:
+        b.name, b.clip_model_type = "clip_rn50", "resnet"
+    cfg.model.ov.clip_embed_dim = 16
+    torch.manual_seed(0)
+    return cli_ov.build_ov_model(cfg).eval()
+
+tc = np.random.RandomState(3).randn(40 * 2, 16).astype(np.float32)
+nt, overlap = (2,) * 40 + (1,), (np.arange(40) % 3 == 0).astype(np.float32)
+ov_rows = []
+for preset in (ov_online_convnextl_zeroshot_ytvis19, ov_minvis_convnextl_zeroshot_ytvis19,
+               ov_offline_convnextl_zeroshot_ytvis19):
+    cfg = preset()
+    model = small_ov(cfg)
+    video = {"images": np.random.RandomState(0).randn(4, 64, 64, 3).astype(np.float32),
+             "image_size": [64, 64], "height": 48, "width": 48, "video_id": 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        ev = YTVISEvaluator("synthetic", tmp)
+        seen = ev.process
+        ev.process = lambda vid, out: (containers.append(type(out["pred_masks"]).__name__), seen(vid, out))
+        run_ov_inference(cfg, model, iter([video]), ev, tc, nt, overlap)
+    ov_rows.append(len(ev.predictions))
+cfg = ov_offline_convnextl_zeroshot_ytvis19()
+cfg.test.task = "vss"
+model = small_ov(cfg, resnet=True)
+with tempfile.TemporaryDirectory() as tmp:
+    ev = VSSEvaluator("synthetic", tmp)
+    run_vss_inference(cfg, model, iter([dict(video, video_id="v1", file_names=[f"v1/{t:05d}.jpg" for t in range(4)])]),
+                      ev, logits_masks_fn=ov_video_logits_masks_fn(cfg, model, tc, nt, overlap))
+    tasks.append(["ov_vss", ev.evaluate()["videos"],
+                  sum(f.endswith(".png") for _, _, fs in os.walk(tmp) for f in fs)])
 small = [
     "model.compute_dtype=float32", "model.backbone.vit_embed_dim=32", "model.backbone.vit_depth=2",
     "model.backbone.vit_num_heads=2", "model.backbone.vit_deform_num_heads=2",
@@ -139,10 +196,16 @@ small = [
 with tempfile.TemporaryDirectory() as tmp:
     res = cli.main(["--config-file", "configs/dvis/dvis_offline_vitl_ytvis19.yaml", "--eval-only",
                     "--device", "cpu", *small, "output_dir=" + tmp])["ytvis_2019_val"]
+    ov_res = cli_ov.main(["--config-file", "configs/ov/ov_offline_convnextl_zeroshot_ytvis19.yaml",
+                          "--eval-only", "--device", "cpu", "--random-text", *small,
+                          "model.backbone.clip_depths=[1,1,1,1]", "model.backbone.clip_dims=[8,16,24,32]",
+                          "model.ov.clip_embed_dim=16", "output_dir=" + tmp])["ytvis_2019_val"]
 roots = ("jax", "jaxlib", "flax", "dvis_plus_tpu", "triton")
 print(json.dumps({
     "rows": rows,
     "cli": [res["device"], res["predictions"], "AP" in res],
+    "ov_rows": ov_rows,
+    "ov_cli": [ov_res["device"], ov_res["predictions"], "AP" in ov_res],
     "loaded": sorted(k for k in sys.modules if k.split(".")[0] in roots),
     "containers": containers,
     "tasks": tasks,
@@ -172,8 +235,9 @@ def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
     # (its sequences padded to 16 rows), their masks downloaded as
     # per-column runs; the CLI scored 2 videos x top-3 on the CPU
     assert out == {"rows": [20] * 6 + [16] * 2, "cli": ["cpu", 6, True], "loaded": [],
-                   "containers": ["ColRunMasks"] * 8,
+                   "ov_rows": [20] * 3, "ov_cli": ["cpu", 6, True],
+                   "containers": ["ColRunMasks"] * 11,
                    "tasks": [["vps", 1, 3], ["vss", 1, 3], ["daq_vps", 1, 3], ["mots", 16, True],
-                             ["vos", 3]],
+                             ["vos", 3], ["ov_vss", 1, 4]],
                    "built": 0, "codec": 1,
                    "launches": [0, 0, 0]}
