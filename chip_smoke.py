@@ -34,7 +34,13 @@ kernels:
   CLIP ConvNeXt-L trunk, the FC-CLIP decoder, kernel B1; the YouTube-VIS 2019
   classifier from the seeded 16-layer text tower, fused with the CLIP head
   against the COCO seen vocabulary) through ``run_ov_inference``, MinVIS OV
-  beside them in the GPU-against-CPU phase.
+  beside them in the GPU-against-CPU phase;
+- DVIS++ online training at the full width of
+  ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (kernel B1 forward in the
+  frozen segmenter, 6 launches a step): 8 clips of 5 frames at 480x768 from
+  a synthetic set through the port's loader, train step and checkpoint; one
+  small step GPU against CPU first, then 100 steps of a tiny model whose
+  loss must fall.
 
 Run from a checkout of the repository:
 
@@ -48,6 +54,7 @@ Run from a checkout of the repository:
                                      # by the run of queries a block takes
     python3 chip_smoke.py --daq      # build, then only the DVIS-DAQ phases
     python3 chip_smoke.py --ov       # build, then only the open-vocabulary phases
+    python3 chip_smoke.py --train    # build, then only the training phases
 
 Kernel B1 (deformable attention) is held and timed at each of its three
 main shapes under two distributions of sampling offsets: uniform over +-10
@@ -1997,6 +2004,322 @@ def phase_host_syncs(dev):
     emit({"phase": "host_syncs", "frames": 5, "syncs": n, "per_frame": n / 5})
 
 
+# DVIS++ online training: the main configuration's clips (ims_per_batch 8 x
+# sampling_frame_num 5 on the 480x768 canvas), 2 untimed and 5 timed steps;
+# the GPU-against-CPU step at small widths holds the losses to 1e-4 and the
+# tracker's gradients to 1e-3 as a norm (fp32, TF32 off)
+TRAIN_H, TRAIN_W, TRAIN_UNTIMED, TRAIN_TIMED = 480, 768, 2, 5
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+TRAIN_LEVELS = [(60, 96), (30, 48), (15, 24)]  # the 480x768 canvas: strides 8, 16, 32
+
+
+def write_ytvis(root, name, n_videos, length, H, W, classes=None):
+    """``tools/synth_data.py::make_ytvis`` (JPEG frames, a moving box for two
+    instances a video, the second leaving half-way) with its masks encoded
+    by the port's RLE codec, which writes the same strings; registered in the
+    port's catalog as ``<name>_train``."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import synth_data
+
+    from dvis_plus_tpu_torch.data.catalog import register_dataset
+    from dvis_plus_tpu_torch.data.datasets.categories import YTVIS_2019_CLASSES
+    from dvis_plus_tpu_torch.data.datasets.ytvis import load_ytvis_json
+    from dvis_plus_tpu_torch.utils import rle
+
+    def port_rle(mask):
+        e = rle.encode(mask.astype(np.uint8))
+        return {"size": e["size"], "counts": e["counts"].decode("ascii")}
+
+    synth_data._rle = port_rle
+    classes = classes or YTVIS_2019_CLASSES
+    synth_data.make_ytvis(root, name, classes, splits=("train",), n_videos=n_videos,
+                          length=length, H=H, W=W)
+    register_dataset(f"{name}_train", lambda: load_ytvis_json(
+        os.path.join(root, name, "train.json"), os.path.join(root, name, "train", "JPEGImages")))
+
+
+@contextlib.contextmanager
+def recording_matches(log):
+    """Append every assignment the training loss makes to ``log``."""
+    from dvis_plus_tpu_torch.losses import criterion
+
+    match = criterion.match
+
+    def recording(*args, **kw):
+        q4g = match(*args, **kw)
+        log.append(q4g.cpu())
+        return q4g
+
+    criterion.match = recording
+    try:
+        yield
+    finally:
+        criterion.match = match
+
+
+def phase_train_step_parity(dev):
+    """One DVIS++ online training step at small widths on the card against
+    the CPU: the same seeded weights, batch (2 clips x 3 frames of 128x160)
+    and draws (a CPU generator's values, moved to each device), fp32. The
+    losses, the tracker's gradients and every assignment the loss made."""
+    import copy
+
+    import torch
+
+    from dvis_plus_tpu_torch.config import dvis_online_tiny
+    from dvis_plus_tpu_torch.engine.trainer import Batch, build_train_step
+    from dvis_plus_tpu_torch.losses.targets import VideoTargets
+    from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
+    from dvis_plus_tpu_torch.utils.draws import Draws
+
+    cfg = dvis_online_tiny("model.num_classes=5", "model.tracker.matcher_solver=jv")
+    B, T, N, H, W = 2, 3, 4, 128, 160
+    g = torch.Generator().manual_seed(SEED)
+    masks = torch.zeros(B, N, T, H, W, dtype=torch.bool)
+    for b in range(B):
+        for n in range(N - 1):
+            y, x = 10 + 30 * n, 8 + 20 * b + 10 * n
+            for t in range(T):
+                if not (n == 1 and t == 0):
+                    masks[b, n, t, y:y + 28, x + 4 * t:x + 4 * t + 36] = True
+    fv = masks.flatten(3).any(-1)
+    batch = Batch(torch.randn(B, T, 3, H, W, generator=g),
+                  VideoTargets(torch.randint(0, 5, (B, N), generator=g), masks, fv.any(-1), fv))
+    torch.manual_seed(SEED)
+    cpu_model = DVISOnline(cfg.model).train()
+    out = []
+    for d, model in ((torch.device("cpu"), cpu_model), (dev, copy.deepcopy(cpu_model).to(dev))):
+        b = Batch(batch.images.to(d), VideoTargets(*(t.to(d) for t in batch.targets)))
+        step, init = build_train_step(cfg, model)
+        matches = []
+        with recording_matches(matches):
+            _, metrics = step(init(), b, Draws(torch.Generator().manual_seed(SEED + 7)))
+        grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters() if p.requires_grad}
+        out.append(({k: float(v) for k, v in metrics.items()}, grads, matches))
+    (want, gw, mw), (got, gg, mg) = out
+    loss_err = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
+    flat_w = torch.cat([v.flatten() for v in gw.values()])
+    flat_g = torch.cat([gg[k].flatten() for k in gw])
+    grad_err = ((flat_g - flat_w).norm() / flat_w.norm()).item()
+    norm_err = abs(flat_g.norm().item() - flat_w.norm().item()) / flat_w.norm().item()
+    same = len(mw) == len(mg) and all(torch.equal(a, b) for a, b in zip(mw, mg))
+    finite = all(np.isfinite(v) for v in got.values())
+    emit({"phase": "train_step_parity", "clips": B, "frames": T, "input": [H, W],
+          "loss_rel_err": max(loss_err.values()), "loss_tol": TRAIN_LOSS_TOL,
+          "grad_rel_err": grad_err, "grad_norm_rel_err": norm_err, "grad_tol": TRAIN_GRAD_TOL,
+          "total_loss": {"cpu": want["total_loss"], "cuda": got["total_loss"]},
+          "assignments": [m.tolist() for m in mg], "assignments_equal": same})
+    if not (finite and same and max(loss_err.values()) <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"the training step on the card disagrees with the CPU: losses "
+                             f"{loss_err}, gradients {grad_err}, assignments equal {same}")
+
+
+@contextlib.contextmanager
+def timing_stages(model, optimizer, ms):
+    """Time the stages of the real training step
+    (``engine/trainer.py::build_train_step``) run inside the block, on the
+    host clock with a synchronize at every boundary: the training forward's
+    frozen segmenter (the forward less the tracker), the tracker's forward
+    (its frame alignments' solves timed inside it, each waited for), the
+    loss (from the forward's end to ``zero_grad``; its matchers' host solves
+    inside it), the backward (to the optimizer's step) and the optimizer.
+    Fills ``ms`` with milliseconds by stage and the number of alignment
+    calls (one a frame, its clips solved together)."""
+    import torch
+
+    from dvis_plus_tpu_torch.losses import criterion
+    from dvis_plus_tpu_torch.models.tracker import referring_tracker
+
+    at, match_s, align = {}, [0.0, 0], [0.0, 0]
+
+    def marked(fn, start, end=None):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            at[start] = time.perf_counter()
+            out = fn(*args, **kw)
+            if end:
+                torch.cuda.synchronize()
+                at[end] = time.perf_counter()
+            return out
+        return wrapped
+
+    def host_timed(fn, acc, wait=False):
+        def wrapped(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            if wait:
+                out.cpu()
+            acc[0] += time.perf_counter() - t
+            acc[1] += 1
+            return out
+        return wrapped
+
+    instance = [(model, "train_forward", marked(model.train_forward, "forward", "forward_end")),
+                (model.tracker, "forward", marked(model.tracker.forward, "tracker", "tracker_end")),
+                (optimizer, "zero_grad", marked(optimizer.zero_grad, "loss_end")),
+                (optimizer, "step", marked(optimizer.step, "backward_end", "end"))]
+    modules = [(criterion, "match", host_timed(criterion.match, match_s)),
+               (referring_tracker, "match_embds", host_timed(referring_tracker.match_embds, align, True))]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in modules]
+    for obj, name, fn in instance + modules:
+        setattr(obj, name, fn)
+    try:
+        yield ms
+    finally:
+        for obj, name, _ in instance:
+            delattr(obj, name)
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    ms.update({"segmenter_forward": 1e3 * (at["tracker"] - at["forward"]),
+               "tracker_forward": 1e3 * (at["tracker_end"] - at["tracker"]),
+               "tracker_alignments": 1e3 * align[0], "tracker_alignment_calls": align[1],
+               "loss": 1e3 * (at["loss_end"] - at["forward_end"]),
+               "loss_matchers": 1e3 * match_s[0], "loss_matcher_calls": match_s[1],
+               "backward": 1e3 * (at["backward_end"] - at["loss_end"]),
+               "optimizer": 1e3 * (at["end"] - at["backward_end"]),
+               "step": 1e3 * (at["end"] - at["forward"])})
+
+
+def phase_train_slice(dev):
+    """DVIS++ online training at the full width of
+    ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (its preset: bf16 compute,
+    fp32 parameters and moments, 8 clips of 5 frames on the 480x768 canvas,
+    the segmenter frozen, 50 instance slots, 12,544 points) with seeded
+    random weights, on a synthetic YouTube-VIS set of 480x768 frames written
+    to a temporary directory: 2 untimed steps, 5 timed ones through the
+    port's loader (4 worker threads), train step and a checkpoint save.
+    Kernel B1 launches once an encoder layer a step (its calls recorded by
+    shape), the losses of every step must be finite; then one more step timed
+    by stage (:func:`timing_stages`), the host syncs of one step, and B1
+    timed at the training encoder's shape."""
+    import torch
+
+    from dvis_plus_tpu_torch.config import dvis_online_r50_ytvis19
+    from dvis_plus_tpu_torch.core import checkpoint as ckpt
+    from dvis_plus_tpu_torch.data.build import build_combined_train_loader
+    from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
+    from dvis_plus_tpu_torch.models.segmenter import pixel_decoder
+    from dvis_plus_tpu_torch.ops import msdeform
+
+    cfg = dvis_online_r50_ytvis19()
+    steps = TRAIN_UNTIMED + TRAIN_TIMED
+    with tempfile.TemporaryDirectory() as root:
+        write_ytvis(root, "ytvis_train_slice", n_videos=8, length=10, H=TRAIN_H, W=TRAIN_W)
+        cfg.datasets.train = ("ytvis_train_slice_train",)
+        model = build_model(cfg, dev).train()
+        train_step, init = build_train_step(cfg, model)
+        state = init()
+        loader = build_combined_train_loader(cfg, seed=SEED)
+        b1_calls = []
+        plain = pixel_decoder.ms_deform_attn
+
+        def recording(value, shapes, loc, attn, radius=None):
+            b1_calls.append((tuple(value.shape), str(value.dtype).split(".")[1],
+                             str(attn.dtype).split(".")[1], [list(s) for s in shapes]))
+            return plain(value, shapes, loc, attn, radius=radius)
+
+        pixel_decoder.ms_deform_attn = recording
+        losses, wait_s, step_s = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        try:
+            for i in range(steps):
+                t0 = time.perf_counter()
+                batch = to_batch(next(loader), dev)
+                t1 = time.perf_counter()
+                state, metrics = train_step(state, batch)
+                losses.append({k: float(v) for k, v in metrics.items()})  # synchronizes
+                t2 = time.perf_counter()
+                if i >= TRAIN_UNTIMED:
+                    wait_s.append(t1 - t0)
+                    step_s.append(t2 - t0)
+            launches = read_launches()
+        finally:
+            pixel_decoder.ms_deform_attn = plain
+        peak = torch.cuda.max_memory_allocated(dev)
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(root, "checkpoints", f"step_{state.step:07d}.pth"), model,
+                  state.optimizer.state_dict(), state.step, torch.get_rng_state())
+        save_s = time.perf_counter() - t0
+        batch = to_batch(next(loader), dev)
+        stages = {}
+        with timing_stages(model, state.optimizer, stages):
+            state, metrics = train_step(state, batch)
+        counts = []
+        with counting_syncs(counts):
+            state, metrics = train_step(state, batch)
+            torch.cuda.synchronize()
+    finite = all(np.isfinite(v) for row in losses for v in row.values())
+    shapes = sorted({c[:3] for c in b1_calls})
+    res = {"phase": "train_slice", "clips": cfg.solver.ims_per_batch,
+           "frames": cfg.input.sampling_frame_num, "canvas": [TRAIN_H, TRAIN_W],
+           "dtype": cfg.model.compute_dtype, "steps": steps, "timed_steps": TRAIN_TIMED,
+           "total_loss": [row["total_loss"] for row in losses],
+           "losses_last": losses[-1], "finite": finite,
+           "step_s_median": float(np.median(step_s)), "step_s": step_s,
+           "loader_wait_s_median": float(np.median(wait_s)), "loader_wait_s": wait_s,
+           "checkpoint_save_s": save_s, "peak_memory_bytes": peak,
+           "host_syncs_per_step": {"event_waits": counts[0], "debug_mode": counts[1]},
+           "stages_ms": stages, "launches": launches,
+           "b1_launches_per_step": launches["msdeform_fwd"] / steps,
+           "b1_calls": [{"value": list(v), "value_dtype": vd, "attn_dtype": ad} for v, vd, ad in shapes]}
+    value_shape, value_dtype, _ = shapes[0]
+    expected = cfg.model.pixel_decoder.transformer_enc_layers * steps
+    if not finite or launches["msdeform_fwd"] != expected or len(shapes) != 1:
+        emit({**res, "failed": True})
+        raise AssertionError(f"train_slice: finite {finite}, B1 launches {launches['msdeform_fwd']} "
+                             f"(expected {expected}), B1 shapes {shapes}")
+    # B1 at the training encoder's shape, in the dtype the step gave it
+    BT, _, M, D = value_shape
+    value, loc, attn = msdeform_inputs(dev, TRAIN_LEVELS, BT=BT, M=M, D=D)
+    res["b1_train_encoder"] = b1_check(TRAIN_LEVELS, value.to(getattr(torch, value_dtype)), loc, attn,
+                                       iters=10, plain_iters=3)
+    del value, loc, attn
+    emit(res)
+    return res
+
+
+def phase_train_overfit(dev):
+    """The port's slow overfit test (``tests/test_torch_overfit.py`` runs
+    this phase on the CPU): DVIS++ online at the tiny widths of
+    ``config.TINY_TRAIN`` with 2 classes, 2 clips of 3 frames at 64x96 from a
+    2-video synthetic set, 100 steps; the last total loss must be below the
+    first, as the JAX slow test asserts."""
+    import torch
+
+    from dvis_plus_tpu_torch.config import dvis_online_tiny
+    from dvis_plus_tpu_torch.data.build import build_train_loader
+    from dvis_plus_tpu_torch.data.datasets.categories import YTVIS_2019_CLASSES
+    from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
+    from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
+
+    cfg = dvis_online_tiny(
+        "model.num_classes=2", "solver.ims_per_batch=2", "solver.base_lr=3e-4", "solver.warmup_iters=10",
+        "solver.steps=[100000]", "solver.max_iter=100", "input.sampling_frame_num=3",
+        "input.sampling_frame_range=1", "input.min_size_train=[64]", "input.max_size_train=96")
+    with tempfile.TemporaryDirectory() as root:
+        write_ytvis(root, "ytvis_overfit", n_videos=2, length=6, H=64, W=96,
+                    classes=YTVIS_2019_CLASSES[:2])
+        torch.manual_seed(SEED + 1)
+        model = DVISOnline(cfg.model).to(dev).train()
+        step, init = build_train_step(cfg, model)
+        state = init()
+        loader = build_train_loader(cfg, "ytvis_overfit_train", seed=SEED, num_workers=2)
+        losses = []
+        t0 = time.perf_counter()
+        for k in range(cfg.solver.max_iter):
+            state, metrics = step(state, to_batch(next(loader), dev))
+            if k % 20 == 0 or k == cfg.solver.max_iter - 1:
+                losses.append(float(metrics["total_loss"]))
+        seconds = time.perf_counter() - t0
+    res = {"phase": "train_overfit", "steps": cfg.solver.max_iter, "total_loss": losses, "seconds": seconds}
+    emit(res)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_overfit: the loss did not fall: {losses}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2025,6 +2348,12 @@ def main() -> int:
         phase_daq_slice_parity(dev)
         phase_daq_slice(dev, "daq_online", "daq_slice")
         phase_daq_slice(dev, "daq_offline", "daq_offline_slice")
+        return 0
+    if "--train" in sys.argv[1:]:
+        phase_train_step_parity(dev)
+        phase_train_slice(dev)
+        phase_train_overfit(dev)
+        emit({"phase": "wall", "seconds": time.perf_counter() - start})
         return 0
     if "--ov" in sys.argv[1:]:
         classifier = ov_classifier(dev)
@@ -2058,6 +2387,9 @@ def main() -> int:
     phase_ov_slice_parity(dev, classifier)
     ov_online = phase_ov_slice(dev, "dvis_online_ov", "ov_slice", classifier)
     ov_offline = phase_ov_slice(dev, "dvis_offline_ov", "ov_offline_slice", classifier)
+    phase_train_step_parity(dev)
+    train = phase_train_slice(dev)
+    phase_train_overfit(dev)
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
     # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2
@@ -2077,6 +2409,7 @@ def main() -> int:
         b1_shapes["encoder_480x640_clamped_r7" + tag] = b1_form(b1["encoder"], offsets, radius=7)
         b1_shapes["vitl_encoder_736x1280" + tag] = b1_form(b1["vitl_encoder"], offsets)
         b1_shapes["vitl_extractor" + tag] = b1_form(b1["vitl_extractor"], offsets, "bfloat16")
+    b1_shapes["train_encoder_480x768"] = train["b1_train_encoder"]
     b1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "gathered_bytes",
                "gathered_tb_per_s", "out_dtype")
     timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2091,7 +2424,7 @@ def main() -> int:
     paths = {"slice": runs["exact"], "swinl_slice": swinl, "vitl_slice": vitl,
              "minvis_slice": minvis, "clip_slice": clip, "vps_slice": vps, "vss_slice": vss,
              "daq_slice": daq_online, "daq_offline_slice": daq_offline,
-             "ov_slice": ov_online, "ov_offline_slice": ov_offline}
+             "ov_slice": ov_online, "ov_offline_slice": ov_offline, "train_slice": train}
 
     def by_path(kernel):
         return {name: r["launches"][kernel] for name, r in paths.items()}

@@ -1,10 +1,25 @@
-"""Evaluation CLI of the PyTorch port (the counterpart of
-``train_net_video.py --eval-only`` for the ported slices):
+"""Training and evaluation CLI of the PyTorch port (the counterpart of
+``train_net_video.py``):
 
     DVIS_DATASETS=<root> python -m dvis_plus_tpu_torch.cli \\
-        --config-file configs/dvis/dvis_online_r50_ytvis19.yaml --eval-only \\
+        --config-file configs/dvis/dvis_online_r50_ytvis19.yaml [--eval-only] [--resume] \\
         [--device cuda|cpu] [weights=<state_dict .pth/.npz>] [key.path=value ...]
 
+Without ``--eval-only`` it trains, as ``train_net_video.py::do_train``
+(:112-190): DVIS++ online (``dvis_online``) on the video instance sets of
+``datasets.train`` (``config.check_trainable`` refuses the rest, naming the
+ROADMAP item), ``solver.max_iter`` steps of ``engine.trainer``'s train step
+from the port's loader (``data.build``), a line of ``metrics.jsonl`` and a
+console line every 20 steps (``utils.events``), and a checkpoint
+``<output_dir>/checkpoints/step_<n>.pth`` every ``solver.checkpoint_period``
+steps and at the end (``core.checkpoint``). ``--resume`` takes up the newest
+checkpoint there (weights, optimizer state, step; the loader skips the
+clips already taken and the draws of a step follow from (seed, step)), so a
+resumed run ends where an unbroken one does. ``weights=`` loads a state dict
+before training, non-strictly: a key of another shape keeps the module's
+initialization and is logged.
+
+With ``--eval-only`` it evaluates
 (``configs/dvis/dvis_offline_{swinl,vitl}_ytvis19.yaml``,
 ``configs/dvis/{minvis,ctvis}_*_ytvis19.yaml``,
 ``configs/dvis/video_maskformer_r50_ytvis19.yaml`` and ``configs/daq/*.yaml``
@@ -12,7 +27,7 @@ run the same way; ``model.meta_architecture`` picks ``DVISOnline``,
 ``DVISOffline``, the bare ``Segmenter`` (``minvis``, ``ctvis``),
 ``VideoMaskFormer``, ``ImageMaskFormer`` (``maskformer``), ``DAQOnline`` or
 ``DAQOffline``; the VIPSeg and VSPW YAMLs,
-``configs/dvis/*_{vipseg,vspw}.yaml``, run the VPS and VSS tasks.)
+``configs/dvis/*_{vipseg,vspw}.yaml``, run the VPS and VSS tasks).
 
 Loads the configuration (``config.load_config``) and the video datasets
 (``data.catalog``, ``data.datasets.{ytvis,vps_vss}``, ``data.mapper``) with
@@ -29,9 +44,9 @@ other set runs ``run_vis_inference`` and writes ``results.json`` (AP,
 ``evaluation.ytvos_eval``). ``--device cuda`` (the default) raises when no
 card is present; only ``--device cpu`` runs on the CPU. Weights are a state
 dict in the reference checkpoints' key space (the port's own
-``state_dict()``, a zoo ``.pth``, or the same as ``.npz``); without
-``weights=`` the model keeps its random initialization from ``seed``. The
-CLI prints each set's result dict and returns them.
+``state_dict()``, a zoo ``.pth``, a training checkpoint, or the same as
+``.npz``); without ``weights=`` the model keeps its random initialization
+from ``seed``. The CLI prints each set's result dict and returns them.
 """
 from __future__ import annotations
 
@@ -40,28 +55,11 @@ import json
 import logging
 import os
 
-import numpy as np
 import torch
 
+from dvis_plus_tpu_torch.core.checkpoint import load_weights
+
 logger = logging.getLogger("dvis_plus_tpu_torch.cli")
-
-
-def load_weights(model: torch.nn.Module, path: str) -> None:
-    """Load a reference-keyed state dict (``.npz`` or a torch checkpoint,
-    optionally wrapped in ``{"model": ...}``) into ``model``, non-strict like
-    the reference's checkpointer; missing and unexpected keys are logged."""
-    if path.endswith(".npz"):
-        with np.load(path) as data:
-            sd = {k: torch.from_numpy(data[k]) for k in data.files}
-    else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        for key in ("model", "state_dict"):
-            if isinstance(sd, dict) and isinstance(sd.get(key), dict):
-                sd = sd[key]
-    missing, unexpected = model.load_state_dict(sd, strict=False)
-    if missing or unexpected:
-        logger.warning("load_weights(%s): %d missing, %d unexpected keys",
-                       path, len(missing), len(unexpected))
 
 
 def build_model(model_cfg) -> torch.nn.Module:
@@ -148,16 +146,60 @@ def _eval_vss(cfg, model, md, loader, out_dir, logits_masks_fn=None):
     return evaluator.evaluate()
 
 
+LOG_EVERY = 20
+
+
+def do_train(cfg, resume: bool, dev: torch.device):
+    """Train ``cfg`` on ``dev``; returns the final ``TrainState``."""
+    from dvis_plus_tpu_torch.core import checkpoint as ckpt
+    from dvis_plus_tpu_torch.data.build import build_combined_train_loader
+    from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
+    from dvis_plus_tpu_torch.utils.events import EventWriter, device_memory_stats
+
+    torch.manual_seed(cfg.seed)
+    model = build_model(cfg.model)
+    if cfg.weights:
+        load_weights(model, cfg.weights)
+    model = model.to(dev).train()
+    train_step, init_state = build_train_step(cfg, model)
+    state = init_state()
+    ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
+    latest = ckpt.latest(ckpt_dir) if resume else None
+    if latest:
+        saved = ckpt.restore(latest)
+        model.load_state_dict(saved["model"])
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.step = saved["step"]
+        torch.set_rng_state(saved["generator"])
+        logger.info("resumed from %s (step %d)", latest, state.step)
+    loader = build_combined_train_loader(cfg, seed=cfg.seed, start_batches=state.step)
+    writer = EventWriter(cfg.output_dir)
+    for step in range(state.step, cfg.solver.max_iter):
+        state, metrics = train_step(state, to_batch(next(loader), dev))
+        if step % LOG_EVERY == 0:
+            writer.write(step, {**{k: float(v) for k, v in metrics.items()},
+                                **device_memory_stats(dev)})
+            writer.log_console(step)
+        if (step + 1) % cfg.solver.checkpoint_period == 0 or step + 1 == cfg.solver.max_iter:
+            path = os.path.join(ckpt_dir, f"step_{step + 1:07d}.pth")
+            ckpt.save(path, model, state.optimizer.state_dict(), state.step, torch.get_rng_state())
+            logger.info("saved %s", path)
+    writer.close()
+    return state
+
+
 def main(argv=None) -> dict:
-    from dvis_plus_tpu_torch.config import check_supported, is_ov, load_config
+    from dvis_plus_tpu_torch.config import check_supported, check_trainable, is_ov, load_config
     from dvis_plus_tpu_torch.data.catalog import get_dataset, get_metadata
     from dvis_plus_tpu_torch.data.datasets.vps_vss import register_all_vipseg, register_all_vspw
     from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
     from dvis_plus_tpu_torch.data.mapper import mapper_for_type
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config-file", required=True)
-    parser.add_argument("--eval-only", action="store_true", required=True,
-                        help="training is not ported; evaluation only")
+    parser.add_argument("--eval-only", action="store_true",
+                        help="evaluate the test sets; without it, train")
+    parser.add_argument("--resume", action="store_true",
+                        help="train on from the newest checkpoint of <output_dir>/checkpoints")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda (default) raises without a card; cpu must be asked for")
     parser.add_argument("opts", nargs=argparse.REMAINDER)
@@ -165,7 +207,11 @@ def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO)
 
     cfg = load_config(args.config_file, args.opts)
-    check_supported(cfg)  # a setting the port cannot honour raises here
+    # a setting the port cannot honour raises here
+    if args.eval_only:
+        check_supported(cfg)
+    else:
+        check_trainable(cfg)
     if is_ov(cfg):
         raise SystemExit("open-vocabulary configurations run through "
                          "python -m dvis_plus_tpu_torch.cli_ov")
@@ -175,6 +221,9 @@ def main(argv=None) -> dict:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
     dev = torch.device(args.device)
+    if not args.eval_only:
+        state = do_train(cfg, args.resume, dev)
+        return {"step": state.step, "device": str(dev)}
     torch.manual_seed(cfg.seed)
     model = build_model(cfg.model)
     if cfg.weights:

@@ -41,6 +41,7 @@ import os
 import numpy as np
 import torch
 
+from dvis_plus_tpu_torch.core.checkpoint import load_state_dict_file, load_weights
 from dvis_plus_tpu_torch.models.ov.text import (
     SimpleTokenizer,
     TextClassifierCache,
@@ -111,14 +112,8 @@ def vocabulary_for(dataset_name: str):
 
 
 def _load_state_dict(path: str):
-    if path.endswith(".npz"):
-        with np.load(path) as data:
-            return {k: data[k] for k in data.files}
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("model", "state_dict", "module"):
-        if isinstance(sd, dict) and isinstance(sd.get(key), dict):
-            sd = sd[key]
-    return {k: v.float().numpy() if v.is_floating_point() else v.numpy() for k, v in sd.items()}
+    sd = load_state_dict_file(path)
+    return {k: np.asarray(v.float() if v.is_floating_point() else v) for k, v in sd.items()}
 
 
 def make_text_encoder(cfg, args, device):
@@ -191,7 +186,7 @@ def build_ov_model(cfg) -> torch.nn.Module:
 
 
 def do_eval(cfg, encode_fn, device) -> dict:
-    from dvis_plus_tpu_torch.cli import _eval_vis, _eval_vps, _eval_vss, load_weights
+    from dvis_plus_tpu_torch.cli import _eval_vis, _eval_vps, _eval_vss
     from dvis_plus_tpu_torch.config import ov_arch
     from dvis_plus_tpu_torch.data.catalog import get_dataset, get_metadata
     from dvis_plus_tpu_torch.data.mapper import mapper_for_type

@@ -11,7 +11,9 @@ namespace, so any of the repository's YAMLs loads. PyYAML is imported inside
 the function: a GPU machine may have none, and there the presets serve.
 :func:`check_supported` then holds a loaded configuration to what the port
 does: a setting it cannot honour raises ``NotImplementedError`` (the CLI and
-``run_vis_inference`` call it), so no entry point gives way silently.
+``run_vis_inference`` call it), so no entry point gives way silently;
+:func:`check_trainable` does the same for training (the CLI without
+``--eval-only``).
 
 The presets hold the values ``load_config`` resolves for their YAML:
 ``configs/dvis/minvis_r50_ytvis19.yaml`` (base_video),
@@ -38,7 +40,7 @@ import os
 import typing
 from dataclasses import dataclass, field, fields, is_dataclass
 from types import SimpleNamespace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 
 @dataclass
@@ -111,6 +113,8 @@ class TrackerConfig:
     feedforward_dim: int = 2048
     num_heads: int = 8
     matcher_solver: str = "auction"  # auction | jv
+    noise_mode: str = "hard"  # training: none | rs | wa | cc ('hard' reads as 'wa')
+    noise_ratio: float = 0.5  # training: share of non-first frames noised
 
 
 @dataclass
@@ -160,6 +164,24 @@ class OVConfig:
 
 
 @dataclass
+class CriterionConfig:
+    """The set criterion and its matchers (training only)."""
+
+    deep_supervision: bool = True
+    no_object_weight: float = 0.1
+    class_weight: float = 2.0
+    mask_weight: float = 5.0
+    dice_weight: float = 5.0
+    reid_weight: float = 2.0
+    aux_reid_weight: float = 3.0
+    train_num_points: int = 12544
+    oversample_ratio: float = 3.0
+    importance_sample_ratio: float = 0.75
+    max_num_instances: int = 50  # padded ground-truth capacity of a clip
+    matcher_solver: str = "jv"  # jv (exact, scipy) | auction
+
+
+@dataclass
 class ModelConfig:
     meta_architecture: str = "minvis"
     num_classes: int = 40
@@ -176,18 +198,55 @@ class ModelConfig:
     refiner: RefinerConfig = field(default_factory=RefinerConfig)
     daq: DAQConfig = field(default_factory=DAQConfig)
     ov: OVConfig = field(default_factory=OVConfig)
+    criterion: CriterionConfig = field(default_factory=CriterionConfig)
+    param_dtype: str = "float32"  # parameters and optimizer state
+    freeze: Tuple[str, ...] = ()  # training: components kept fixed, e.g. ("segmenter",)
+
+
+@dataclass
+class SolverConfig:
+    """AdamW with the reference's groups, warmup multi-step schedule and the
+    full-model gradient clip (training only)."""
+
+    ims_per_batch: int = 8  # clips a step
+    base_lr: float = 1e-4
+    max_iter: int = 40000
+    warmup_iters: int = 10
+    warmup_factor: float = 1.0
+    steps: Tuple[int, ...] = (26000,)
+    gamma: float = 0.1
+    weight_decay: float = 0.05
+    backbone_multiplier: float = 0.1
+    clip_gradients_value: float = 0.01
+    amp: bool = True  # the compute dtype is model.compute_dtype either way
+    checkpoint_period: int = 5000
 
 
 @dataclass
 class InputConfig:
+    sampling_frame_num: int = 5
+    sampling_frame_range: int = 2
+    sampling_frame_shuffle: bool = False
+    sampling_interval: int = 1
+    min_size_train: Tuple[int, ...] = (360, 480)  # one chosen a clip
+    max_size_train: int = 768
     min_size_test: int = 480
     max_size_test: int = 768
+    crop_enabled: bool = False
+    random_flip: str = "flip_by_clip"  # any value but "none" flips a whole clip
+    augmentations: Tuple[str, ...] = ()
+    image_format: str = "RGB"
+    pseudo: bool = False  # COCO pseudo-videos (ROADMAP A14c)
+    lsj_aug: bool = False  # large-scale jitter (ROADMAP A14c)
 
 
 @dataclass
 class DatasetsConfig:
     train: Tuple[str, ...] = ("ytvis_2019_train",)  # OV eval: the seen vocabulary, void rows
     test: Tuple[str, ...] = ("ytvis_2019_val",)
+    dataset_ratio: Tuple[float, ...] = (1.0,)
+    dataset_need_map: Tuple[bool, ...] = (False,)
+    dataset_type: Tuple[str, ...] = ("video_instance",)
     dataset_type_test: Tuple[str, ...] = ("video_instance",)
 
 
@@ -207,6 +266,7 @@ class TestConfig:
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    solver: SolverConfig = field(default_factory=SolverConfig)
     input: InputConfig = field(default_factory=InputConfig)
     datasets: DatasetsConfig = field(default_factory=DatasetsConfig)
     test: TestConfig = field(default_factory=TestConfig)
@@ -296,7 +356,14 @@ def load_config(path: Optional[str] = None, overrides: Optional[List[str]] = Non
     if path:
         for k, v in _load_yaml_chain(path).items():
             _set(cfg, k.lower(), v)
-    for ov in overrides or []:
+    return apply_overrides(cfg, overrides or [])
+
+
+def apply_overrides(cfg: Config, overrides: Iterable[str]) -> Config:
+    """Set ``key.path=value`` overrides (values parsed as YAML) on ``cfg``."""
+    import yaml
+
+    for ov in overrides:
         if "=" not in ov:
             raise ValueError(f"Override must be key.path=value, got: {ov}")
         key, _, value = ov.partition("=")
@@ -392,8 +459,8 @@ def _ported_task(task, cfg) -> bool:
 # limit). One place to shrink as later slices land. A key that is absent is at the
 # JAX package's default, which every row honours. Keys that cannot change an
 # eval result (``solver.*``, the training input and datasets, the criterion,
-# ``parallel.*``, profiling and compile-cache directories) are not listed and
-# stay ignored.
+# ``parallel.*``, profiling and compile-cache directories) are not listed:
+# training reads them, and :data:`TRAINABLE` holds them there.
 SUPPORTED = (
     ("model.meta_architecture",
      ("dvis_online", "dvis_offline", "minvis", "ctvis", "video_maskformer", "maskformer",
@@ -415,21 +482,73 @@ SUPPORTED = (
     ("test.eval_devices", (1,), "A15 (video-parallel eval)"),
 )
 
+def _freezes_segmenter(freeze, cfg) -> bool:
+    """DVIS++ online trains the tracker on a segmenter run without gradients;
+    with the segmenter not frozen the JAX package would still decay its
+    weights."""
+    return "segmenter" in freeze
+
+
+# What training honours, in the form of :data:`SUPPORTED` (the eval rows hold
+# too). DVIS++ online on video instance sets is the one family ported.
+TRAINABLE = (
+    ("model.meta_architecture", ("dvis_online",), "A14c (the other families' training)"),
+    ("model.freeze", _freezes_segmenter, "A14c (training the segmenter: B1's backward)"),
+    ("model.param_dtype", ("float32",), "A14b (fp32 parameters and optimizer state)"),
+    ("model.tracker.noise_mode", ("none", "rs", "wa", "cc", "hard"), "A14b (the noiser's modes)"),
+    ("model.criterion.matcher_solver", ("jv", "auction"), "A14b (the matchers' solvers)"),
+    ("datasets.dataset_type", lambda types, cfg: all(t == "video_instance" for t in types),
+     "A14c (the panoptic, semantic and pseudo-video training mappers)"),
+    ("input.pseudo", (False,), "A14c (COCO pseudo-videos)"),
+    ("input.lsj_aug", (False,), "A14c (large-scale jitter)"),
+    ("input.augmentations", ((),), "A14c (the colour augmentations)"),
+    ("parallel.model_parallel_size", (1,), "A15 (training on more than one device)"),
+    # read by nothing, in the JAX package either: a value but the default
+    # would be dropped silently
+    ("model.criterion.deep_supervision", (True,), "A14b (every layer is supervised)"),
+    ("model.criterion.reid_weight", (2.0,), "A14c (CTVIS's weight; DVIS++ online's is 2)"),
+    ("model.criterion.aux_reid_weight", (3.0,), "A14c (CTVIS's weight; DVIS++ online's is 3)"),
+    ("datasets.dataset_need_map", lambda need, cfg: not any(need),
+     "A14c (the category maps of mixed training sets)"),
+    ("input.sampling_interval", (1,), "A14b (clips are sampled by sampling_frame_range)"),
+    ("input.image_format", ("RGB",), "A14b (frames are read as RGB)"),
+    ("solver.amp", (True,), "A14b (the compute dtype is model.compute_dtype)"),
+)
+
+
+def check_trainable(cfg: Any) -> None:
+    """:func:`check_supported`, then the same for :data:`TRAINABLE`: raise
+    ``NotImplementedError`` naming every key whose value training cannot
+    honour, and more than one process (``WORLD_SIZE``)."""
+    check_supported(cfg)
+    faults = _faults(cfg, TRAINABLE)
+    if int(os.environ.get("WORLD_SIZE", "1")) != 1:
+        faults.append(f"WORLD_SIZE={os.environ['WORLD_SIZE']} is not ported "
+                      "(ROADMAP A15 (training on more than one device))")
+    if faults:
+        raise NotImplementedError("training cannot honour: " + "; ".join(faults))
+
+
 def check_supported(cfg: Any) -> None:
     """Raise ``NotImplementedError`` naming every key of ``cfg`` whose value
     asks for something the port does not do (:data:`SUPPORTED`), with the
     value and the ROADMAP item that will lift the limit. ``cfg`` is a
     :class:`Config` or any object with the same attribute paths."""
+    faults = _faults(cfg, SUPPORTED)
+    if faults:
+        raise NotImplementedError("the port cannot honour: " + "; ".join(faults))
+
+
+def _faults(cfg: Any, table) -> list:
     faults = []
-    for key, honours, item in SUPPORTED:
+    for key, honours, item in table:
         value = _lookup(cfg, key)
         if value is _ABSENT:
             continue
         if honours(value, cfg) if callable(honours) else value in honours:
             continue
         faults.append(f"{key}={value!r} is not ported (ROADMAP {item})")
-    if faults:
-        raise NotImplementedError("the port cannot honour: " + "; ".join(faults))
+    return faults
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +568,7 @@ def ctvis_r50_ytvis19() -> Config:
     cfg = minvis_r50_ytvis19()
     cfg.model.meta_architecture = "ctvis"
     cfg.model.transformer_decoder.reid_branch = True
+    cfg.solver.max_iter, cfg.solver.base_lr = 32000, 5e-5
     return cfg
 
 
@@ -457,14 +577,42 @@ def video_maskformer_r50_ytvis19() -> Config:
     forward over the whole video."""
     cfg = Config()
     cfg.model.meta_architecture = "video_maskformer"
+    cfg.input.sampling_frame_num = 2
     return cfg
 
 
 def dvis_online_r50_ytvis19() -> Config:
-    """DVIS++ online, ResNet-50, YouTube-VIS 2019 (40 classes)."""
+    """DVIS++ online, ResNet-50, YouTube-VIS 2019 (40 classes). Training
+    freezes the segmenter and trains the tracker for 20,000 steps (the base
+    learning rate 5e-5 comes from the CTVIS YAML it inherits)."""
     cfg = ctvis_r50_ytvis19()
     cfg.model.meta_architecture = "dvis_online"
+    cfg.model.freeze = ("segmenter",)
+    cfg.solver.max_iter = 20000
     return cfg
+
+
+# DVIS++ online at small widths, fp32: the port's training tests and
+# ``chip_smoke.py``'s small training phases train at these, as overrides of
+# the ``dvis_online`` YAML or preset.
+TINY_TRAIN = (
+    "model.compute_dtype=float32",
+    "model.pixel_decoder.conv_dim=32", "model.pixel_decoder.mask_dim=32",
+    "model.pixel_decoder.transformer_enc_layers=1", "model.pixel_decoder.transformer_dim_feedforward=64",
+    "model.pixel_decoder.transformer_nheads=4",
+    "model.transformer_decoder.hidden_dim=32", "model.transformer_decoder.mask_dim=32",
+    "model.transformer_decoder.num_queries=8", "model.transformer_decoder.nheads=4",
+    "model.transformer_decoder.dim_feedforward=64", "model.transformer_decoder.dec_layers=2",
+    "model.transformer_decoder.reid_hidden_dim=32",
+    "model.tracker.num_layers=2", "model.tracker.feedforward_dim=64", "model.tracker.num_heads=4",
+    "model.criterion.train_num_points=256", "model.criterion.max_num_instances=4",
+)
+
+
+def dvis_online_tiny(*overrides: str) -> Config:
+    """:func:`dvis_online_r50_ytvis19` at the widths of :data:`TINY_TRAIN`,
+    then ``overrides``."""
+    return apply_overrides(dvis_online_r50_ytvis19(), (*TINY_TRAIN, *overrides))
 
 
 def dvis_online_r50_vipseg() -> Config:
@@ -474,9 +622,10 @@ def dvis_online_r50_vipseg() -> Config:
     cfg.model.num_classes = 124
     cfg.datasets.train = ("panoVSPW_vps_video_train",)
     cfg.datasets.test = ("panoVSPW_vps_video_val",)
-    cfg.datasets.dataset_type_test = ("video_panoptic",)
+    cfg.datasets.dataset_type = cfg.datasets.dataset_type_test = ("video_panoptic",)
     cfg.test.task = "vps"
     cfg.input.min_size_test, cfg.input.max_size_test = 720, 1280
+    cfg.input.min_size_train, cfg.input.max_size_train = (480, 720), 1280
     return cfg
 
 
@@ -486,7 +635,7 @@ def dvis_online_r50_vspw() -> Config:
     cfg = dvis_online_r50_vipseg()
     cfg.datasets.train = ("VSPW_vss_video_train",)
     cfg.datasets.test = ("VSPW_vss_video_val",)
-    cfg.datasets.dataset_type_test = ("video_semantic",)
+    cfg.datasets.dataset_type = cfg.datasets.dataset_type_test = ("video_semantic",)
     cfg.test.task = "vss"
     return cfg
 
@@ -502,7 +651,15 @@ def dvis_offline_swinl_ytvis19() -> Config:
         swin_num_heads=(6, 12, 24, 48), swin_window_size=12,
     )
     m.transformer_decoder.num_queries = 200
+    _offline_training(cfg)
     return cfg
+
+
+def _offline_training(cfg: Config) -> None:
+    """The offline YAMLs' training: segmenter and tracker frozen, clips of 15
+    frames drawn within 7 of a reference frame."""
+    cfg.model.freeze = cfg.model.freeze + ("tracker",)
+    cfg.input.sampling_frame_num, cfg.input.sampling_frame_range = 15, 7
 
 
 def dvis_offline_vitl_ytvis19() -> Config:
@@ -514,6 +671,7 @@ def dvis_offline_vitl_ytvis19() -> Config:
     m.meta_architecture = "dvis_offline"
     m.backbone = BackboneConfig(name="vit_adapter_dinov2")
     m.transformer_decoder.num_queries = 200
+    _offline_training(cfg)
     return cfg
 
 
@@ -537,6 +695,7 @@ def daq_online_r50_ytvis19() -> Config:
     m.transformer_decoder.reid_branch = False
     m.daq = DAQConfig(num_new_ins=100, num_slots=5, max_num_instances=50, kick_out_frame_num=8,
                       ovis_infer=True, mask_nms_thr=0.6, using_frame_num=(3, 5), steps=(10000,))
+    cfg.solver.max_iter = 40000
     return cfg
 
 
@@ -550,6 +709,8 @@ def daq_offline_r50_ovis() -> Config:
     m.meta_architecture = "daq_offline"
     m.num_classes = 25
     m.daq.offline_topk_num = 20
+    m.freeze = ("segmenter", "cutter")
+    cfg.input.sampling_frame_num, cfg.input.sampling_frame_range = 15, 7
     cfg.datasets.train = ("ovis_train",)
     cfg.datasets.test = ("ovis_val",)
     return cfg
@@ -568,7 +729,9 @@ def ov_online_convnextl_zeroshot_ytvis19() -> Config:
     m.backbone.name = "clip_convnext_l"
     m.ov = OVConfig(enabled=True, geometric_ensemble_alpha=0.4, geometric_ensemble_beta=0.8,
                     clip_embed_dim=768)
+    m.freeze = ("backbone",)
     cfg.datasets.train = ("coco_panoptic_video_ov",)
+    cfg.datasets.dataset_type = ("image_panoptic",)
     return cfg
 
 
@@ -578,6 +741,8 @@ def ov_minvis_convnextl_zeroshot_ytvis19() -> Config:
     cfg = ov_online_convnextl_zeroshot_ytvis19()
     cfg.model.meta_architecture = "minvis"
     cfg.model.transformer_decoder.num_queries = 250
+    cfg.solver.ims_per_batch, cfg.solver.steps = 16, (28000,)
+    cfg.input.sampling_frame_num = 1
     return cfg
 
 
@@ -586,4 +751,6 @@ def ov_offline_convnextl_zeroshot_ytvis19() -> Config:
     temporal refiner (OV-DVIS++ offline)."""
     cfg = ov_online_convnextl_zeroshot_ytvis19()
     cfg.model.meta_architecture = "dvis_offline"
+    cfg.model.freeze = ("backbone", "segmenter", "tracker")
+    cfg.input.sampling_frame_num, cfg.input.sampling_frame_range = 15, 7
     return cfg

@@ -1,8 +1,9 @@
-"""DVIS++ online meta-architecture: frozen segmenter + referring tracker,
-inference path.
+"""DVIS++ online meta-architecture: frozen segmenter + referring tracker.
 
 Counterpart: ``dvis_plus_tpu/models/meta/dvis_online.py`` (``DVISOnline``
-:40, ``online_post_processing`` :180, ``inference_video_vis`` :192, and the
+:40 with its training forward :62-88, ``reorder_image_outputs`` :91,
+``dvis_online_train_loss`` :104, ``online_post_processing`` :180,
+``inference_video_vis`` :192, and the
 VSS and VPS heads ``semantic_inference`` :206, ``panoptic_probs`` :229,
 ``panoptic_segments_host`` :260). The module holds its weights under the
 reference checkpoints' names (``backbone.*``, ``sem_seg_head.*``,
@@ -43,6 +44,8 @@ class DVISOnline(Segmenter):
             mask_dim=td.hidden_dim,
             mask_in_dim=cfg.pixel_decoder.mask_dim,
             matcher=cfg.tracker.matcher_solver,
+            noise_ratio=cfg.tracker.noise_ratio,
+            noise_mode=cfg.tracker.noise_mode,
         )
 
     def forward(
@@ -63,6 +66,79 @@ class DVISOnline(Segmenter):
             predict_masks=predict_masks,
         )
         return seg_out, track_out, new_state
+
+
+    def train_forward(self, images: torch.Tensor, draws) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """The training forward (``DVISOnline.__call__`` with ``training``,
+        :62-88): the frozen segmenter without gradients (the JAX module's
+        ``stop_gradient``, the reference's ``torch.no_grad``), then the
+        tracker with its noise from ``draws`` and every layer's outputs.
+        images (B, T, 3, H, W) normalized. Returns (seg_out, track_out)."""
+        B, T = images.shape[:2]
+        with torch.no_grad():
+            seg_out = Segmenter.forward(self, images.flatten(0, 1))
+        C2 = seg_out["pred_embds"].shape[-1]
+        mf = seg_out["mask_features"]
+        track_out, _ = self.tracker(
+            seg_out["pred_embds"].reshape(B, T, -1, C2),
+            mf.reshape(B, T, *mf.shape[1:]),
+            frame_embeds_no_norm=seg_out["pred_embds_without_norm"].reshape(B, T, -1, C2),
+            draws=draws,
+        )
+        return seg_out, track_out
+
+
+def reorder_image_outputs(seg_logits: torch.Tensor, seg_masks: torch.Tensor,
+                          indices: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The segmenter's predictions in the tracker's slot order
+    (``reorder_image_outputs`` :91, the reference's
+    ``reset_image_output_order``): seg_logits (B, T, Q, K+1), seg_masks (B, Q,
+    T, H, W), indices (B, T, Q) slot -> query."""
+    logits = torch.gather(seg_logits, 2, indices[..., None].expand_as(seg_logits))
+    masks_t = seg_masks.transpose(1, 2)  # (B, T, Q, H, W)
+    masks_t = torch.gather(masks_t, 2, indices[..., None, None].expand_as(masks_t))
+    return logits, masks_t.transpose(1, 2)
+
+
+def dvis_online_train_loss(seg_out: Dict[str, Any], track_out: Dict[str, Any], targets,
+                           ccfg, use_matcher_guidance: bool, draws) -> Dict[str, torch.Tensor]:
+    """The online stage's losses (``dvis_online_train_loss`` :104-177):
+    consistent (first-appearance) matching; while ``use_matcher_guidance``
+    (the first half of training) the segmenter's reordered predictions drive
+    one assignment for every layer, after it each layer is matched on its
+    own outputs; ``num_masks`` = instances x T (the reference counts an
+    instance once a frame); the ReID loss at weights 2 and 3. The final
+    layer's matching draws its points once (site ``("match", "final")``),
+    for the guided and the self matching alike, as the JAX function uses
+    one key for both."""
+    from dvis_plus_tpu_torch.losses.criterion import LayerOutputs, layer_losses, match, match_coords
+    from dvis_plus_tpu_torch.losses.reid import reid_loss
+
+    B, N, T = targets.masks.shape[:3]
+    ccfg = ccfg._replace(match_mode="frame_consistent")
+    num_masks = (targets.num_instances().sum().float() * T).clamp(min=1.0)
+    outputs = LayerOutputs(track_out["pred_logits"], track_out["pred_masks"])
+    aux = [LayerOutputs(lg, mk) for lg, mk in zip(track_out["aux_pred_logits"],
+                                                 track_out["aux_pred_masks"])]
+    coords = match_coords(draws, "final", outputs, ccfg)
+    if use_matcher_guidance:
+        Q = outputs.pred_logits.shape[2]
+        seg_masks = seg_out["pred_masks"]
+        seg_masks = seg_masks.reshape(B, T, Q, *seg_masks.shape[-2:]).transpose(1, 2)
+        g_logits, g_masks = reorder_image_outputs(
+            seg_out["pred_logits"].reshape(B, T, Q, -1), seg_masks, track_out["indices"])
+        q4g = match(LayerOutputs(g_logits, g_masks), targets, ccfg, coords)
+    else:
+        q4g = match(outputs, targets, ccfg, coords)
+    losses = layer_losses(outputs, targets, q4g, num_masks, ccfg, draws, "final")
+    for i, a in enumerate(aux):
+        q4g_aux = q4g if use_matcher_guidance else match(a, targets, ccfg,
+                                                         match_coords(draws, i, a, ccfg))
+        losses.update(layer_losses(a, targets, q4g_aux, num_masks, ccfg, draws, i, f"_{i}"))
+    cl = reid_loss(track_out["pred_references"], q4g, targets.valid)
+    losses["loss_reid"] = 2.0 * cl["loss_reid"]
+    losses["loss_aux_reid"] = 3.0 * cl["loss_aux_reid"]
+    return losses
 
 
 def online_post_processing(pred_logits: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,19 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
+def refuse_grad(kernel: str, lifted_by: str, *tensors) -> None:
+    """The kernels are forward only: a launch returns a tensor with no
+    ``grad_fn``. Raise ``NotImplementedError`` when gradients are enabled and
+    any tensor input requires one, naming what lifts the limit, so that no
+    gradient is cut silently."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} is forward only and an input requires grad; run it under "
+            f"torch.no_grad() ({lifted_by})")
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):

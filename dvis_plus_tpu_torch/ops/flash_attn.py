@@ -18,7 +18,8 @@ launches the kernel or raises; it never falls back. The kernel masks the keys
 past ``L`` itself, so nothing is padded, and the JAX wrapper's dense branch
 below 2048 tokens (a TPU tuning value that spares its kernel the padding to
 1024) has no counterpart here. Forward only (the TPU kernel is serving-only
-too).
+too): on a CUDA tensor it raises ``NotImplementedError`` when gradients are
+enabled and an input requires one.
 
 Shapes (the JAX package's layout):
   q, k, v: (B, L, H, Dh) float32 or bfloat16; may be strided views of one
@@ -103,8 +104,11 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_torch(q, k, v, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    _check_kernel_layout(q, k, v)
     from dvis_plus_tpu_torch.ops import _build
+
+    _build.refuse_grad("flash_attn_fwd", "ROADMAP A14c: the dense op by an explicit switch, "
+                       "as the JAX package trains with vit_flash_attention off", q, k, v)
+    _check_kernel_layout(q, k, v)
 
     global launches
     lib = _build.library()

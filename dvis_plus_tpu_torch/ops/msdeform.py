@@ -9,9 +9,11 @@ exact form and an integer radius for the clamped one.
 
 On a CPU tensor the wrapper computes the twin :func:`ms_deform_attn_torch`.
 On a CUDA tensor it launches the hand-written kernel
-(``csrc/msdeform_fwd.cu``) or raises; it never falls back. Forward only: the
-backward comes with training, so the model calls this under
-``torch.no_grad()``/``torch.inference_mode()``.
+(``csrc/msdeform_fwd.cu``) or raises; it never falls back. Forward only: on
+a CUDA tensor it raises ``NotImplementedError`` when gradients are enabled
+and an input requires one (its backward kernel is ROADMAP A14c), so the
+model calls it under ``torch.no_grad()``/``torch.inference_mode()``; DVIS++
+online training runs the frozen segmenter so.
 
 Shapes (the JAX package's layout):
   value:              (B, Len, M, D) float32 or bfloat16
@@ -235,5 +237,9 @@ def ms_deform_attn(
         )
     if value.device.type != "cuda":
         raise ValueError(f"no deformable-attention kernel for device {value.device}")
+    from dvis_plus_tpu_torch.ops._build import refuse_grad
+
+    refuse_grad("msdeform_fwd", "ROADMAP A14c: its backward kernel", value,
+                sampling_locations, attention_weights)
     return _launch(value, spatial_shapes, sampling_locations, attention_weights, radius,
                    kernel_plan(value, sampling_locations))

@@ -24,7 +24,8 @@ On a CPU tensor :func:`window_attention` computes the twin
 hand-written kernel (``csrc/swin_window_attn_fwd.cu``: tensor cores with the
 head's bias kept in shared memory for bfloat16, CUDA cores for float32) or
 raises; it never falls back. Forward only (the TPU kernel has no VJP
-either).
+either): on a CUDA tensor it raises ``NotImplementedError`` when gradients
+are enabled and an input requires one.
 
 Shapes (the JAX package's layout, heads as column slices of C):
   q, k, v: (B_, N, C) float32 or bfloat16, B_ batch-major over windows
@@ -152,9 +153,12 @@ def window_attention(
         return window_attention_torch(q, k, v, bias, mask, num_heads)
     if q.device.type != "cuda":
         raise ValueError(f"no window-attention kernel for device {q.device}")
+    from dvis_plus_tpu_torch.ops import _build
+
+    _build.refuse_grad("swin_window_attn_fwd", "ROADMAP A14c: the plain op by an explicit "
+                       "switch, as the JAX package trains with swin_fused_attn off", q, k, v, bias)
     if q.dtype == torch.bfloat16:
         _check_kernel_layout(q, k, v, bias, mask)
-    from dvis_plus_tpu_torch.ops import _build
 
     global launches
     lib = _build.library()

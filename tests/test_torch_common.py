@@ -640,3 +640,102 @@ def open_clip_text_state_dict(prefix: str = "", seed: int = 7, vocab: int = 100,
     sd["visual.proj"] = r(8, 8)
     sd["logit_scale"] = np.float32(4.6)
     return sd
+
+
+# Training: the JAX package's random draws, answered to the port by site.
+# The port draws every random number of a training step through an object
+# with ``uniform`` / ``permutation`` / ``randint`` that take a site name
+# (``dvis_plus_tpu_torch/utils/draws.py``); ``JaxDraws`` answers each site with
+# what the JAX function draws there, derived from its own key tree below.
+
+
+class JaxDraws:
+    """The port's draws object, answering from a table site -> numpy array;
+    a site asked for twice gets the same array, a site not in the table
+    fails."""
+
+    def __init__(self, table=None):
+        self.table = dict(table or {})
+
+    def _get(self, site, shape):
+        a = self.table[site]
+        assert tuple(a.shape) == tuple(shape), (site, a.shape, shape)
+        return torch.from_numpy(np.array(a))
+
+    def uniform(self, site, shape):
+        return self._get(site, shape).float()
+
+    def permutation(self, site, batch, n):
+        return self._get(site, (batch, n)).long()
+
+    def randint(self, site, low, high, shape):
+        return self._get(site, shape).long()
+
+
+def jax_uniform(key, shape):
+    return np.asarray(jax.random.uniform(key, shape, dtype=jnp.float32))
+
+
+def clip_match_coords(key, B, P):
+    """``video_hungarian_match``'s point sets (B, P, 2)."""
+    return np.stack([jax_uniform(k, (P, 2)) for k in jax.random.split(key, B)])
+
+
+def consistent_match_coords(key, B, T, P):
+    """``consistent_match``'s point sets (B, T, P, 2)."""
+    return np.stack([np.stack([jax_uniform(kf, (P, 2)) for kf in jax.random.split(kb, T)])
+                     for kb in jax.random.split(key, B)])
+
+
+def loss_points(key, R, ccfg):
+    """``loss_masks``' candidate and fill points (``uncertain_point_coords_
+    with_randomness``' two uniform draws)."""
+    k1, k2 = jax.random.split(key)
+    n_over = int(ccfg.num_points * ccfg.oversample_ratio)
+    n_fill = ccfg.num_points - int(ccfg.importance_sample_ratio * ccfg.num_points)
+    return jax_uniform(k1, (R, n_over, 2)), jax_uniform(k2, (R, n_fill, 2))
+
+
+def add_points(table, layer, key, R, ccfg):
+    table[("points", layer, "over")], table[("points", layer, "fill")] = loss_points(key, R, ccfg)
+
+
+def online_loss_draws(key, B, N, T, n_aux, ccfg):
+    """The draws of ``dvis_online_train_loss(key, ...)``: the final layer's
+    match points from rng_m (guided and self alike), auxiliary layer i's from
+    split(rng_m)[i], the loss points from split(rng_l)."""
+    rng_m, rng_l = jax.random.split(key)
+    P = ccfg.num_points
+    table = {("match", "final"): consistent_match_coords(rng_m, B, T, P)}
+    for i, k in enumerate(jax.random.split(rng_m, n_aux + 1)[:n_aux]):
+        table[("match", i)] = consistent_match_coords(k, B, T, P)
+    lkeys = jax.random.split(rng_l, n_aux + 1)
+    add_points(table, "final", lkeys[0], B * N * T, ccfg)
+    for i in range(n_aux):
+        add_points(table, i, lkeys[1 + i], B * N * T, ccfg)
+    return table
+
+
+def noise_draws(key, T, B, Q, C, mode):
+    """The tracker noiser's draws under the model key ``key``: frame t's
+    batch row b noises with split(split(key, T)[t], B)[b]."""
+    table = {}
+    for t, kt in enumerate(jax.random.split(key, T)):
+        rows = {"gate": [], "perm": [], "weight": [], "split": []}
+        for kb in jax.random.split(kt, B):
+            k1, k2 = jax.random.split(kb)
+            rows["gate"].append(jax_uniform(k1, ()))
+            if mode == "rs":
+                rows["perm"].append(np.asarray(jax.random.permutation(k2, Q)))
+            elif mode == "wa":
+                ka, kw = jax.random.split(k2)
+                rows["perm"].append(np.asarray(jax.random.permutation(ka, Q)))
+                rows["weight"].append(jax_uniform(kw, (Q, 1)))
+            elif mode == "cc":
+                ks, kp = jax.random.split(k2)
+                rows["split"].append(np.asarray(jax.random.randint(ks, (Q, 1), 0, C)))
+                rows["perm"].append(np.asarray(jax.random.permutation(kp, Q)))
+        for name, vals in rows.items():
+            if vals:
+                table[("noise", t, name)] = np.stack(vals)
+    return table

@@ -35,6 +35,8 @@ GROUPS = [
     "model.pixel_decoder",
     "model.transformer_decoder",
     "model.tracker",
+    "model.criterion",
+    "solver",
     "input",
     "datasets",
     "test",
@@ -127,7 +129,8 @@ OVERRIDES = [
     "test.window_size=3",
     "test.offline_mf_budget_gb=0.5",
     "datasets.test=[ytvis_2019_val,ovis_val]",
-    "solver.max_iter=3",  # a section the port keeps as a namespace
+    "solver.max_iter=3",
+    "parallel.model_parallel_size=2",  # a section the port keeps as a namespace
     "output_dir=/tmp/out",
     "seed=7",
 ]
@@ -376,3 +379,54 @@ def test_cli_refuses_an_unported_setting(tmp_path):
     with pytest.raises(NotImplementedError, match=r"model\.ov\.enabled=True"):
         cli.main(["--config-file", "configs/daq/daq_online_r50_ytvis19.yaml", "--eval-only",
                   "--device", "cpu", "model.ov.enabled=true", f"output_dir={tmp_path}"])
+
+
+# ---------------------------------------------------------------------------
+# check_trainable: what training honours (DVIS++ online on video instance sets)
+# ---------------------------------------------------------------------------
+
+
+def test_check_trainable_accepts_the_online_yaml_and_preset():
+    port_config.check_trainable(port_config.load_config(YAML))
+    port_config.check_trainable(dvis_online_r50_ytvis19())
+    port_config.check_trainable(port_config.load_config(YAML, [
+        "model.tracker.noise_mode=cc", "model.criterion.matcher_solver=auction",
+        "input.crop_enabled=true", "input.random_flip=none", "parallel.model_parallel_size=1"]))
+
+
+TRAIN_REFUSED = [
+    (YAML, ["model.meta_architecture=minvis"], "model.meta_architecture", "A14c"),
+    ("configs/dvis/dvis_offline_swinl_ytvis19.yaml", [], "model.meta_architecture", "A14c"),
+    (YAML, ["model.freeze=[]"], "model.freeze", "A14c"),
+    (YAML, ["model.param_dtype=bfloat16"], "model.param_dtype", "A14b"),
+    (YAML, ["model.tracker.noise_mode=mixup"], "model.tracker.noise_mode", "A14b"),
+    (YAML, ["model.criterion.matcher_solver=greedy"], "model.criterion.matcher_solver", "A14b"),
+    ("configs/dvis/dvis_online_r50_vipseg.yaml", [], "datasets.dataset_type", "A14c"),
+    (YAML, ["input.pseudo=true"], "input.pseudo", "A14c"),
+    (YAML, ["input.lsj_aug=true"], "input.lsj_aug", "A14c"),
+    (YAML, ["input.augmentations=[brightness]"], "input.augmentations", "A14c"),
+    (YAML, ["parallel.model_parallel_size=2"], "parallel.model_parallel_size", "A15"),
+    (YAML, ["test.eval_devices=2"], "test.eval_devices", "A15"),  # the eval rows hold too
+    # keys no code reads, in either package: only their defaults pass
+    (YAML, ["model.criterion.deep_supervision=false"], "model.criterion.deep_supervision", "A14b"),
+    (YAML, ["model.criterion.reid_weight=1.0"], "model.criterion.reid_weight", "A14c"),
+    (YAML, ["model.criterion.aux_reid_weight=1.0"], "model.criterion.aux_reid_weight", "A14c"),
+    (YAML, ["datasets.dataset_need_map=[true]"], "datasets.dataset_need_map", "A14c"),
+    (YAML, ["input.sampling_interval=2"], "input.sampling_interval", "A14b"),
+    (YAML, ["input.image_format=BGR"], "input.image_format", "A14b"),
+    (YAML, ["solver.amp=false"], "solver.amp", "A14b"),
+]
+
+
+@pytest.mark.parametrize("yaml_name,overrides,key,item", TRAIN_REFUSED)
+def test_check_trainable_refuses_with_the_key_and_item(yaml_name, overrides, key, item):
+    cfg = port_config.load_config(yaml_name, overrides)
+    with pytest.raises(NotImplementedError) as exc:
+        port_config.check_trainable(cfg)
+    assert key + "=" in str(exc.value) and f"ROADMAP {item}" in str(exc.value), str(exc.value)
+
+
+def test_check_trainable_refuses_more_than_one_process(monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match=r"WORLD_SIZE=2.*ROADMAP A15"):
+        port_config.check_trainable(port_config.load_config(YAML))

@@ -830,3 +830,99 @@ def test_ov_stream_on_the_card_matches_the_cpu(cuda_device, arch):
         assert g.is_cuda and g.shape == w.shape
         assert _rel(g.cpu(), w) <= 1e-3
     assert topk_select(got[0].cpu(), 10)[1].tolist() == topk_select(want[0], 10)[1].tolist()
+
+
+# ---------------------------------------------------------------------------
+# The kernels are forward only: with gradients on, an input that requires one
+# raises instead of returning a tensor with no grad_fn
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["value", "locations", "weights"])
+def test_msdeform_wrapper_refuses_inputs_that_require_grad(cuda_device, which):
+    inputs = list(_inputs(cuda_device, torch.float32))
+    inputs[which].requires_grad_()
+    value, loc, attn = inputs
+    msdeform.reset_launches()
+    with pytest.raises(NotImplementedError, match="A14c"):
+        msdeform.ms_deform_attn(value, SHAPES, loc, attn)
+    assert msdeform.launches == 0
+    with torch.no_grad():  # the frozen segmenter's way
+        msdeform.ms_deform_attn(value, SHAPES, loc, attn)
+    assert msdeform.launches == 1
+
+
+@pytest.mark.cuda
+def test_swin_window_attn_wrapper_refuses_inputs_that_require_grad(cuda_device):
+    q, k, v, bias, mask = _swin_inputs(cuda_device, torch.bfloat16, 8, 144, 2, 2)
+    bias.requires_grad_()
+    swin_window_attn.reset_launches()
+    with pytest.raises(NotImplementedError, match="swin_fused_attn"):
+        swin_window_attn.window_attention(q, k, v, bias, mask, 2)
+    with torch.no_grad():
+        swin_window_attn.window_attention(q, k, v, bias, mask, 2)
+    assert swin_window_attn.launches == 1
+
+
+@pytest.mark.cuda
+def test_flash_attn_wrapper_refuses_inputs_that_require_grad(cuda_device):
+    q, k, v = _flash_inputs(cuda_device, torch.bfloat16, 1, 256, 2, False)
+    q.requires_grad_()
+    flash_attn.reset_launches()
+    with pytest.raises(NotImplementedError, match="vit_flash_attention"):
+        flash_attn.flash_self_attention(q, k, v)
+    with torch.no_grad():
+        flash_attn.flash_self_attention(q, k, v)
+    assert flash_attn.launches == 1
+
+
+def _tiny_batch(B=2, T=3, N=4, H=64, W=96, seed=0):
+    from dvis_plus_tpu_torch.engine.trainer import Batch
+    from dvis_plus_tpu_torch.losses.targets import VideoTargets
+
+    g = torch.Generator().manual_seed(seed)
+    masks = torch.zeros(B, N, T, H, W, dtype=torch.bool)
+    for b in range(B):
+        for n in range(N - 1):
+            y, x = int(torch.randint(0, H - 24, (1,), generator=g)), int(torch.randint(0, W - 30, (1,), generator=g))
+            for t in range(T):
+                if not (n == 1 and t == 0):
+                    masks[b, n, t, y:y + 20, x + 2 * t:x + 2 * t + 24] = True
+    fv = masks.flatten(3).any(-1)
+    labels = torch.randint(0, 5, (B, N), generator=g)
+    return Batch(torch.randn(B, T, 3, H, W, generator=g), VideoTargets(labels, masks, fv.any(-1), fv))
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One DVIS++ online step from the same weights, batch and draws (a CPU
+    generator, its values moved to the tensors' device): the losses rel
+    <= 1e-4, the tracker's gradients within 1e-3 as a norm; the frozen
+    segmenter's deformable attention launched kernel B1 under no_grad."""
+    import copy
+
+    from dvis_plus_tpu_torch.config import dvis_online_tiny
+    from dvis_plus_tpu_torch.engine.trainer import Batch, build_train_step
+    from dvis_plus_tpu_torch.losses.targets import VideoTargets
+    from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
+    from dvis_plus_tpu_torch.utils.draws import Draws
+
+    cfg = dvis_online_tiny("model.num_classes=5", "model.tracker.matcher_solver=jv")
+    torch.manual_seed(0)
+    cpu_model = DVISOnline(cfg.model)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    batch = _tiny_batch()
+    gpu_batch = Batch(batch.images.to(cuda_device), VideoTargets(*(t.to(cuda_device) for t in batch.targets)))
+    out = []
+    msdeform.reset_launches()
+    for model, b in ((cpu_model, batch), (gpu_model, gpu_batch)):
+        step, init = build_train_step(cfg, model)
+        _, metrics = step(init(), b, Draws(torch.Generator().manual_seed(7)))
+        grads = torch.cat([p.grad.flatten().cpu() for n, p in model.named_parameters() if p.requires_grad])
+        out.append(({k: float(v) for k, v in metrics.items()}, grads))
+    assert msdeform.launches == cfg.model.pixel_decoder.transformer_enc_layers
+    (want, gw), (got, gg) = out
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * max(abs(want[k]), 1e-6), (k, got[k], want[k])
+    assert ((gg - gw).norm() / gw.norm()).item() <= 1e-3

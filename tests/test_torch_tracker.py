@@ -93,3 +93,18 @@ def test_auction_round_cap_fixup_matches_jax(max_rounds):
     want = np.asarray(jax_auction(jnp.asarray(cost), max_rounds=max_rounds))
     np.testing.assert_array_equal(got, want)
     assert len(set(got.tolist())) == 12
+
+
+def test_batched_auction_equals_each_problem_alone_and_jax():
+    """(B, n, m) costs solved in the same rounds: each result is the one its
+    problem gives alone, and ``jax.vmap`` of the JAX auction's; among them a
+    problem whose rows repeat (the tracker's alignment after the 'wa'
+    noise), which runs to the round cap while the others have converged."""
+    ref = _costs("cosine", 12, 12, 5)
+    repeated = ref[[0, 1, 1, 3, 4, 4, 6, 7, 8, 8, 10, 11]]
+    costs = np.stack([_costs("uniform", 12, 12, 6), ref, repeated, np.zeros((12, 12), np.float32)])
+    got = auction_lap(torch.from_numpy(costs)).numpy()
+    for b in range(len(costs)):
+        np.testing.assert_array_equal(got[b], auction_lap(torch.from_numpy(costs[b])).numpy())
+        assert len(set(got[b].tolist())) == 12
+    np.testing.assert_array_equal(got, np.asarray(jax.vmap(jax_auction)(jnp.asarray(costs))))
