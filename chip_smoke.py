@@ -40,7 +40,15 @@ kernels:
   frozen segmenter, 6 launches a step): 8 clips of 5 frames at 480x768 from
   a synthetic set through the port's loader, train step and checkpoint; one
   small step GPU against CPU first, then 100 steps of a tiny model whose
-  loss must fall.
+  loss must fall;
+- stages 1 and 3 of the DVIS++ recipe: B1's backward kernel against
+  autograd of its twin (``b1_backward``), one small MinVIS and one CTVIS
+  step GPU against CPU, then MinVIS, CTVIS (the whole segmenter trained:
+  B1 forward and backward, 6 launches each a step) and DVIS++ offline (the
+  refiner on the frozen online model: B1 forward only) at the full width of
+  ``configs/dvis/{minvis,ctvis,dvis_offline}_r50_ytvis19.yaml``, 8 clips of
+  5 (offline: 15) frames at 480x768 through the port's loader, and 100
+  steps of a tiny MinVIS whose loss must fall.
 
 Run from a checkout of the repository:
 
@@ -54,7 +62,8 @@ Run from a checkout of the repository:
                                      # by the run of queries a block takes
     python3 chip_smoke.py --daq      # build, then only the DVIS-DAQ phases
     python3 chip_smoke.py --ov       # build, then only the open-vocabulary phases
-    python3 chip_smoke.py --train    # build, then only the training phases
+    python3 chip_smoke.py --train    # build, then only the training phases (B1's
+                                     # backward among them)
 
 Kernel B1 (deformable attention) is held and timed at each of its three
 main shapes under two distributions of sampling offsets: uniform over +-10
@@ -696,8 +705,8 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     from dvis_plus_tpu_torch.ops import flash_attn, msdeform, swin_window_attn
 
-    return {"msdeform_fwd": msdeform.launches, "swin_window_attn_fwd": swin_window_attn.launches,
-            "flash_attn_fwd": flash_attn.launches}
+    return {"msdeform_fwd": msdeform.launches, "msdeform_bwd": msdeform.backward_launches,
+            "swin_window_attn_fwd": swin_window_attn.launches, "flash_attn_fwd": flash_attn.launches}
 
 
 def timed_slice(cfg, dev, frames=FRAMES, canvas=(H_IN, W_IN), valid=None, out=(H_OUT, W_OUT),
@@ -778,7 +787,7 @@ def phase_slice(dev, impl):
     res, rows_ok, _ = timed_slice(cfg, dev)
     windows = VIDEOS * -(-FRAMES // cfg.test.window_size)
     expect = {"msdeform_fwd": cfg.model.pixel_decoder.transformer_enc_layers * windows,
-              "swin_window_attn_fwd": 0, "flash_attn_fwd": 0}
+              "msdeform_bwd": 0, "swin_window_attn_fwd": 0, "flash_attn_fwd": 0}
     res = {"phase": "slice", "msdeform_impl": impl, **res, "expected_launches": expect}
     emit(res)
     if not (rows_ok and res["launches"] == expect):
@@ -818,7 +827,7 @@ def phase_swinl_slice(dev):
         for (B_, H, masked), n in sorted(B2_BY_SHAPE.items())]
     windows = VIDEOS * -(-FRAMES // cfg.test.window_size)
     expect = {"msdeform_fwd": cfg.model.pixel_decoder.transformer_enc_layers * windows,
-              "swin_window_attn_fwd": sum(cfg.model.backbone.swin_depths) * windows,
+              "msdeform_bwd": 0, "swin_window_attn_fwd": sum(cfg.model.backbone.swin_depths) * windows,
               "flash_attn_fwd": 0}
     res = {"phase": "swinl_slice", "backbone": cfg.model.backbone.name,
            "meta_architecture": cfg.model.meta_architecture, **res, "expected_launches": expect}
@@ -894,7 +903,7 @@ def phase_vitl_slice(dev):
     b = cfg.model.backbone
     extractors = len(b.vit_interaction_indexes) + 2
     expect = {"msdeform_fwd": (cfg.model.pixel_decoder.transformer_enc_layers + extractors) * windows,
-              "swin_window_attn_fwd": 0, "flash_attn_fwd": b.vit_depth * windows}
+              "msdeform_bwd": 0, "swin_window_attn_fwd": 0, "flash_attn_fwd": b.vit_depth * windows}
 
     images = next(synthetic_videos(1, 5, VIT_H, VIT_W, VIT_H_OUT, VIT_W_OUT, SEED + 4))["images"]
     frames = torch.from_numpy(images).to(dev).permute(0, 3, 1, 2).to(torch.bfloat16)
@@ -963,7 +972,7 @@ def expected_b1(cfg, frames=FRAMES, videos=VIDEOS):
     forwards = videos if cfg.model.meta_architecture == "video_maskformer" else \
         videos * -(-frames // cfg.test.window_size)
     return {"msdeform_fwd": cfg.model.pixel_decoder.transformer_enc_layers * forwards,
-            "swin_window_attn_fwd": 0, "flash_attn_fwd": 0}
+            "msdeform_bwd": 0, "swin_window_attn_fwd": 0, "flash_attn_fwd": 0}
 
 
 def phase_minvis_slice_parity(dev):
@@ -2009,6 +2018,7 @@ def phase_host_syncs(dev):
 # the GPU-against-CPU step at small widths holds the losses to 1e-4 and the
 # tracker's gradients to 1e-3 as a norm (fp32, TF32 off)
 TRAIN_H, TRAIN_W, TRAIN_UNTIMED, TRAIN_TIMED = 480, 768, 2, 5
+STAGE_UNTIMED, STAGE_TIMED = 1, 3  # the MinVIS, CTVIS and DVIS++ offline slices
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 TRAIN_LEVELS = [(60, 96), (30, 48), (15, 24)]  # the 480x768 canvas: strides 8, 16, 32
 
@@ -2066,13 +2076,13 @@ def phase_train_step_parity(dev):
 
     import torch
 
-    from dvis_plus_tpu_torch.config import dvis_online_tiny
+    from dvis_plus_tpu_torch.config import tiny
     from dvis_plus_tpu_torch.engine.trainer import Batch, build_train_step
     from dvis_plus_tpu_torch.losses.targets import VideoTargets
     from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
     from dvis_plus_tpu_torch.utils.draws import Draws
 
-    cfg = dvis_online_tiny("model.num_classes=5", "model.tracker.matcher_solver=jv")
+    cfg = tiny("dvis_online", "model.num_classes=5", "model.tracker.matcher_solver=jv")
     B, T, N, H, W = 2, 3, 4, 128, 160
     g = torch.Generator().manual_seed(SEED)
     masks = torch.zeros(B, N, T, H, W, dtype=torch.bool)
@@ -2115,24 +2125,13 @@ def phase_train_step_parity(dev):
 
 
 @contextlib.contextmanager
-def timing_stages(model, optimizer, ms):
-    """Time the stages of the real training step
-    (``engine/trainer.py::build_train_step``) run inside the block, on the
-    host clock with a synchronize at every boundary: the training forward's
-    frozen segmenter (the forward less the tracker), the tracker's forward
-    (its frame alignments' solves timed inside it, each waited for), the
-    loss (from the forward's end to ``zero_grad``; its matchers' host solves
-    inside it), the backward (to the optimizer's step) and the optimizer.
-    Fills ``ms`` with milliseconds by stage and the number of alignment
-    calls (one a frame, its clips solved together)."""
+def marking(targets, at):
+    """Wrap each ``(obj, attr, start, end)``: record in ``at`` the host clock
+    (after a synchronize) under ``start`` before the call and, when ``end``
+    is given, under ``end`` after it."""
     import torch
 
-    from dvis_plus_tpu_torch.losses import criterion
-    from dvis_plus_tpu_torch.models.tracker import referring_tracker
-
-    at, match_s, align = {}, [0.0, 0], [0.0, 0]
-
-    def marked(fn, start, end=None):
+    def marked(fn, start, end):
         def wrapped(*args, **kw):
             torch.cuda.synchronize()
             at[start] = time.perf_counter()
@@ -2142,6 +2141,53 @@ def timing_stages(model, optimizer, ms):
                 at[end] = time.perf_counter()
             return out
         return wrapped
+
+    for obj, attr, start, end in targets:
+        setattr(obj, attr, marked(getattr(obj, attr), start, end))
+    try:
+        yield at
+    finally:
+        for obj, attr, _, _ in targets:
+            delattr(obj, attr)
+
+
+def stage_marks(arch, model, optimizer):
+    """The stage boundaries of a training step of ``arch``: (targets for
+    :func:`marking`, stages as (name, start mark, end mark)). Every step
+    ends in the loss (from the forward's end to the optimizer's
+    ``zero_grad``), the backward (to its ``step``) and the optimizer."""
+    opt = [(optimizer, "zero_grad", "loss_end", None), (optimizer, "step", "backward_end", "end")]
+    tail = [("loss", "forward_end", "loss_end"), ("backward", "loss_end", "backward_end"),
+            ("optimizer", "backward_end", "end")]
+    if arch == "dvis_online":
+        return ([(model, "train_forward", "forward", "forward_end"),
+                 (model.tracker, "forward", "tracker", "tracker_end")] + opt,
+                [("segmenter_forward", "forward", "tracker"),
+                 ("tracker_forward", "tracker", "tracker_end")] + tail)
+    if arch == "dvis_offline":
+        return ([(model, "_online", "online", "online_end"),
+                 (model.refiner, "forward", "refiner", "forward_end")] + opt,
+                [("online_forward", "online", "online_end"), ("refiner_forward", "refiner", "forward_end")]
+                + tail)
+    return ([(model, "forward", "segmenter", "forward_end")] + opt,
+            [("segmenter_forward", "segmenter", "forward_end")] + tail)
+
+
+@contextlib.contextmanager
+def timing_stages(arch, model, optimizer, ms):
+    """Time the stages of the real training step of ``arch``
+    (``engine/trainer.py::build_train_step``) run inside the block, on the
+    host clock with a synchronize at every boundary (:func:`stage_marks`),
+    and inside them the loss matchers' host solves and the tracker's frame
+    alignments (each waited for; one a frame, its clips solved together).
+    Fills ``ms`` with milliseconds by stage, the whole step, and the
+    matcher and alignment calls."""
+    import torch
+
+    from dvis_plus_tpu_torch.losses import criterion
+    from dvis_plus_tpu_torch.models.tracker import referring_tracker
+
+    at, match_s, align = {}, [0.0, 0], [0.0, 0]
 
     def host_timed(fn, acc, wait=False):
         def wrapped(*args, **kw):
@@ -2154,155 +2200,196 @@ def timing_stages(model, optimizer, ms):
             return out
         return wrapped
 
-    instance = [(model, "train_forward", marked(model.train_forward, "forward", "forward_end")),
-                (model.tracker, "forward", marked(model.tracker.forward, "tracker", "tracker_end")),
-                (optimizer, "zero_grad", marked(optimizer.zero_grad, "loss_end")),
-                (optimizer, "step", marked(optimizer.step, "backward_end", "end"))]
-    modules = [(criterion, "match", host_timed(criterion.match, match_s)),
-               (referring_tracker, "match_embds", host_timed(referring_tracker.match_embds, align, True))]
+    targets, spans = stage_marks(arch, model, optimizer)
+    # every module of the port that holds the loss matcher by name
+    holders = [m for n, m in list(sys.modules.items())
+               if n.startswith("dvis_plus_tpu_torch.") and getattr(m, "match", None) is criterion.match]
+    timed_match = host_timed(criterion.match, match_s)
+    modules = [(m, "match", timed_match) for m in holders] + [
+        (referring_tracker, "match_embds", host_timed(referring_tracker.match_embds, align, True))]
     saved = [(m, n, getattr(m, n)) for m, n, _ in modules]
-    for obj, name, fn in instance + modules:
+    for obj, name, fn in modules:
         setattr(obj, name, fn)
     try:
-        yield ms
+        with marking(targets, at):
+            yield ms
     finally:
-        for obj, name, _ in instance:
-            delattr(obj, name)
         for obj, name, fn in saved:
             setattr(obj, name, fn)
-    ms.update({"segmenter_forward": 1e3 * (at["tracker"] - at["forward"]),
-               "tracker_forward": 1e3 * (at["tracker_end"] - at["tracker"]),
-               "tracker_alignments": 1e3 * align[0], "tracker_alignment_calls": align[1],
-               "loss": 1e3 * (at["loss_end"] - at["forward_end"]),
+    ms.update({name: 1e3 * (at[end] - at[start]) for name, start, end in spans})
+    ms.update({"tracker_alignments": 1e3 * align[0], "tracker_alignment_calls": align[1],
                "loss_matchers": 1e3 * match_s[0], "loss_matcher_calls": match_s[1],
-               "backward": 1e3 * (at["backward_end"] - at["loss_end"]),
-               "optimizer": 1e3 * (at["end"] - at["backward_end"]),
-               "step": 1e3 * (at["end"] - at["forward"])})
+               "step": 1e3 * (at["end"] - at[spans[0][1]])})
 
 
-def phase_train_slice(dev):
-    """DVIS++ online training at the full width of
-    ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (its preset: bf16 compute,
-    fp32 parameters and moments, 8 clips of 5 frames on the 480x768 canvas,
-    the segmenter frozen, 50 instance slots, 12,544 points) with seeded
-    random weights, on a synthetic YouTube-VIS set of 480x768 frames written
-    to a temporary directory: 2 untimed steps, 5 timed ones through the
-    port's loader (4 worker threads), train step and a checkpoint save.
-    Kernel B1 launches once an encoder layer a step (its calls recorded by
-    shape), the losses of every step must be finite; then one more step timed
-    by stage (:func:`timing_stages`), the host syncs of one step, and B1
-    timed at the training encoder's shape."""
+@contextlib.contextmanager
+def recording_b1(calls):
+    """Record every call of B1 in the pixel decoder inside the block:
+    (value shape, value dtype, weights dtype, level shapes)."""
+    from dvis_plus_tpu_torch.models.segmenter import pixel_decoder
+
+    plain = pixel_decoder.ms_deform_attn
+
+    def recording(value, shapes, loc, attn, radius=None):
+        calls.append((tuple(value.shape), str(value.dtype).split(".")[1],
+                      str(attn.dtype).split(".")[1], [list(s) for s in shapes]))
+        return plain(value, shapes, loc, attn, radius=radius)
+
+    pixel_decoder.ms_deform_attn = recording
+    try:
+        yield calls
+    finally:
+        pixel_decoder.ms_deform_attn = plain
+
+
+def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAIN_UNTIMED,
+                      timed=TRAIN_TIMED):
+    """Training of ``arch`` at the full width of
+    ``configs/dvis/{arch}_r50_ytvis19.yaml`` (its preset in
+    ``config.TRAIN_PRESETS``: bf16 compute, fp32 parameters and moments, 8
+    clips on the 480x768 canvas of 5 frames, or of 15
+    (``sampling_frame_num``) for the offline stage; 12,544 points) with
+    seeded random weights, on a synthetic YouTube-VIS set of 480x768 frames
+    written to a temporary directory, through the port's loader (4 worker
+    threads): ``untimed`` steps, then ``timed`` ones. MinVIS and CTVIS train
+    the whole segmenter, DVIS++ online the tracker on it frozen, DVIS++
+    offline the refiner on the frozen online model with its class memory.
+    The losses of every step must be finite, B1's forward launch once an
+    encoder layer a step, and its backward as often where the segmenter
+    trains, never where it is frozen. Then one step timed by stage
+    (:func:`timing_stages`) and one step's host syncs. If 8 clips do not fit
+    the card, the largest count that does (halving) and its peak are
+    reported. DVIS++ online also records B1's calls by shape, times a
+    checkpoint save and times B1 at the training encoder's shape."""
     import torch
 
-    from dvis_plus_tpu_torch.config import dvis_online_r50_ytvis19
+    from dvis_plus_tpu_torch.config import TRAIN_PRESETS
     from dvis_plus_tpu_torch.core import checkpoint as ckpt
     from dvis_plus_tpu_torch.data.build import build_combined_train_loader
     from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
-    from dvis_plus_tpu_torch.models.segmenter import pixel_decoder
-    from dvis_plus_tpu_torch.ops import msdeform
 
-    cfg = dvis_online_r50_ytvis19()
-    steps = TRAIN_UNTIMED + TRAIN_TIMED
+    online = arch == "dvis_online"
+    steps, tried, b1_calls = untimed + timed, [], []
     with tempfile.TemporaryDirectory() as root:
-        write_ytvis(root, "ytvis_train_slice", n_videos=8, length=10, H=TRAIN_H, W=TRAIN_W)
-        cfg.datasets.train = ("ytvis_train_slice_train",)
-        model = build_model(cfg, dev).train()
-        train_step, init = build_train_step(cfg, model)
-        state = init()
-        loader = build_combined_train_loader(cfg, seed=SEED)
-        b1_calls = []
-        plain = pixel_decoder.ms_deform_attn
-
-        def recording(value, shapes, loc, attn, radius=None):
-            b1_calls.append((tuple(value.shape), str(value.dtype).split(".")[1],
-                             str(attn.dtype).split(".")[1], [list(s) for s in shapes]))
-            return plain(value, shapes, loc, attn, radius=radius)
-
-        pixel_decoder.ms_deform_attn = recording
-        losses, wait_s, step_s = [], [], []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_launches()
-        try:
-            for i in range(steps):
-                t0 = time.perf_counter()
-                batch = to_batch(next(loader), dev)
-                t1 = time.perf_counter()
-                state, metrics = train_step(state, batch)
-                losses.append({k: float(v) for k, v in metrics.items()})  # synchronizes
-                t2 = time.perf_counter()
-                if i >= TRAIN_UNTIMED:
-                    wait_s.append(t1 - t0)
-                    step_s.append(t2 - t0)
-            launches = read_launches()
-        finally:
-            pixel_decoder.ms_deform_attn = plain
+        cfg = TRAIN_PRESETS[arch]()
+        write_ytvis(root, f"ytvis_{phase}", n_videos=cfg.solver.ims_per_batch,
+                    length=max(10, cfg.input.sampling_frame_num + 2), H=TRAIN_H, W=TRAIN_W)
+        clips = cfg.solver.ims_per_batch
+        while True:
+            cfg = TRAIN_PRESETS[arch]()
+            cfg.datasets.train = (f"ytvis_{phase}_train",)
+            cfg.solver.ims_per_batch = clips
+            tried.append(clips)
+            model = build_model(cfg, dev).train()
+            train_step, init = build_train_step(cfg, model)
+            state = init()
+            loader = build_combined_train_loader(cfg, seed=SEED)
+            losses, wait_s, step_s = [], [], []
+            b1_calls.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            try:
+                with recording_b1(b1_calls) if online else contextlib.nullcontext():
+                    reset_launches()
+                    for i in range(steps):
+                        t0 = time.perf_counter()
+                        batch = to_batch(next(loader), dev)
+                        t1 = time.perf_counter()
+                        state, metrics = train_step(state, batch)
+                        losses.append({k: float(v) for k, v in metrics.items()})  # synchronizes
+                        t2 = time.perf_counter()
+                        if i >= untimed:
+                            wait_s.append(t1 - t0)
+                            step_s.append(t2 - t0)
+                    launches = read_launches()
+                break
+            except torch.cuda.OutOfMemoryError:
+                if clips == 1:
+                    raise
+                del model, state, train_step, loader
+                torch.cuda.empty_cache()
+                clips //= 2
         peak = torch.cuda.max_memory_allocated(dev)
-        t0 = time.perf_counter()
-        ckpt.save(os.path.join(root, "checkpoints", f"step_{state.step:07d}.pth"), model,
-                  state.optimizer.state_dict(), state.step, torch.get_rng_state())
-        save_s = time.perf_counter() - t0
+        extra = {}
+        if online:
+            t0 = time.perf_counter()
+            ckpt.save(os.path.join(root, "checkpoints", f"step_{state.step:07d}.pth"), model,
+                      state.optimizer.state_dict(), state.step, torch.get_rng_state())
+            extra["checkpoint_save_s"] = time.perf_counter() - t0
         batch = to_batch(next(loader), dev)
         stages = {}
-        with timing_stages(model, state.optimizer, stages):
+        with timing_stages(arch, model, state.optimizer, stages):
             state, metrics = train_step(state, batch)
         counts = []
         with counting_syncs(counts):
             state, metrics = train_step(state, batch)
             torch.cuda.synchronize()
+        memory = None if state.memory is None else int(state.memory.count.sum())
+        del model, state, train_step, loader, batch
+    torch.cuda.empty_cache()
     finite = all(np.isfinite(v) for row in losses for v in row.values())
-    shapes = sorted({c[:3] for c in b1_calls})
-    res = {"phase": "train_slice", "clips": cfg.solver.ims_per_batch,
+    layers = cfg.model.pixel_decoder.transformer_enc_layers
+    per_step = {"msdeform_fwd": launches["msdeform_fwd"] / steps,
+                "msdeform_bwd": launches["msdeform_bwd"] / steps}
+    want = {"msdeform_fwd": layers, "msdeform_bwd": 0 if "segmenter" in cfg.model.freeze else layers}
+    res = {"phase": phase, "arch": arch, "clips": clips, "clips_tried": tried,
            "frames": cfg.input.sampling_frame_num, "canvas": [TRAIN_H, TRAIN_W],
-           "dtype": cfg.model.compute_dtype, "steps": steps, "timed_steps": TRAIN_TIMED,
-           "total_loss": [row["total_loss"] for row in losses],
-           "losses_last": losses[-1], "finite": finite,
-           "step_s_median": float(np.median(step_s)), "step_s": step_s,
+           "dtype": cfg.model.compute_dtype, "steps": steps, "timed_steps": timed,
+           "total_loss": [row["total_loss"] for row in losses], "losses_last": losses[-1],
+           "finite": finite, "step_s_median": float(np.median(step_s)), "step_s": step_s,
            "loader_wait_s_median": float(np.median(wait_s)), "loader_wait_s": wait_s,
-           "checkpoint_save_s": save_s, "peak_memory_bytes": peak,
+           "peak_memory_bytes": peak,
            "host_syncs_per_step": {"event_waits": counts[0], "debug_mode": counts[1]},
-           "stages_ms": stages, "launches": launches,
-           "b1_launches_per_step": launches["msdeform_fwd"] / steps,
-           "b1_calls": [{"value": list(v), "value_dtype": vd, "attn_dtype": ad} for v, vd, ad in shapes]}
-    value_shape, value_dtype, _ = shapes[0]
-    expected = cfg.model.pixel_decoder.transformer_enc_layers * steps
-    if not finite or launches["msdeform_fwd"] != expected or len(shapes) != 1:
+           "stages_ms": stages, "launches": launches, "b1_launches_per_step": per_step,
+           "class_memory_pushed": memory, **extra}
+    shapes = sorted({c[:3] for c in b1_calls})
+    if online:
+        res["b1_calls"] = [{"value": list(v), "value_dtype": vd, "attn_dtype": ad} for v, vd, ad in shapes]
+    if not finite or per_step != want or (online and len(shapes) != 1):
         emit({**res, "failed": True})
-        raise AssertionError(f"train_slice: finite {finite}, B1 launches {launches['msdeform_fwd']} "
-                             f"(expected {expected}), B1 shapes {shapes}")
-    # B1 at the training encoder's shape, in the dtype the step gave it
-    BT, _, M, D = value_shape
-    value, loc, attn = msdeform_inputs(dev, TRAIN_LEVELS, BT=BT, M=M, D=D)
-    res["b1_train_encoder"] = b1_check(TRAIN_LEVELS, value.to(getattr(torch, value_dtype)), loc, attn,
-                                       iters=10, plain_iters=3)
-    del value, loc, attn
+        raise AssertionError(f"{phase}: finite {finite}, B1 launches a step {per_step} (expected {want}), "
+                             f"B1 shapes {shapes}")
+    if online:
+        # B1 at the training encoder's shape, in the dtype the step gave it
+        (BT, _, M, D), value_dtype, _ = shapes[0]
+        value, loc, attn = msdeform_inputs(dev, TRAIN_LEVELS, BT=BT, M=M, D=D)
+        res["b1_train_encoder"] = b1_check(TRAIN_LEVELS, value.to(getattr(torch, value_dtype)), loc, attn,
+                                           iters=10, plain_iters=3)
+        del value, loc, attn
     emit(res)
     return res
 
 
-def phase_train_overfit(dev):
-    """The port's slow overfit test (``tests/test_torch_overfit.py`` runs
-    this phase on the CPU): DVIS++ online at the tiny widths of
-    ``config.TINY_TRAIN`` with 2 classes, 2 clips of 3 frames at 64x96 from a
-    2-video synthetic set, 100 steps; the last total loss must be below the
-    first, as the JAX slow test asserts."""
+def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=None):
+    """The port's slow overfit tests (``tests/test_torch_overfit.py`` runs
+    this phase on the CPU): DVIS++ online (or ``arch``: ``minvis``,
+    ``ctvis``, ``dvis_offline``) at the tiny widths of ``config.TINY_TRAIN``
+    with 2 classes, 2 clips of 3 frames at 64x96 from a 2-video synthetic
+    set, 100 steps, from seeded weights or ``weights`` (a state dict: the
+    earlier stage's model, loaded where the keys agree); the last total loss
+    must be below the first, as the JAX slow test asserts. Returns the result
+    with the trained model's state dict under ``state_dict``."""
     import torch
 
-    from dvis_plus_tpu_torch.config import dvis_online_tiny
+    from dvis_plus_tpu_torch.cli import build_model as build_arch
+    from dvis_plus_tpu_torch.config import tiny
     from dvis_plus_tpu_torch.data.build import build_train_loader
     from dvis_plus_tpu_torch.data.datasets.categories import YTVIS_2019_CLASSES
     from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
-    from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
 
-    cfg = dvis_online_tiny(
-        "model.num_classes=2", "solver.ims_per_batch=2", "solver.base_lr=3e-4", "solver.warmup_iters=10",
-        "solver.steps=[100000]", "solver.max_iter=100", "input.sampling_frame_num=3",
-        "input.sampling_frame_range=1", "input.min_size_train=[64]", "input.max_size_train=96")
+    overrides = ("model.num_classes=2", "solver.ims_per_batch=2", "solver.base_lr=3e-4",
+                 "solver.warmup_iters=10", "solver.steps=[100000]", "solver.max_iter=100",
+                 "input.sampling_frame_num=3", "input.sampling_frame_range=1",
+                 "input.min_size_train=[64]", "input.max_size_train=96")
+    cfg = tiny(arch, *overrides)
     with tempfile.TemporaryDirectory() as root:
         write_ytvis(root, "ytvis_overfit", n_videos=2, length=6, H=64, W=96,
                     classes=YTVIS_2019_CLASSES[:2])
         torch.manual_seed(SEED + 1)
-        model = DVISOnline(cfg.model).to(dev).train()
+        model = build_arch(cfg.model)
+        if weights is not None:
+            model.load_state_dict(weights, strict=False)
+        model = model.to(dev).train()
         step, init = build_train_step(cfg, model)
         state = init()
         loader = build_train_loader(cfg, "ytvis_overfit_train", seed=SEED, num_workers=2)
@@ -2313,11 +2400,237 @@ def phase_train_overfit(dev):
             if k % 20 == 0 or k == cfg.solver.max_iter - 1:
                 losses.append(float(metrics["total_loss"]))
         seconds = time.perf_counter() - t0
-    res = {"phase": "train_overfit", "steps": cfg.solver.max_iter, "total_loss": losses, "seconds": seconds}
+    res = {"phase": phase, "arch": arch, "steps": cfg.solver.max_iter, "total_loss": losses,
+           "seconds": seconds}
     emit(res)
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"train_overfit: the loss did not fall: {losses}")
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
+    return {**res, "state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+
+
+# ---------------------------------------------------------------------------
+# Stages 1 and 3 of the DVIS++ recipe: MinVIS / CTVIS and DVIS++ offline
+# training, and kernel B1's backward
+# ---------------------------------------------------------------------------
+
+# B1's backward: fp32 1e-5 of the twin's largest gradient (grad_value is
+# summed with atomics, in another order); with bf16 values (and weights) the
+# value and weight gradients are rounded once to bf16 on both sides
+B1_GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# a training step GPU against CPU with the segmenter trained: the decoders'
+# gradients as TRAIN_GRAD_TOL; the backbone's as a norm within 1e-2, since a
+# ReLU input within rounding of 0 passes its gradient on one device and not
+# on the other (tests/test_torch_minvis_train.py measures the JAX package
+# against the port so: 1.6e-3)
+TRAIN_BACKBONE_GRAD_TOL = 1e-2
+
+
+def b1_backward_ops(value, levels, loc, radius):
+    """The least operations of B1's backward on these inputs: per sample
+    that reaches its level (counted on the data, after the clamp) and per
+    channel, the four corners' dot products with the output's gradient g
+    (4 multiply-adds), from which the weight's and both locations'
+    gradients follow once a sample, and the four corners' value gradients
+    (4 multiply-adds of g by a weight per corner): 16."""
+    import torch
+
+    from dvis_plus_tpu_torch.ops import msdeform
+
+    if radius is not None:
+        loc = msdeform.clamp_locations(loc, levels, radius)
+    inside = 0
+    for lid, (H, W) in enumerate(levels):
+        x = torch.floor(loc[:, :, :, lid, :, 0] * W - 0.5)
+        y = torch.floor(loc[:, :, :, lid, :, 1] * H - 0.5)
+        inside += int(((x >= -1) & (x < W) & (y >= -1) & (y < H)).sum())
+    return 16 * inside * value.shape[-1]
+
+
+def b1_backward_check(levels, value, loc, attn, radius=None, iters=5, plain_iters=3):
+    """B1's backward kernel against autograd of the twin on these inputs (one
+    output gradient for both), each gradient's error, then both timed: the
+    kernel alone (``_launch_backward``), the twin's backward alone (its graph
+    kept), with the bound: every input and output moved once (value,
+    locations, weights and the output's gradient read; the three gradients
+    written) over 3.35 TB/s, or its operations over the fp32 peak."""
+    import torch
+
+    from dvis_plus_tpu_torch.ops import msdeform
+
+    B, Lq = loc.shape[:2]
+    g = torch.randn(B, Lq, value.shape[2] * value.shape[3],
+                    generator=torch.Generator(device="cpu").manual_seed(SEED + 3)).to(value.device, value.dtype)
+
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_() for t in (value, loc, attn)]
+        out = fn(ins[0], levels, ins[1], ins[2], radius=radius)
+        return out, ins, torch.autograd.grad(out, ins, g, retain_graph=True)
+
+    _, _, got = grads(msdeform.ms_deform_attn)
+    torch.cuda.synchronize()
+    out, ins, want = grads(msdeform.ms_deform_attn_torch)
+    res = {"radius": radius, "value_dtype": str(value.dtype).split(".")[1],
+           "attn_dtype": str(attn.dtype).split(".")[1], "max_abs_err": {}, "rel_err": {}, "tol": {}}
+    ok = True
+    for name, x, y, t in zip(("value", "locations", "weights"), got, want, (value, loc, attn)):
+        err = (x.float() - y.float()).abs().max().item()
+        rel = err / y.float().abs().max().item()
+        tol = B1_GRAD_TOL[str(t.dtype).split(".")[1]]
+        res["max_abs_err"][name], res["rel_err"][name], res["tol"][name] = err, rel, tol
+        ok = ok and np.isfinite(rel) and rel <= tol
+    if not ok:
+        emit({"phase": "b1_backward", "failed": res})
+        raise AssertionError(f"msdeform_bwd disagrees with autograd of its twin: {res}")
+    del got, want
+    res["ms"] = cuda_ms(lambda: msdeform._launch_backward(value, levels, loc, attn, radius, g),
+                        iters, KERNEL_REPS)
+    res["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(out, ins, g, retain_graph=True), plain_iters)
+    grad_out = torch.empty(g.shape, device="meta", dtype=g.dtype)
+    res["bound_ms"], res["bound_by"] = bound(
+        (value, loc, attn, grad_out, torch.empty_like(value, device="meta"),
+         torch.empty_like(loc, device="meta"), torch.empty_like(attn, device="meta")),
+        b1_backward_ops(value, levels, loc, radius), torch.float32)
+    res["library_ms"] = None  # no single PyTorch call computes it
     return res
+
+
+def phase_b1_backward(dev):
+    """B1's backward kernel (``csrc/msdeform_bwd.cu``) against autograd of
+    the twin: small odd shapes first (both forms, fp32 and bf16, the
+    extractor form), then the training encoder's shape (40, 7560, 8, 32)
+    fp32, exact and clamped (r7), under uniform offsets and the
+    initialisation's, and the ViT-L extractor's (5, 3680, 16, 64) with bf16
+    values and weights."""
+    import torch
+
+    n = 0
+    for levels, B, M, D, P in B1_ODD_SHAPES:
+        value, loc, attn = msdeform_inputs(dev, levels, SEED + 7, B, M, D, P)
+        for dtype in (torch.float32, torch.bfloat16):
+            for radius in (None, 2):
+                b1_backward_check(levels, value.to(dtype), loc, attn.to(dtype), radius, iters=1,
+                                  plain_iters=1)
+                n += 1
+    emit({"phase": "b1_backward", "odd_shapes": len(B1_ODD_SHAPES), "checks": n})
+    forms = []
+    for offsets in ("uniform", "init"):
+        value, loc, attn = msdeform_inputs(dev, TRAIN_LEVELS, BT=40, offsets=offsets)
+        for radius in (None, 7):
+            forms.append({"shape": "train_encoder_480x768", "offsets": offsets,
+                          **b1_backward_check(TRAIN_LEVELS, value, loc, attn, radius)})
+            emit({"phase": "b1_backward", **forms[-1]})
+        del value, loc, attn
+        value, loc, attn = extractor_inputs(dev, offsets=offsets)
+        forms.append({"shape": "vitl_extractor", "offsets": offsets, **b1_backward_check(
+            [VIT_GRID], value.to(torch.bfloat16), loc, attn.to(torch.bfloat16))})
+        emit({"phase": "b1_backward", **forms[-1]})
+        del value, loc, attn
+    torch.cuda.empty_cache()
+    return forms
+
+
+def off_grid(model, scale=0.25):
+    """Move the deformable attention's sampling offsets off the pixel grid
+    with seeded noise (in place). Their initialisation puts every sampling
+    location exactly on a pixel corner, where the bilinear sample's
+    derivative by the location jumps, so there the two devices' roundings
+    pick the gradient of one side or the other (measured: the GPU's offset
+    gradients 14-23 % from the CPU's, kernel and twin alike); a trained
+    model's offsets lie anywhere."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "sampling_offsets" in name:
+                p.add_((torch.randn(p.shape, generator=g) * scale).to(p.device))
+
+
+def phase_stage_step_parity(dev, arch):
+    """One MinVIS or CTVIS training step at small widths on the card against
+    the CPU: the same seeded weights, batch (2 clips x 3 frames of 128x160)
+    and draws, fp32, the whole segmenter trained (B1 forward and backward on
+    the card), the card replaying the CPU's masked-attention decisions, the
+    sampling offsets off the pixel grid (:func:`off_grid`). The losses, the
+    decoders' and the backbone's gradients and every assignment the loss
+    made."""
+    import copy
+
+    import torch
+
+    from dvis_plus_tpu_torch.cli import build_model as build_arch
+    from dvis_plus_tpu_torch.config import tiny
+    from dvis_plus_tpu_torch.engine.trainer import Batch, build_train_step
+    from dvis_plus_tpu_torch.losses.targets import VideoTargets
+    from dvis_plus_tpu_torch.utils.draws import Draws
+
+    cfg = tiny(arch, "model.num_classes=5")
+    B, T, N, H, W = 2, 3, 4, 128, 160
+    g = torch.Generator().manual_seed(SEED)
+    masks = torch.zeros(B, N, T, H // 4, W // 4, dtype=torch.bool)
+    for b in range(B):
+        for n in range(N - 1):
+            y, x = 3 + 8 * n, 2 + 5 * b + 3 * n
+            for t in range(T):
+                if not (n == 1 and t == 0):
+                    masks[b, n, t, y:y + 7, x + t:x + t + 9] = True
+    fv = masks.flatten(3).any(-1)
+    batch = Batch(torch.randn(B, T, 3, H, W, generator=g),
+                  VideoTargets(torch.randint(0, 5, (B, N), generator=g), masks, fv.any(-1), fv))
+    torch.manual_seed(SEED)
+    cpu_model = build_arch(cfg.model).train()
+    off_grid(cpu_model)
+    out, decisions, attention = [], [], {}
+    reset_launches()
+    for d, model in ((torch.device("cpu"), cpu_model), (dev, copy.deepcopy(cpu_model).to(dev))):
+        b = Batch(batch.images.to(d), VideoTargets(*(t.to(d) for t in batch.targets)))
+        # the card replays the CPU's masked-attention decisions: the random
+        # model's mask logits lie near the threshold, where the two devices'
+        # roundings decide otherwise (the line counts such keys)
+        attention[d.type] = replay_attention(model.sem_seg_head.predictor, decisions,
+                                             replay=d.type == "cuda")
+        step, init = build_train_step(cfg, model)
+        matches = []
+        with recording_matches(matches):
+            _, metrics = step(init(), b, Draws(torch.Generator().manual_seed(SEED + 7)))
+        grads = {part: torch.cat([p.grad.detach().float().cpu().flatten()
+                                  for n, p in model.named_parameters() if n.startswith(part)])
+                 for part in ("sem_seg_head.", "backbone.")}
+        out.append(({k: float(v) for k, v in metrics.items()}, grads, matches))
+    launches = read_launches()
+    (want, gw, mw), (got, gg, mg) = out
+    loss_err = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
+    grad_err = {part: ((gg[part] - gw[part]).norm() / gw[part].norm()).item() for part in gw}
+    same = len(mw) == len(mg) and all(torch.equal(a, b) for a, b in zip(mw, mg))
+    finite = all(np.isfinite(v) for v in got.values())
+    layers = cfg.model.pixel_decoder.transformer_enc_layers
+    res = {"phase": f"{arch}_train_step_parity", "clips": B, "frames": T, "input": [H, W],
+           "loss_rel_err": max(loss_err.values()), "loss_tol": TRAIN_LOSS_TOL,
+           "grad_rel_err_norm": grad_err,
+           "grad_tol": {"sem_seg_head.": TRAIN_GRAD_TOL, "backbone.": TRAIN_BACKBONE_GRAD_TOL},
+           "total_loss": {"cpu": want["total_loss"], "cuda": got["total_loss"]},
+           "assignments_equal": same, "launches": launches,
+           "attention_keys_replayed": attention["cuda"]}
+    emit(res)
+    if not (finite and same and max(loss_err.values()) <= TRAIN_LOSS_TOL
+            and grad_err["sem_seg_head."] <= TRAIN_GRAD_TOL
+            and grad_err["backbone."] <= TRAIN_BACKBONE_GRAD_TOL
+            and launches["msdeform_fwd"] == layers and launches["msdeform_bwd"] == layers):
+        raise AssertionError(f"the {arch} training step on the card disagrees with the CPU: {res}")
+
+
+def run_stages_1_and_3(dev):
+    """B1's backward, the MinVIS and CTVIS steps GPU against CPU, the three
+    full-width training slices and the MinVIS overfit: (the backward's
+    forms, the slices' results by phase)."""
+    b1b = phase_b1_backward(dev)
+    phase_stage_step_parity(dev, "minvis")
+    phase_stage_step_parity(dev, "ctvis")
+    stages = {phase: phase_train_slice(dev, arch, phase, STAGE_UNTIMED, STAGE_TIMED)
+              for arch, phase in (("minvis", "minvis_train_slice"), ("ctvis", "ctvis_train_slice"),
+                                  ("dvis_offline", "offline_train_slice"))}
+    phase_train_overfit(dev, "minvis", "minvis_train_overfit")
+    return b1b, stages
 
 
 def main() -> int:
@@ -2353,6 +2666,7 @@ def main() -> int:
         phase_train_step_parity(dev)
         phase_train_slice(dev)
         phase_train_overfit(dev)
+        run_stages_1_and_3(dev)
         emit({"phase": "wall", "seconds": time.perf_counter() - start})
         return 0
     if "--ov" in sys.argv[1:]:
@@ -2390,6 +2704,7 @@ def main() -> int:
     phase_train_step_parity(dev)
     train = phase_train_slice(dev)
     phase_train_overfit(dev)
+    b1b, stages = run_stages_1_and_3(dev)
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
     # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2
@@ -2421,10 +2736,13 @@ def main() -> int:
     b3_shapes = {f"B{f['B']}_L{f['L']}": f for f in b3
                  if f["dtype"] == "bfloat16" and f["layout"] == "fused_qkv_views"}
     b3_main = b3_shapes["B5_L3681"]
+    # B1's backward: the training encoder's shape, exact form, fp32, uniform offsets
+    b1b_main = next(f for f in b1b if f["shape"] == "train_encoder_480x768"
+                    and f["offsets"] == "uniform" and f["radius"] is None)
     paths = {"slice": runs["exact"], "swinl_slice": swinl, "vitl_slice": vitl,
              "minvis_slice": minvis, "clip_slice": clip, "vps_slice": vps, "vss_slice": vss,
              "daq_slice": daq_online, "daq_offline_slice": daq_offline,
-             "ov_slice": ov_online, "ov_offline_slice": ov_offline, "train_slice": train}
+             "ov_slice": ov_online, "ov_offline_slice": ov_offline, "train_slice": train, **stages}
 
     def by_path(kernel):
         return {name: r["launches"][kernel] for name, r in paths.items()}
@@ -2474,6 +2792,23 @@ def main() -> int:
         "library_ms": b3_main["library_ms"],
         "by_shape": {name: {k: f[k] for k in timing_keys + ("library_ms",)}
                      for name, f in b3_shapes.items()},
+    }, {
+        "name": "msdeform_bwd",
+        "route": "cuda",
+        "source": "dvis_plus_tpu_torch/csrc/msdeform_bwd.cu",
+        "replaces": "dvis_plus_tpu/ops/msdeform_pallas.py:570",
+        "launches": stages["minvis_train_slice"]["launches"]["msdeform_bwd"],
+        "launches_by_path": by_path("msdeform_bwd"),
+        "max_abs_err": max(v for f in b1b for v in f["max_abs_err"].values()),
+        "ms": b1b_main["ms"],
+        "plain_ms": b1b_main["plain_ms"],
+        "bound_ms": b1b_main["bound_ms"],
+        "bound_by": b1b_main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it
+        "by_shape": {f"{f['shape']}{'_clamped_r7' if f['radius'] else ''}"
+                     f"{'_init_offsets' if f['offsets'] == 'init' else ''}":
+                     {k: f[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "value_dtype")} for f in b1b},
     }]})
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     print(smi, flush=True)

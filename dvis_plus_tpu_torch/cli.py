@@ -6,14 +6,18 @@
         [--device cuda|cpu] [weights=<state_dict .pth/.npz>] [key.path=value ...]
 
 Without ``--eval-only`` it trains, as ``train_net_video.py::do_train``
-(:112-190): DVIS++ online (``dvis_online``) on the video instance sets of
-``datasets.train`` (``config.check_trainable`` refuses the rest, naming the
-ROADMAP item), ``solver.max_iter`` steps of ``engine.trainer``'s train step
+(:112-190): the three stages of the DVIS++ recipe on the video instance
+sets of ``datasets.train``: MinVIS or CTVIS (``minvis``, ``ctvis``: the bare
+``Segmenter``, frames folded into the batch, trained whole), DVIS++ online
+(``dvis_online``: the tracker on the frozen segmenter) and DVIS++ offline
+(``dvis_offline``: the refiner on the frozen online model, with its class
+memory) (``config.check_trainable`` refuses the rest, naming the ROADMAP
+item), ``solver.max_iter`` steps of ``engine.trainer``'s train step
 from the port's loader (``data.build``), a line of ``metrics.jsonl`` and a
 console line every 20 steps (``utils.events``), and a checkpoint
 ``<output_dir>/checkpoints/step_<n>.pth`` every ``solver.checkpoint_period``
 steps and at the end (``core.checkpoint``). ``--resume`` takes up the newest
-checkpoint there (weights, optimizer state, step; the loader skips the
+checkpoint there (weights, optimizer state, step, class memory; the loader skips the
 clips already taken and the draws of a step follow from (seed, step)), so a
 resumed run ends where an unbroken one does. ``weights=`` loads a state dict
 before training, non-strictly: a key of another shape keeps the module's
@@ -154,6 +158,7 @@ def do_train(cfg, resume: bool, dev: torch.device):
     from dvis_plus_tpu_torch.core import checkpoint as ckpt
     from dvis_plus_tpu_torch.data.build import build_combined_train_loader
     from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
+    from dvis_plus_tpu_torch.losses.reid import ClassMemory
     from dvis_plus_tpu_torch.utils.events import EventWriter, device_memory_stats
 
     torch.manual_seed(cfg.seed)
@@ -170,6 +175,8 @@ def do_train(cfg, resume: bool, dev: torch.device):
         model.load_state_dict(saved["model"])
         state.optimizer.load_state_dict(saved["optimizer"])
         state.step = saved["step"]
+        if saved.get("memory") is not None:
+            state.memory = ClassMemory(**{k: v.to(dev) for k, v in saved["memory"].items()})
         torch.set_rng_state(saved["generator"])
         logger.info("resumed from %s (step %d)", latest, state.step)
     loader = build_combined_train_loader(cfg, seed=cfg.seed, start_batches=state.step)
@@ -182,7 +189,8 @@ def do_train(cfg, resume: bool, dev: torch.device):
             writer.log_console(step)
         if (step + 1) % cfg.solver.checkpoint_period == 0 or step + 1 == cfg.solver.max_iter:
             path = os.path.join(ckpt_dir, f"step_{step + 1:07d}.pth")
-            ckpt.save(path, model, state.optimizer.state_dict(), state.step, torch.get_rng_state())
+            ckpt.save(path, model, state.optimizer.state_dict(), state.step, torch.get_rng_state(),
+                      state.memory)
             logger.info("saved %s", path)
     writer.close()
     return state

@@ -236,8 +236,8 @@ class InputConfig:
     random_flip: str = "flip_by_clip"  # any value but "none" flips a whole clip
     augmentations: Tuple[str, ...] = ()
     image_format: str = "RGB"
-    pseudo: bool = False  # COCO pseudo-videos (ROADMAP A14c)
-    lsj_aug: bool = False  # large-scale jitter (ROADMAP A14c)
+    pseudo: bool = False  # COCO pseudo-videos (ROADMAP A14c.2)
+    lsj_aug: bool = False  # large-scale jitter (ROADMAP A14c.2)
 
 
 @dataclass
@@ -477,39 +477,51 @@ SUPPORTED = (
      "A13 (open vocabulary runs a clip_* backbone; A12: the JAX package has no DAQ OV model)"),
     ("test.task", _ported_task,
      "A12: vos and mots run through the DAQ eval loop, so only with a daq_* architecture"),
-    ("datasets.dataset_type_test", _eval_dataset_types, "A14 (image_*: the pseudo-video mappers)"),
+    ("datasets.dataset_type_test", _eval_dataset_types, "A14c.2 (image_*: the pseudo-video mappers)"),
     ("test.refiner_shard_devices", (0, 1), "A15 (the object-sharded refiner pass)"),
     ("test.eval_devices", (1,), "A15 (video-parallel eval)"),
 )
 
-def _freezes_segmenter(freeze, cfg) -> bool:
-    """DVIS++ online trains the tracker on a segmenter run without gradients;
-    with the segmenter not frozen the JAX package would still decay its
-    weights."""
-    return "segmenter" in freeze
+def _trains_segmenter_backbone(name, cfg) -> bool:
+    """A segmenter trained with gradients needs the backward of every kernel
+    its backbone runs: B1's exists (the ResNets run no other kernel); Swin's
+    B2 and the ViT's B3 are forward only. A frozen segmenter runs without
+    gradients (DVIS++ online and offline)."""
+    frozen = cfg.model.meta_architecture in ("dvis_online", "dvis_offline") and (
+        "segmenter" in cfg.model.freeze)
+    return frozen or name in ("resnet50", "resnet101")
+
+
+def _ctvis_weight(default: float):
+    """Only CTVIS reads ``reid_weight`` / ``aux_reid_weight``; DVIS++ online
+    and offline weigh their ReID losses 2 and 3 in the code, so another value
+    there would be dropped silently (in the JAX package too)."""
+    return lambda w, cfg: cfg.model.meta_architecture == "ctvis" or w == default
 
 
 # What training honours, in the form of :data:`SUPPORTED` (the eval rows hold
-# too). DVIS++ online on video instance sets is the one family ported.
+# too): DVIS++ online and offline, MinVIS and CTVIS on video instance sets.
 TRAINABLE = (
-    ("model.meta_architecture", ("dvis_online",), "A14c (the other families' training)"),
-    ("model.freeze", _freezes_segmenter, "A14c (training the segmenter: B1's backward)"),
+    ("model.meta_architecture", ("dvis_online", "dvis_offline", "minvis", "ctvis"),
+     "A14c.2-A14c.5 (Mask2Former, Video Mask2Former, DVIS-DAQ and open-vocabulary training)"),
+    ("model.backbone.name", _trains_segmenter_backbone,
+     "A14c.1 (a Swin or ViT segmenter trained: B2's and B3's plain op under gradients)"),
     ("model.param_dtype", ("float32",), "A14b (fp32 parameters and optimizer state)"),
     ("model.tracker.noise_mode", ("none", "rs", "wa", "cc", "hard"), "A14b (the noiser's modes)"),
     ("model.criterion.matcher_solver", ("jv", "auction"), "A14b (the matchers' solvers)"),
     ("datasets.dataset_type", lambda types, cfg: all(t == "video_instance" for t in types),
-     "A14c (the panoptic, semantic and pseudo-video training mappers)"),
-    ("input.pseudo", (False,), "A14c (COCO pseudo-videos)"),
-    ("input.lsj_aug", (False,), "A14c (large-scale jitter)"),
-    ("input.augmentations", ((),), "A14c (the colour augmentations)"),
+     "A14c.2, A14c.3 (the pseudo-video, panoptic and semantic training mappers)"),
+    ("input.pseudo", (False,), "A14c.2 (COCO pseudo-videos)"),
+    ("input.lsj_aug", (False,), "A14c.2 (large-scale jitter)"),
+    ("input.augmentations", ((),), "A14c.2 (the colour augmentations)"),
     ("parallel.model_parallel_size", (1,), "A15 (training on more than one device)"),
     # read by nothing, in the JAX package either: a value but the default
     # would be dropped silently
     ("model.criterion.deep_supervision", (True,), "A14b (every layer is supervised)"),
-    ("model.criterion.reid_weight", (2.0,), "A14c (CTVIS's weight; DVIS++ online's is 2)"),
-    ("model.criterion.aux_reid_weight", (3.0,), "A14c (CTVIS's weight; DVIS++ online's is 3)"),
+    ("model.criterion.reid_weight", _ctvis_weight(2.0), "A14c (read by CTVIS alone; DVIS++'s is 2)"),
+    ("model.criterion.aux_reid_weight", _ctvis_weight(3.0), "A14c (read by CTVIS alone; DVIS++'s is 3)"),
     ("datasets.dataset_need_map", lambda need, cfg: not any(need),
-     "A14c (the category maps of mixed training sets)"),
+     "A14c.2 (the category maps of mixed training sets)"),
     ("input.sampling_interval", (1,), "A14b (clips are sampled by sampling_frame_range)"),
     ("input.image_format", ("RGB",), "A14b (frames are read as RGB)"),
     ("solver.amp", (True,), "A14b (the compute dtype is model.compute_dtype)"),
@@ -592,9 +604,9 @@ def dvis_online_r50_ytvis19() -> Config:
     return cfg
 
 
-# DVIS++ online at small widths, fp32: the port's training tests and
-# ``chip_smoke.py``'s small training phases train at these, as overrides of
-# the ``dvis_online`` YAML or preset.
+# The trainable architectures at small widths, fp32: the port's training
+# tests and ``chip_smoke.py``'s small training phases train at these, as
+# overrides of a YAML or of :func:`tiny`'s preset.
 TINY_TRAIN = (
     "model.compute_dtype=float32",
     "model.pixel_decoder.conv_dim=32", "model.pixel_decoder.mask_dim=32",
@@ -605,14 +617,9 @@ TINY_TRAIN = (
     "model.transformer_decoder.dim_feedforward=64", "model.transformer_decoder.dec_layers=2",
     "model.transformer_decoder.reid_hidden_dim=32",
     "model.tracker.num_layers=2", "model.tracker.feedforward_dim=64", "model.tracker.num_heads=4",
+    "model.refiner.num_layers=2", "model.refiner.feedforward_dim=64", "model.refiner.num_heads=4",
     "model.criterion.train_num_points=256", "model.criterion.max_num_instances=4",
 )
-
-
-def dvis_online_tiny(*overrides: str) -> Config:
-    """:func:`dvis_online_r50_ytvis19` at the widths of :data:`TINY_TRAIN`,
-    then ``overrides``."""
-    return apply_overrides(dvis_online_r50_ytvis19(), (*TINY_TRAIN, *overrides))
 
 
 def dvis_online_r50_vipseg() -> Config:
@@ -638,6 +645,28 @@ def dvis_online_r50_vspw() -> Config:
     cfg.datasets.dataset_type = cfg.datasets.dataset_type_test = ("video_semantic",)
     cfg.test.task = "vss"
     return cfg
+
+
+def dvis_offline_r50_ytvis19() -> Config:
+    """DVIS++ offline, ResNet-50, YouTube-VIS 2019 (stage 3 of the recipe):
+    the online R50 stack, frozen, plus the 6-layer temporal refiner, trained
+    on clips of 15 frames."""
+    cfg = dvis_online_r50_ytvis19()
+    cfg.model.meta_architecture = "dvis_offline"
+    _offline_training(cfg)
+    return cfg
+
+
+# each trainable architecture's R50 YouTube-VIS 2019 preset: the three
+# stages of the DVIS++ recipe (stage 1 MinVIS or CTVIS, 2 online, 3 offline)
+TRAIN_PRESETS = {"minvis": minvis_r50_ytvis19, "ctvis": ctvis_r50_ytvis19,
+                 "dvis_online": dvis_online_r50_ytvis19, "dvis_offline": dvis_offline_r50_ytvis19}
+
+
+def tiny(arch: str, *overrides: str) -> Config:
+    """``arch``'s preset of :data:`TRAIN_PRESETS` at the widths of
+    :data:`TINY_TRAIN`, then ``overrides``."""
+    return apply_overrides(TRAIN_PRESETS[arch](), (*TINY_TRAIN, *overrides))
 
 
 def dvis_offline_swinl_ytvis19() -> Config:

@@ -4,8 +4,9 @@ Counterpart: ``dvis_plus_tpu/core/checkpoint.py`` (``save`` / ``restore``
 :26-40 over orbax, ``load_weights`` :42-100, ``load_torch_state_dict``
 :174-195). The port keeps no orbax: a training checkpoint is one torch file
 (:func:`save`) holding the model's state dict under the reference
-checkpoints' keys, the optimizer's state, the step and the random
-generator's state; :func:`latest` picks the newest of a directory, as
+checkpoints' keys, the optimizer's state, the step, the random generator's
+state and the offline stage's class memory (``TrainState.memory``, as the
+JAX train state carries it); :func:`latest` picks the newest of a directory, as
 ``train_net_video.py::do_train`` does for ``--resume``.
 
 :func:`load_weights` is the non-strict load of ``weights=`` that both CLIs
@@ -64,13 +65,15 @@ def load_weights(model: torch.nn.Module, path: str) -> Dict[str, list]:
 
 
 def save(path: str, model: torch.nn.Module, optimizer_state: dict, step: int,
-         generator_state: Optional[torch.Tensor] = None) -> None:
+         generator_state: Optional[torch.Tensor] = None, memory=None) -> None:
     """One training checkpoint, written under a private name and renamed into
-    place, so a reader never sees half a file."""
+    place, so a reader never sees half a file. ``memory``: a
+    ``losses.reid.ClassMemory`` or None."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save({"model": model.state_dict(), "optimizer": optimizer_state, "step": int(step),
-                "generator": generator_state}, tmp)
+                "generator": generator_state,
+                "memory": None if memory is None else memory._asdict()}, tmp)
     os.replace(tmp, path)
 
 

@@ -59,7 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MSDEFORM_MAX_LEVELS 4
+#include "msdeform_levels.cuh"
+
 #define MSDEFORM_THREADS 256
 #define MSDEFORM_SAMPLE_BYTES 24  // float4 corner weights + attention weight + int offset
 #define MSDEFORM_MAX_SMEM (48 * 1024)  // what a block gets without asking for more
@@ -85,16 +86,6 @@ __device__ __forceinline__ uint4 ldg16_if(const __nv_bfloat16* p, bool on) {
       : "l"(p), "r"((int)on));
   return v;
 }
-
-struct LevelTable {
-  int H[MSDEFORM_MAX_LEVELS];
-  int W[MSDEFORM_MAX_LEVELS];
-  int start[MSDEFORM_MAX_LEVELS];
-  // sy[lq][lv] = Hv / Hq and sx[lq][lv] = Wv / Wq, rounded to fp32 the way
-  // the reference does (python float -> fp32)
-  float sy[MSDEFORM_MAX_LEVELS][MSDEFORM_MAX_LEVELS];
-  float sx[MSDEFORM_MAX_LEVELS][MSDEFORM_MAX_LEVELS];
-};
 
 // VEC channels of one head: how they are read, accumulated and stored.
 template <typename T, int VEC>
@@ -220,10 +211,7 @@ msdeform_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       // level g. Clamp, then round-trip through normalized coordinates
       // exactly as _local_exact_oracle hands the clamped locations to the
       // exact op
-      int g = 0;
-#pragma unroll
-      for (int k = 1; k < MSDEFORM_MAX_LEVELS; ++k)
-        if (k < L && q >= lv.start[k]) g = k;
+      const int g = msdeform_query_level(lv, L, q);
       const int cell = q - lv.start[g];
       const int ci = cell / lv.W[g];
       const float qi = (float)ci;
@@ -345,24 +333,8 @@ int msdeform_fwd(const void* value, int value_is_bf16, const void* loc, const vo
   if (vector && ((D * itemsize) % 16 != 0 || (uintptr_t)value % 16 != 0 || (uintptr_t)out % 16 != 0))
     return (int)cudaErrorMisalignedAddress;
   LevelTable lv;
-  int start = 0, max_w = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.H[l] = shapes[2 * l];
-    lv.W[l] = shapes[2 * l + 1];
-    if (lv.H[l] < 1 || lv.W[l] < 1) return (int)cudaErrorInvalidValue;
-    lv.start[l] = start;
-    start += lv.H[l] * lv.W[l];
-    max_w = lv.W[l] > max_w ? lv.W[l] : max_w;
-  }
-  // element offsets are ints, and a corner lies up to one row and one pixel
-  // past the corner (y0, x0) of a pixel of the map
-  if (start != Len || ((long)Len + max_w + 2) * M * D > 2147483647L)
-    return (int)cudaErrorInvalidValue;
-  for (int a = 0; a < L; ++a)
-    for (int l = 0; l < L; ++l) {
-      lv.sy[a][l] = (float)((double)lv.H[l] / (double)lv.H[a]);
-      lv.sx[a][l] = (float)((double)lv.W[l] / (double)lv.W[a]);
-    }
+  const cudaError_t bad = msdeform_level_table(shapes, L, Len, M, D, &lv);
+  if (bad != cudaSuccess) return (int)bad;
   cudaStream_t st = (cudaStream_t)stream;
   const float* locf = (const float*)loc;
   cudaError_t rc;

@@ -6,7 +6,7 @@ Counterpart: the training half of ``dvis_plus_tpu/data/augmentation.py``
 ``sample_clip_transforms`` :308), the reference's clip transforms: one set of
 random parameters is drawn a clip (from the mapper's ``random.Random``) and
 applied to every frame and its masks. The rotation, LSJ and colour
-augmentations of the pseudo-video recipe are ROADMAP A14c. cv2 is imported
+augmentations of the pseudo-video recipe are ROADMAP A14c.2. cv2 is imported
 inside the calls.
 """
 from __future__ import annotations

@@ -251,11 +251,12 @@ EVAL_DATASET_TYPES = ("video_instance", "video_panoptic", "video_semantic", "vid
 def mapper_for_type(cfg, dataset_type: str, is_train: bool = False):
     """The mapper of a ``datasets.dataset_type_test`` entry, or in training
     of a ``datasets.dataset_type`` entry (``video_instance`` only: the
-    others are ROADMAP A14c)."""
+    panoptic and semantic training mappers are ROADMAP A14c.3, the image ones
+    A14c.2)."""
     if is_train:
         if dataset_type != "video_instance":
             raise NotImplementedError(
-                f"training on dataset type {dataset_type!r} is not ported (ROADMAP A14c)")
+                f"training on dataset type {dataset_type!r} is not ported (ROADMAP A14c.2, A14c.3)")
         return YTVISDatasetMapper(cfg, is_train=True)
     if dataset_type == "video_sot":
         return SOTDatasetMapper(cfg)
@@ -263,5 +264,5 @@ def mapper_for_type(cfg, dataset_type: str, is_train: bool = False):
         return YTVISDatasetMapper(cfg)
     if dataset_type.startswith("image_"):
         raise NotImplementedError(
-            f"dataset type {dataset_type!r} is not ported (ROADMAP A14: the pseudo-video mappers)")
+            f"dataset type {dataset_type!r} is not ported (ROADMAP A14c.2: the pseudo-video mappers)")
     raise NotImplementedError(f"dataset_type {dataset_type}")

@@ -1,14 +1,23 @@
-"""The training step of DVIS++ online.
+"""The training step of DVIS++ online and offline, MinVIS and CTVIS.
 
 Counterpart: ``dvis_plus_tpu/engine/trainer.py`` (``TrainState`` :37,
 ``Batch`` :44, ``criterion_config`` :49, ``build_loss_fn`` :81 with its
-``dvis_online`` branch :215-233, ``build_train_step`` :320), the reference
-``DefaultTrainer`` step:
+``minvis`` / ``ctvis`` :153-199, ``dvis_online`` :215-233 and
+``dvis_offline`` :235-254 branches, ``build_train_step`` :320 and its
+``init_state`` :349-360), the reference ``DefaultTrainer`` step:
 
-- the loss: the frozen segmenter without gradients, the tracker with its
-  noise, then ``dvis_online_train_loss``, the matcher guided by the
-  segmenter for the first ``solver.max_iter // 2`` steps; the total is the
-  sum of the losses in the order of their sorted keys, as
+- ``dvis_online``: the frozen segmenter without gradients, the tracker with
+  its noise, then ``dvis_online_train_loss``, the matcher guided by the
+  segmenter for the first ``solver.max_iter // 2`` steps;
+- ``minvis`` / ``ctvis``: the bare segmenter on the clips' frames folded
+  into the batch, trained whole (the backbone at ``backbone_multiplier``),
+  ``minvis_train_loss``; CTVIS adds its contrastive tracking loss
+  (``losses.ctvis``) over a per-frame matching, weighted
+  ``model.criterion.reid_weight`` / ``aux_reid_weight``;
+- ``dvis_offline``: the frozen online stack without gradients, the refiner,
+  then ``dvis_offline_train_loss`` with the class memory, which the train
+  state carries from step to step (:class:`TrainState` ``memory``);
+- the total is the sum of the losses in the order of their sorted keys, as
   ``sum(jax.tree.leaves(losses))``;
 - one step: backward, the optimizer's clip and update (:mod:`engine.optimizer`);
 - the draws of step s come from a generator seeded by (``seed``, s)
@@ -19,21 +28,23 @@ Counterpart: ``dvis_plus_tpu/engine/trainer.py`` (``TrainState`` :37,
   modules casting their fp32 parameters at the call, as the JAX modules
   compute; parameters and the optimizer's moments stay fp32.
 
-The other families' losses (MinVIS, CTVIS, the offline refiner, DVIS-DAQ,
-Mask2Former, open vocabulary) are ROADMAP A14c: :func:`build_loss_fn`
-raises for them.
+The other families' losses (Mask2Former, DVIS-DAQ, open vocabulary) are
+ROADMAP A14c.2-A14c.5: :func:`build_loss_fn` raises for them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from dvis_plus_tpu_torch.engine.optimizer import AdamW, build_optimizer
 from dvis_plus_tpu_torch.losses.criterion import CriterionConfig
+from dvis_plus_tpu_torch.losses.reid import ClassMemory
 from dvis_plus_tpu_torch.losses.targets import VideoTargets
 from dvis_plus_tpu_torch.utils.draws import Draws, step_generator
+
+MEMORY_LEN = 20  # embeddings a class in the offline stage's class memory
 
 
 class Batch(NamedTuple):
@@ -46,6 +57,7 @@ class TrainState:
     step: int
     model: torch.nn.Module
     optimizer: AdamW
+    memory: Optional[ClassMemory] = None  # the offline stage's class memory
 
 
 def criterion_config(cfg) -> CriterionConfig:
@@ -58,23 +70,77 @@ def criterion_config(cfg) -> CriterionConfig:
 
 
 def build_loss_fn(cfg, model) -> Callable:
-    """loss_fn(batch, draws, step) -> (total, losses)."""
+    """loss_fn(batch, draws, step, memory) -> (total, losses, memory after
+    the step)."""
     arch = cfg.model.meta_architecture
-    if arch != "dvis_online":
-        raise NotImplementedError(f"training {arch!r} is not ported (ROADMAP A14c)")
-    from dvis_plus_tpu_torch.models.meta.dvis_online import dvis_online_train_loss
-
     ccfg = criterion_config(cfg)
     half_iter = cfg.solver.max_iter // 2
 
-    def loss_fn(batch: Batch, draws, step: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        seg_out, track_out = model.train_forward(batch.images, draws)
-        losses = dvis_online_train_loss(seg_out, track_out, batch.targets, ccfg,
-                                        use_matcher_guidance=step < half_iter, draws=draws)
-        total = sum(losses[k] for k in sorted(losses))
-        return total, losses
+    def total_of(losses):
+        return sum(losses[k] for k in sorted(losses))
 
-    return loss_fn
+    if arch in ("minvis", "ctvis"):
+        from dvis_plus_tpu_torch.losses import criterion
+        from dvis_plus_tpu_torch.losses.ctvis import ctvis_reid_loss
+        from dvis_plus_tpu_torch.models.meta.minvis import frame_fold_targets, minvis_train_loss
+
+        c = cfg.model.criterion
+
+        def loss_fn(batch: Batch, draws, step: int, memory):
+            B, T = batch.images.shape[:2]
+            out = model(batch.images.flatten(0, 1), aux=True)
+            losses = minvis_train_loss(out, batch.targets, ccfg, draws)
+            if arch == "ctvis":
+                # a clip-level matching of every frame feeds the contrastive
+                # tracking loss (the reference CTMinVIS)
+                ft = frame_fold_targets(batch.targets)
+                frames = criterion.LayerOutputs(out["pred_logits"], out["pred_masks"][:, :, None])
+                coords = draws.uniform(("ctvis", "match"), (B * T, ccfg.num_points, 2))
+                q4g = criterion.match(frames, ft, ccfg, coords.to(batch.images.device))
+                reid = out.get("pred_reid_embed", out["pred_embds"])
+                cl = ctvis_reid_loss(reid.reshape(B, T, -1, reid.shape[-1]),
+                                     q4g.reshape(B, T, -1), batch.targets.frame_valid, draws)
+                losses["loss_reid"] = c.reid_weight * cl["loss_reid"]
+                losses["loss_aux_reid"] = c.aux_reid_weight * cl["loss_aux_reid"]
+            return total_of(losses), losses, memory
+
+        return loss_fn
+
+    if arch == "dvis_online":
+        from dvis_plus_tpu_torch.models.meta.dvis_online import dvis_online_train_loss
+
+        def loss_fn(batch: Batch, draws, step: int, memory):
+            seg_out, track_out = model.train_forward(batch.images, draws)
+            losses = dvis_online_train_loss(seg_out, track_out, batch.targets, ccfg,
+                                            use_matcher_guidance=step < half_iter, draws=draws)
+            return total_of(losses), losses, memory
+
+        return loss_fn
+
+    if arch == "dvis_offline":
+        from dvis_plus_tpu_torch.models.meta.dvis_offline import dvis_offline_train_loss
+
+        def loss_fn(batch: Batch, draws, step: int, memory):
+            track_out, refine_out = model.train_forward(batch.images)
+            losses, memory = dvis_offline_train_loss(
+                track_out, refine_out, batch.targets, ccfg, use_matcher_guidance=step < half_iter,
+                draws=draws, memory=memory)
+            return total_of(losses), losses, memory
+
+        return loss_fn
+
+    raise NotImplementedError(f"training {arch!r} is not ported (ROADMAP A14c.2-A14c.5)")
+
+
+def init_memory(cfg, device) -> Optional[ClassMemory]:
+    """The offline stage's empty class memory (``init_state`` :351-355):
+    ``MEMORY_LEN`` embeddings a class, as wide as the refiner's queries;
+    None for the other families."""
+    if cfg.model.meta_architecture != "dvis_offline":
+        return None
+    td = cfg.model.transformer_decoder
+    return ClassMemory.create(cfg.model.num_classes, MEMORY_LEN,
+                              td.hidden_dim * (2 if td.reid_branch else 1), device)
 
 
 def build_train_step(cfg, model):
@@ -90,18 +156,19 @@ def build_train_step(cfg, model):
     def train_step(state: TrainState, batch: Batch, draws=None):
         if draws is None:
             draws = Draws(step_generator(cfg.seed, state.step, device))
-        total, losses = loss_fn(batch, draws, state.step)
+        total, losses, memory = loss_fn(batch, draws, state.step, state.memory)
         state.optimizer.zero_grad()
         total.backward()
         grad_norm = state.optimizer.step()
         state.step += 1
+        state.memory = memory
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
         metrics["grad_norm"] = grad_norm
         return state, metrics
 
     def init_state() -> TrainState:
-        return TrainState(step=0, model=model, optimizer=optimizer)
+        return TrainState(step=0, model=model, optimizer=optimizer, memory=init_memory(cfg, device))
 
     return train_step, init_state
 

@@ -1,10 +1,14 @@
-"""MinVIS inference (query alignment across frames by embedding matching)
-and the video post-processing shared by the VIS heads: flat top-K and
-two-stage mask upsampling.
+"""MinVIS training and inference (query alignment across frames by
+embedding matching), and the video post-processing shared by the VIS heads:
+flat top-K and two-stage mask upsampling.
 
-Counterpart: ``dvis_plus_tpu/models/meta/minvis.py`` (``match_from_embds``
-:71, ``minvis_alignment`` :94, ``minvis_post_processing`` :132,
-``topk_select`` :157, ``upsample_masks`` :178, ``inference_video`` :199).
+Counterpart: ``dvis_plus_tpu/models/meta/minvis.py`` (``frame_fold_targets``
+:31, ``minvis_train_loss`` :45, ``match_from_embds`` :71,
+``minvis_alignment`` :94, ``minvis_post_processing`` :132, ``topk_select``
+:157, ``upsample_masks`` :178, ``inference_video`` :199). MinVIS and CTVIS
+train the bare segmenter on frames folded into the batch: every frame is a
+clip of one frame for the matcher and the losses, and every instance of the
+clip (present in the frame or not) is a candidate there.
 MinVIS and CTVIS run the bare segmenter per frame; each frame's queries are
 then matched to the previous frame's aligned queries on the cosine cost of
 their embeddings, and the class logits are averaged over frames. The JAX
@@ -14,13 +18,41 @@ the host (``jv``, scipy).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from dvis_plus_tpu_torch.losses.criterion import CriterionConfig, LayerOutputs, video_criterion
+from dvis_plus_tpu_torch.losses.targets import VideoTargets
 from dvis_plus_tpu_torch.ops.assignment import auction_lap
 from dvis_plus_tpu_torch.ops.hungarian import hungarian
+
+
+def frame_fold_targets(targets: VideoTargets) -> VideoTargets:
+    """(B, N, T, ...) clip targets -> (B*T, N, 1, ...) per-frame targets;
+    labels and ``valid`` stay clip-level (an absent instance matches with an
+    empty mask)."""
+    B, N, T = targets.frame_valid.shape
+    masks = targets.masks.transpose(1, 2).reshape(B * T, N, 1, *targets.masks.shape[-2:])
+    return VideoTargets(labels=targets.labels.repeat_interleave(T, dim=0), masks=masks,
+                        valid=targets.valid.repeat_interleave(T, dim=0),
+                        frame_valid=targets.frame_valid.transpose(1, 2).reshape(B * T, N, 1))
+
+
+def minvis_train_loss(decoder_out: Dict[str, Any], targets: VideoTargets, ccfg: CriterionConfig,
+                      draws) -> Dict[str, torch.Tensor]:
+    """The per-frame losses of the segmenter's outputs (``decoder_out``, its
+    tensors leading with B*T, with the auxiliary predictions): one
+    clip-level matching a frame and the criterion over every layer,
+    ``num_masks`` the instances a frame summed over the frames."""
+    ft = frame_fold_targets(targets)
+    num_masks = ft.num_instances().sum().float().clamp(min=1.0)
+    outputs = LayerOutputs(decoder_out["pred_logits"], decoder_out["pred_masks"][:, :, None])
+    aux = [LayerOutputs(lg, mk[:, :, None])
+           for lg, mk in zip(decoder_out["aux_pred_logits"], decoder_out["aux_pred_masks"])]
+    losses, _ = video_criterion(outputs, aux, ft, ccfg, draws, num_masks=num_masks)
+    return losses
 
 
 def match_from_embds(tgt_embds: torch.Tensor, cur_embds: torch.Tensor,

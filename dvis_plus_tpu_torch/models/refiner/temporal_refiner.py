@@ -1,4 +1,4 @@
-"""Temporal refiner (DVIS++ offline stage 3), eval path.
+"""Temporal refiner (DVIS++ offline stage 3).
 
 Counterpart: ``dvis_plus_tpu/models/refiner/temporal_refiner.py``
 (``TemporalConvBlock`` :47, ``TemporalRefiner._body`` :138, ``_pred_class``
@@ -38,7 +38,7 @@ layer computes in its input's dtype.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -114,9 +114,9 @@ class TemporalRefiner(nn.Module):
 
     def _body(self, instance_embeds: torch.Tensor, frame_embeds: torch.Tensor,
               time_mask: Optional[torch.Tensor] = None,
-              instance_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              instance_mask: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """instance_embeds (B, T, Q, C), frame_embeds (B, T, fQ, C) ->
-        the last layer's output (B, T, Q, C)."""
+        every layer's output (B, T, Q, C), the last one last."""
         B, T, Q, C = instance_embeds.shape
         obj_bias = None
         if instance_mask is not None:
@@ -130,6 +130,7 @@ class TemporalRefiner(nn.Module):
             tmask_bias = tmask_bias.masked_fill(~key_ok_t, _NEG_INF)[:, None, None, :]
         mem = frame_embeds.reshape(B * T, frame_embeds.shape[2], C)
         output = instance_embeds
+        outputs = []
         for i in range(self.num_layers):
             x = output.transpose(1, 2).reshape(B * Q, T, C)
             x = self.transformer_time_self_attention_layers[i](x, mask=tmask_bias)
@@ -139,7 +140,8 @@ class TemporalRefiner(nn.Module):
             x = self.transformer_cross_attention_layers[i](x, mem, 0.0, 0.0)
             x = self.transformer_ffn_layers[i](x)
             output = x.reshape(B, T, Q, C)
-        return output
+            outputs.append(output)
+        return outputs
 
     def _pred_class(self, x: torch.Tensor, time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Activation-weighted temporal pooling. x normalized (B, T, Q, C) ->
@@ -151,23 +153,44 @@ class TemporalRefiner(nn.Module):
 
     def forward(self, instance_embeds: torch.Tensor, frame_embeds: torch.Tensor,
                 mask_features: torch.Tensor, text_classifier: Optional[torch.Tensor] = None,
-                num_templates: Optional[Sequence[int]] = None) -> Dict[str, torch.Tensor]:
-        """Whole-video forward (eval): instance_embeds (B, T, Q, C),
-        frame_embeds (B, T, fQ, C), mask_features (B, T, mask_dim, H, W);
-        with ``ov`` the text classifier (R, Cc) and ``num_templates``."""
-        x = self.decoder_norm(self._body(instance_embeds, frame_embeds))
+                num_templates: Optional[Sequence[int]] = None,
+                training: bool = False) -> Dict[str, torch.Tensor]:
+        """Whole-video forward: instance_embeds (B, T, Q, C), frame_embeds
+        (B, T, fQ, C), mask_features (B, T, mask_dim, H, W); with ``ov`` the
+        text classifier (R, Cc) and ``num_templates``. ``training``: also
+        every earlier layer's logits and masks, ``aux_pred_logits`` /
+        ``aux_pred_masks``, for the deep supervision (the JAX module emits
+        every layer then, :227-237; not with ``ov``)."""
+        layers = self._body(instance_embeds, frame_embeds)
+        if training:
+            if self.ov:
+                raise NotImplementedError("training the open-vocabulary refiner is ROADMAP A14c.5")
+            aux = [self._layer_predictions(self.decoder_norm(y), mask_features)
+                   for y in layers[:-1]]
+            out = self._layer_predictions(self.decoder_norm(layers[-1]), mask_features)
+            out["aux_pred_logits"] = [a["pred_logits"] for a in aux]
+            out["aux_pred_masks"] = [a["pred_masks"] for a in aux]
+            return out
+        x = self.decoder_norm(layers[-1])
+        if not self.ov:
+            return self._layer_predictions(x, mask_features)
         fused = self._pred_class(x)
         masks = self.mask_window(self.mask_embed(x), mask_features)  # (B, Q, T, H, W)
-        if self.ov:
-            # the video's binary masks pool the mask features (fp32 sums)
-            m = (masks > 0.0).float()
-            pooled = torch.einsum("bqthw,btchw->bqc", m, mask_features.float())
-            pooled = pooled / (m.sum(dim=(-1, -2, -3))[..., None] + 1e-8)
-            logits = self.ov_classify(fused, pooled.to(x.dtype), text_classifier, num_templates)
-            logits = logits[:, None].expand(*x.shape[:3], logits.shape[-1])
-        else:
-            logits = self.class_embed(fused.expand(x.shape))  # (B, T, Q, K+1)
+        # the video's binary masks pool the mask features (fp32 sums)
+        m = (masks > 0.0).float()
+        pooled = torch.einsum("bqthw,btchw->bqc", m, mask_features.float())
+        pooled = pooled / (m.sum(dim=(-1, -2, -3))[..., None] + 1e-8)
+        logits = self.ov_classify(fused, pooled.to(x.dtype), text_classifier, num_templates)
+        logits = logits[:, None].expand(*x.shape[:3], logits.shape[-1])
         return {"pred_logits": logits, "pred_masks": masks, "pred_embds": x}
+
+    def _layer_predictions(self, x: torch.Tensor, mask_features: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One layer's normed output x (B, T, Q, C) -> its time-pooled class
+        logits, duplicated over the frames (B, T, Q, K+1), and its masks
+        (B, Q, T, H, W)."""
+        logits = self.class_embed(self._pred_class(x).expand(x.shape))
+        return {"pred_logits": logits, "pred_masks": self.mask_window(self.mask_embed(x), mask_features),
+                "pred_embds": x}
 
     def embed_pass(self, instance_embeds: torch.Tensor, frame_embeds: torch.Tensor,
                    time_mask: Optional[torch.Tensor] = None,
@@ -176,7 +199,7 @@ class TemporalRefiner(nn.Module):
         instead the time-pooled query ``fused`` (B, 1, Q, C) for
         :meth:`ov_classify`) and the mask-head embeddings (B, T, Q, mask_dim)
         for :meth:`mask_window`."""
-        x = self.decoder_norm(self._body(instance_embeds, frame_embeds, time_mask, instance_mask))
+        x = self.decoder_norm(self._body(instance_embeds, frame_embeds, time_mask, instance_mask)[-1])
         fused = self._pred_class(x, time_mask)
         out = {"mask_embed": self.mask_embed(x), "pred_embds": x}
         if self.ov:

@@ -178,11 +178,14 @@ class MaskedTransformerDecoder(nn.Module):
         return self.class_embed(x)
 
     def forward(self, multi_scale: Sequence[torch.Tensor], mask_features: torch.Tensor,
-                **classifier) -> Dict[str, torch.Tensor]:
+                aux: bool = False, **classifier) -> Dict[str, torch.Tensor]:
         """multi_scale: 3 x (BT, C, H_l, W_l), strides 32, 16, 8;
         mask_features: (BT, mask_dim, H4, W4); ``classifier``: keyword
         arguments of the class head (the open-vocabulary one's text
-        classifier)."""
+        classifier). ``aux``: also every earlier prediction's logits and
+        masks, ``aux_pred_logits`` / ``aux_pred_masks`` (the JAX module's
+        lists: the queries' initial prediction, then each layer's but the
+        last), which the training losses supervise."""
         BT = multi_scale[0].shape[0]
         C = self.hidden_dim
         dtype = multi_scale[0].dtype
@@ -200,7 +203,11 @@ class MaskedTransformerDecoder(nn.Module):
         output = self.query_feat.weight[None].expand(BT, -1, -1).to(dtype)
         qpos = self.query_embed.weight[None].expand(BT, -1, -1).to(dtype)
         x, masks, attn_mask = self._prediction_heads(output, mask_features, sizes[0])
+        aux_logits, aux_masks = [], []
         for i in range(self.num_layers):
+            if aux:
+                aux_logits.append(self._class_head(x, masks, mask_features, **classifier))
+                aux_masks.append(masks)
             li = i % self.num_levels
             output = self.transformer_cross_attention_layers[i](
                 output, srcs[li], poss[li], qpos, attn_mask
@@ -220,6 +227,8 @@ class MaskedTransformerDecoder(nn.Module):
             "pred_embds": embds,
             "mask_features": mask_features,
         }
+        if aux:
+            out["aux_pred_logits"], out["aux_pred_masks"] = aux_logits, aux_masks
         if self.reid_embed is not None:
             reid = self.reid_embed(embds)
             out["pred_reid_embed"] = reid

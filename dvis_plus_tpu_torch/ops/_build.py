@@ -36,7 +36,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def refuse_grad(kernel: str, lifted_by: str, *tensors) -> None:
-    """The kernels are forward only: a launch returns a tensor with no
+    """Kernels B2 and B3 are forward only: a launch returns a tensor with no
     ``grad_fn``. Raise ``NotImplementedError`` when gradients are enabled and
     any tensor input requires one, naming what lifts the limit, so that no
     gradient is cut silently."""
@@ -153,6 +153,13 @@ def library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32, i32,  # B, Len, Lq, M, D, L, P
         vp, i32, i32,  # shapes (host int32[2L]), queries a block, vector
         i32, vp,  # radius, stream
+    ]
+    lib.msdeform_bwd.restype = i32
+    lib.msdeform_bwd.argtypes = [
+        vp, i32, vp, vp, i32,  # value, value_is_bf16, loc, attn, attn_is_bf16
+        vp, vp, vp, vp,  # grad_out, grad_value (fp32), grad_loc, grad_attn
+        i32, i32, i32, i32, i32, i32, i32,  # B, Len, Lq, M, D, L, P
+        vp, i32, vp,  # shapes (host int32[2L]), radius, stream
     ]
     lib.msdeform_error_string.restype = ctypes.c_char_p
     lib.msdeform_error_string.argtypes = [i32]

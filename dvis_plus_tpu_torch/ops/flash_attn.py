@@ -106,7 +106,7 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     from dvis_plus_tpu_torch.ops import _build
 
-    _build.refuse_grad("flash_attn_fwd", "ROADMAP A14c: the dense op by an explicit switch, "
+    _build.refuse_grad("flash_attn_fwd", "ROADMAP A14c.1: the dense op by an explicit switch, "
                        "as the JAX package trains with vit_flash_attention off", q, k, v)
     _check_kernel_layout(q, k, v)
 

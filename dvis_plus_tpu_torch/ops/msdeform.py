@@ -7,13 +7,15 @@ and ``dvis_plus_tpu/ops/msdeform_pallas.py::ms_deform_attn_local`` /
 ``_window_kernel``). :func:`ms_deform_attn` takes ``radius=None`` for the
 exact form and an integer radius for the clamped one.
 
-On a CPU tensor the wrapper computes the twin :func:`ms_deform_attn_torch`.
-On a CUDA tensor it launches the hand-written kernel
-(``csrc/msdeform_fwd.cu``) or raises; it never falls back. Forward only: on
-a CUDA tensor it raises ``NotImplementedError`` when gradients are enabled
-and an input requires one (its backward kernel is ROADMAP A14c), so the
-model calls it under ``torch.no_grad()``/``torch.inference_mode()``; DVIS++
-online training runs the frozen segmenter so.
+On a CPU tensor the wrapper computes the twin :func:`ms_deform_attn_torch`,
+whose gradient is autograd's. On a CUDA tensor it launches the hand-written
+kernel (``csrc/msdeform_fwd.cu``) or raises; it never falls back. When
+gradients are enabled and an input requires one, the call is a
+``torch.autograd.Function`` (:class:`_MSDeformAttn`) that saves its inputs
+and whose backward launches the backward kernel (``csrc/msdeform_bwd.cu``):
+the gradients of the value, the locations and the weights, for both forms.
+The JAX package has no backward TPU kernel (it differentiates the plain
+forms through XLA), so that kernel is held against autograd of the twin.
 
 Shapes (the JAX package's layout):
   value:              (B, Len, M, D) float32 or bfloat16
@@ -48,15 +50,17 @@ MAX_SMEM = 48 * 1024  # MSDEFORM_MAX_SMEM: what a block gets without asking for 
 # fit an SM; with many samples a query the run is a single query.
 MAX_RUN = 2
 RUN_SMEM = 28672
+MAX_BACKWARD_D = 256  # 32 * MSDEFORM_BWD_MAX_CH in csrc/msdeform_bwd.cu
 
-# kernel launches since the last reset (chip_smoke.py reads it to show the
-# main path ran through the kernel)
+# launches of the forward and of the backward kernel since the last reset
+# (chip_smoke.py reads them to show the main path ran through the kernels)
 launches = 0
+backward_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, backward_launches
+    launches = backward_launches = 0
 
 
 def clamp_locations(
@@ -86,7 +90,11 @@ def clamp_locations(
             ref_x = ((qj + 0.5) * (Wv / Wq))[None, :, None, None]
             y = torch.minimum(torch.maximum(y, ref_y - radius), ref_y + radius)
             x = torch.minimum(torch.maximum(x, ref_x - radius), ref_x + radius)
-            per_level.append(torch.stack([(x + 0.5) / Wv, (y + 0.5) / Hv], dim=-1))
+            # divisors on the device: PyTorch's CUDA division by a host
+            # scalar multiplies by its reciprocal, which rounds otherwise than
+            # the division the kernels, the CPU and the JAX oracle make
+            wv, hv = (loc_q.new_tensor(float(s)) for s in (Wv, Hv))
+            per_level.append(torch.stack([(x + 0.5) / wv, (y + 0.5) / hv], dim=-1))
         out.append(torch.stack(per_level, dim=3))
     if start != Lq:
         raise ValueError(f"clamped form needs Lq == Len (queries are the level grids), got {Lq} != {start}")
@@ -167,6 +175,9 @@ def _check(value, spatial_shapes, loc, attn, radius):
         raise TypeError(f"sampling_locations must be float32, got {loc.dtype}")
     if attn.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention_weights must be float32 or bfloat16, got {attn.dtype}")
+    if value.device.type == "cuda" and loc.data_ptr() % 8:
+        raise ValueError("sampling_locations must start on an 8-byte boundary (the kernels read "
+                         "(x, y) pairs)")
     for name, t in (("value", value), ("sampling_locations", loc), ("attention_weights", attn)):
         if t.device != value.device:
             raise ValueError(f"{name} is on {t.device}, value on {value.device}")
@@ -220,6 +231,54 @@ def _launch(value, spatial_shapes, loc, attn, radius, plan: KernelPlan) -> torch
     return out
 
 
+def _launch_backward(value, spatial_shapes, loc, attn, radius, grad_out):
+    """Launch the backward kernel on checked CUDA tensors: (grad_value in
+    ``value.dtype``, grad_locations fp32, grad_weights in ``attn.dtype``)."""
+    from dvis_plus_tpu_torch.ops import _build
+
+    global backward_launches
+    lib = _build.library()
+    B, Len, M, D = value.shape
+    Lq, L, P = loc.shape[1], len(spatial_shapes), loc.shape[4]
+    grad_out = grad_out.to(value.dtype).contiguous()
+    # fp32 sums (atomics), rounded once to the value's type
+    grad_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+    grad_loc = torch.empty_like(loc)
+    grad_attn = torch.empty_like(attn)
+    shapes = (ctypes.c_int * (2 * L))(*[s for hw in spatial_shapes for s in hw])
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.msdeform_bwd(
+            value.data_ptr(), int(value.dtype == torch.bfloat16), loc.data_ptr(), attn.data_ptr(),
+            int(attn.dtype == torch.bfloat16), grad_out.data_ptr(), grad_value.data_ptr(),
+            grad_loc.data_ptr(), grad_attn.data_ptr(), B, Len, Lq, M, D, L, P,
+            ctypes.cast(shapes, ctypes.c_void_p), -1 if radius is None else int(radius), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"msdeform_bwd launch failed: {lib.msdeform_error_string(rc).decode()}"
+        )
+    backward_launches += 1
+    return grad_value.to(value.dtype), grad_loc, grad_attn
+
+
+class _MSDeformAttn(torch.autograd.Function):
+    """The forward and backward kernels as one differentiable op."""
+
+    @staticmethod
+    def forward(ctx, value, loc, attn, spatial_shapes, radius, plan):
+        ctx.save_for_backward(value, loc, attn)
+        ctx.spatial_shapes, ctx.radius = spatial_shapes, radius
+        return _launch(value, spatial_shapes, loc, attn, radius, plan)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        gv, gl, ga = _launch_backward(value, ctx.spatial_shapes, loc, attn, ctx.radius, grad_out)
+        return (gv if ctx.needs_input_grad[0] else None, gl if ctx.needs_input_grad[1] else None,
+                ga if ctx.needs_input_grad[2] else None, None, None, None)
+
+
 def ms_deform_attn(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -227,8 +286,9 @@ def ms_deform_attn(
     attention_weights: torch.Tensor,
     radius: Optional[int] = None,
 ) -> torch.Tensor:
-    """Deformable attention forward: the CUDA kernel on CUDA tensors, the
-    twin on CPU tensors. Returns (B, Lq, M*D) in ``value.dtype``."""
+    """Deformable attention: the CUDA kernels on CUDA tensors (forward, and
+    backward under autograd), the twin on CPU tensors. Returns (B, Lq, M*D)
+    in ``value.dtype``."""
     spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
     _check(value, spatial_shapes, sampling_locations, attention_weights, radius)
     if value.device.type == "cpu":
@@ -237,9 +297,11 @@ def ms_deform_attn(
         )
     if value.device.type != "cuda":
         raise ValueError(f"no deformable-attention kernel for device {value.device}")
-    from dvis_plus_tpu_torch.ops._build import refuse_grad
-
-    refuse_grad("msdeform_fwd", "ROADMAP A14c: its backward kernel", value,
-                sampling_locations, attention_weights)
-    return _launch(value, spatial_shapes, sampling_locations, attention_weights, radius,
-                   kernel_plan(value, sampling_locations))
+    plan = kernel_plan(value, sampling_locations)
+    inputs = (value, sampling_locations, attention_weights)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        if value.shape[-1] > MAX_BACKWARD_D:
+            raise ValueError(f"the backward kernel takes D <= {MAX_BACKWARD_D}, got {value.shape[-1]}")
+        return _MSDeformAttn.apply(value, sampling_locations, attention_weights, spatial_shapes,
+                                   radius, plan)
+    return _launch(value, spatial_shapes, sampling_locations, attention_weights, radius, plan)

@@ -155,7 +155,7 @@ def window_attention(
         raise ValueError(f"no window-attention kernel for device {q.device}")
     from dvis_plus_tpu_torch.ops import _build
 
-    _build.refuse_grad("swin_window_attn_fwd", "ROADMAP A14c: the plain op by an explicit "
+    _build.refuse_grad("swin_window_attn_fwd", "ROADMAP A14c.1: the plain op by an explicit "
                        "switch, as the JAX package trains with swin_fused_attn off", q, k, v, bias)
     if q.dtype == torch.bfloat16:
         _check_kernel_layout(q, k, v, bias, mask)

@@ -17,6 +17,7 @@ from dvis_plus_tpu_torch.config import (
     daq_offline_r50_ovis,
     daq_online_r50_ytvis19,
     dvis_offline_swinl_ytvis19,
+    dvis_offline_r50_ytvis19,
     dvis_offline_vitl_ytvis19,
     dvis_online_r50_vipseg,
     dvis_online_r50_vspw,
@@ -63,6 +64,12 @@ def _assert_fields_equal(got, want, group):
 @pytest.mark.parametrize("group", GROUPS)
 def test_preset_matches_yaml(group):
     _assert_fields_equal(_get(dvis_online_r50_ytvis19(), group), _get(load_config(YAML), group), group)
+
+
+@pytest.mark.parametrize("group", GROUPS + ["model.refiner"])
+def test_r50_offline_preset_matches_yaml(group):
+    want = _get(load_config("configs/dvis/dvis_offline_r50_ytvis19.yaml"), group)
+    _assert_fields_equal(_get(dvis_offline_r50_ytvis19(), group), want, group)
 
 
 @pytest.mark.parametrize("group", GROUPS + ["model.refiner"])
@@ -394,10 +401,26 @@ def test_check_trainable_accepts_the_online_yaml_and_preset():
         "input.crop_enabled=true", "input.random_flip=none", "parallel.model_parallel_size=1"]))
 
 
+@pytest.mark.parametrize("yaml_name,overrides", [
+    ("configs/dvis/minvis_r50_ytvis19.yaml", []),
+    ("configs/dvis/ctvis_r50_ytvis19.yaml", ["model.criterion.reid_weight=1.0"]),
+    ("configs/dvis/ctvis_r50_ovis.yaml", ["model.backbone.name=resnet101"]),
+    ("configs/dvis/dvis_offline_r50_ytvis19.yaml", []),
+    ("configs/dvis/dvis_offline_swinl_ytvis19.yaml", []),  # the segmenter frozen: no gradient
+    (YAML, ["model.freeze=[]"]),  # the segmenter decays without gradients, as in the JAX package
+])
+def test_check_trainable_accepts_stages_1_and_3(yaml_name, overrides):
+    port_config.check_trainable(port_config.load_config(yaml_name, overrides))
+
+
 TRAIN_REFUSED = [
-    (YAML, ["model.meta_architecture=minvis"], "model.meta_architecture", "A14c"),
-    ("configs/dvis/dvis_offline_swinl_ytvis19.yaml", [], "model.meta_architecture", "A14c"),
-    (YAML, ["model.freeze=[]"], "model.freeze", "A14c"),
+    (YAML, ["model.meta_architecture=daq_online"], "model.meta_architecture", "A14c"),
+    ("configs/dvis/dvis_offline_swinl_ytvis19.yaml", ["model.meta_architecture=video_maskformer"],
+     "model.meta_architecture", "A14c"),
+    # a Swin or ViT segmenter trained: B2's and B3's plain op under gradients
+    ("configs/dvis/minvis_vitl_ytvis19.yaml", [], "model.backbone.name", "A14c.1"),
+    ("configs/dvis/dvis_offline_swinl_ytvis19.yaml", ["model.freeze=[tracker]"],
+     "model.backbone.name", "A14c.1"),
     (YAML, ["model.param_dtype=bfloat16"], "model.param_dtype", "A14b"),
     (YAML, ["model.tracker.noise_mode=mixup"], "model.tracker.noise_mode", "A14b"),
     (YAML, ["model.criterion.matcher_solver=greedy"], "model.criterion.matcher_solver", "A14b"),

@@ -833,24 +833,85 @@ def test_ov_stream_on_the_card_matches_the_cpu(cuda_device, arch):
 
 
 # ---------------------------------------------------------------------------
-# The kernels are forward only: with gradients on, an input that requires one
-# raises instead of returning a tensor with no grad_fn
+# B1's backward kernel against autograd of the twin. fp32: 1e-5 of the
+# largest gradient (the kernel adds grad_value with atomics, in another order
+# from run to run); bf16 values: 2e-2 (the value and weight gradients are
+# rounded once to bf16 on both sides). B2 and B3 are forward only: with
+# gradients on, an input that requires one raises instead of returning a
+# tensor with no grad_fn.
 # ---------------------------------------------------------------------------
+
+MSDEFORM_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _msdeform_grads(fn, value, shapes, loc, attn, grad_out, radius):
+    v, l, a = (t.detach().clone().requires_grad_() for t in (value, loc, attn))
+    fn(v, shapes, l, a, radius=radius).backward(grad_out)
+    return v.grad, l.grad, a.grad
+
+
+def _check_msdeform_grads(value, shapes, loc, attn, radius):
+    B, Lq = loc.shape[:2]
+    g = torch.randn(B, Lq, value.shape[2] * value.shape[3], generator=torch.Generator().manual_seed(3))
+    g = g.to(value.device, value.dtype)
+    msdeform.reset_launches()
+    got = _msdeform_grads(msdeform.ms_deform_attn, value, shapes, loc, attn, g, radius)
+    torch.cuda.synchronize()
+    assert msdeform.launches == 1 and msdeform.backward_launches == 1
+    want = _msdeform_grads(msdeform.ms_deform_attn_torch, value, shapes, loc, attn, g, radius)
+    for name, x, y in zip(("value", "locations", "weights"), got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        tol = MSDEFORM_GRAD_TOL[value.dtype if name != "locations" else torch.float32]
+        if name == "weights" and attn.dtype == torch.bfloat16:
+            tol = MSDEFORM_GRAD_TOL[torch.bfloat16]
+        assert _rel(x, y) <= tol, (name, _rel(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [None, 7, 2])
+def test_msdeform_backward_matches_twin_autograd(cuda_device, dtype, radius, attn_dtype):
+    value, loc, attn = _inputs(cuda_device, dtype)
+    _check_msdeform_grads(value, SHAPES, loc, attn.to(attn_dtype), radius)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(MSDEFORM_EDGE_CASES)))
+def test_msdeform_backward_edge_cases(cuda_device, case, dtype):
+    """The forward's edge cases (and the special locations on and outside
+    the border), both forms; the extractor form (Lq != Len) once a case."""
+    shapes, B, M, D, P = MSDEFORM_EDGE_CASES[case]
+    value, loc, attn = _msdeform_case(cuda_device, dtype, shapes, B, M, D, P, seed=case)
+    for radius in (None, 2):
+        _check_msdeform_grads(value, shapes, loc, attn, radius)
+    qgrids = [(2 * h, 2 * w) for h, w in shapes[:1]] + list(shapes)
+    value, loc, attn = _msdeform_case(cuda_device, dtype, shapes, B, M, D, P, seed=case, qgrids=qgrids)
+    _check_msdeform_grads(value, shapes, loc, attn, None)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", [0, 1, 2], ids=["value", "locations", "weights"])
-def test_msdeform_wrapper_refuses_inputs_that_require_grad(cuda_device, which):
+def test_msdeform_wrapper_gradients_match_the_twin(cuda_device, which):
+    """One input requiring a gradient: the wrapper launches the forward and,
+    in the backward, the backward kernel, whose gradient for that input
+    equals autograd of the twin's; under no_grad it launches the forward
+    alone (the frozen segmenter's way)."""
     inputs = list(_inputs(cuda_device, torch.float32))
     inputs[which].requires_grad_()
     value, loc, attn = inputs
     msdeform.reset_launches()
-    with pytest.raises(NotImplementedError, match="A14c"):
+    out = msdeform.ms_deform_attn(value, SHAPES, loc, attn)
+    assert out.requires_grad and msdeform.launches == 1 and msdeform.backward_launches == 0
+    (got,) = torch.autograd.grad(out.square().sum(), inputs[which])
+    assert msdeform.backward_launches == 1
+    (want,) = torch.autograd.grad(msdeform.ms_deform_attn_torch(value, SHAPES, loc, attn).square().sum(),
+                                  inputs[which])
+    assert _rel(got, want) <= 1e-5
+    with torch.no_grad():
         msdeform.ms_deform_attn(value, SHAPES, loc, attn)
-    assert msdeform.launches == 0
-    with torch.no_grad():  # the frozen segmenter's way
-        msdeform.ms_deform_attn(value, SHAPES, loc, attn)
-    assert msdeform.launches == 1
+    assert msdeform.launches == 2 and msdeform.backward_launches == 1
 
 
 @pytest.mark.cuda
@@ -902,13 +963,13 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
     segmenter's deformable attention launched kernel B1 under no_grad."""
     import copy
 
-    from dvis_plus_tpu_torch.config import dvis_online_tiny
+    from dvis_plus_tpu_torch.config import tiny
     from dvis_plus_tpu_torch.engine.trainer import Batch, build_train_step
     from dvis_plus_tpu_torch.losses.targets import VideoTargets
     from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
     from dvis_plus_tpu_torch.utils.draws import Draws
 
-    cfg = dvis_online_tiny("model.num_classes=5", "model.tracker.matcher_solver=jv")
+    cfg = tiny("dvis_online", "model.num_classes=5", "model.tracker.matcher_solver=jv")
     torch.manual_seed(0)
     cpu_model = DVISOnline(cfg.model)
     gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
@@ -926,3 +987,51 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-4 * max(abs(want[k]), 1e-6), (k, got[k], want[k])
     assert ((gg - gw).norm() / gw.norm()).item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_minvis_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One MinVIS step (the whole segmenter trained: B1's forward and
+    backward kernels in each encoder layer) from the same weights, batch and
+    draws, the card replaying the CPU's masked-attention decisions, the
+    sampling offsets off the pixel grid (``chip_smoke.off_grid``): the
+    losses rel <= 1e-4, the decoders' gradients within 1e-3 as a
+    norm, the backbone's within 1e-2 (a ReLU input within rounding of 0
+    passes its gradient on one device and not on the other: on the CPU, the
+    JAX package and the port differ so by 1.6e-3, tests/test_torch_minvis_train.py)."""
+    import copy
+
+    from dvis_plus_tpu_torch.config import tiny
+    from dvis_plus_tpu_torch.engine.trainer import Batch, build_train_step
+    from dvis_plus_tpu_torch.losses.targets import VideoTargets
+    from dvis_plus_tpu_torch.models.segmenter.segmenter import Segmenter
+    from dvis_plus_tpu_torch.utils.draws import Draws
+
+    cfg = tiny("minvis", "model.num_classes=5")
+    from chip_smoke import off_grid, replay_attention
+
+    torch.manual_seed(0)
+    cpu_model = Segmenter(cfg.model)
+    off_grid(cpu_model)  # the initialisation samples exactly on pixel corners
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    batch = _tiny_batch()
+    gpu_batch = Batch(batch.images.to(cuda_device), VideoTargets(*(t.to(cuda_device) for t in batch.targets)))
+
+    out, decisions = [], []
+    msdeform.reset_launches()
+    for model, b in ((cpu_model, batch), (gpu_model, gpu_batch)):
+        # the card replays the CPU's masked-attention decisions, which the
+        # random model's mask logits put near the threshold
+        replay_attention(model.sem_seg_head.predictor, decisions, replay=model is gpu_model)
+        step, init = build_train_step(cfg, model)
+        _, metrics = step(init(), b, Draws(torch.Generator().manual_seed(7)))
+        grads = {part: torch.cat([p.grad.flatten().cpu() for n, p in model.named_parameters()
+                                  if n.startswith(part)]) for part in ("sem_seg_head.", "backbone.")}
+        out.append(({k: float(v) for k, v in metrics.items()}, grads))
+    layers = cfg.model.pixel_decoder.transformer_enc_layers
+    assert msdeform.launches == layers and msdeform.backward_launches == layers
+    (want, gw), (got, gg) = out
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * max(abs(want[k]), 1e-6), (k, got[k], want[k])
+    for part, tol in (("sem_seg_head.", 1e-3), ("backbone.", 1e-2)):
+        assert ((gg[part] - gw[part]).norm() / gw[part].norm()).item() <= tol, part

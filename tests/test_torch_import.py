@@ -9,7 +9,8 @@ runs the VPS loop, MOTS and the VOS writer, the three open-vocabulary
 presets run ``run_ov_inference`` and the RN50 trunk the OV route of the VSS
 loop, and its CLIs (``cli``; ``cli_ov --random-text``) evaluate the
 synthetic YouTube-VIS set with ``--device cpu``, and ``cli`` trains DVIS++
-online on it for two steps (``metrics.jsonl``, a checkpoint). The rows are encoded by the native
+online, MinVIS, CTVIS and DVIS++ offline on it for two steps each
+(``metrics.jsonl``, a checkpoint). The rows are encoded by the native
 codec, built with g++ on first use.
 
 Runs in a subprocess: the pytest process itself has jax loaded (conftest).
@@ -201,15 +202,17 @@ with tempfile.TemporaryDirectory() as tmp:
                           "--eval-only", "--device", "cpu", "--random-text", *small,
                           "model.backbone.clip_depths=[1,1,1,1]", "model.backbone.clip_dims=[8,16,24,32]",
                           "model.ov.clip_embed_dim=16", "output_dir=" + tmp])["ytvis_2019_val"]
-with tempfile.TemporaryDirectory() as tmp:
-    trained = cli.main(["--config-file", "configs/dvis/dvis_online_r50_ytvis19.yaml", "--device", "cpu",
-                        *small, "solver.max_iter=2", "solver.ims_per_batch=1",
-                        "input.sampling_frame_num=2", "input.min_size_train=[64]",
-                        "input.max_size_train=96", "model.criterion.max_num_instances=4",
-                        "model.criterion.train_num_points=64", "output_dir=" + tmp])
-    with open(os.path.join(tmp, "metrics.jsonl")) as f:
-        train = [trained["step"], len(f.read().splitlines()),
-                 sorted(os.listdir(os.path.join(tmp, "checkpoints")))]
+train = []
+for arch in ("dvis_online", "minvis", "ctvis", "dvis_offline"):
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = cli.main(["--config-file", f"configs/dvis/{arch}_r50_ytvis19.yaml", "--device", "cpu",
+                            *small, "solver.max_iter=2", "solver.ims_per_batch=1",
+                            "input.sampling_frame_num=2", "input.min_size_train=[64]",
+                            "input.max_size_train=96", "model.criterion.max_num_instances=4",
+                            "model.criterion.train_num_points=64", "output_dir=" + tmp])
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            train.append([arch, trained["step"], len(f.read().splitlines()),
+                          sorted(os.listdir(os.path.join(tmp, "checkpoints")))])
 roots = ("jax", "jaxlib", "flax", "optax", "dvis_plus_tpu", "triton")
 print(json.dumps({
     "rows": rows,
@@ -248,7 +251,8 @@ def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
     # per-column runs; the CLI scored 2 videos x top-3 on the CPU
     assert out == {"rows": [20] * 6 + [16] * 2, "cli": ["cpu", 6, True], "loaded": [],
                    "ov_rows": [20] * 3, "ov_cli": ["cpu", 6, True],
-                   "train": [2, 1, ["step_0000002.pth"]],
+                   "train": [[arch, 2, 1, ["step_0000002.pth"]]
+                             for arch in ("dvis_online", "minvis", "ctvis", "dvis_offline")],
                    "containers": ["ColRunMasks"] * 11,
                    "tasks": [["vps", 1, 3], ["vss", 1, 3], ["daq_vps", 1, 3], ["mots", 16, True],
                              ["vos", 3], ["ov_vss", 1, 4]],

@@ -2,8 +2,9 @@
 package's (``data/build.py::build_train_loader``) on a ``make_ytvis`` set,
 bit for bit; the loader started part-way equal to the tail of an unbroken
 one; ``python -m dvis_plus_tpu_torch.cli`` without ``--eval-only`` training
-a tiny DVIS++ online on the CPU, writing ``metrics.jsonl`` and checkpoints,
-and resuming to the unbroken run's weights and optimizer state; the card
+a tiny DVIS++ online, CTVIS and DVIS++ offline on the CPU, writing
+``metrics.jsonl`` and checkpoints, and resuming to the unbroken run's
+weights, optimizer state and class memory; the card
 asked for and absent raises; and ``weights=`` loading a ``.npz`` and a
 ``.pth`` wrapped in ``module`` with a 41-class head (the rest loads equal,
 the heads keep their initialization and are logged by name)."""
@@ -82,8 +83,8 @@ def test_loader_started_part_way_equals_the_unbroken_tail(synth_root):
         first[2]["masks"])
 
 
-def _train(out, extra=(), resume=False):
-    return cli.main(["--config-file", YAML, "--device", "cpu", *(["--resume"] if resume else []),
+def _train(out, extra=(), resume=False, yaml=YAML):
+    return cli.main(["--config-file", yaml, "--device", "cpu", *(["--resume"] if resume else []),
                      *TRAIN_TINY, *extra, f"output_dir={out}"])
 
 
@@ -110,9 +111,43 @@ def test_cli_trains_checkpoints_and_resumes_to_the_unbroken_run(synth_root, monk
     assert all(torch.equal(start[k], a["model"][k]) for k in a["model"] if not k.startswith("tracker."))
 
 
+@pytest.mark.parametrize("arch", ["ctvis", "dvis_offline"])
+def test_cli_trains_stages_1_and_3_and_resumes_to_the_unbroken_run(arch, synth_root, monkeypatch,
+                                                                   tmp_path):
+    """CTVIS (stage 1: the whole segmenter, the contrastive tracking loss)
+    and DVIS++ offline (stage 3: the refiner, its class memory) through the
+    CLI; a run broken after step 2 and resumed ends bit-equal to the
+    unbroken one, the class memory included."""
+    monkeypatch.setenv("DVIS_DATASETS", synth_root)
+    yaml = f"configs/dvis/{arch}_r50_ytvis19.yaml"
+    whole, broken = tmp_path / "whole", tmp_path / "broken"
+    assert _train(whole, yaml=yaml) == {"step": 4, "device": "cpu"}
+    lines = (whole / "metrics.jsonl").read_text().splitlines()
+    assert len(lines) == 1 and '"loss_reid"' in lines[0] and '"loss_dice_0"' in lines[0]
+    _train(broken, yaml=yaml)
+    os.remove(broken / "checkpoints" / "step_0000004.pth")
+    assert _train(broken, resume=True, yaml=yaml) == {"step": 4, "device": "cpu"}
+    a, b = (ckpt.restore(str(d / "checkpoints" / "step_0000004.pth")) for d in (whole, broken))
+    for k in a["model"]:
+        assert torch.equal(a["model"][k], b["model"][k]), k
+    for k in a["optimizer"]["mu"]:
+        assert torch.equal(a["optimizer"]["mu"][k], b["optimizer"]["mu"][k]), k
+    start = ckpt.restore(str(whole / "checkpoints" / "step_0000002.pth"))
+    trained = "refiner." if arch == "dvis_offline" else "backbone."
+    assert any(not torch.equal(start["model"][k], a["model"][k]) for k in a["model"] if k.startswith(trained))
+    if arch == "dvis_offline":
+        assert all(torch.equal(start["model"][k], a["model"][k]) for k in a["model"]
+                   if not k.startswith("refiner."))
+        assert int(a["memory"]["count"].sum()) > int(start["memory"]["count"].sum()) > 0
+        for k in ("embeds", "count"):
+            assert torch.equal(a["memory"][k], b["memory"][k]), k
+    else:
+        assert a["memory"] is None and b["memory"] is None
+
+
 def test_training_refuses_an_unported_setting_and_a_missing_card(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"model\.meta_architecture='minvis'.*A14c"):
-        _train(tmp_path, ["model.meta_architecture=minvis"])
+    with pytest.raises(NotImplementedError, match=r"model\.meta_architecture='daq_online'.*A14c"):
+        _train(tmp_path, ["model.meta_architecture=daq_online"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["--config-file", YAML, *TRAIN_TINY, f"output_dir={tmp_path}"])
