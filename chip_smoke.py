@@ -41,8 +41,10 @@ kernels:
   a synthetic set through the port's loader, train step and checkpoint; one
   small step GPU against CPU first, then 100 steps of a tiny model whose
   loss must fall;
-- stages 1 and 3 of the DVIS++ recipe: B1's backward kernel against
-  autograd of its twin (``b1_backward``), one small MinVIS and one CTVIS
+- stages 1 and 3 of the DVIS++ recipe: B1's backward kernels against
+  autograd of their twin (``b1_backward``: uniform, initialisation's and
+  ``far`` offsets, each line with its time by kernel and the share of
+  samples no value-gradient window holds), one small MinVIS and one CTVIS
   step GPU against CPU, then MinVIS, CTVIS (the whole segmenter trained:
   B1 forward and backward, 6 launches each a step) and DVIS++ offline (the
   refiner on the frozen online model: B1 forward only) at the full width of
@@ -60,6 +62,8 @@ Run from a checkout of the repository:
                                      # breakdown of one video of each slice named
     python3 chip_smoke.py --b1-runs  # build, then kernel B1's time at its main shapes
                                      # by the run of queries a block takes
+    python3 chip_smoke.py --b1-backward  # build, then only B1's backward against
+                                         # autograd of its twin, timed
     python3 chip_smoke.py --daq      # build, then only the DVIS-DAQ phases
     python3 chip_smoke.py --ov       # build, then only the open-vocabulary phases
     python3 chip_smoke.py --train    # build, then only the training phases (B1's
@@ -233,10 +237,12 @@ def init_offsets(M, L, P):
 
 def sampling_offsets(g, BT, Lq, M, L, P, offsets, spread):
     """(BT, Lq, M, L, P, 2) offsets in value pixels: ``uniform`` over
-    +-``spread``, or ``init``: the initialisation's plus N(0, 0.25) noise."""
+    +-``spread``, ``far`` uniform over +-FAR_SPREAD, or ``init``: the
+    initialisation's plus N(0, 0.25) noise."""
     import torch
 
-    if offsets == "uniform":
+    if offsets in ("uniform", "far"):
+        spread = FAR_SPREAD if offsets == "far" else spread
         return (torch.rand(BT, Lq, M, L, P, 2, generator=g) * 2 - 1) * spread
     return init_offsets(M, L, P) + 0.25 * torch.randn(BT, Lq, M, L, P, 2, generator=g)
 
@@ -2417,6 +2423,9 @@ def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=
 # summed with atomics, in another order); with bf16 values (and weights) the
 # value and weight gradients are rounded once to bf16 on both sides
 B1_GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the ``far`` offsets: uniform over +-64 value pixels, most of a level's
+# width, so that neighbouring queries' samples scatter over the whole level
+FAR_SPREAD = 64.0
 # a training step GPU against CPU with the segmenter trained: the decoders'
 # gradients as TRAIN_GRAD_TOL; the backbone's as a norm within 1e-2, since a
 # ReLU input within rounding of 0 passes its gradient on one device and not
@@ -2444,6 +2453,58 @@ def b1_backward_ops(value, levels, loc, radius):
         y = torch.floor(loc[:, :, :, lid, :, 1] * H - 0.5)
         inside += int(((x >= -1) & (x < W) & (y >= -1) & (y < H)).sum())
     return 16 * inside * value.shape[-1]
+
+
+def b1_backward_direct_share(levels, value, loc, radius):
+    """The share of samples with a corner in the level that no window of
+    :func:`backward_plan` holds, so that it would have to be added to device
+    memory directly. The kernel has no such route: its windows are bands of
+    rows that tile every level. Counted on the data all the same (after the
+    clamp), so that a plan whose bands left a row out would show here."""
+    import torch
+
+    from dvis_plus_tpu_torch.ops import msdeform
+
+    plan = msdeform.backward_plan(value, loc, levels)
+    if radius is not None:
+        loc = msdeform.clamp_locations(loc, levels, radius)
+    outside = reached = 0
+    for lid, (H, W) in enumerate(levels):
+        x = torch.floor(loc[:, :, :, lid, :, 0] * W - 0.5)
+        y = torch.floor(loc[:, :, :, lid, :, 1] * H - 0.5)
+        inside = (x >= -1) & (x < W) & (y >= -1) & (y < H)
+        covered = torch.zeros(H + 1, dtype=torch.bool, device=loc.device)
+        for r0 in range(0, H, plan.rows[lid]):
+            covered[r0:min(r0 + plan.rows[lid], H)] = True
+        rows_ok = covered[y.clamp(0, H).long()] | (y < 0)
+        rows_ok &= covered[(y + 1).clamp(0, H).long()] | (y + 1 >= H)
+        outside += int((inside & ~rows_ok).sum())
+        reached += int(inside.sum())
+    return outside / max(reached, 1)
+
+
+def b1_backward_by_kernel(call, calls=3):
+    """Milliseconds a call of B1's backward spends in each of its kernels
+    (the sample gradients; the sort and the value gradient, summed over the
+    levels), from ``torch.profiler``'s device times over ``calls`` calls."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(r"msdeform_bwd_\w+?_kernel", e.key)
+        if name:
+            t = getattr(e, "self_device_time_total", 0)
+            out[name.group(0)] = out.get(name.group(0), 0.0) + t / calls / 1e3
+    return out
 
 
 def b1_backward_check(levels, value, loc, attn, radius=None, iters=5, plain_iters=3):
@@ -2491,6 +2552,10 @@ def b1_backward_check(levels, value, loc, attn, radius=None, iters=5, plain_iter
          torch.empty_like(loc, device="meta"), torch.empty_like(attn, device="meta")),
         b1_backward_ops(value, levels, loc, radius), torch.float32)
     res["library_ms"] = None  # no single PyTorch call computes it
+    res["by_kernel_ms"] = b1_backward_by_kernel(lambda: msdeform._launch_backward(
+        value, levels, loc, attn, radius, g))
+    res["plan"] = msdeform.backward_plan(value, loc, levels)._asdict()
+    res["direct_share"] = b1_backward_direct_share(levels, value, loc, radius)
     return res
 
 
@@ -2500,7 +2565,10 @@ def phase_b1_backward(dev):
     extractor form), then the training encoder's shape (40, 7560, 8, 32)
     fp32, exact and clamped (r7), under uniform offsets and the
     initialisation's, and the ViT-L extractor's (5, 3680, 16, 64) with bf16
-    values and weights."""
+    values and weights; then the training encoder's shape, exact, under the
+    ``far`` offsets (uniform over +-64 value pixels). Each line gives the
+    share of samples that no window of the value-gradient kernel holds
+    (``direct_share``: 0 by design) and fails unless it is 0 for r7."""
     import torch
 
     n = 0
@@ -2525,7 +2593,15 @@ def phase_b1_backward(dev):
             [VIT_GRID], value.to(torch.bfloat16), loc, attn.to(torch.bfloat16))})
         emit({"phase": "b1_backward", **forms[-1]})
         del value, loc, attn
+    value, loc, attn = msdeform_inputs(dev, TRAIN_LEVELS, BT=40, offsets="far")
+    forms.append({"shape": "train_encoder_480x768", "offsets": "far",
+                  **b1_backward_check(TRAIN_LEVELS, value, loc, attn)})
+    emit({"phase": "b1_backward", **forms[-1]})
+    del value, loc, attn
     torch.cuda.empty_cache()
+    clamped = [f["direct_share"] for f in forms if f["radius"] is not None]
+    if any(share != 0 for share in clamped):
+        raise AssertionError(f"clamped samples outside every window of B1's backward: {clamped}")
     return forms
 
 
@@ -2656,6 +2732,9 @@ def main() -> int:
         return 0
     if "--b1-runs" in sys.argv[1:]:
         phase_b1_runs(dev)
+        return 0
+    if "--b1-backward" in sys.argv[1:]:
+        phase_b1_backward(dev)
         return 0
     if "--daq" in sys.argv[1:]:
         phase_daq_slice_parity(dev)
@@ -2806,9 +2885,9 @@ def main() -> int:
         "bound_by": b1b_main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes it
         "by_shape": {f"{f['shape']}{'_clamped_r7' if f['radius'] else ''}"
-                     f"{'_init_offsets' if f['offsets'] == 'init' else ''}":
+                     f"{'' if f['offsets'] == 'uniform' else '_' + f['offsets'] + '_offsets'}":
                      {k: f[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                        "value_dtype")} for f in b1b},
+                                        "value_dtype", "direct_share")} for f in b1b},
     }]})
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     print(smi, flush=True)

@@ -65,28 +65,6 @@
 #define MSDEFORM_SAMPLE_BYTES 24  // float4 corner weights + attention weight + int offset
 #define MSDEFORM_MAX_SMEM (48 * 1024)  // what a block gets without asking for more
 
-// 16-byte read-only loads under a predicate: the destination keeps its zeros
-// where `on` is false and nothing is read. Written as predicated
-// instructions, not branches, so that a point's four corner loads stay in
-// one basic block and go out together.
-__device__ __forceinline__ float4 ldg16_if(const float* p, bool on) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  asm("{\n\t.reg .pred q;\n\tsetp.ne.s32 q, %5, 0;\n\t"
-      "@q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
-      : "+f"(v.x), "+f"(v.y), "+f"(v.z), "+f"(v.w)
-      : "l"(p), "r"((int)on));
-  return v;
-}
-
-__device__ __forceinline__ uint4 ldg16_if(const __nv_bfloat16* p, bool on) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  asm("{\n\t.reg .pred q;\n\tsetp.ne.s32 q, %5, 0;\n\t"
-      "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n\t}"
-      : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w)
-      : "l"(p), "r"((int)on));
-  return v;
-}
-
 // VEC channels of one head: how they are read, accumulated and stored.
 template <typename T, int VEC>
 struct Pack;

@@ -1,8 +1,10 @@
 // The value levels of multi-scale deformable attention, as the forward
 // (msdeform_fwd.cu) and backward (msdeform_bwd.cu) kernels of B1 take them:
-// a table passed by value to the kernel, filled and checked on the host.
+// a table passed by value to the kernel, filled and checked on the host;
+// and the 16-byte corner loads both kernels issue.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define MSDEFORM_MAX_LEVELS 4
@@ -50,4 +52,26 @@ __device__ __forceinline__ int msdeform_query_level(const LevelTable& lv, int L,
   for (int k = 1; k < MSDEFORM_MAX_LEVELS; ++k)
     if (k < L && q >= lv.start[k]) g = k;
   return g;
+}
+
+// 16-byte read-only loads under a predicate: the destination keeps its zeros
+// where `on` is false and nothing is read. Written as predicated
+// instructions, not branches, so that a point's four corner loads stay in
+// one basic block and go out together.
+__device__ __forceinline__ float4 ldg16_if(const float* p, bool on) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.s32 q, %5, 0;\n\t"
+      "@q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "+f"(v.x), "+f"(v.y), "+f"(v.z), "+f"(v.w)
+      : "l"(p), "r"((int)on));
+  return v;
+}
+
+__device__ __forceinline__ uint4 ldg16_if(const __nv_bfloat16* p, bool on) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.s32 q, %5, 0;\n\t"
+      "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w)
+      : "l"(p), "r"((int)on));
+  return v;
 }

@@ -159,7 +159,9 @@ def library() -> ctypes.CDLL:
         vp, i32, vp, vp, i32,  # value, value_is_bf16, loc, attn, attn_is_bf16
         vp, vp, vp, vp,  # grad_out, grad_value (fp32), grad_loc, grad_attn
         i32, i32, i32, i32, i32, i32, i32,  # B, Len, Lq, M, D, L, P
-        vp, i32, vp,  # shapes (host int32[2L]), radius, stream
+        vp, i32,  # shapes (host int32[2L]), radius
+        i32, i32, i32,  # queries a block, vector, lanes a (query, head)
+        vp, vp, vp, vp,  # rows (host int32[L]); scratch: cell_start, records; stream
     ]
     lib.msdeform_error_string.restype = ctypes.c_char_p
     lib.msdeform_error_string.argtypes = [i32]

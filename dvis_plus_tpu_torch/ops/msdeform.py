@@ -12,10 +12,19 @@ whose gradient is autograd's. On a CUDA tensor it launches the hand-written
 kernel (``csrc/msdeform_fwd.cu``) or raises; it never falls back. When
 gradients are enabled and an input requires one, the call is a
 ``torch.autograd.Function`` (:class:`_MSDeformAttn`) that saves its inputs
-and whose backward launches the backward kernel (``csrc/msdeform_bwd.cu``):
+and whose backward launches the backward kernels (``csrc/msdeform_bwd.cu``):
 the gradients of the value, the locations and the weights, for both forms.
 The JAX package has no backward TPU kernel (it differentiates the plain
-forms through XLA), so that kernel is held against autograd of the twin.
+forms through XLA), so they are held against autograd of the twin.
+
+A backward call is 2 + L launches (:func:`backward_plan` sets them up):
+one gather for the locations' and weights' gradients, shaped as the forward
+(a run of queries a block, 16 bytes of a head a thread); one counting sort
+of every (batch element, head, level)'s samples by the cell of their
+corners; then, a launch a value level, the value's gradient summed a cell at
+a time in registers into a band of the level's rows held in shared memory,
+written once, rounded to ``value.dtype``: no atomics on floats, no zero
+fill, no rounding pass.
 
 Shapes (the JAX package's layout):
   value:              (B, Len, M, D) float32 or bfloat16
@@ -50,7 +59,13 @@ MAX_SMEM = 48 * 1024  # MSDEFORM_MAX_SMEM: what a block gets without asking for 
 # fit an SM; with many samples a query the run is a single query.
 MAX_RUN = 2
 RUN_SMEM = 28672
-MAX_BACKWARD_D = 256  # 32 * MSDEFORM_BWD_MAX_CH in csrc/msdeform_bwd.cu
+MAX_BACKWARD_D = 256
+# csrc/msdeform_bwd.cu's value gradient: a block of the sort kernel keeps a
+# level's cell counts ((H + 1) * (W + 1) + 1 ints) in shared memory, and a
+# block of the value-gradient kernel a band of a level's rows, all D channels
+# of a head in fp32; each within VALUE_SMEM bytes (an H100 block's 232,448
+# less a kilobyte for static shared memory)
+VALUE_SMEM = 232448 - 1024
 
 # launches of the forward and of the backward kernel since the last reset
 # (chip_smoke.py reads them to show the main path ran through the kernels)
@@ -205,6 +220,50 @@ def kernel_plan(value, loc) -> KernelPlan:
     return KernelPlan(vector, queries)
 
 
+class BackwardPlan(NamedTuple):
+    """How one backward call is launched."""
+
+    queries: int  # the sample-gradient kernel's run of queries a block
+    vector: bool  # 16 bytes of a head a thread (else one channel)
+    group: int  # lanes a (query, head) or a cell: a power of two <= 32
+    rows: Tuple[int, ...]  # the value-gradient kernel's band of rows, a level
+    smem: Tuple[int, ...]  # its shared memory a block, a level
+    sort_smem: int  # the sort kernel's shared memory a block
+
+
+def backward_plan(value, loc, spatial_shapes: Sequence[Tuple[int, int]]) -> BackwardPlan:
+    """The backward kernels' launch for inputs that passed :func:`_check`.
+    Plain Python on shapes and the value pointer, so it also runs on CPU
+    tensors. Each level's rows are cut into as few even bands as fit a
+    block's shared memory; raises ``ValueError`` where the kernels cannot
+    take the inputs."""
+    M, D = value.shape[2:]
+    if D > MAX_BACKWARD_D:
+        raise ValueError(f"the backward kernel takes D <= {MAX_BACKWARD_D}, got {D}")
+    fwd = kernel_plan(value, loc)
+    cpg = D // (16 // value.element_size()) if fwd.vector else D  # chunks a (query, head)
+    group = min(32, cpg & -cpg)  # the largest power of two dividing it
+    sort_smem = max((h + 1) * (w + 1) + 1 for h, w in spatial_shapes) * 4
+    if sort_smem > VALUE_SMEM:
+        raise ValueError(f"levels {spatial_shapes} have too many cells for the backward "
+                         f"kernels' shared memory")
+    rows, smem = [], []
+    for H, W in spatial_shapes:
+        fit = VALUE_SMEM // (W * D * 4)
+        if fit < 1:
+            raise ValueError(f"a row of {W} pixels x {D} channels does not fit the backward "
+                             f"kernels' shared memory")
+        bands = -(-H // fit)
+        rows.append(-(-H // bands))
+        smem.append(rows[-1] * W * D * 4)
+    return BackwardPlan(fwd.queries, fwd.vector, group, tuple(rows), tuple(smem), sort_smem)
+
+
+def _int_array(xs):
+    """A host int32 array for the C entry points."""
+    return (ctypes.c_int * len(xs))(*xs)
+
+
 def _launch(value, spatial_shapes, loc, attn, radius, plan: KernelPlan) -> torch.Tensor:
     """Launch the kernel on checked CUDA tensors as ``plan`` says."""
     from dvis_plus_tpu_torch.ops import _build
@@ -214,7 +273,7 @@ def _launch(value, spatial_shapes, loc, attn, radius, plan: KernelPlan) -> torch
     B, Len, M, D = value.shape
     Lq, L, P = loc.shape[1], len(spatial_shapes), loc.shape[4]
     out = torch.empty(B, Lq, M * D, dtype=value.dtype, device=value.device)
-    shapes = (ctypes.c_int * (2 * L))(*[s for hw in spatial_shapes for s in hw])
+    shapes = _int_array([s for hw in spatial_shapes for s in hw])
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.msdeform_fwd(
@@ -231,35 +290,49 @@ def _launch(value, spatial_shapes, loc, attn, radius, plan: KernelPlan) -> torch
     return out
 
 
-def _launch_backward(value, spatial_shapes, loc, attn, radius, grad_out):
-    """Launch the backward kernel on checked CUDA tensors: (grad_value in
-    ``value.dtype``, grad_locations fp32, grad_weights in ``attn.dtype``)."""
+def _launch_backward(value, spatial_shapes, loc, attn, radius, grad_out, plan=None):
+    """Launch the backward kernels on checked CUDA tensors as ``plan`` (by
+    default :func:`backward_plan`) says: (grad_value in ``value.dtype``,
+    grad_locations fp32, grad_weights in ``attn.dtype``)."""
     from dvis_plus_tpu_torch.ops import _build
 
     global backward_launches
     lib = _build.library()
+    plan = plan or backward_plan(value, loc, spatial_shapes)
     B, Len, M, D = value.shape
     Lq, L, P = loc.shape[1], len(spatial_shapes), loc.shape[4]
     grad_out = grad_out.to(value.dtype).contiguous()
-    # fp32 sums (atomics), rounded once to the value's type
-    grad_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+    if grad_out.data_ptr() % 16:  # the 16-byte instantiation reads it as the value
+        grad_out = grad_out.clone()
+    # every element written once, from fp32 sums rounded once to the value's type
+    grad_value = torch.empty(value.shape, dtype=value.dtype, device=value.device)
     grad_loc = torch.empty_like(loc)
     grad_attn = torch.empty_like(attn)
-    shapes = (ctypes.c_int * (2 * L))(*[s for hw in spatial_shapes for s in hw])
+    # the value gradient's scratch: each (b, m, level)'s samples sorted by
+    # corner cell (weight, fractions and query), and where each cell's run
+    # starts
+    dev = value.device
+    rec = torch.empty(L * B * M * Lq * P, 4, dtype=torch.float32, device=dev)
+    cell_start = torch.empty(B * M * sum((h + 1) * (w + 1) + 1 for h, w in spatial_shapes),
+                             dtype=torch.int32, device=dev)
+    shapes = _int_array([s for hw in spatial_shapes for s in hw])
+    rows = _int_array(plan.rows)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.msdeform_bwd(
             value.data_ptr(), int(value.dtype == torch.bfloat16), loc.data_ptr(), attn.data_ptr(),
             int(attn.dtype == torch.bfloat16), grad_out.data_ptr(), grad_value.data_ptr(),
             grad_loc.data_ptr(), grad_attn.data_ptr(), B, Len, Lq, M, D, L, P,
-            ctypes.cast(shapes, ctypes.c_void_p), -1 if radius is None else int(radius), stream,
+            ctypes.cast(shapes, ctypes.c_void_p), -1 if radius is None else int(radius),
+            plan.queries, int(plan.vector), plan.group, ctypes.cast(rows, ctypes.c_void_p),
+            cell_start.data_ptr(), rec.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"msdeform_bwd launch failed: {lib.msdeform_error_string(rc).decode()}"
         )
     backward_launches += 1
-    return grad_value.to(value.dtype), grad_loc, grad_attn
+    return grad_value, grad_loc, grad_attn
 
 
 class _MSDeformAttn(torch.autograd.Function):
@@ -300,8 +373,7 @@ def ms_deform_attn(
     plan = kernel_plan(value, sampling_locations)
     inputs = (value, sampling_locations, attention_weights)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        if value.shape[-1] > MAX_BACKWARD_D:
-            raise ValueError(f"the backward kernel takes D <= {MAX_BACKWARD_D}, got {value.shape[-1]}")
+        backward_plan(value, sampling_locations, spatial_shapes)  # raises where it cannot run
         return _MSDeformAttn.apply(value, sampling_locations, attention_weights, spatial_shapes,
                                    radius, plan)
     return _launch(value, spatial_shapes, sampling_locations, attention_weights, radius, plan)

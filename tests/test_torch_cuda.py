@@ -914,6 +914,77 @@ def test_msdeform_wrapper_gradients_match_the_twin(cuda_device, which):
     assert msdeform.launches == 2 and msdeform.backward_launches == 1
 
 
+def _check_backward_launch(value, shapes, loc, attn, radius, plan=None):
+    """``_launch_backward`` (with ``plan``, else the default one) against
+    autograd of the twin, at the bars above."""
+    B, Lq = loc.shape[:2]
+    g = torch.randn(B, Lq, value.shape[2] * value.shape[3], generator=torch.Generator().manual_seed(4))
+    g = g.to(value.device, value.dtype)
+    got = msdeform._launch_backward(value, shapes, loc, attn, radius, g, plan)
+    torch.cuda.synchronize()
+    want = _msdeform_grads(msdeform.ms_deform_attn_torch, value, shapes, loc, attn, g, radius)
+    for name, x, y, t in zip(("value", "locations", "weights"), got, want, (value, loc, attn)):
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.isfinite(x).all(), name
+        assert _rel(x, y) <= MSDEFORM_GRAD_TOL[t.dtype], (name, _rel(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(MSDEFORM_EDGE_CASES)))
+def test_msdeform_backward_far_offsets_at_the_edge_cases(cuda_device, case, dtype):
+    """Exact form, offsets uniform over +-64 value pixels: most samples leave
+    their level or land far from their query, on the edge cases' shapes."""
+    shapes, B, M, D, P = MSDEFORM_EDGE_CASES[case]
+    value, loc, attn = _msdeform_case(cuda_device, dtype, shapes, B, M, D, P, seed=case, spread=64.0)
+    _check_msdeform_grads(value, shapes, loc, attn, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [None, 2])
+@pytest.mark.parametrize("rows", [1, 4, 5])
+def test_msdeform_backward_bands_with_a_ragged_edge(cuda_device, rows, radius):
+    """The value-gradient kernel with the levels cut into bands of ``rows``
+    rows that do not divide them (13 = 4 + 4 + 4 + 1, 7 = 5 + 2, ...): the
+    corners on a band's edge row and the cells above it reach the right
+    block."""
+    shapes = [(13, 17), (7, 9), (3, 5)]
+    value, loc, attn = _msdeform_case(cuda_device, torch.float32, shapes, 2, 4, 32, 4, seed=7)
+    plan = msdeform.backward_plan(value, loc, shapes)
+    plan = plan._replace(rows=tuple(min(rows, h) for h, _ in shapes))
+    _check_backward_launch(value, shapes, loc, attn, radius, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msdeform_backward_coarse_queries_on_a_finer_level(cuda_device, dtype):
+    """Query grids coarser than the value levels (Lq != Len, the exact
+    form): each query's samples spread over several pixels of the finer
+    level, and many queries' samples share its cells."""
+    shapes = [(24, 32), (12, 16)]
+    value, loc, attn = _msdeform_case(cuda_device, dtype, shapes, 2, 8, 32, 4, seed=9,
+                                      qgrids=[(3, 4), (6, 8)])
+    assert loc.shape[1] == 60
+    _check_msdeform_grads(value, shapes, loc, attn, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_msdeform_backward_bf16_heads_of_64(cuda_device, misaligned):
+    """The extractor's heads (D = 64, bf16 values and weights): aligned, the
+    16-byte instantiation; a value view 2 bytes past a 16-byte boundary,
+    the scalar one (32 lanes a head, two channels each)."""
+    shapes = [(10, 12)]
+    value, loc, attn = _msdeform_case(cuda_device, torch.bfloat16, shapes, 2, 4, 64, 4, seed=11,
+                                      qgrids=[(20, 24), (10, 12), (5, 6)])
+    attn = attn.to(torch.bfloat16)
+    if misaligned:
+        flat = torch.zeros(value.numel() + 1, device=cuda_device, dtype=torch.bfloat16)
+        value = flat[1:].view_as(value).copy_(value)
+    plan = msdeform.backward_plan(value, loc, shapes)
+    assert (plan.vector, plan.group) == ((False, 32) if misaligned else (True, 8))
+    _check_msdeform_grads(value, shapes, loc, attn, None)
+
+
 @pytest.mark.cuda
 def test_swin_window_attn_wrapper_refuses_inputs_that_require_grad(cuda_device):
     q, k, v, bias, mask = _swin_inputs(cuda_device, torch.bfloat16, 8, 144, 2, 2)

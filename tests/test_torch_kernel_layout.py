@@ -11,7 +11,9 @@ and reject with a ``ValueError`` what a tensor map or a 16-byte copy cannot
 address. Kernel B1 (deformable attention) has a 16-byte and a scalar
 instantiation and gives a block a run of consecutive queries:
 ``kernel_plan`` chooses from shapes and the value pointer, and what the
-callers really pass must reach the vector kernel. ``_build`` names the library by a hash of everything under
+callers really pass must reach the vector kernel; its backward's
+``backward_plan`` cuts each level into bands of rows that fit a block's
+shared memory. ``_build`` names the library by a hash of everything under
 ``csrc/``, headers included, so that a changed header never reuses a stale
 build, and reads each kernel's registers and spills from what the assembler
 printed.
@@ -19,6 +21,7 @@ printed.
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -371,6 +374,109 @@ def test_msdeform_plan_for_what_the_extractor_passes(dtype, coarse, monkeypatch)
     grids = ((4, 6), (4, 6), (2, 3)) if coarse else shapes
     assert plan.vector and lq == sum(h * w for h, w in grids)
     assert (vdt, ldt, adt) == (dtype, torch.float32, dtype)
+
+
+# ----------------------------------------------------------------------------
+# B1's backward: msdeform.backward_plan
+# ----------------------------------------------------------------------------
+
+# (levels, M, D, value dtype, query grids): the 480x768 training encoder, the
+# 480x640 eval encoder, the 736x1280 (VPS / ViT-L) encoder of 19,320 queries
+# and the ViT-L extractor (three query grids into one 46x80 level)
+TRAIN = [(60, 96), (30, 48), (15, 24)]
+VIT_ENC = [(92, 160), (46, 80), (23, 40)]
+BACKWARD_SHAPES = {
+    "train_encoder": (TRAIN, 8, 32, torch.float32, TRAIN),
+    "eval_encoder": (ENC, 8, 32, torch.float32, ENC),
+    "vitl_encoder": (VIT_ENC, 8, 32, torch.float32, VIT_ENC),
+    "vitl_extractor": ([(46, 80)], 16, 64, torch.bfloat16, VIT_ENC),
+}
+H100_BLOCK_SMEM = 232448
+
+
+def _bands(plan, shapes):
+    """Each level's bands of rows, as the value-gradient kernel's blocks take them."""
+    return [[(r0, min(r0 + rows, H)) for r0 in range(0, H, rows)]
+            for rows, (H, _) in zip(plan.rows, shapes)]
+
+
+@pytest.mark.parametrize("name", list(BACKWARD_SHAPES))
+def test_msdeform_backward_plan_at_the_main_shapes(name):
+    """Every block's shared memory fits the card, the bands tile each
+    level's rows, and the gather kernel keeps the forward's vector
+    instantiation and run, 8 lanes a (query, head)."""
+    shapes, M, D, dtype, qgrids = BACKWARD_SHAPES[name]
+    value, loc, attn = _msdeform_args(shapes, 1, M, D, 4, dtype, Lq=sum(h * w for h, w in qgrids))
+    msdeform._check(value, shapes, loc, attn, None)
+    plan = msdeform.backward_plan(value, loc, shapes)
+    assert (plan.queries, plan.vector, plan.group) == (2, True, 8)
+    assert max(plan.smem) <= msdeform.VALUE_SMEM < H100_BLOCK_SMEM
+    assert plan.sort_smem <= msdeform.VALUE_SMEM
+    for rows, smem, (H, W), bands in zip(plan.rows, plan.smem, shapes, _bands(plan, shapes)):
+        assert smem == rows * W * D * 4
+        assert bands[0][0] == 0 and bands[-1][1] == H  # the bands tile the rows
+        assert all(a[1] == b[0] for a, b in zip(bands, bands[1:]))
+        assert len(bands) == 1 or 2 * (rows + 1) * W * D * 4 > msdeform.VALUE_SMEM or \
+            (len(bands) - 1) * rows < H  # as few bands as fit
+    if name == "train_encoder":  # 15-row bands of the 60x96 level, the coarser ones whole
+        assert plan.rows == (15, 30, 15)
+
+
+@pytest.mark.parametrize("offsets", ["uniform", "far"])
+def test_msdeform_backward_windows_hold_every_clamped_sample(offsets):
+    """Clamped to radius 7 at the training encoder's shape, every corner of
+    every sample that reaches its level lies in a row of some band: none
+    would have to go to device memory directly (the kernel has no such
+    route). Seeded offsets over +-10 and +-64 value pixels."""
+    rng = np.random.RandomState(0)
+    M, P = 8, 4
+    value, loc, attn = _msdeform_args(TRAIN, 1, M, 32, P, torch.float32)
+    Lq = loc.shape[1]
+    refs = pixel_decoder.reference_points(TRAIN)  # (Lq, L, 2)
+    spread = 10.0 if offsets == "uniform" else 64.0
+    norm = torch.tensor([[w, h] for h, w in TRAIN], dtype=torch.float32)
+    off = torch.from_numpy(rng.uniform(-spread, spread, (1, Lq, M, 3, P, 2)).astype(np.float32))
+    loc = (refs[None, :, None, :, None, :] + off / norm[None, None, None, :, None]).contiguous()
+    plan = msdeform.backward_plan(value, loc, TRAIN)
+    clamped = msdeform.clamp_locations(loc, TRAIN, 7)
+    for lid, ((H, W), bands) in enumerate(zip(TRAIN, _bands(plan, TRAIN))):
+        y0 = torch.floor(clamped[:, :, :, lid, :, 1] * H - 0.5)
+        x0 = torch.floor(clamped[:, :, :, lid, :, 0] * W - 0.5)
+        inside = (x0 >= -1) & (x0 < W) & (y0 >= -1) & (y0 < H)
+        assert inside.sum() > 1000
+        for row in (y0[inside], y0[inside] + 1):
+            row = row[(row >= 0) & (row < H)]
+            held = torch.zeros_like(row, dtype=torch.bool)
+            for a, b in bands:
+                held |= (row >= a) & (row < b)
+            assert held.all()
+
+
+def test_msdeform_backward_plan_raises_on_what_the_kernels_do_not_take():
+    value, loc, attn = _msdeform_args([(4, 6)], 1, 2, 257, 2, torch.float32)
+    with pytest.raises(ValueError):  # D beyond the backward's 256
+        msdeform.backward_plan(value, loc, [(4, 6)])
+    value, loc, attn = _msdeform_args([(2, 300)], 1, 1, 256, 1, torch.float32)
+    with pytest.raises(ValueError):  # one row of 300 pixels x 256 fp32 channels: 307 KB
+        msdeform.backward_plan(value, loc, [(2, 300)])
+    value, loc, attn = _msdeform_args([(240, 250)], 1, 1, 4, 1, torch.float32)
+    with pytest.raises(ValueError):  # 60,491 cells: their counts exceed the sort's shared memory
+        msdeform.backward_plan(value, loc, [(240, 250)])
+    value, loc, attn = _msdeform_args([(230, 230)], 1, 1, 4, 1, torch.float32)
+    assert msdeform.backward_plan(value, loc, [(230, 230)]).sort_smem <= msdeform.VALUE_SMEM
+
+
+def test_msdeform_wrapper_refuses_a_backward_it_cannot_run():
+    """A CPU tensor takes the twin whatever its shape; on the card, an input
+    that requires a gradient is held to ``backward_plan`` before the forward
+    launches, so that a training step fails at once and not in its
+    backward."""
+    value, loc, attn = _msdeform_args([(4, 6)], 1, 2, 257, 2, torch.float32)
+    value.requires_grad_()
+    out = msdeform.ms_deform_attn(value, [(4, 6)], loc, attn)
+    assert out.requires_grad and out.shape == (1, 24, 2 * 257)
+    with pytest.raises(ValueError):
+        msdeform.ms_deform_attn(value.to("meta"), [(4, 6)], loc.to("meta"), attn.to("meta"))
 
 
 # ----------------------------------------------------------------------------
