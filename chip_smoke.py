@@ -50,7 +50,18 @@ kernels:
   refiner on the frozen online model: B1 forward only) at the full width of
   ``configs/dvis/{minvis,ctvis,dvis_offline}_r50_ytvis19.yaml``, 8 clips of
   5 (offline: 15) frames at 480x768 through the port's loader, and 100
-  steps of a tiny MinVIS whose loss must fall.
+  steps of a tiny MinVIS whose loss must fall;
+- the segmenters trained with other backbones and on COCO pseudo-videos:
+  B1's backward at the ViT-L extractor's training shape, small MinVIS
+  steps with a ViT-Adapter and with a Swin, a small Mask2Former and Video
+  Mask2Former step, each GPU against CPU, then MinVIS and CTVIS at the full
+  width of ``configs/dvis/{minvis,ctvis}_vitl_ytvis19.yaml`` (the DINOv2
+  trunk frozen; B1 forward and backward in the 6 encoder layers and the 6
+  extractors, 12 each a step), Mask2Former and Video Mask2Former at the
+  full width of ``configs/dvis/maskformer_r50_coco.yaml`` and
+  ``video_maskformer_r50_coco_joint.yaml`` on synthetic COCO images made
+  pseudo-videos (one step with large-scale jitter), and 100 steps of a
+  tiny Mask2Former whose loss must fall.
 
 Run from a checkout of the repository:
 
@@ -68,6 +79,8 @@ Run from a checkout of the repository:
     python3 chip_smoke.py --ov       # build, then only the open-vocabulary phases
     python3 chip_smoke.py --train    # build, then only the training phases (B1's
                                      # backward among them)
+    python3 chip_smoke.py --train-segmenters  # build, then B1's backward and the
+                                              # ViT-L, Swin and COCO training phases
 
 Kernel B1 (deformable attention) is held and timed at each of its three
 main shapes under two distributions of sampling offsets: uniform over +-10
@@ -387,23 +400,24 @@ def msdeform_bound(value, loc, attn, out_dtype):
     return bound((value, loc, attn, out), 10 * attn.numel() * value.shape[-1], value.dtype)
 
 
-def extractor_grids():
-    Hv, Wv = VIT_GRID
+def extractor_grids(grid=VIT_GRID):
+    Hv, Wv = grid
     return [(2 * Hv, 2 * Wv), (Hv, Wv), (Hv // 2, Wv // 2)]
 
 
-def extractor_inputs(dev, seed=SEED, BT=5, M=16, D=64, P=4, offsets="uniform"):
+def extractor_inputs(dev, seed=SEED, BT=5, M=16, D=64, P=4, offsets="uniform", grid=VIT_GRID):
     """B1 as the ViT-L adapter's extractors call it: the three spatial grids
-    (92x160, 46x80, 23x40 = 19,320 queries a frame) attend into the one
-    46x80 ViT level, 16 heads of 64 channels. ``uniform`` offsets reach 6
-    pixels."""
+    (at the serving size 92x160, 46x80, 23x40 = 19,320 queries a frame;
+    ``grid`` (30, 48), the 480x768 training canvas: 7,560) attend into the
+    one ViT level ``grid``, 16 heads of 64 channels. ``uniform`` offsets
+    reach 6 pixels."""
     import torch
 
     from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import reference_points
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    Hv, Wv = VIT_GRID
-    ref = reference_points(extractor_grids())[:, 1:2][None, :, None, :, None, :]  # (1, Lq, 1, 1, 1, 2)
+    Hv, Wv = grid
+    ref = reference_points(extractor_grids(grid))[:, 1:2][None, :, None, :, None, :]  # (1, Lq, 1, 1, 1, 2)
     Lq = ref.shape[1]
     off = sampling_offsets(g, BT, Lq, M, 1, P, offsets, 6.0)
     loc = (ref + off / torch.tensor([Wv, Hv], dtype=torch.float32)).contiguous()
@@ -1717,12 +1731,15 @@ def replay_attention(predictor, decisions, replay):
     thresholded."""
     import torch.nn.functional as F
 
-    heads = predictor._prediction_heads
+    # the clip decoder's heads resize (B, Q, T, h, w) masks frame by frame
+    name = "_clip_heads" if hasattr(predictor, "_clip_heads") else "_prediction_heads"
+    heads = getattr(predictor, name)
     stats = {"calls": 0, "differ": 0, "keys": 0, "margin": float("inf")}
 
     def call(output, mask_features, attn_size):
         x, masks, additive = heads(output, mask_features, attn_size)
-        am = F.interpolate(masks, size=attn_size, mode="bilinear", align_corners=False)
+        am = F.interpolate(masks.flatten(1, 2) if masks.dim() == 5 else masks, size=attn_size,
+                           mode="bilinear", align_corners=False)
         stats["margin"] = min(stats["margin"], am.abs().min().item())
         if replay:
             ref = decisions[stats["calls"]].to(additive.device)
@@ -1734,7 +1751,7 @@ def replay_attention(predictor, decisions, replay):
         stats["calls"] += 1
         return x, masks, additive
 
-    predictor._prediction_heads = call
+    setattr(predictor, name, call)
     return stats
 
 
@@ -2027,6 +2044,7 @@ TRAIN_H, TRAIN_W, TRAIN_UNTIMED, TRAIN_TIMED = 480, 768, 2, 5
 STAGE_UNTIMED, STAGE_TIMED = 1, 3  # the MinVIS, CTVIS and DVIS++ offline slices
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 TRAIN_LEVELS = [(60, 96), (30, 48), (15, 24)]  # the 480x768 canvas: strides 8, 16, 32
+VIT_TRAIN_GRID = (30, 48)  # the ViT-L trunk's tokens on the 480x768 canvas
 
 
 def write_ytvis(root, name, n_videos, length, H, W, classes=None):
@@ -2185,9 +2203,10 @@ def timing_stages(arch, model, optimizer, ms):
     (``engine/trainer.py::build_train_step``) run inside the block, on the
     host clock with a synchronize at every boundary (:func:`stage_marks`),
     and inside them the loss matchers' host solves and the tracker's frame
-    alignments (each waited for; one a frame, its clips solved together).
-    Fills ``ms`` with milliseconds by stage, the whole step, and the
-    matcher and alignment calls."""
+    alignments (each waited for; one a frame, its clips solved together),
+    and with the ViT-Adapter its trunk's forward (synchronized). Fills
+    ``ms`` with milliseconds by stage, the whole step, and the matcher and
+    alignment calls."""
     import torch
 
     from dvis_plus_tpu_torch.losses import criterion
@@ -2206,6 +2225,21 @@ def timing_stages(arch, model, optimizer, ms):
             return out
         return wrapped
 
+    def synced(fn, acc):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc[0] += time.perf_counter() - t
+            return out
+        return wrapped
+
+    # the ViT-Adapter's trunk (patch embedding and blocks), apart from the adapter
+    trunk_s, vit = [0.0], getattr(getattr(model, "backbone", None), "vit_module", None)
+    trunk = [] if vit is None else [(vit, n) for n in ("prepare_tokens", "run_blocks")]
+    for obj, name in trunk:
+        setattr(obj, name, synced(getattr(obj, name), trunk_s))
     targets, spans = stage_marks(arch, model, optimizer)
     # every module of the port that holds the loss matcher by name
     holders = [m for n, m in list(sys.modules.items())
@@ -2222,7 +2256,12 @@ def timing_stages(arch, model, optimizer, ms):
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)
+        for obj, name in trunk:
+            delattr(obj, name)
     ms.update({name: 1e3 * (at[end] - at[start]) for name, start, end in spans})
+    if trunk:
+        ms["vit_trunk_forward"] = 1e3 * trunk_s[0]
+        ms["adapter_and_heads_forward"] = ms["segmenter_forward"] - ms["vit_trunk_forward"]
     ms.update({"tracker_alignments": 1e3 * align[0], "tracker_alignment_calls": align[1],
                "loss_matchers": 1e3 * match_s[0], "loss_matcher_calls": match_s[1],
                "step": 1e3 * (at["end"] - at[spans[0][1]])})
@@ -2248,25 +2287,63 @@ def recording_b1(calls):
         pixel_decoder.ms_deform_attn = plain
 
 
+def b1_per_step(cfg):
+    """B1 launches a training step of ``cfg``: one an encoder layer, and
+    with the ViT-Adapter one an extractor (one an interaction, and the last
+    interaction's two extra)."""
+    n = cfg.model.pixel_decoder.transformer_enc_layers
+    if cfg.model.backbone.name == "vit_adapter_dinov2":
+        n += len(cfg.model.backbone.vit_interaction_indexes) + 2
+    return n
+
+
+def write_coco(root, n_images, H, W):
+    """``tools/synth_data.py::make_coco`` (JPEG images, two moving boxes an
+    image, COCO's person and bicycle) with its masks encoded by the port's
+    RLE codec; every COCO split registered in the port's catalog
+    (``coco2ytvis2019_train`` among them)."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import synth_data
+
+    from dvis_plus_tpu_torch.data.datasets.coco import register_all_coco
+    from dvis_plus_tpu_torch.utils import rle
+
+    def port_rle(mask):
+        e = rle.encode(mask.astype(np.uint8))
+        return {"size": e["size"], "counts": e["counts"].decode("ascii")}
+
+    synth_data._rle = port_rle
+    synth_data.make_coco(root, n_images=n_images, H=H, W=W)
+    register_all_coco(root)
+
+
 def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAIN_UNTIMED,
-                      timed=TRAIN_TIMED):
-    """Training of ``arch`` at the full width of
-    ``configs/dvis/{arch}_r50_ytvis19.yaml`` (its preset in
-    ``config.TRAIN_PRESETS``: bf16 compute, fp32 parameters and moments, 8
-    clips on the 480x768 canvas of 5 frames, or of 15
-    (``sampling_frame_num``) for the offline stage; 12,544 points) with
-    seeded random weights, on a synthetic YouTube-VIS set of 480x768 frames
-    written to a temporary directory, through the port's loader (4 worker
-    threads): ``untimed`` steps, then ``timed`` ones. MinVIS and CTVIS train
-    the whole segmenter, DVIS++ online the tracker on it frozen, DVIS++
-    offline the refiner on the frozen online model with its class memory.
-    The losses of every step must be finite, B1's forward launch once an
-    encoder layer a step, and its backward as often where the segmenter
-    trains, never where it is frozen. Then one step timed by stage
-    (:func:`timing_stages`) and one step's host syncs. If 8 clips do not fit
-    the card, the largest count that does (halving) and its peak are
-    reported. DVIS++ online also records B1's calls by shape, times a
-    checkpoint save and times B1 at the training encoder's shape."""
+                      timed=TRAIN_TIMED, preset=None, lsj=False):
+    """Training of ``arch`` at the full width of its preset (``preset``, or
+    ``config.TRAIN_PRESETS[arch]``: ``configs/dvis/{arch}_r50_ytvis19.yaml``,
+    ``maskformer_r50_coco.yaml``, ``video_maskformer_r50_coco_joint.yaml``;
+    bf16 compute, fp32 parameters and moments, 8 clips on the 480x768
+    canvas of 5 frames, or of 15 (``sampling_frame_num``) for the offline
+    stage, 1 or 2 for the COCO pseudo-videos; 12,544 points) with seeded
+    random weights, on a synthetic set written to a temporary directory
+    (YouTube-VIS frames of 480x768, or COCO images of 480x640 that the
+    pseudo-video mapper rotates and resizes), through the port's loader (4
+    worker threads): ``untimed`` steps, then ``timed`` ones. MinVIS, CTVIS
+    and the Mask2Formers train the whole segmenter (a ViT-Adapter's trunk
+    frozen), DVIS++ online the tracker on it frozen, DVIS++ offline the
+    refiner on the frozen online model with its class memory. The losses of
+    every step must be finite, B1's forward launch :func:`b1_per_step` times
+    a step, and its backward as often where the segmenter trains, never
+    where it is frozen. Then one step timed by stage (:func:`timing_stages`;
+    with the ViT-Adapter the trunk's forward apart) and one step's host
+    syncs. If 8 clips do not fit the card, the largest count that does
+    (halving) and its peak are reported. DVIS++ online also records B1's
+    calls by shape, times a checkpoint save and times B1 at the training
+    encoder's shape; with ``lsj`` one more step takes its batch with
+    ``input.lsj_aug`` on (the configuration's own LSJ size), and B1's
+    backward is timed at the encoder shape that step gave it."""
+    import gc
+
     import torch
 
     from dvis_plus_tpu_torch.config import TRAIN_PRESETS
@@ -2275,22 +2352,28 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
     from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
 
     online = arch == "dvis_online"
+    preset = preset or TRAIN_PRESETS[arch]
     steps, tried, b1_calls = untimed + timed, [], []
     with tempfile.TemporaryDirectory() as root:
-        cfg = TRAIN_PRESETS[arch]()
-        write_ytvis(root, f"ytvis_{phase}", n_videos=cfg.solver.ims_per_batch,
-                    length=max(10, cfg.input.sampling_frame_num + 2), H=TRAIN_H, W=TRAIN_W)
+        cfg = preset()
+        coco = "image_instance" in cfg.datasets.dataset_type
+        if coco:
+            write_coco(root, n_images=cfg.solver.ims_per_batch, H=480, W=640)
+        else:
+            write_ytvis(root, f"ytvis_{phase}", n_videos=cfg.solver.ims_per_batch,
+                        length=max(10, cfg.input.sampling_frame_num + 2), H=TRAIN_H, W=TRAIN_W)
         clips = cfg.solver.ims_per_batch
         while True:
-            cfg = TRAIN_PRESETS[arch]()
-            cfg.datasets.train = (f"ytvis_{phase}_train",)
+            cfg = preset()
+            if not coco:
+                cfg.datasets.train = (f"ytvis_{phase}_train",)
             cfg.solver.ims_per_batch = clips
             tried.append(clips)
             model = build_model(cfg, dev).train()
             train_step, init = build_train_step(cfg, model)
             state = init()
             loader = build_combined_train_loader(cfg, seed=SEED)
-            losses, wait_s, step_s = [], [], []
+            losses, wait_s, step_s, batch = [], [], [], None
             b1_calls.clear()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -2312,9 +2395,11 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
             except torch.cuda.OutOfMemoryError:
                 if clips == 1:
                     raise
-                del model, state, train_step, loader
-                torch.cuda.empty_cache()
-                clips //= 2
+            # outside the handler, so that its traceback's frames are gone
+            del model, state, train_step, loader, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            clips //= 2
         peak = torch.cuda.max_memory_allocated(dev)
         extra = {}
         if online:
@@ -2330,16 +2415,18 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
         with counting_syncs(counts):
             state, metrics = train_step(state, batch)
             torch.cuda.synchronize()
+        if lsj:
+            extra["lsj_step"] = lsj_step(dev, cfg, model, state, train_step)
         memory = None if state.memory is None else int(state.memory.count.sum())
         del model, state, train_step, loader, batch
     torch.cuda.empty_cache()
     finite = all(np.isfinite(v) for row in losses for v in row.values())
-    layers = cfg.model.pixel_decoder.transformer_enc_layers
     per_step = {"msdeform_fwd": launches["msdeform_fwd"] / steps,
                 "msdeform_bwd": launches["msdeform_bwd"] / steps}
-    want = {"msdeform_fwd": layers, "msdeform_bwd": 0 if "segmenter" in cfg.model.freeze else layers}
-    res = {"phase": phase, "arch": arch, "clips": clips, "clips_tried": tried,
-           "frames": cfg.input.sampling_frame_num, "canvas": [TRAIN_H, TRAIN_W],
+    n = b1_per_step(cfg)
+    want = {"msdeform_fwd": n, "msdeform_bwd": 0 if "segmenter" in cfg.model.freeze else n}
+    res = {"phase": phase, "arch": arch, "backbone": cfg.model.backbone.name, "clips": clips,
+           "clips_tried": tried, "frames": cfg.input.sampling_frame_num, "canvas": [TRAIN_H, TRAIN_W],
            "dtype": cfg.model.compute_dtype, "steps": steps, "timed_steps": timed,
            "total_loss": [row["total_loss"] for row in losses], "losses_last": losses[-1],
            "finite": finite, "step_s_median": float(np.median(step_s)), "step_s": step_s,
@@ -2351,10 +2438,11 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
     shapes = sorted({c[:3] for c in b1_calls})
     if online:
         res["b1_calls"] = [{"value": list(v), "value_dtype": vd, "attn_dtype": ad} for v, vd, ad in shapes]
-    if not finite or per_step != want or (online and len(shapes) != 1):
+    lsj_ok = not lsj or extra["lsj_step"]["finite"]
+    if not finite or per_step != want or (online and len(shapes) != 1) or not lsj_ok:
         emit({**res, "failed": True})
         raise AssertionError(f"{phase}: finite {finite}, B1 launches a step {per_step} (expected {want}), "
-                             f"B1 shapes {shapes}")
+                             f"B1 shapes {shapes}, LSJ step finite {lsj_ok}")
     if online:
         # B1 at the training encoder's shape, in the dtype the step gave it
         (BT, _, M, D), value_dtype, _ = shapes[0]
@@ -2366,12 +2454,49 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
     return res
 
 
+def lsj_step(dev, cfg, model, state, train_step):
+    """One more training step whose batch the loader makes with
+    ``input.lsj_aug`` on (a 0.1-2x scale of the ``max_size_train`` square,
+    then that square cropped and fitted to the canvas): its time, losses,
+    launches and B1's encoder calls; then B1's backward against autograd of
+    its twin at the encoder shape that step gave it, timed."""
+    import copy
+
+    import torch
+
+    from dvis_plus_tpu_torch.data.build import build_combined_train_loader
+    from dvis_plus_tpu_torch.engine.trainer import to_batch
+
+    cfg = copy.deepcopy(cfg)
+    cfg.input.lsj_aug = True
+    loader = build_combined_train_loader(cfg, seed=SEED + 1, num_workers=2)
+    calls = []
+    with recording_b1(calls):
+        reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, to_batch(next(loader), dev))
+        losses = {k: float(v) for k, v in metrics.items()}
+        step_s = time.perf_counter() - t0
+        launches = read_launches()
+    (value_shape, value_dtype, _, levels), = {(c[0], c[1], c[2], tuple(map(tuple, c[3]))) for c in calls}
+    BT, _, M, D = value_shape
+    value, loc, attn = msdeform_inputs(dev, list(levels), BT=BT, M=M, D=D)
+    b1b = b1_backward_check(list(levels), value.to(getattr(torch, value_dtype)), loc, attn, iters=5,
+                            plain_iters=1)
+    del value, loc, attn
+    return {"lsj_size": cfg.input.max_size_train, "step_s": step_s, "total_loss": losses["total_loss"],
+            "finite": all(np.isfinite(v) for v in losses.values()), "launches": launches,
+            "b1_value": list(value_shape), "b1_value_dtype": value_dtype, "b1_levels": list(levels),
+            "b1_backward": {k: b1b[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "rel_err")}}
+
+
 def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=None):
     """The port's slow overfit tests (``tests/test_torch_overfit.py`` runs
     this phase on the CPU): DVIS++ online (or ``arch``: ``minvis``,
-    ``ctvis``, ``dvis_offline``) at the tiny widths of ``config.TINY_TRAIN``
-    with 2 classes, 2 clips of 3 frames at 64x96 from a 2-video synthetic
-    set, 100 steps, from seeded weights or ``weights`` (a state dict: the
+    ``ctvis``, ``dvis_offline``; ``maskformer`` and ``video_maskformer`` on
+    two synthetic COCO images as pseudo-videos of 1 and 2 frames) at the
+    tiny widths of ``config.TINY_TRAIN`` with 2 classes, 2 clips of 3 frames
+    at 64x96 from a 2-video synthetic set, 100 steps, from seeded weights or ``weights`` (a state dict: the
     earlier stage's model, loaded where the keys agree); the last total loss
     must be below the first, as the JAX slow test asserts. Returns the result
     with the trained model's state dict under ``state_dict``."""
@@ -2381,16 +2506,24 @@ def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=
     from dvis_plus_tpu_torch.config import tiny
     from dvis_plus_tpu_torch.data.build import build_train_loader
     from dvis_plus_tpu_torch.data.datasets.categories import YTVIS_2019_CLASSES
+    from dvis_plus_tpu_torch.data.mapper import mapper_for_type
     from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
 
+    coco = arch in ("maskformer", "video_maskformer")
     overrides = ("model.num_classes=2", "solver.ims_per_batch=2", "solver.base_lr=3e-4",
                  "solver.warmup_iters=10", "solver.steps=[100000]", "solver.max_iter=100",
-                 "input.sampling_frame_num=3", "input.sampling_frame_range=1",
                  "input.min_size_train=[64]", "input.max_size_train=96")
+    if not coco:
+        overrides += ("input.sampling_frame_num=3", "input.sampling_frame_range=1")
     cfg = tiny(arch, *overrides)
     with tempfile.TemporaryDirectory() as root:
-        write_ytvis(root, "ytvis_overfit", n_videos=2, length=6, H=64, W=96,
-                    classes=YTVIS_2019_CLASSES[:2])
+        if coco:  # two 64x96 COCO images, their two categories (coco_2017_train)
+            write_coco(root, n_images=2, H=64, W=96)
+            dataset, mapper = "coco_2017_train", mapper_for_type(cfg, "image_instance", is_train=True)
+        else:
+            write_ytvis(root, "ytvis_overfit", n_videos=2, length=6, H=64, W=96,
+                        classes=YTVIS_2019_CLASSES[:2])
+            dataset, mapper = "ytvis_overfit_train", None
         torch.manual_seed(SEED + 1)
         model = build_arch(cfg.model)
         if weights is not None:
@@ -2398,7 +2531,7 @@ def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=
         model = model.to(dev).train()
         step, init = build_train_step(cfg, model)
         state = init()
-        loader = build_train_loader(cfg, "ytvis_overfit_train", seed=SEED, num_workers=2)
+        loader = build_train_loader(cfg, dataset, mapper, seed=SEED, num_workers=2)
         losses = []
         t0 = time.perf_counter()
         for k in range(cfg.solver.max_iter):
@@ -2566,7 +2699,9 @@ def phase_b1_backward(dev):
     fp32, exact and clamped (r7), under uniform offsets and the
     initialisation's, and the ViT-L extractor's (5, 3680, 16, 64) with bf16
     values and weights; then the training encoder's shape, exact, under the
-    ``far`` offsets (uniform over +-64 value pixels). Each line gives the
+    ``far`` offsets (uniform over +-64 value pixels); then the ViT-L
+    extractor's training shape (40, 1440, 16, 64) bf16, 7,560 queries, under
+    both offset distributions. Each line gives the
     share of samples that no window of the value-gradient kernel holds
     (``direct_share``: 0 by design) and fails unless it is 0 for r7."""
     import torch
@@ -2598,6 +2733,14 @@ def phase_b1_backward(dev):
                   **b1_backward_check(TRAIN_LEVELS, value, loc, attn)})
     emit({"phase": "b1_backward", **forms[-1]})
     del value, loc, attn
+    # the ViT-L extractor in training: 8 clips x 5 frames on the 480x768
+    # canvas, 1,440 ViT tokens (one 30x48 level) as the value, 7,560 queries
+    for offsets in ("uniform", "init"):
+        value, loc, attn = extractor_inputs(dev, BT=40, offsets=offsets, grid=VIT_TRAIN_GRID)
+        forms.append({"shape": "vitl_extractor_train_480x768", "offsets": offsets, **b1_backward_check(
+            [VIT_TRAIN_GRID], value.to(torch.bfloat16), loc, attn.to(torch.bfloat16))})
+        emit({"phase": "b1_backward", **forms[-1]})
+        del value, loc, attn
     torch.cuda.empty_cache()
     clamped = [f["direct_share"] for f in forms if f["radius"] is not None]
     if any(share != 0 for share in clamped):
@@ -2622,14 +2765,29 @@ def off_grid(model, scale=0.25):
                 p.add_((torch.randn(p.shape, generator=g) * scale).to(p.device))
 
 
-def phase_stage_step_parity(dev, arch):
-    """One MinVIS or CTVIS training step at small widths on the card against
-    the CPU: the same seeded weights, batch (2 clips x 3 frames of 128x160)
-    and draws, fp32, the whole segmenter trained (B1 forward and backward on
-    the card), the card replaying the CPU's masked-attention decisions, the
-    sampling offsets off the pixel grid (:func:`off_grid`). The losses, the
-    decoders' and the backbone's gradients and every assignment the loss
-    made."""
+# the small step-parity phases' backbones: a 4-block ViT-Adapter of width 32
+# (frozen trunk) and a Swin of width 32 with stochastic depth
+VIT_TINY = ("model.backbone.name=vit_adapter_dinov2", "model.backbone.vit_embed_dim=32",
+            "model.backbone.vit_depth=4", "model.backbone.vit_num_heads=2",
+            "model.backbone.vit_deform_num_heads=2",
+            "model.backbone.vit_interaction_indexes=[[0,0],[1,1],[2,2],[3,3]]",
+            "model.backbone.vit_conv_inplane=8")
+SWIN_TINY = ("model.backbone.name=swin_tiny", "model.backbone.swin_embed_dim=32",
+             "model.backbone.swin_depths=[2,2,2,2]", "model.backbone.swin_num_heads=[1,2,4,8]",
+             "model.backbone.swin_window_size=7")
+
+
+def phase_stage_step_parity(dev, arch, phase=None, overrides=(), T=3):
+    """One training step of ``arch`` (MinVIS, CTVIS, Mask2Former on clips of
+    one frame, Video Mask2Former) at small widths (``overrides``: another
+    backbone) on the card against the CPU: the same seeded weights, batch
+    (2 clips x ``T`` frames of 128x160) and draws, fp32, the whole
+    segmenter trained (B1 forward and backward on the card; a ViT-Adapter's
+    trunk frozen; Swin's window attention through the plain op, its drop
+    path from the same coins), the card replaying the CPU's masked-attention
+    decisions, the sampling offsets off the pixel grid (:func:`off_grid`).
+    The losses, the decoders' and the backbone's gradients and every
+    assignment the loss made."""
     import copy
 
     import torch
@@ -2640,15 +2798,15 @@ def phase_stage_step_parity(dev, arch):
     from dvis_plus_tpu_torch.losses.targets import VideoTargets
     from dvis_plus_tpu_torch.utils.draws import Draws
 
-    cfg = tiny(arch, "model.num_classes=5")
-    B, T, N, H, W = 2, 3, 4, 128, 160
+    cfg = tiny(arch, "model.num_classes=5", *overrides)
+    B, N, H, W = 2, 4, 128, 160
     g = torch.Generator().manual_seed(SEED)
     masks = torch.zeros(B, N, T, H // 4, W // 4, dtype=torch.bool)
     for b in range(B):
         for n in range(N - 1):
             y, x = 3 + 8 * n, 2 + 5 * b + 3 * n
             for t in range(T):
-                if not (n == 1 and t == 0):
+                if not (n == 1 and t == 0 and T > 1):
                     masks[b, n, t, y:y + 7, x + t:x + t + 9] = True
     fv = masks.flatten(3).any(-1)
     batch = Batch(torch.randn(B, T, 3, H, W, generator=g),
@@ -2670,7 +2828,8 @@ def phase_stage_step_parity(dev, arch):
         with recording_matches(matches):
             _, metrics = step(init(), b, Draws(torch.Generator().manual_seed(SEED + 7)))
         grads = {part: torch.cat([p.grad.detach().float().cpu().flatten()
-                                  for n, p in model.named_parameters() if n.startswith(part)])
+                                  for n, p in model.named_parameters()
+                                  if n.startswith(part) and p.grad is not None])
                  for part in ("sem_seg_head.", "backbone.")}
         out.append(({k: float(v) for k, v in metrics.items()}, grads, matches))
     launches = read_launches()
@@ -2679,8 +2838,9 @@ def phase_stage_step_parity(dev, arch):
     grad_err = {part: ((gg[part] - gw[part]).norm() / gw[part].norm()).item() for part in gw}
     same = len(mw) == len(mg) and all(torch.equal(a, b) for a, b in zip(mw, mg))
     finite = all(np.isfinite(v) for v in got.values())
-    layers = cfg.model.pixel_decoder.transformer_enc_layers
-    res = {"phase": f"{arch}_train_step_parity", "clips": B, "frames": T, "input": [H, W],
+    n = b1_per_step(cfg)
+    res = {"phase": phase or f"{arch}_train_step_parity", "backbone": cfg.model.backbone.name,
+           "clips": B, "frames": T, "input": [H, W],
            "loss_rel_err": max(loss_err.values()), "loss_tol": TRAIN_LOSS_TOL,
            "grad_rel_err_norm": grad_err,
            "grad_tol": {"sem_seg_head.": TRAIN_GRAD_TOL, "backbone.": TRAIN_BACKBONE_GRAD_TOL},
@@ -2691,7 +2851,8 @@ def phase_stage_step_parity(dev, arch):
     if not (finite and same and max(loss_err.values()) <= TRAIN_LOSS_TOL
             and grad_err["sem_seg_head."] <= TRAIN_GRAD_TOL
             and grad_err["backbone."] <= TRAIN_BACKBONE_GRAD_TOL
-            and launches["msdeform_fwd"] == layers and launches["msdeform_bwd"] == layers):
+            and launches["msdeform_fwd"] == n and launches["msdeform_bwd"] == n
+            and launches["swin_window_attn_fwd"] == launches["flash_attn_fwd"] == 0):
         raise AssertionError(f"the {arch} training step on the card disagrees with the CPU: {res}")
 
 
@@ -2707,6 +2868,35 @@ def run_stages_1_and_3(dev):
                                   ("dvis_offline", "offline_train_slice"))}
     phase_train_overfit(dev, "minvis", "minvis_train_overfit")
     return b1b, stages
+
+
+def run_segmenter_training(dev):
+    """The segmenters trained with the ViT-L and Swin backbones and on COCO
+    pseudo-videos: the four small step-parity phases (ViT-Adapter and Swin
+    MinVIS, Mask2Former, Video Mask2Former), the ViT-L MinVIS and CTVIS
+    slices at the full width of ``configs/dvis/{minvis,ctvis}_vitl_ytvis19.yaml``
+    (5 frames of 480x768, the trunk frozen, B1 forward and backward in the
+    encoder and the six extractors), the Mask2Former and Video Mask2Former
+    slices at the full width of ``maskformer_r50_coco.yaml`` and
+    ``video_maskformer_r50_coco_joint.yaml`` (8 COCO images as clips of 1
+    and 2 rotated frames, then one step with large-scale jitter), and 100
+    steps of a tiny Mask2Former whose loss must fall: the slices' results by
+    phase."""
+    from dvis_plus_tpu_torch.config import ctvis_vitl_ytvis19, minvis_vitl_ytvis19
+
+    phase_stage_step_parity(dev, "minvis", "vitl_minvis_train_step_parity", VIT_TINY)
+    phase_stage_step_parity(dev, "minvis", "swin_minvis_train_step_parity", SWIN_TINY)
+    phase_stage_step_parity(dev, "maskformer", "maskformer_train_step_parity", T=1)
+    phase_stage_step_parity(dev, "video_maskformer", "video_maskformer_train_step_parity")
+    slices = {}
+    for arch, phase, preset in (("minvis", "vitl_minvis_train_slice", minvis_vitl_ytvis19),
+                                ("ctvis", "vitl_ctvis_train_slice", ctvis_vitl_ytvis19),
+                                ("maskformer", "maskformer_train_slice", None),
+                                ("video_maskformer", "video_maskformer_train_slice", None)):
+        slices[phase] = phase_train_slice(dev, arch, phase, STAGE_UNTIMED, STAGE_TIMED, preset=preset,
+                                          lsj=preset is None)
+    phase_train_overfit(dev, "maskformer", "maskformer_train_overfit")
+    return slices
 
 
 def main() -> int:
@@ -2746,6 +2936,12 @@ def main() -> int:
         phase_train_slice(dev)
         phase_train_overfit(dev)
         run_stages_1_and_3(dev)
+        run_segmenter_training(dev)
+        emit({"phase": "wall", "seconds": time.perf_counter() - start})
+        return 0
+    if "--train-segmenters" in sys.argv[1:]:
+        phase_b1_backward(dev)
+        run_segmenter_training(dev)
         emit({"phase": "wall", "seconds": time.perf_counter() - start})
         return 0
     if "--ov" in sys.argv[1:]:
@@ -2784,6 +2980,7 @@ def main() -> int:
     train = phase_train_slice(dev)
     phase_train_overfit(dev)
     b1b, stages = run_stages_1_and_3(dev)
+    stages.update(run_segmenter_training(dev))
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
     # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2

@@ -8,11 +8,16 @@
 Without ``--eval-only`` it trains, as ``train_net_video.py::do_train``
 (:112-190): the three stages of the DVIS++ recipe on the video instance
 sets of ``datasets.train``: MinVIS or CTVIS (``minvis``, ``ctvis``: the bare
-``Segmenter``, frames folded into the batch, trained whole), DVIS++ online
+``Segmenter`` on any ported backbone, frames folded into the batch, trained
+whole but for a ViT-Adapter's frozen trunk), DVIS++ online
 (``dvis_online``: the tracker on the frozen segmenter) and DVIS++ offline
 (``dvis_offline``: the refiner on the frozen online model, with its class
-memory) (``config.check_trainable`` refuses the rest, naming the ROADMAP
-item), ``solver.max_iter`` steps of ``engine.trainer``'s train step
+memory); and the segmenter's pretraining on COCO pseudo-videos
+(``image_instance`` sets, ``data/pseudo_video.py``): Mask2Former
+(``maskformer``, clips of one frame) and Video Mask2Former
+(``video_maskformer``, also on video sets) (``config.check_trainable``
+refuses the rest, naming the ROADMAP item), ``solver.max_iter`` steps of
+``engine.trainer``'s train step
 from the port's loader (``data.build``), a line of ``metrics.jsonl`` and a
 console line every 20 steps (``utils.events``), and a checkpoint
 ``<output_dir>/checkpoints/step_<n>.pth`` every ``solver.checkpoint_period``
@@ -199,6 +204,7 @@ def do_train(cfg, resume: bool, dev: torch.device):
 def main(argv=None) -> dict:
     from dvis_plus_tpu_torch.config import check_supported, check_trainable, is_ov, load_config
     from dvis_plus_tpu_torch.data.catalog import get_dataset, get_metadata
+    from dvis_plus_tpu_torch.data.datasets.coco import register_all_coco
     from dvis_plus_tpu_torch.data.datasets.vps_vss import register_all_vipseg, register_all_vspw
     from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
     from dvis_plus_tpu_torch.data.mapper import mapper_for_type
@@ -224,7 +230,7 @@ def main(argv=None) -> dict:
         raise SystemExit("open-vocabulary configurations run through "
                          "python -m dvis_plus_tpu_torch.cli_ov")
     root = os.environ.get("DVIS_DATASETS", "datasets")
-    for register in (register_all_ytvis, register_all_vipseg, register_all_vspw):
+    for register in (register_all_ytvis, register_all_vipseg, register_all_vspw, register_all_coco):
         register(root)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")

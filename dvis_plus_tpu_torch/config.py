@@ -19,6 +19,9 @@ The presets hold the values ``load_config`` resolves for their YAML:
 ``configs/dvis/minvis_r50_ytvis19.yaml`` (base_video),
 ``configs/dvis/ctvis_r50_ytvis19.yaml`` (minvis -> base_video),
 ``configs/dvis/video_maskformer_r50_ytvis19.yaml`` (base_video),
+``configs/dvis/{maskformer_r50_coco,video_maskformer_r50_coco_joint}.yaml``
+(base_video), ``configs/dvis/{minvis,ctvis}_vitl_ytvis19.yaml`` (their R50
+YAMLs),
 ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (ctvis -> minvis ->
 base_video), ``configs/dvis/dvis_online_r50_{vipseg,vspw}.yaml`` (vspw ->
 vipseg -> dvis_online_r50_ytvis19), ``configs/dvis/dvis_offline_swinl_ytvis19.yaml``
@@ -54,10 +57,11 @@ class BackboneConfig:
     swin_num_heads: Tuple[int, ...] = (3, 6, 12, 24)
     swin_window_size: int = 7
     swin_mlp_ratio: float = 4.0
+    swin_drop_path_rate: float = 0.3  # training: stochastic depth, 0 to this over the blocks
     swin_patch_size: int = 4
     swin_qkv_bias: bool = True
     swin_fast_softmax: bool = False  # bf16 attention scores: not ported (raises)
-    swin_fused_attn: bool = False  # both values run kernel B2 on CUDA
+    swin_fused_attn: bool = False  # eval: both values run kernel B2 on CUDA; training the plain op
     # ViT-Adapter (DINOv2); the trunk runs on a stride-16 grid whatever
     # vit_patch_size says, as in the JAX package
     vit_embed_dim: int = 1024
@@ -70,6 +74,7 @@ class BackboneConfig:
     vit_n_points: int = 4
     vit_with_cffn: bool = True
     vit_deform_ratio: float = 0.5
+    vit_frozen: bool = True  # training: the DINOv2 trunk is fixed (the reference's frozen trunk)
     vit_flash_attention: bool = False  # serving: trunk attention through kernel B3
     vit_extractor_coarse: bool = False  # serving: coarse stride-8 extractor queries
     # CLIP trunks of the open-vocabulary models (clip_* names): read when
@@ -236,8 +241,8 @@ class InputConfig:
     random_flip: str = "flip_by_clip"  # any value but "none" flips a whole clip
     augmentations: Tuple[str, ...] = ()
     image_format: str = "RGB"
-    pseudo: bool = False  # COCO pseudo-videos (ROADMAP A14c.2)
-    lsj_aug: bool = False  # large-scale jitter (ROADMAP A14c.2)
+    pseudo: bool = False  # COCO pseudo-videos: read by nothing, the image_instance sets make them
+    lsj_aug: bool = False  # pseudo-videos: large-scale jitter instead of the shortest-edge resize
 
 
 @dataclass
@@ -477,19 +482,28 @@ SUPPORTED = (
      "A13 (open vocabulary runs a clip_* backbone; A12: the JAX package has no DAQ OV model)"),
     ("test.task", _ported_task,
      "A12: vos and mots run through the DAQ eval loop, so only with a daq_* architecture"),
-    ("datasets.dataset_type_test", _eval_dataset_types, "A14c.2 (image_*: the pseudo-video mappers)"),
+    ("datasets.dataset_type_test", _eval_dataset_types,
+     "A14c.5 (image_panoptic: the COCO panoptic pseudo-video mapper)"),
     ("test.refiner_shard_devices", (0, 1), "A15 (the object-sharded refiner pass)"),
     ("test.eval_devices", (1,), "A15 (video-parallel eval)"),
 )
 
-def _trains_segmenter_backbone(name, cfg) -> bool:
-    """A segmenter trained with gradients needs the backward of every kernel
-    its backbone runs: B1's exists (the ResNets run no other kernel); Swin's
-    B2 and the ViT's B3 are forward only. A frozen segmenter runs without
-    gradients (DVIS++ online and offline)."""
-    frozen = cfg.model.meta_architecture in ("dvis_online", "dvis_offline") and (
-        "segmenter" in cfg.model.freeze)
-    return frozen or name in ("resnet50", "resnet101")
+def _trunk_attention_trains(flash, cfg) -> bool:
+    """An unfrozen ViT trunk trains through its dense attention: B3 is
+    forward only, and its wrapper raises under gradients. A frozen trunk runs
+    without gradients, so B3 serves it."""
+    b = cfg.model.backbone
+    segmenter_frozen = (cfg.model.meta_architecture in ("dvis_online", "dvis_offline")
+                        and "segmenter" in cfg.model.freeze)
+    return not (flash and b.name == "vit_adapter_dinov2" and not b.vit_frozen
+                and not segmenter_frozen)
+
+
+def _trains_images(cfg) -> bool:
+    return "image_instance" in tuple(cfg.datasets.dataset_type)
+
+
+PSEUDO_AUGMENTATIONS = ("brightness", "contrast", "saturation")
 
 
 def _ctvis_weight(default: float):
@@ -500,28 +514,39 @@ def _ctvis_weight(default: float):
 
 
 # What training honours, in the form of :data:`SUPPORTED` (the eval rows hold
-# too): DVIS++ online and offline, MinVIS and CTVIS on video instance sets.
+# too): DVIS++ online and offline, MinVIS and CTVIS on every ported backbone,
+# Mask2Former and Video Mask2Former, on video instance sets and COCO
+# pseudo-videos.
 TRAINABLE = (
-    ("model.meta_architecture", ("dvis_online", "dvis_offline", "minvis", "ctvis"),
-     "A14c.2-A14c.5 (Mask2Former, Video Mask2Former, DVIS-DAQ and open-vocabulary training)"),
-    ("model.backbone.name", _trains_segmenter_backbone,
-     "A14c.1 (a Swin or ViT segmenter trained: B2's and B3's plain op under gradients)"),
+    ("model.meta_architecture",
+     ("dvis_online", "dvis_offline", "minvis", "ctvis", "maskformer", "video_maskformer"),
+     "A14c.4, A14c.5 (DVIS-DAQ and open-vocabulary training)"),
+    ("model.ov.enabled", (False,), "A14c.5 (open-vocabulary training)"),
+    ("model.backbone.vit_flash_attention", _trunk_attention_trains,
+     "queue B (B3 is forward only: an unfrozen ViT trunk trains with vit_flash_attention=false)"),
     ("model.param_dtype", ("float32",), "A14b (fp32 parameters and optimizer state)"),
     ("model.tracker.noise_mode", ("none", "rs", "wa", "cc", "hard"), "A14b (the noiser's modes)"),
     ("model.criterion.matcher_solver", ("jv", "auction"), "A14b (the matchers' solvers)"),
-    ("datasets.dataset_type", lambda types, cfg: all(t == "video_instance" for t in types),
-     "A14c.2, A14c.3 (the pseudo-video, panoptic and semantic training mappers)"),
-    ("input.pseudo", (False,), "A14c.2 (COCO pseudo-videos)"),
-    ("input.lsj_aug", (False,), "A14c.2 (large-scale jitter)"),
-    ("input.augmentations", ((),), "A14c.2 (the colour augmentations)"),
+    ("datasets.dataset_type",
+     lambda types, cfg: all(t in ("video_instance", "image_instance") for t in types),
+     "A14c.3 (video_panoptic, video_semantic: their training mappers); ROADMAP A14c.5 "
+     "(image_panoptic)"),
+    # the pseudo-video recipe's inputs: the image_instance mapper alone reads
+    # them (in the JAX package too), so without such a set they would be
+    # dropped silently
+    ("input.pseudo", lambda v, cfg: not v or _trains_images(cfg),
+     "A14c.2 (read by nothing: the image_instance sets make the pseudo-videos)"),
+    ("input.lsj_aug", lambda v, cfg: not v or _trains_images(cfg),
+     "A14c.2 (read by the image_instance mapper alone)"),
+    ("input.augmentations",
+     lambda v, cfg: not v or (_trains_images(cfg) and set(v) <= set(PSEUDO_AUGMENTATIONS)),
+     "A14c.2 (brightness, contrast and saturation, read by the image_instance mapper alone)"),
     ("parallel.model_parallel_size", (1,), "A15 (training on more than one device)"),
     # read by nothing, in the JAX package either: a value but the default
     # would be dropped silently
     ("model.criterion.deep_supervision", (True,), "A14b (every layer is supervised)"),
     ("model.criterion.reid_weight", _ctvis_weight(2.0), "A14c (read by CTVIS alone; DVIS++'s is 2)"),
     ("model.criterion.aux_reid_weight", _ctvis_weight(3.0), "A14c (read by CTVIS alone; DVIS++'s is 3)"),
-    ("datasets.dataset_need_map", lambda need, cfg: not any(need),
-     "A14c.2 (the category maps of mixed training sets)"),
     ("input.sampling_interval", (1,), "A14b (clips are sampled by sampling_frame_range)"),
     ("input.image_format", ("RGB",), "A14b (frames are read as RGB)"),
     ("solver.amp", (True,), "A14b (the compute dtype is model.compute_dtype)"),
@@ -593,6 +618,46 @@ def video_maskformer_r50_ytvis19() -> Config:
     return cfg
 
 
+def maskformer_r50_coco() -> Config:
+    """Mask2Former, ResNet-50, on COCO pseudo-videos of one frame
+    (``coco2ytvis2019_train``, 80 classes): the segmenter's image
+    pretraining."""
+    cfg = Config()
+    cfg.model.meta_architecture = "maskformer"
+    cfg.model.num_classes = 80
+    cfg.datasets.train = ("coco2ytvis2019_train",)
+    cfg.datasets.dataset_type = ("image_instance",)
+    cfg.input.sampling_frame_num = 1
+    return cfg
+
+
+def video_maskformer_r50_coco_joint() -> Config:
+    """Video Mask2Former, ResNet-50, on COCO pseudo-videos of two rotated
+    frames (``coco2ytvis2019_train``, 80 classes)."""
+    cfg = maskformer_r50_coco()
+    cfg.model.meta_architecture = "video_maskformer"
+    cfg.input.sampling_frame_num = 2
+    return cfg
+
+
+def minvis_vitl_ytvis19() -> Config:
+    """MinVIS, DINOv2 ViT-L with the ViT-Adapter (the trunk frozen in
+    training), Q = 200, YouTube-VIS 2019."""
+    cfg = minvis_r50_ytvis19()
+    cfg.model.backbone = BackboneConfig(name="vit_adapter_dinov2")
+    cfg.model.transformer_decoder.num_queries = 200
+    return cfg
+
+
+def ctvis_vitl_ytvis19() -> Config:
+    """CTVIS, DINOv2 ViT-L with the ViT-Adapter, Q = 200, the 512-wide ReID
+    branch, YouTube-VIS 2019."""
+    cfg = ctvis_r50_ytvis19()
+    cfg.model.backbone = BackboneConfig(name="vit_adapter_dinov2")
+    cfg.model.transformer_decoder.num_queries = 200
+    return cfg
+
+
 def dvis_online_r50_ytvis19() -> Config:
     """DVIS++ online, ResNet-50, YouTube-VIS 2019 (40 classes). Training
     freezes the segmenter and trains the tracker for 20,000 steps (the base
@@ -657,10 +722,12 @@ def dvis_offline_r50_ytvis19() -> Config:
     return cfg
 
 
-# each trainable architecture's R50 YouTube-VIS 2019 preset: the three
-# stages of the DVIS++ recipe (stage 1 MinVIS or CTVIS, 2 online, 3 offline)
+# each trainable architecture's R50 preset: the three stages of the DVIS++
+# recipe on YouTube-VIS 2019 (stage 1 MinVIS or CTVIS, 2 online, 3 offline)
+# and the COCO pseudo-video pretraining (Mask2Former, Video Mask2Former)
 TRAIN_PRESETS = {"minvis": minvis_r50_ytvis19, "ctvis": ctvis_r50_ytvis19,
-                 "dvis_online": dvis_online_r50_ytvis19, "dvis_offline": dvis_offline_r50_ytvis19}
+                 "dvis_online": dvis_online_r50_ytvis19, "dvis_offline": dvis_offline_r50_ytvis19,
+                 "maskformer": maskformer_r50_coco, "video_maskformer": video_maskformer_r50_coco_joint}
 
 
 def tiny(arch: str, *overrides: str) -> Config:

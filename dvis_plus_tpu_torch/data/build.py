@@ -2,7 +2,7 @@
 ratio-weighted mixture of several.
 
 Counterpart: ``dvis_plus_tpu/data/build.py`` (``mapper_for_type``'s
-``video_instance`` training branch :31-38, ``_collate`` :76,
+training branches for video instance and COCO instance sets, ``_collate`` :76,
 ``build_train_loader`` :89, ``CombinedDataLoader`` :141,
 ``build_combined_train_loader`` :164), the reference's loader stack. The
 records are shuffled an epoch at a time by ``random.Random(seed)``; clip k
@@ -100,8 +100,10 @@ class CombinedDataLoader:
 
 def build_combined_train_loader(cfg, seed: int = 0, start_batches: int = 0,
                                 num_workers: int = 4) -> Iterator[dict]:
-    """The loader of ``datasets.train`` (ratios ``datasets.dataset_ratio``),
-    ``start_batches`` batches into its stream."""
+    """The loader of ``datasets.train`` (ratios ``datasets.dataset_ratio``;
+    each set mapped as its ``datasets.dataset_type`` entry says, the last
+    entry repeated for the sets beyond the list), ``start_batches`` batches
+    into its stream."""
     names = list(cfg.datasets.train)
     types = list(cfg.datasets.dataset_type) or ["video_instance"] * len(names)
     types += [types[-1]] * (len(names) - len(types))

@@ -12,11 +12,12 @@ normalized, and zero-padded at the bottom and the right up to a multiple of
 ``model.size_divisibility``.
 
 :func:`mapper_for_type` is ``dvis_plus_tpu/data/build.py::mapper_for_type``
-(:26-53) for the ported sets: the video instance, panoptic and semantic sets
+(:26-57) for the ported sets: the video instance, panoptic and semantic sets
 all map through this mapper at eval (the JAX panoptic and semantic mappers
 also decode the ground-truth masks, which no inference reads), the
-class-agnostic VOS sets through :class:`SOTDatasetMapper`, and in training
-the video instance sets.
+class-agnostic VOS sets through :class:`SOTDatasetMapper`, the COCO
+instance sets through ``data/pseudo_video.py``, and in training the video
+instance and COCO instance sets.
 """
 from __future__ import annotations
 
@@ -40,11 +41,14 @@ def resize_shortest_edge(h: int, w: int, size: int, max_size: int) -> Tuple[int,
 
 
 def decode_segmentation(seg, h: int, w: int) -> np.ndarray:
-    """An RLE dict, a polygon list or None -> (h, w) uint8 mask
+    """An RLE dict, a polygon list, a decoded ``{"_raw": mask}`` (the
+    pseudo-video mapper's) or None -> (h, w) uint8 mask
     (``dvis_plus_tpu/data/mapper.py::decode_segmentation`` :41)."""
     if seg is None:
         return np.zeros((h, w), np.uint8)
     if isinstance(seg, dict):
+        if "_raw" in seg:
+            return seg["_raw"]
         from dvis_plus_tpu_torch.utils import rle
 
         return rle.decode(seg)
@@ -245,24 +249,40 @@ class SOTDatasetMapper:
         return self._base(rec, seed)
 
 
-EVAL_DATASET_TYPES = ("video_instance", "video_panoptic", "video_semantic", "video_sot")
+EVAL_DATASET_TYPES = ("video_instance", "video_panoptic", "video_semantic", "video_sot",
+                      "image_instance")
 
 
 def mapper_for_type(cfg, dataset_type: str, is_train: bool = False):
     """The mapper of a ``datasets.dataset_type_test`` entry, or in training
-    of a ``datasets.dataset_type`` entry (``video_instance`` only: the
-    panoptic and semantic training mappers are ROADMAP A14c.3, the image ones
-    A14c.2)."""
+    of a ``datasets.dataset_type`` entry (``dvis_plus_tpu/data/build.py::
+    mapper_for_type`` :26-57): the video instance sets through
+    :class:`YTVISDatasetMapper`, the COCO instance sets (``image_instance``)
+    through the pseudo-video mapper, in training and at eval. The panoptic
+    and semantic training mappers are ROADMAP A14c.3, ``image_panoptic``
+    A14c.5.
+
+    ``datasets.dataset_need_map`` changes no mapper, as in the JAX package:
+    there the video instance mapper is handed the set's
+    ``thing_dataset_id_to_contiguous_id`` and reads it nowhere
+    (``mapper.py:93``), and every set the port registers already gives
+    contiguous training ids (the COCO pseudo-video splits map theirs at
+    load)."""
+    if dataset_type == "image_instance":
+        from dvis_plus_tpu_torch.data.pseudo_video import CocoPseudoVideoMapper
+
+        return CocoPseudoVideoMapper(cfg, is_train=is_train)
     if is_train:
         if dataset_type != "video_instance":
             raise NotImplementedError(
-                f"training on dataset type {dataset_type!r} is not ported (ROADMAP A14c.2, A14c.3)")
+                f"training on dataset type {dataset_type!r} is not ported (ROADMAP A14c.3, A14c.5)")
         return YTVISDatasetMapper(cfg, is_train=True)
     if dataset_type == "video_sot":
         return SOTDatasetMapper(cfg)
     if dataset_type in EVAL_DATASET_TYPES:
         return YTVISDatasetMapper(cfg)
-    if dataset_type.startswith("image_"):
+    if dataset_type == "image_panoptic":
         raise NotImplementedError(
-            f"dataset type {dataset_type!r} is not ported (ROADMAP A14c.2: the pseudo-video mappers)")
+            f"dataset type {dataset_type!r} is not ported (ROADMAP A14c.5: the COCO panoptic "
+            "pseudo-video mapper)")
     raise NotImplementedError(f"dataset_type {dataset_type}")

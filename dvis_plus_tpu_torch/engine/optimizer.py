@@ -8,6 +8,10 @@ Counterpart: ``dvis_plus_tpu/engine/optimizer.py`` (``_no_weight_decay``
 - groups ``main`` (the base learning rate), ``backbone`` (x
   ``backbone_multiplier``) and ``frozen``; a frozen parameter gets
   ``requires_grad_(False)`` and no state (the JAX package zeroes its updates);
+  the components ``model.freeze`` names are frozen, and so is the DINOv2
+  trunk of a ViT-Adapter with ``backbone.vit_frozen`` (the reference's frozen
+  trunk; the JAX optimizer leaves it in the backbone group, no code there
+  reading the field);
 - no weight decay on 1-D parameters (biases, norm scales) and on the names
   holding ``norm`` or an embedding (:func:`no_weight_decay`, the JAX rule on
   the reference names the port's modules carry);
@@ -166,12 +170,25 @@ class AdamW:
             self.nu[n].copy_(state["nu"][n])
 
 
+VIT_TRUNK = "backbone.vit_module."  # the DINOv2 trunk of a ViT-Adapter backbone
+
+
+def frozen_predicate(model_cfg) -> Callable[[str], bool]:
+    """What training keeps fixed: the components of ``model.freeze`` and,
+    with ``backbone.vit_frozen``, the ViT-Adapter's trunk."""
+    by_name = make_frozen_predicate(model_cfg.freeze)
+    b = model_cfg.backbone
+    trunk = b.name == "vit_adapter_dinov2" and b.vit_frozen
+    return lambda name: by_name(name) or (trunk and name.startswith(VIT_TRUNK))
+
+
 def build_optimizer(cfg, model: torch.nn.Module) -> AdamW:
-    """The optimizer of ``cfg.solver`` and ``cfg.model.freeze`` over ``model``
-    (``engine/trainer.py::build_optimizer`` :66)."""
+    """The optimizer of ``cfg.solver`` over ``model``, with what
+    :func:`frozen_predicate` names frozen (``engine/trainer.py::
+    build_optimizer`` :66)."""
     s = cfg.solver
     return AdamW(model.named_parameters(),
                  warmup_multistep_schedule(s.base_lr, s.steps, s.gamma, s.warmup_iters,
                                            s.warmup_factor),
                  weight_decay=s.weight_decay, backbone_multiplier=s.backbone_multiplier,
-                 clip_value=s.clip_gradients_value, frozen=make_frozen_predicate(cfg.model.freeze))
+                 clip_value=s.clip_gradients_value, frozen=frozen_predicate(cfg.model))

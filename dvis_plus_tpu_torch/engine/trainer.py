@@ -1,10 +1,12 @@
-"""The training step of DVIS++ online and offline, MinVIS and CTVIS.
+"""The training step of DVIS++ online and offline, MinVIS and CTVIS,
+Mask2Former and Video Mask2Former.
 
 Counterpart: ``dvis_plus_tpu/engine/trainer.py`` (``TrainState`` :37,
 ``Batch`` :44, ``criterion_config`` :49, ``build_loss_fn`` :81 with its
-``minvis`` / ``ctvis`` :153-199, ``dvis_online`` :215-233 and
-``dvis_offline`` :235-254 branches, ``build_train_step`` :320 and its
-``init_state`` :349-360), the reference ``DefaultTrainer`` step:
+``minvis`` / ``ctvis`` :153-199, ``maskformer`` / ``video_maskformer``
+:201-213, ``dvis_online`` :215-233 and ``dvis_offline`` :235-254
+branches, ``build_train_step`` :320 and its ``init_state`` :349-360), the
+reference ``DefaultTrainer`` step:
 
 - ``dvis_online``: the frozen segmenter without gradients, the tracker with
   its noise, then ``dvis_online_train_loss``, the matcher guided by the
@@ -20,6 +22,10 @@ Counterpart: ``dvis_plus_tpu/engine/trainer.py`` (``TrainState`` :37,
 - the total is the sum of the losses in the order of their sorted keys, as
   ``sum(jax.tree.leaves(losses))``;
 - one step: backward, the optimizer's clip and update (:mod:`engine.optimizer`);
+- the modules train in training mode (Swin's stochastic depth, its window
+  attention through the plain op), but a module every parameter of which
+  is frozen runs in eval mode (:func:`set_modes`), as it computes without
+  gradients (a frozen segmenter or ViT trunk);
 - the draws of step s come from a generator seeded by (``seed``, s)
   (:func:`utils.draws.step_generator`, the counterpart of
   ``jax.random.fold_in(key, step)`` :326), so a resumed run draws what an
@@ -28,8 +34,8 @@ Counterpart: ``dvis_plus_tpu/engine/trainer.py`` (``TrainState`` :37,
   modules casting their fp32 parameters at the call, as the JAX modules
   compute; parameters and the optimizer's moments stay fp32.
 
-The other families' losses (Mask2Former, DVIS-DAQ, open vocabulary) are
-ROADMAP A14c.2-A14c.5: :func:`build_loss_fn` raises for them.
+The other families' losses (DVIS-DAQ, open vocabulary) are ROADMAP
+A14c.4-A14c.5: :func:`build_loss_fn` raises for them.
 """
 from __future__ import annotations
 
@@ -88,7 +94,7 @@ def build_loss_fn(cfg, model) -> Callable:
 
         def loss_fn(batch: Batch, draws, step: int, memory):
             B, T = batch.images.shape[:2]
-            out = model(batch.images.flatten(0, 1), aux=True)
+            out = model(batch.images.flatten(0, 1), aux=True, draws=draws)
             losses = minvis_train_loss(out, batch.targets, ccfg, draws)
             if arch == "ctvis":
                 # a clip-level matching of every frame feeds the contrastive
@@ -102,6 +108,16 @@ def build_loss_fn(cfg, model) -> Callable:
                                      q4g.reshape(B, T, -1), batch.targets.frame_valid, draws)
                 losses["loss_reid"] = c.reid_weight * cl["loss_reid"]
                 losses["loss_aux_reid"] = c.aux_reid_weight * cl["loss_aux_reid"]
+            return total_of(losses), losses, memory
+
+        return loss_fn
+
+    if arch in ("maskformer", "video_maskformer"):
+        from dvis_plus_tpu_torch.models.meta.video_maskformer import video_maskformer_train_loss
+
+        def loss_fn(batch: Batch, draws, step: int, memory):
+            out = model(batch.images, aux=True, draws=draws)
+            losses = video_maskformer_train_loss(out, batch.targets, ccfg, draws)
             return total_of(losses), losses, memory
 
         return loss_fn
@@ -129,7 +145,7 @@ def build_loss_fn(cfg, model) -> Callable:
 
         return loss_fn
 
-    raise NotImplementedError(f"training {arch!r} is not ported (ROADMAP A14c.2-A14c.5)")
+    raise NotImplementedError(f"training {arch!r} is not ported (ROADMAP A14c.4-A14c.5)")
 
 
 def init_memory(cfg, device) -> Optional[ClassMemory]:
@@ -143,13 +159,25 @@ def init_memory(cfg, device) -> Optional[ClassMemory]:
                               td.hidden_dim * (2 if td.reid_branch else 1), device)
 
 
+def set_modes(model: torch.nn.Module) -> None:
+    """Training mode, but eval mode for every module whose parameters are
+    all frozen (``requires_grad`` off)."""
+    model.train()
+    for m in model.modules():
+        params = list(m.parameters())
+        if params and not any(p.requires_grad for p in params):
+            m.eval()
+
+
 def build_train_step(cfg, model):
     """(train_step, init_state). ``train_step(state, batch, draws=None)``
     advances ``state`` by one step in place and returns (state, metrics:
     the losses and ``total_loss`` as 0-dim tensors, and ``grad_norm``);
     ``draws`` replaces the step's own (the parity tests pass the JAX
-    draws)."""
+    draws). Builds the optimizer (which freezes what the configuration
+    keeps fixed) and sets the modules' modes (:func:`set_modes`)."""
     optimizer = build_optimizer(cfg, model)
+    set_modes(model)
     loss_fn = build_loss_fn(cfg, model)
     device = next(model.parameters()).device
 

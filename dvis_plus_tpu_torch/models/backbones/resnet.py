@@ -90,7 +90,8 @@ class ResNet(nn.Module):
                 self.out_channels[name] = out_ch
             in_ch, out_ch, bott = out_ch, out_ch * 2, bott * 2
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, draws=None) -> Dict[str, torch.Tensor]:
+        """``draws`` is unused (no random draw)."""
         y = self.stem(x)
         outs = {}
         for name in self.stage_names:

@@ -14,8 +14,20 @@ loads with no missing or unexpected backbone key.
 Input (B, 3, H, W) NCHW, output {res2..res5} NCHW; the blocks work NHWC as
 the JAX module does. Every layer computes in its input's dtype (the caller
 casts the images to ``model.compute_dtype``); window attention keeps fp32
-scores and softmax and runs kernel B2 on CUDA (``ops/swin_window_attn.py``)
-for both values of ``backbone.swin_fused_attn``.
+scores and softmax. In eval mode it runs kernel B2 on CUDA
+(``ops/swin_window_attn.py``) for both values of
+``backbone.swin_fused_attn``; in training mode (the module's ``training``
+flag, which the trainer sets) it runs the plain op, which autograd
+differentiates, as the JAX package trains with ``swin_fused_attn`` off.
+
+Training mode also drops residual branches (stochastic depth): block i of
+n keeps its attention and MLP branches each with probability
+1 - ``drop_path_rate`` * i / (n - 1) a sample, and scales a kept branch by
+1 / keep (the JAX ``SwinBlock._drop_path`` :231-237). The coins come from
+the step's draws (``utils/draws.py``) at the sites
+``("drop_path", i, "attn" | "mlp")``. The JAX ``Segmenter`` never passes
+``training`` to its backbone (``models/segmenter/segmenter.py:84``), so the
+JAX package trains Swin without it; the reference, and the port, drop.
 
 Semantics kept from the JAX module (and the reference):
 - the window size is fixed for every map size: a small map is padded up to
@@ -38,7 +50,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dvis_plus_tpu_torch.models.layers import Conv2d, LayerNorm, Linear
-from dvis_plus_tpu_torch.ops.swin_window_attn import window_attention
+from dvis_plus_tpu_torch.ops.swin_window_attn import window_attention, window_attention_torch
 
 SWIN_VARIANTS = {
     "swin_t": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
@@ -87,6 +99,9 @@ def shift_mask(H: int, W: int, ws: int, shift: int, device: torch.device) -> tor
 
 
 class WindowAttention(nn.Module):
+    """In training mode the plain op (autograd through it), in eval kernel
+    B2 on CUDA tensors."""
+
     def __init__(self, dim: int, num_heads: int, window_size: int, qkv_bias: bool = True):
         super().__init__()
         self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
@@ -106,7 +121,8 @@ class WindowAttention(nn.Module):
         q, k, v = self.qkv(x).split(C, dim=-1)  # strided views, heads on columns
         bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
         bias = bias.reshape(N, N, H).permute(2, 0, 1).float().contiguous()  # (H, N, N)
-        return self.proj(window_attention(q, k, v, bias, mask, H))
+        attend = window_attention_torch if self.training else window_attention
+        return self.proj(attend(q, k, v, bias, mask, H))
 
 
 class Mlp(nn.Module):
@@ -119,18 +135,37 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 
+def drop_path(x: torch.Tensor, rate: float, draws, site) -> torch.Tensor:
+    """Each sample of ``x`` (batch first) kept with probability 1 - ``rate``
+    (a uniform coin from ``draws`` at ``site`` below it) and scaled by
+    1 / keep, or zeroed."""
+    keep = 1.0 - rate
+    coins = draws.uniform(site, (x.shape[0],)).to(x.device)
+    mask = (coins < keep).to(x.dtype).reshape(-1, *([1] * (x.dim() - 1)))
+    return x * mask / keep
+
+
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = True):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True, drop_path: float = 0.0,
+                 index: int = 0):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
+        self.drop_path, self.index = drop_path, index
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, num_heads, window_size, qkv_bias)
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, C)."""
+    def _branch(self, y: torch.Tensor, draws, which: str) -> torch.Tensor:
+        if not self.training or self.drop_path == 0.0:
+            return y
+        if draws is None:
+            raise ValueError("a Swin block in training mode drops paths: pass the step's draws")
+        return drop_path(y, self.drop_path, draws, ("drop_path", self.index, which))
+
+    def forward(self, x: torch.Tensor, draws=None) -> torch.Tensor:
+        """x (B, H, W, C); ``draws``: the step's, in training mode."""
         B, H, W, C = x.shape
         ws, shift = self.window_size, self.shift_size
         shortcut = x
@@ -146,8 +181,8 @@ class SwinBlock(nn.Module):
         x = window_reverse(wins, ws, B, Hp, Wp)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + x[:, :H, :W]
-        return x + self.mlp(self.norm2(x))
+        x = shortcut + self._branch(x[:, :H, :W], draws, "attn")
+        return x + self._branch(self.mlp(self.norm2(x)), draws, "mlp")
 
 
 class PatchMerging(nn.Module):
@@ -169,11 +204,15 @@ class BasicLayer(nn.Module):
     """One stage: ``blocks`` then an optional ``downsample``."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
-                 mlp_ratio: float, qkv_bias: bool, downsample: bool):
+                 mlp_ratio: float, qkv_bias: bool, downsample: bool, drop_paths: Sequence[float] = (),
+                 first: int = 0):
+        """``drop_paths``: the blocks' rates; ``first``: the first block's
+        index in the whole trunk."""
         super().__init__()
+        rates = list(drop_paths) or [0.0] * depth
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, 0 if b % 2 == 0 else window_size // 2,
-                      mlp_ratio, qkv_bias)
+                      mlp_ratio, qkv_bias, drop_path=rates[b], index=first + b)
             for b in range(depth)
         )
         self.downsample = PatchMerging(dim) if downsample else None
@@ -198,14 +237,18 @@ class SwinTransformer(nn.Module):
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, patch_size: int = 4,
-                 out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")):
+                 out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5"),
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.out_features = tuple(out_features)
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         n = len(depths)
+        rates = [float(r) for r in np.linspace(0, drop_path_rate, sum(depths))]
+        starts = np.cumsum([0, *depths])
         self.layers = nn.ModuleList(
             BasicLayer(embed_dim * 2**s, depths[s], num_heads[s], window_size, mlp_ratio,
-                       qkv_bias, downsample=s < n - 1)
+                       qkv_bias, downsample=s < n - 1, drop_paths=rates[starts[s]:starts[s + 1]],
+                       first=int(starts[s]))
             for s in range(n)
         )
         self.out_channels: Dict[str, int] = {}
@@ -215,12 +258,13 @@ class SwinTransformer(nn.Module):
                 self.add_module(f"norm{s}", LayerNorm(embed_dim * 2**s, eps=1e-5))
                 self.out_channels[name] = embed_dim * 2**s
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, draws=None) -> Dict[str, torch.Tensor]:
+        """``draws``: the training step's (stochastic depth in training mode)."""
         x = self.patch_embed(x)
         outs = {}
         for s, layer in enumerate(self.layers):
             for blk in layer.blocks:
-                x = blk(x)
+                x = blk(x, draws)
             name = f"res{s + 2}"
             if name in self.out_features:
                 outs[name] = getattr(self, f"norm{s}")(x).permute(0, 3, 1, 2).contiguous()
@@ -246,5 +290,6 @@ def build_swin(cfg) -> SwinTransformer:
         qkv_bias=cfg.swin_qkv_bias,
         patch_size=cfg.swin_patch_size,
         out_features=tuple(cfg.out_features),
+        drop_path_rate=cfg.swin_drop_path_rate,
         **kw,
     )

@@ -29,6 +29,14 @@ Semantics kept from the JAX module (and the reference):
   border replication, as two host-built matrices;
 - the cls token rides through the blocks in front of the patch tokens and
   never reaches the extractors;
+- the patch and position embeddings never take a gradient (the JAX
+  module's ``stop_gradient`` after ``prepare_tokens``); with ``frozen``
+  (``backbone.vit_frozen``, the default) the 24 blocks run without
+  gradients too, so their outputs enter the extractors and
+  ``add_vit_feature`` as constants and a training step stores nothing of
+  the trunk: the reference's frozen DINOv2 trunk. The JAX module stops the
+  gradient only before the blocks whatever ``vit_frozen`` says (no code
+  reads the field), so it trains them; ``frozen=False`` does that;
 - the deformable attentions run kernel B1 (``ops/msdeform.py``, exact
   form). As in the port's pixel decoder, the attention weights take their
   softmax in the query's dtype and reach the kernel in that dtype (it reads
@@ -44,6 +52,7 @@ Semantics kept from the JAX module (and the reference):
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Dict, List, Sequence, Tuple
@@ -388,8 +397,10 @@ class ViTAdapter(nn.Module):
                  add_vit_feature: bool = True, use_injector: bool = False,
                  extractor_coarse_s8: bool = False, pretrain_grid: int = 37,
                  attn_impl: str = "dense",
-                 out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")):
+                 out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5"),
+                 frozen: bool = True):
         super().__init__()
+        self.frozen = frozen
         del deform_ratio  # no shape depends on it: value_proj is C -> C
         self.embed_dim = embed_dim
         self.interaction_indexes = tuple(tuple(se) for se in interaction_indexes)
@@ -411,9 +422,13 @@ class ViTAdapter(nn.Module):
             self.add_module(f"norm{i}", FrozenBatchNorm2d(embed_dim))
         self.out_channels: Dict[str, int] = {name: embed_dim for name in self.out_features}
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, draws=None) -> Dict[str, torch.Tensor]:
+        """(B, 3, H, W) -> {res2..res5}; ``draws`` is unused (no random
+        draw)."""
         vit = self.vit_module
-        tokens, cls, Hp, Wp = vit.prepare_tokens(x)
+        trunk = torch.no_grad() if self.frozen else contextlib.nullcontext()
+        with torch.no_grad():
+            tokens, cls, Hp, Wp = vit.prepare_tokens(x)
         c1, c2, c3, c4 = self.spm(x)
         # align the prior's grids to the ViT grid
         shapes = ((2 * Hp, 2 * Wp), (Hp, Wp), (Hp // 2, Wp // 2))
@@ -429,7 +444,8 @@ class ViTAdapter(nn.Module):
         for (s, e), inter in zip(self.interaction_indexes, self.interactions):
             if self.use_injector:
                 tokens = inter.injector(tokens, refs_x, c, shapes)
-            tokens, cls = vit.run_blocks(tokens, cls, s, e + 1)
+            with trunk:
+                tokens, cls = vit.run_blocks(tokens, cls, s, e + 1)
             c = inter.extractor(c, refs_c1, tokens, (Hp, Wp), shapes)
             for extra in getattr(inter, "extra_extractors", ()):
                 c = extra(c, refs_c1, tokens, (Hp, Wp), shapes)
@@ -475,4 +491,5 @@ def build_vit_adapter(cfg) -> ViTAdapter:
         attn_impl="flash" if cfg.vit_flash_attention else "dense",
         extractor_coarse_s8=cfg.vit_extractor_coarse,
         out_features=tuple(cfg.out_features),
+        frozen=cfg.vit_frozen,
     )

@@ -13,8 +13,9 @@ The next layer's attention mask is the mask logits resized over (T, h, w):
 T keeps its size, so it is a plain half-pixel bilinear resize of each
 frame, not antialiased (``jax.image.resize(..., antialias=False)``), blocked
 where ``sigmoid < 0.5`` with all-blocked rows unblocked, as in the per-frame
-decoder. Training outputs (the per-layer auxiliary predictions) are not
-ported.
+decoder. With ``aux`` it also returns every earlier prediction
+(``aux_pred_logits`` / ``aux_pred_masks``: the queries' first prediction and
+each layer's but the last), which training supervises.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ class ClipMaskedTransformerDecoder(MaskedTransformerDecoder):
         return logits, masks, additive.masked_fill(blocked, _NEG_INF)[:, None]
 
     def forward(self, multi_scale: Sequence[torch.Tensor], mask_features: torch.Tensor,
-                num_frames: int) -> Dict[str, torch.Tensor]:
+                num_frames: int, aux: bool = False) -> Dict[str, torch.Tensor]:
         """multi_scale: 3 x (B·T, C, H_l, W_l), strides 32, 16, 8;
         mask_features: (B·T, mask_dim, H4, W4)."""
         T = num_frames
@@ -68,7 +69,11 @@ class ClipMaskedTransformerDecoder(MaskedTransformerDecoder):
         output = self.query_feat.weight[None].expand(B, -1, -1).to(dtype)
         qpos = self.query_embed.weight[None].expand(B, -1, -1).to(dtype)
         logits, masks, attn_mask = self._clip_heads(output, mf, sizes[0])
+        aux_logits, aux_masks = [], []
         for i in range(self.num_layers):
+            if aux:
+                aux_logits.append(logits)
+                aux_masks.append(masks)
             li = i % self.num_levels
             output = self.transformer_cross_attention_layers[i](
                 output, srcs[li], poss[li], qpos, attn_mask
@@ -78,8 +83,11 @@ class ClipMaskedTransformerDecoder(MaskedTransformerDecoder):
             logits, masks, attn_mask = self._clip_heads(
                 output, mf, sizes[(i + 1) % self.num_levels]
             )
-        return {
+        out = {
             "pred_logits": logits,  # (B, Q, K+1)
             "pred_masks": masks,  # (B, Q, T, H4, W4)
             "pred_embds": self.decoder_norm(output),
         }
+        if aux:
+            out["aux_pred_logits"], out["aux_pred_masks"] = aux_logits, aux_masks
+        return out

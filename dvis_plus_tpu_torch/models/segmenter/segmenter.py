@@ -99,12 +99,13 @@ class Segmenter(nn.Module):
         self.backbone = build_backbone(cfg)
         self.sem_seg_head = MaskFormerHead(cfg, self.backbone.out_channels)
 
-    def forward(self, images: torch.Tensor, aux: bool = False) -> Dict[str, Any]:
+    def forward(self, images: torch.Tensor, aux: bool = False, draws=None) -> Dict[str, Any]:
         """images: (BT, 3, H, W) normalized. Returns the per-frame dict, with
         ``aux`` every earlier decoder prediction too (MinVIS and CTVIS
-        training supervise them)."""
+        training supervise them). ``draws``: the training step's, for the
+        backbone (Swin's stochastic depth)."""
         cdt = self.compute_dtype
-        features = self.backbone(images.to(cdt))
+        features = self.backbone(images.to(cdt), draws=draws)
         mask_features, multi_scale = self.sem_seg_head.pixel_decoder(features)
         return self.sem_seg_head.predictor(
             [m.to(cdt) for m in multi_scale], mask_features.to(cdt), aux=aux

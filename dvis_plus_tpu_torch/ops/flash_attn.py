@@ -106,8 +106,9 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     from dvis_plus_tpu_torch.ops import _build
 
-    _build.refuse_grad("flash_attn_fwd", "ROADMAP A14c.1: the dense op by an explicit switch, "
-                       "as the JAX package trains with vit_flash_attention off", q, k, v)
+    _build.refuse_grad("flash_attn_fwd", "a frozen ViT trunk runs without gradients; training "
+                       "an unfrozen one (backbone.vit_frozen=false) takes the dense op: set "
+                       "backbone.vit_flash_attention=false, as the JAX package trains", q, k, v)
     _check_kernel_layout(q, k, v)
 
     global launches

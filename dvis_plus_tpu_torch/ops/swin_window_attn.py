@@ -25,7 +25,8 @@ hand-written kernel (``csrc/swin_window_attn_fwd.cu``: tensor cores with the
 head's bias kept in shared memory for bfloat16, CUDA cores for float32) or
 raises; it never falls back. Forward only (the TPU kernel has no VJP
 either): on a CUDA tensor it raises ``NotImplementedError`` when gradients
-are enabled and an input requires one.
+are enabled and an input requires one. The Swin module in training mode
+calls :func:`window_attention_torch` itself.
 
 Shapes (the JAX package's layout, heads as column slices of C):
   q, k, v: (B_, N, C) float32 or bfloat16, B_ batch-major over windows
@@ -155,8 +156,8 @@ def window_attention(
         raise ValueError(f"no window-attention kernel for device {q.device}")
     from dvis_plus_tpu_torch.ops import _build
 
-    _build.refuse_grad("swin_window_attn_fwd", "ROADMAP A14c.1: the plain op by an explicit "
-                       "switch, as the JAX package trains with swin_fused_attn off", q, k, v, bias)
+    _build.refuse_grad("swin_window_attn_fwd", "a Swin module in training mode takes the plain "
+                       "op, as the JAX package trains with swin_fused_attn off", q, k, v, bias)
     if q.dtype == torch.bfloat16:
         _check_kernel_layout(q, k, v, bias, mask)
 

@@ -1106,3 +1106,82 @@ def test_minvis_train_step_on_the_card_matches_the_cpu(cuda_device):
         assert abs(got[k] - want[k]) <= 1e-4 * max(abs(want[k]), 1e-6), (k, got[k], want[k])
     for part, tol in (("sem_seg_head.", 1e-3), ("backbone.", 1e-2)):
         assert ((gg[part] - gw[part]).norm() / gw[part].norm()).item() <= tol, part
+
+
+@pytest.mark.cuda
+def test_msdeform_backward_at_the_extractor_training_shape(cuda_device):
+    """B1's backward at the ViT-L extractor's training shape (480x768
+    frames): 1,440 value tokens on one 30x48 level, 16 heads of 64 in bf16,
+    7,560 queries (the 60x96, 30x48 and 15x24 grids), four points, exact;
+    two frames. Against autograd of the twin at the bf16 bar."""
+    shapes = [(30, 48)]
+    value, loc, attn = _msdeform_case(cuda_device, torch.bfloat16, shapes, 2, 16, 64, 4, seed=13,
+                                      qgrids=[(60, 96), (30, 48), (15, 24)])
+    assert value.shape == (2, 1440, 16, 64) and loc.shape[1] == 7560
+    _check_msdeform_grads(value, shapes, loc, attn.to(torch.bfloat16), None)
+
+
+@pytest.mark.cuda
+def test_vitl_minvis_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One MinVIS step with a tiny ViT-Adapter (a 4-block trunk, frozen):
+    B1's forward and backward in the encoder layer and in each of the six
+    extractors on the card; the losses rel <= 1e-4, the decoders' gradients
+    within 1e-3 as a norm, the adapter's within 1e-2; the trunk has none."""
+    import copy
+
+    from chip_smoke import VIT_TINY, off_grid, replay_attention
+    from dvis_plus_tpu_torch.config import tiny
+    from dvis_plus_tpu_torch.engine.trainer import Batch, build_train_step
+    from dvis_plus_tpu_torch.losses.targets import VideoTargets
+    from dvis_plus_tpu_torch.models.segmenter.segmenter import Segmenter
+    from dvis_plus_tpu_torch.utils.draws import Draws
+
+    cfg = tiny("minvis", "model.num_classes=5", *VIT_TINY)
+    torch.manual_seed(0)
+    cpu_model = Segmenter(cfg.model)
+    off_grid(cpu_model)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda_device)
+    batch = _tiny_batch()
+    gpu_batch = Batch(batch.images.to(cuda_device), VideoTargets(*(t.to(cuda_device) for t in batch.targets)))
+    out, decisions = [], []
+    msdeform.reset_launches()
+    for model, b in ((cpu_model, batch), (gpu_model, gpu_batch)):
+        replay_attention(model.sem_seg_head.predictor, decisions, replay=model is gpu_model)
+        step, init = build_train_step(cfg, model)
+        _, metrics = step(init(), b, Draws(torch.Generator().manual_seed(7)))
+        assert all(p.grad is None for p in model.backbone.vit_module.parameters())
+        grads = {part: torch.cat([p.grad.flatten().cpu() for n, p in model.named_parameters()
+                                  if n.startswith(part) and p.grad is not None])
+                 for part in ("sem_seg_head.", "backbone.")}
+        out.append(({k: float(v) for k, v in metrics.items()}, grads))
+    b1 = cfg.model.pixel_decoder.transformer_enc_layers + 4 + 2  # the encoder, 4 + 2 extractors
+    assert msdeform.launches == b1 and msdeform.backward_launches == b1
+    (want, gw), (got, gg) = out
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * max(abs(want[k]), 1e-6), (k, got[k], want[k])
+    for part, tol in (("sem_seg_head.", 1e-3), ("backbone.", 1e-2)):
+        assert ((gg[part] - gw[part]).norm() / gw[part].norm()).item() <= tol, part
+
+
+@pytest.mark.cuda
+def test_swin_trains_through_the_plain_op_and_serves_through_b2(cuda_device):
+    """A Swin (head width 32) on the card: in training mode its window
+    attention is the plain op (no B2 launch) and every parameter gets a
+    gradient; in eval mode, without gradients, each block launches B2."""
+    from dvis_plus_tpu_torch.models.backbones.swin import SwinTransformer
+    from dvis_plus_tpu_torch.utils.draws import Draws
+
+    torch.manual_seed(0)
+    net = SwinTransformer(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8), window_size=7,
+                          drop_path_rate=0.3).to(cuda_device)
+    x = torch.randn(2, 3, 96, 128, device=cuda_device)
+    swin_window_attn.reset_launches()
+    net.train()
+    out = net(x, Draws(torch.Generator(device=cuda_device).manual_seed(1)))
+    sum(v.float().square().mean() for v in out.values()).backward()
+    assert swin_window_attn.launches == 0
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in net.parameters())
+    net.eval()
+    with torch.no_grad():
+        net(x)
+    assert swin_window_attn.launches == 8

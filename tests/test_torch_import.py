@@ -9,8 +9,9 @@ runs the VPS loop, MOTS and the VOS writer, the three open-vocabulary
 presets run ``run_ov_inference`` and the RN50 trunk the OV route of the VSS
 loop, and its CLIs (``cli``; ``cli_ov --random-text``) evaluate the
 synthetic YouTube-VIS set with ``--device cpu``, and ``cli`` trains DVIS++
-online, MinVIS, CTVIS and DVIS++ offline on it for two steps each
-(``metrics.jsonl``, a checkpoint). The rows are encoded by the native
+online, MinVIS, CTVIS and DVIS++ offline on it, MinVIS with the
+ViT-Adapter, and Mask2Former and Video Mask2Former on a synthetic COCO set
+made pseudo-videos, for two steps each (``metrics.jsonl``, a checkpoint). The rows are encoded by the native
 codec, built with g++ on first use.
 
 Runs in a subprocess: the pytest process itself has jax loaded (conftest).
@@ -22,8 +23,10 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAIN_YAMLS = ("dvis_online_r50_ytvis19", "minvis_r50_ytvis19", "ctvis_r50_ytvis19", "dvis_offline_r50_ytvis19",
+               "minvis_vitl_ytvis19", "maskformer_r50_coco", "video_maskformer_r50_coco_joint")
 
-SCRIPT = r"""
+SCRIPT = f"TRAIN_YAMLS = {TRAIN_YAMLS!r}\n" + r"""
 import importlib, json, os, pkgutil, sys, tempfile
 import numpy as np, torch
 torch.set_num_threads(2)
@@ -203,15 +206,17 @@ with tempfile.TemporaryDirectory() as tmp:
                           "model.backbone.clip_depths=[1,1,1,1]", "model.backbone.clip_dims=[8,16,24,32]",
                           "model.ov.clip_embed_dim=16", "output_dir=" + tmp])["ytvis_2019_val"]
 train = []
-for arch in ("dvis_online", "minvis", "ctvis", "dvis_offline"):
+for yaml in TRAIN_YAMLS:
+    # the COCO pseudo-video YAMLs keep their own clip lengths (1 and 2)
+    frames = [] if "coco" in yaml else ["input.sampling_frame_num=2"]
     with tempfile.TemporaryDirectory() as tmp:
-        trained = cli.main(["--config-file", f"configs/dvis/{arch}_r50_ytvis19.yaml", "--device", "cpu",
-                            *small, "solver.max_iter=2", "solver.ims_per_batch=1",
-                            "input.sampling_frame_num=2", "input.min_size_train=[64]",
+        trained = cli.main(["--config-file", f"configs/dvis/{yaml}.yaml", "--device", "cpu",
+                            *small, "solver.max_iter=2", "solver.ims_per_batch=1", *frames,
+                            "input.min_size_train=[64]",
                             "input.max_size_train=96", "model.criterion.max_num_instances=4",
                             "model.criterion.train_num_points=64", "output_dir=" + tmp])
         with open(os.path.join(tmp, "metrics.jsonl")) as f:
-            train.append([arch, trained["step"], len(f.read().splitlines()),
+            train.append([yaml, trained["step"], len(f.read().splitlines()),
                           sorted(os.listdir(os.path.join(tmp, "checkpoints")))])
 roots = ("jax", "jaxlib", "flax", "optax", "dvis_plus_tpu", "triton")
 print(json.dumps({
@@ -233,11 +238,12 @@ print(json.dumps({
 def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
     """No jax, jaxlib, flax, optax, JAX-package or triton module is loaded."""
     sys.path.insert(0, os.path.join(REPO, "tools"))
-    from synth_data import make_ytvis
+    from synth_data import make_coco, make_ytvis
 
     from dvis_plus_tpu.data.datasets.categories import YTVIS_2019_CLASSES
 
     make_ytvis(str(tmp_path), "ytvis_2019", YTVIS_2019_CLASSES, n_videos=2, length=3)
+    make_coco(str(tmp_path), n_images=2)
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="", DVIS_DATASETS=str(tmp_path))
     env.pop("XLA_FLAGS", None)
     res = subprocess.run(
@@ -251,8 +257,7 @@ def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
     # per-column runs; the CLI scored 2 videos x top-3 on the CPU
     assert out == {"rows": [20] * 6 + [16] * 2, "cli": ["cpu", 6, True], "loaded": [],
                    "ov_rows": [20] * 3, "ov_cli": ["cpu", 6, True],
-                   "train": [[arch, 2, 1, ["step_0000002.pth"]]
-                             for arch in ("dvis_online", "minvis", "ctvis", "dvis_offline")],
+                   "train": [[yaml, 2, 1, ["step_0000002.pth"]] for yaml in TRAIN_YAMLS],
                    "containers": ["ColRunMasks"] * 11,
                    "tasks": [["vps", 1, 3], ["vss", 1, 3], ["daq_vps", 1, 3], ["mots", 16, True],
                              ["vos", 3], ["ov_vss", 1, 4]],

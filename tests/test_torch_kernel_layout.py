@@ -147,7 +147,8 @@ def test_swin_layout_accepts_what_the_swin_block_passes(dtype, shifted, monkeypa
         return swin_window_attn.window_attention_torch(q, k, v, bias, mask, num_heads)
 
     monkeypatch.setattr(swin, "window_attention", spy)
-    attn = swin.WindowAttention(96, 3, 7).to(dtype)
+    # eval mode: in training mode the module takes the plain op, not the kernel's wrapper
+    attn = swin.WindowAttention(96, 3, 7).to(dtype).eval()
     mask = swin.shift_mask(14, 14, 7, 3, torch.device("cpu")) if shifted else None
     out = attn(torch.randn(8, 49, 96).to(dtype), mask)
     assert out.shape == (8, 49, 96)

@@ -9,7 +9,9 @@ YouTube-VIS set through the port's loader); the total loss falls.
 - MinVIS, the whole segmenter trained (stage 1);
 - the staged chain of that JAX test (:101): CTVIS trains the segmenter,
   DVIS++ online its tracker on that segmenter frozen, DVIS++ offline its
-  refiner on that online model frozen.
+  refiner on that online model frozen;
+- Mask2Former and Video Mask2Former on two synthetic COCO images made
+  pseudo-videos (the ``maskformer_train_overfit`` phase).
 
 Slow, as the JAX tests are."""
 import pytest
@@ -50,3 +52,10 @@ def test_staged_ctvis_online_offline_chain():
     for k, v in stage2["state_dict"].items():
         if k.startswith("tracker."):
             assert torch.equal(stage3["state_dict"][k], v), k
+
+
+@pytest.mark.parametrize("arch", ["maskformer", "video_maskformer"])
+def test_mask2former_overfits_coco_pseudo_videos(arch):
+    torch.set_num_threads(4)
+    res = chip_smoke.phase_train_overfit(CPU, arch, f"{arch}_train_overfit")
+    assert res["total_loss"][-1] < res["total_loss"][0], res

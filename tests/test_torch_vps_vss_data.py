@@ -121,8 +121,17 @@ def test_eval_mapper_equals_jax(synth_root, task):
         assert (got["height"], got["width"]) == ((64, 96) if task == "vps" else (48, 90))
 
 
-@pytest.mark.parametrize("dataset_type,item", [("image_instance", "A14"), ("image_panoptic", "A14"),
-                                               ("video_unknown", "video_unknown")])
+@pytest.mark.parametrize("dataset_type,item", [("image_panoptic", "A14"), ("video_unknown", "video_unknown")])
 def test_mapper_refuses_unported_types(dataset_type, item):
     with pytest.raises(NotImplementedError, match=item):
         mapper_for_type(load_config(None), dataset_type)
+
+
+@pytest.mark.parametrize("dataset_type,item", [("video_panoptic", "A14c.3"), ("video_semantic", "A14c.3"),
+                                               ("image_panoptic", "A14c.5")])
+def test_training_mapper_refuses_unported_types(dataset_type, item):
+    """The panoptic and semantic training mappers (A14c.3) and the COCO
+    panoptic pseudo-videos (A14c.5); ``image_instance`` is ported
+    (``tests/test_torch_pseudo_video.py``)."""
+    with pytest.raises(NotImplementedError, match=item):
+        mapper_for_type(load_config(None), dataset_type, is_train=True)
