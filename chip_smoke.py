@@ -61,7 +61,20 @@ kernels:
   full width of ``configs/dvis/maskformer_r50_coco.yaml`` and
   ``video_maskformer_r50_coco_joint.yaml`` on synthetic COCO images made
   pseudo-videos (one step with large-scale jitter), and 100 steps of a
-  tiny Mask2Former whose loss must fall.
+  tiny Mask2Former whose loss must fall;
+- DVIS-DAQ training and the segmenter trained on VIPSeg and VSPW: small
+  DAQ steps (online in stages 2 and 3, offline) and a MinVIS step on a
+  VIPSeg batch, each GPU against CPU, then DVIS-DAQ online at the full
+  width of ``configs/daq/daq_online_vitl_ytvis19.yaml`` and
+  ``daq_online_vitl_vipseg.yaml`` (the cutter on the frozen ViT-L
+  segmenter: B1 forward only, 12 launches a step, stage 2 then 3, the
+  frame-count curriculum's two lengths) and offline at
+  ``daq_offline_vitl_ytvis19.yaml`` (the refiner on the frozen segmenter
+  and cutter), MinVIS at ``configs/dvis/minvis_r50_{vipseg,vspw}.yaml``
+  (B1 forward and backward, 6 each a step), all from synthetic 720x1280
+  frames through the port's loader and panoptic or semantic training
+  mapper, B1's forward at the DAQ ViT-L step's shapes, and 100 steps of a
+  tiny DVIS-DAQ whose loss must fall.
 
 Run from a checkout of the repository:
 
@@ -81,6 +94,8 @@ Run from a checkout of the repository:
                                      # backward among them)
     python3 chip_smoke.py --train-segmenters  # build, then B1's backward and the
                                               # ViT-L, Swin and COCO training phases
+    python3 chip_smoke.py --train-daq  # build, then the DVIS-DAQ, VPS and VSS
+                                       # training phases
 
 Kernel B1 (deformable attention) is held and timed at each of its three
 main shapes under two distributions of sampling offsets: uniform over +-10
@@ -2040,10 +2055,11 @@ def phase_host_syncs(dev):
 # sampling_frame_num 5 on the 480x768 canvas), 2 untimed and 5 timed steps;
 # the GPU-against-CPU step at small widths holds the losses to 1e-4 and the
 # tracker's gradients to 1e-3 as a norm (fp32, TF32 off)
-TRAIN_H, TRAIN_W, TRAIN_UNTIMED, TRAIN_TIMED = 480, 768, 2, 5
-STAGE_UNTIMED, STAGE_TIMED = 1, 3  # the MinVIS, CTVIS and DVIS++ offline slices
+TRAIN_H, TRAIN_W, TRAIN_UNTIMED, TRAIN_TIMED = 480, 768, 2, 3
+STAGE_UNTIMED, STAGE_TIMED = 1, 2  # the MinVIS, CTVIS and DVIS++ offline slices
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 TRAIN_LEVELS = [(60, 96), (30, 48), (15, 24)]  # the 480x768 canvas: strides 8, 16, 32
+FIT_SHARE = 0.95  # the share of the card's memory a training slice's peak may take
 VIT_TRAIN_GRID = (30, 48)  # the ViT-L trunk's tokens on the 480x768 canvas
 
 
@@ -2188,6 +2204,9 @@ def stage_marks(arch, model, optimizer):
                  (model.tracker, "forward", "tracker", "tracker_end")] + opt,
                 [("segmenter_forward", "forward", "tracker"),
                  ("tracker_forward", "tracker", "tracker_end")] + tail)
+    if arch.startswith("daq_"):
+        return ([(model, "train_forward", "forward", "forward_end")] + opt,
+                [("forward", "forward", "forward_end")] + tail)
     if arch == "dvis_offline":
         return ([(model, "_online", "online", "online_end"),
                  (model.refiner, "forward", "refiner", "forward_end")] + opt,
@@ -2198,73 +2217,92 @@ def stage_marks(arch, model, optimizer):
 
 
 @contextlib.contextmanager
+def wrapping(targets):
+    """Inside the block, each ``(obj, attr, wrap)``'s attribute is
+    ``wrap(the attribute)``; after it, what it was."""
+    saved = [(obj, attr, vars(obj).get(attr), attr in vars(obj)) for obj, attr, _ in targets]
+    for obj, attr, wrap in targets:
+        setattr(obj, attr, wrap(getattr(obj, attr)))
+    try:
+        yield
+    finally:
+        for obj, attr, old, had in reversed(saved):
+            if had:
+                setattr(obj, attr, old)
+            else:
+                delattr(obj, attr)
+
+
+@contextlib.contextmanager
 def timing_stages(arch, model, optimizer, ms):
     """Time the stages of the real training step of ``arch``
     (``engine/trainer.py::build_train_step``) run inside the block, on the
     host clock with a synchronize at every boundary (:func:`stage_marks`),
     and inside them the loss matchers' host solves and the tracker's frame
-    alignments (each waited for; one a frame, its clips solved together),
-    and with the ViT-Adapter its trunk's forward (synchronized). Fills
-    ``ms`` with milliseconds by stage, the whole step, and the matcher and
-    alignment calls."""
+    alignments (each waited for; one a frame, its clips solved together);
+    with the ViT-Adapter its trunk's forward, and in DVIS-DAQ each clip's
+    frozen segmenter, the frame matchings, and online the cutter with its
+    new-instance matchings and slot auctions, offline the frozen stream
+    and the refiner (each synchronized). Fills ``ms`` with milliseconds by
+    stage and part, the whole step, and the calls of each part."""
     import torch
 
     from dvis_plus_tpu_torch.losses import criterion
+    from dvis_plus_tpu_torch.models.daq import cutter as cutter_mod
+    from dvis_plus_tpu_torch.models.meta import daq as daq_mod
     from dvis_plus_tpu_torch.models.tracker import referring_tracker
 
-    at, match_s, align = {}, [0.0, 0], [0.0, 0]
+    at, acc = {}, {}
 
-    def host_timed(fn, acc, wait=False):
-        def wrapped(*args, **kw):
-            t = time.perf_counter()
-            out = fn(*args, **kw)
-            if wait:
-                out.cpu()
-            acc[0] += time.perf_counter() - t
-            acc[1] += 1
-            return out
-        return wrapped
+    def timed(key, wait=False, sync=False):
+        def wrap(fn):
+            def wrapped(*args, **kw):
+                if sync:
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args, **kw)
+                if wait:
+                    out.cpu()
+                if sync:
+                    torch.cuda.synchronize()
+                a = acc.setdefault(key, [0.0, 0])
+                a[0] += 1e3 * (time.perf_counter() - t)
+                a[1] += 1
+                return out
+            return wrapped
+        return wrap
 
-    def synced(fn, acc):
-        def wrapped(*args, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            acc[0] += time.perf_counter() - t
-            return out
-        return wrapped
-
-    # the ViT-Adapter's trunk (patch embedding and blocks), apart from the adapter
-    trunk_s, vit = [0.0], getattr(getattr(model, "backbone", None), "vit_module", None)
-    trunk = [] if vit is None else [(vit, n) for n in ("prepare_tokens", "run_blocks")]
-    for obj, name in trunk:
-        setattr(obj, name, synced(getattr(obj, name), trunk_s))
-    targets, spans = stage_marks(arch, model, optimizer)
     # every module of the port that holds the loss matcher by name
     holders = [m for n, m in list(sys.modules.items())
                if n.startswith("dvis_plus_tpu_torch.") and getattr(m, "match", None) is criterion.match]
-    timed_match = host_timed(criterion.match, match_s)
-    modules = [(m, "match", timed_match) for m in holders] + [
-        (referring_tracker, "match_embds", host_timed(referring_tracker.match_embds, align, True))]
-    saved = [(m, n, getattr(m, n)) for m, n, _ in modules]
-    for obj, name, fn in modules:
-        setattr(obj, name, fn)
-    try:
-        with marking(targets, at):
-            yield ms
-    finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
-        for obj, name in trunk:
-            delattr(obj, name)
+    match = timed("loss_matchers")(criterion.match)
+    targets = [(m, "match", lambda _: match) for m in holders]
+    targets.append((referring_tracker, "match_embds", timed("tracker_alignments", wait=True)))
+    # the ViT-Adapter's trunk (patch embedding and blocks), apart from the adapter
+    vit = getattr(getattr(model, "backbone", None), "vit_module", None)
+    if vit is not None:
+        targets += [(vit, n, timed("vit_trunk_forward", sync=True)) for n in ("prepare_tokens", "run_blocks")]
+    if arch.startswith("daq_"):
+        tracker = model.tracker
+        parts = [(daq_mod, "frame_match", "frame_matches"), (cutter_mod, "new_ins_match", "new_ins_matches"),
+                 (model, "_segment_clip", "segmenter"), (tracker, "_match_slots_to_seg", "slot_auctions")]
+        parts += ([(tracker, "inference_step", "stream"), (model.refiner, "forward", "refiner")]
+                  if arch == "daq_offline" else [(tracker, "forward", "cutter")])
+        targets += [(obj, attr, timed(key, sync=True)) for obj, attr, key in parts]
+    marks, spans = stage_marks(arch, model, optimizer)
+    with wrapping(targets), marking(marks, at):
+        yield ms
     ms.update({name: 1e3 * (at[end] - at[start]) for name, start, end in spans})
-    if trunk:
-        ms["vit_trunk_forward"] = 1e3 * trunk_s[0]
-        ms["adapter_and_heads_forward"] = ms["segmenter_forward"] - ms["vit_trunk_forward"]
-    ms.update({"tracker_alignments": 1e3 * align[0], "tracker_alignment_calls": align[1],
-               "loss_matchers": 1e3 * match_s[0], "loss_matcher_calls": match_s[1],
-               "step": 1e3 * (at["end"] - at[spans[0][1]])})
+    for key in ("tracker_alignments", "loss_matchers"):
+        acc.setdefault(key, [0.0, 0])
+    for key, (total, calls) in acc.items():
+        ms[key] = total
+        ms[f"{key}_calls"] = calls
+    if vit is not None:
+        # DVIS-DAQ times its segmenter as a part, a clip at a time
+        seg = ms["segmenter" if arch.startswith("daq_") else "segmenter_forward"]
+        ms["adapter_and_heads_forward"] = seg - ms["vit_trunk_forward"]
+    ms["step"] = 1e3 * (at["end"] - at[spans[0][1]])
 
 
 @contextlib.contextmanager
@@ -2317,31 +2355,53 @@ def write_coco(root, n_images, H, W):
     register_all_coco(root)
 
 
+def total_memory(dev) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
+def train_canvas(cfg):
+    """The training mapper's static canvas: the largest training size,
+    each side rounded up to the size divisibility."""
+    div = cfg.model.size_divisibility
+    return [-(-max(cfg.input.min_size_train) // div) * div, -(-cfg.input.max_size_train // div) * div]
+
+
 def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAIN_UNTIMED,
-                      timed=TRAIN_TIMED, preset=None, lsj=False):
+                      timed=TRAIN_TIMED, preset=None, lsj=False, data=None, frame=(TRAIN_H, TRAIN_W),
+                      b1_shape=False):
     """Training of ``arch`` at the full width of its preset (``preset``, or
     ``config.TRAIN_PRESETS[arch]``: ``configs/dvis/{arch}_r50_ytvis19.yaml``,
     ``maskformer_r50_coco.yaml``, ``video_maskformer_r50_coco_joint.yaml``;
     bf16 compute, fp32 parameters and moments, 8 clips on the 480x768
     canvas of 5 frames, or of 15 (``sampling_frame_num``) for the offline
     stage, 1 or 2 for the COCO pseudo-videos; 12,544 points) with seeded
-    random weights, on a synthetic set written to a temporary directory
-    (YouTube-VIS frames of 480x768, or COCO images of 480x640 that the
-    pseudo-video mapper rotates and resizes), through the port's loader (4
-    worker threads): ``untimed`` steps, then ``timed`` ones. MinVIS, CTVIS
-    and the Mask2Formers train the whole segmenter (a ViT-Adapter's trunk
-    frozen), DVIS++ online the tracker on it frozen, DVIS++ offline the
-    refiner on the frozen online model with its class memory. The losses of
-    every step must be finite, B1's forward launch :func:`b1_per_step` times
-    a step, and its backward as often where the segmenter trains, never
-    where it is frozen. Then one step timed by stage (:func:`timing_stages`;
-    with the ViT-Adapter the trunk's forward apart) and one step's host
-    syncs. If 8 clips do not fit the card, the largest count that does
-    (halving) and its peak are reported. DVIS++ online also records B1's
-    calls by shape, times a checkpoint save and times B1 at the training
-    encoder's shape; with ``lsj`` one more step takes its batch with
+    random weights (DVIS-DAQ's cutter's class head as
+    :data:`DAQ_TRAIN_HEADS`), on a synthetic set written to a temporary
+    directory (YouTube-VIS frames of ``frame``, or COCO images of 480x640
+    that the pseudo-video mapper rotates and resizes), through the port's
+    loader (4 worker threads) and the CLI's frame-count curriculum (a no-op
+    but for DVIS-DAQ online): ``untimed`` steps, then ``timed`` ones, then
+    one step timed by stage (:func:`timing_stages`) and one whose host
+    syncs are counted. MinVIS, CTVIS and the Mask2Formers train the whole
+    segmenter (a ViT-Adapter's trunk frozen), DVIS++ online the tracker on
+    it frozen, DVIS++ offline the refiner on the frozen online model with
+    its class memory, DVIS-DAQ online the cutter and offline the refiner,
+    the segmenter running a clip at a time. The losses of every step must
+    be finite, B1's forward launch :func:`b1_per_step` times a step (a clip
+    in DVIS-DAQ), and its backward as often where the segmenter trains,
+    never where it is frozen. If 8 clips do not fit the card, the largest
+    count that does (halving; a count whose peak passes :data:`FIT_SHARE`
+    of the card's memory counts as not fitting) and its peak are reported.
+    B1's encoder calls are recorded by shape; with ``b1_shape`` B1 is
+    checked and timed at the largest of them, exact and clamped (r7), and
+    where the segmenter trains so is its backward. DVIS++ online also times
+    a checkpoint save; with ``lsj`` one more step takes its batch with
     ``input.lsj_aug`` on (the configuration's own LSJ size), and B1's
-    backward is timed at the encoder shape that step gave it."""
+    backward is timed at the encoder shape that step gave it. ``data``
+    (root, clips) -> dataset name writes another synthetic set instead (the
+    canvas then follows the configuration)."""
     import gc
 
     import torch
@@ -2349,49 +2409,80 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
     from dvis_plus_tpu_torch.config import TRAIN_PRESETS
     from dvis_plus_tpu_torch.core import checkpoint as ckpt
     from dvis_plus_tpu_torch.data.build import build_combined_train_loader
-    from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
+    from dvis_plus_tpu_torch.engine import trainer
 
-    online = arch == "dvis_online"
+    online, daq = arch == "dvis_online", arch.startswith("daq_")
     preset = preset or TRAIN_PRESETS[arch]
-    steps, tried, b1_calls = untimed + timed, [], []
+    steps, tried, b1_calls = untimed + timed + 2, [], []
     with tempfile.TemporaryDirectory() as root:
         cfg = preset()
         coco = "image_instance" in cfg.datasets.dataset_type
-        if coco:
+        if data is not None:
+            train_set = data(root, cfg.solver.ims_per_batch)
+        elif coco:
             write_coco(root, n_images=cfg.solver.ims_per_batch, H=480, W=640)
         else:
             write_ytvis(root, f"ytvis_{phase}", n_videos=cfg.solver.ims_per_batch,
-                        length=max(10, cfg.input.sampling_frame_num + 2), H=TRAIN_H, W=TRAIN_W)
+                        length=max(10, cfg.input.sampling_frame_num + 2), H=frame[0], W=frame[1])
         clips = cfg.solver.ims_per_batch
         while True:
             cfg = preset()
-            if not coco:
+            if data is not None:
+                cfg.datasets.train = (train_set,)
+            elif not coco:
                 cfg.datasets.train = (f"ytvis_{phase}_train",)
             cfg.solver.ims_per_batch = clips
             tried.append(clips)
-            model = build_model(cfg, dev).train()
-            train_step, init = build_train_step(cfg, model)
+            model = (daq_model(cfg, dev, DAQ_TRAIN_HEADS) if daq else build_model(cfg, dev)).train()
+            train_step, init = trainer.build_train_step(cfg, model)
             state = init()
             loader = build_combined_train_loader(cfg, seed=SEED)
-            losses, wait_s, step_s, batch = [], [], [], None
+            curriculum = trainer.curriculum_rng(cfg)
+            losses, wait_s, step_s, schedule, batch, stages, counts = [], [], [], [], None, {}, []
+
+            def next_batch():
+                raw = trainer.daq_curriculum_slice(cfg, state.step, next(loader), curriculum)
+                out = trainer.to_batch(raw, dev)
+                schedule.append([out.images.shape[1],
+                                 trainer.daq_stage(cfg, state.step) if arch == "daq_online" else None])
+                return out
+
+            def step(batch):
+                nonlocal state
+                state, metrics = train_step(state, batch)
+                losses.append({k: float(v) for k, v in metrics.items()})  # synchronizes
+
             b1_calls.clear()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             try:
-                with recording_b1(b1_calls) if online else contextlib.nullcontext():
+                with recording_b1(b1_calls):
                     reset_launches()
-                    for i in range(steps):
+                    for i in range(untimed + timed):
                         t0 = time.perf_counter()
-                        batch = to_batch(next(loader), dev)
+                        batch = next_batch()
                         t1 = time.perf_counter()
-                        state, metrics = train_step(state, batch)
-                        losses.append({k: float(v) for k, v in metrics.items()})  # synchronizes
-                        t2 = time.perf_counter()
+                        step(batch)
                         if i >= untimed:
                             wait_s.append(t1 - t0)
-                            step_s.append(t2 - t0)
+                            step_s.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    batch = next_batch()
+                    staged_wait = time.perf_counter() - t0
+                    with timing_stages(arch, model, state.optimizer, stages):
+                        step(batch)
+                    schedule.append(schedule[-1][:1] + [
+                        trainer.daq_stage(cfg, state.step) if arch == "daq_online" else None])
+                    # the step's own syncs: its losses are read after the count
+                    with counting_syncs(counts):
+                        state, metrics = train_step(state, batch)
+                        torch.cuda.synchronize()
+                    losses.append({k: float(v) for k, v in metrics.items()})
                     launches = read_launches()
-                break
+                # a count that leaves the card under 5 % free does not fit:
+                # the phase's later steps would risk running out
+                if clips == 1 or torch.cuda.max_memory_allocated(dev) <= FIT_SHARE * total_memory(dev):
+                    break
             except torch.cuda.OutOfMemoryError:
                 if clips == 1:
                     raise
@@ -2407,49 +2498,49 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
             ckpt.save(os.path.join(root, "checkpoints", f"step_{state.step:07d}.pth"), model,
                       state.optimizer.state_dict(), state.step, torch.get_rng_state())
             extra["checkpoint_save_s"] = time.perf_counter() - t0
-        batch = to_batch(next(loader), dev)
-        stages = {}
-        with timing_stages(arch, model, state.optimizer, stages):
-            state, metrics = train_step(state, batch)
-        counts = []
-        with counting_syncs(counts):
-            state, metrics = train_step(state, batch)
-            torch.cuda.synchronize()
         if lsj:
             extra["lsj_step"] = lsj_step(dev, cfg, model, state, train_step)
         memory = None if state.memory is None else int(state.memory.count.sum())
         del model, state, train_step, loader, batch
+    gc.collect()
     torch.cuda.empty_cache()
     finite = all(np.isfinite(v) for row in losses for v in row.values())
     per_step = {"msdeform_fwd": launches["msdeform_fwd"] / steps,
                 "msdeform_bwd": launches["msdeform_bwd"] / steps}
-    n = b1_per_step(cfg)
-    want = {"msdeform_fwd": n, "msdeform_bwd": 0 if "segmenter" in cfg.model.freeze else n}
+    n = b1_per_step(cfg) * (clips if daq else 1)
+    trains_segmenter = "segmenter" not in cfg.model.freeze
+    want = {"msdeform_fwd": n, "msdeform_bwd": n if trains_segmenter else 0}
     res = {"phase": phase, "arch": arch, "backbone": cfg.model.backbone.name, "clips": clips,
-           "clips_tried": tried, "frames": cfg.input.sampling_frame_num, "canvas": [TRAIN_H, TRAIN_W],
+           "clips_tried": tried, "frames": cfg.input.sampling_frame_num, "canvas": train_canvas(cfg),
            "dtype": cfg.model.compute_dtype, "steps": steps, "timed_steps": timed,
+           "schedule_frames_stage": schedule,
            "total_loss": [row["total_loss"] for row in losses], "losses_last": losses[-1],
-           "finite": finite, "step_s_median": float(np.median(step_s)), "step_s": step_s,
-           "loader_wait_s_median": float(np.median(wait_s)), "loader_wait_s": wait_s,
+           "finite": finite, "step_s_median": float(np.median(step_s)) if step_s else None,
+           "step_s": step_s, "loader_wait_s": wait_s, "staged_step_loader_wait_s": staged_wait,
            "peak_memory_bytes": peak,
            "host_syncs_per_step": {"event_waits": counts[0], "debug_mode": counts[1]},
            "stages_ms": stages, "launches": launches, "b1_launches_per_step": per_step,
            "class_memory_pushed": memory, **extra}
-    shapes = sorted({c[:3] for c in b1_calls})
-    if online:
-        res["b1_calls"] = [{"value": list(v), "value_dtype": vd, "attn_dtype": ad} for v, vd, ad in shapes]
+    shapes = sorted({(c[0], c[1], c[2], tuple(map(tuple, c[3]))) for c in b1_calls})
+    res["b1_calls"] = [{"value": list(v), "value_dtype": vd, "attn_dtype": ad, "levels": [list(x) for x in lv]}
+                       for v, vd, ad, lv in shapes]
     lsj_ok = not lsj or extra["lsj_step"]["finite"]
     if not finite or per_step != want or (online and len(shapes) != 1) or not lsj_ok:
         emit({**res, "failed": True})
         raise AssertionError(f"{phase}: finite {finite}, B1 launches a step {per_step} (expected {want}), "
                              f"B1 shapes {shapes}, LSJ step finite {lsj_ok}")
-    if online:
-        # B1 at the training encoder's shape, in the dtype the step gave it
-        (BT, _, M, D), value_dtype, _ = shapes[0]
-        value, loc, attn = msdeform_inputs(dev, TRAIN_LEVELS, BT=BT, M=M, D=D)
-        res["b1_train_encoder"] = b1_check(TRAIN_LEVELS, value.to(getattr(torch, value_dtype)), loc, attn,
-                                           iters=10, plain_iters=3)
+    if b1_shape:
+        # B1 at the largest encoder shape the step gave it, in its dtype
+        (BT, _, M, D), value_dtype, _, levels = max(shapes)
+        levels = [tuple(x) for x in levels]
+        value, loc, attn = msdeform_inputs(dev, levels, BT=BT, M=M, D=D)
+        value = value.to(getattr(torch, value_dtype))
+        res["b1_train_encoder"] = b1_check(levels, value, loc, attn, iters=10, plain_iters=3)
+        res["b1_train_encoder_r7"] = b1_check(levels, value, loc, attn, 7, iters=10, plain_iters=3)
+        if trains_segmenter:
+            res["b1_backward"] = [b1_backward_check(levels, value, loc, attn, radius) for radius in (None, 7)]
         del value, loc, attn
+        torch.cuda.empty_cache()
     emit(res)
     return res
 
@@ -2493,7 +2584,8 @@ def lsj_step(dev, cfg, model, state, train_step):
 def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=None):
     """The port's slow overfit tests (``tests/test_torch_overfit.py`` runs
     this phase on the CPU): DVIS++ online (or ``arch``: ``minvis``,
-    ``ctvis``, ``dvis_offline``; ``maskformer`` and ``video_maskformer`` on
+    ``ctvis``, ``dvis_offline``; ``daq_online`` with the cutter of
+    :data:`DAQ_TRAIN_TINY`; ``maskformer`` and ``video_maskformer`` on
     two synthetic COCO images as pseudo-videos of 1 and 2 frames) at the
     tiny widths of ``config.TINY_TRAIN`` with 2 classes, 2 clips of 3 frames
     at 64x96 from a 2-video synthetic set, 100 steps, from seeded weights or ``weights`` (a state dict: the
@@ -2515,6 +2607,8 @@ def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=
                  "input.min_size_train=[64]", "input.max_size_train=96")
     if not coco:
         overrides += ("input.sampling_frame_num=3", "input.sampling_frame_range=1")
+    if arch.startswith("daq_"):
+        overrides += DAQ_TRAIN_TINY
     cfg = tiny(arch, *overrides)
     with tempfile.TemporaryDirectory() as root:
         if coco:  # two 64x96 COCO images, their two categories (coco_2017_train)
@@ -2777,7 +2871,7 @@ SWIN_TINY = ("model.backbone.name=swin_tiny", "model.backbone.swin_embed_dim=32"
              "model.backbone.swin_window_size=7")
 
 
-def phase_stage_step_parity(dev, arch, phase=None, overrides=(), T=3):
+def phase_stage_step_parity(dev, arch, phase=None, overrides=(), T=3, batch=None):
     """One training step of ``arch`` (MinVIS, CTVIS, Mask2Former on clips of
     one frame, Video Mask2Former) at small widths (``overrides``: another
     backbone) on the card against the CPU: the same seeded weights, batch
@@ -2787,7 +2881,8 @@ def phase_stage_step_parity(dev, arch, phase=None, overrides=(), T=3):
     path from the same coins), the card replaying the CPU's masked-attention
     decisions, the sampling offsets off the pixel grid (:func:`off_grid`).
     The losses, the decoders' and the backbone's gradients and every
-    assignment the loss made."""
+    assignment the loss made. ``batch``: another batch (on the CPU) instead
+    of the synthetic one."""
     import copy
 
     import torch
@@ -2799,18 +2894,20 @@ def phase_stage_step_parity(dev, arch, phase=None, overrides=(), T=3):
     from dvis_plus_tpu_torch.utils.draws import Draws
 
     cfg = tiny(arch, "model.num_classes=5", *overrides)
-    B, N, H, W = 2, 4, 128, 160
-    g = torch.Generator().manual_seed(SEED)
-    masks = torch.zeros(B, N, T, H // 4, W // 4, dtype=torch.bool)
-    for b in range(B):
-        for n in range(N - 1):
-            y, x = 3 + 8 * n, 2 + 5 * b + 3 * n
-            for t in range(T):
-                if not (n == 1 and t == 0 and T > 1):
-                    masks[b, n, t, y:y + 7, x + t:x + t + 9] = True
-    fv = masks.flatten(3).any(-1)
-    batch = Batch(torch.randn(B, T, 3, H, W, generator=g),
-                  VideoTargets(torch.randint(0, 5, (B, N), generator=g), masks, fv.any(-1), fv))
+    if batch is None:
+        B, N, H, W = 2, 4, 128, 160
+        g = torch.Generator().manual_seed(SEED)
+        masks = torch.zeros(B, N, T, H // 4, W // 4, dtype=torch.bool)
+        for b in range(B):
+            for n in range(N - 1):
+                y, x = 3 + 8 * n, 2 + 5 * b + 3 * n
+                for t in range(T):
+                    if not (n == 1 and t == 0 and T > 1):
+                        masks[b, n, t, y:y + 7, x + t:x + t + 9] = True
+        fv = masks.flatten(3).any(-1)
+        batch = Batch(torch.randn(B, T, 3, H, W, generator=g),
+                      VideoTargets(torch.randint(0, 5, (B, N), generator=g), masks, fv.any(-1), fv))
+    B, T, _, H, W = batch.images.shape
     torch.manual_seed(SEED)
     cpu_model = build_arch(cfg.model).train()
     off_grid(cpu_model)
@@ -2899,6 +2996,276 @@ def run_segmenter_training(dev):
     return slices
 
 
+# ---------------------------------------------------------------------------
+# DVIS-DAQ training (stages 2 and 3 of its cutter, its offline refiner) and
+# the segmenter trained on VIPSeg and VSPW
+# ---------------------------------------------------------------------------
+
+# the tiny DVIS-DAQ of the step-parity and overfit phases: TINY_TRAIN's
+# segmenter (8 queries) under a 2-layer cutter with a table of 6 slots, 2
+# background slots and 8 new-instance queries
+DAQ_TRAIN_TINY = ("model.daq.num_new_ins=8", "model.daq.max_num_instances=6", "model.daq.num_slots=2")
+# the full-width DVIS-DAQ online slices' schedule: the curriculum's boundary
+# after step 0, stage 3 from step 2: a step of the first length in stage 2
+# (timed), one of the second in stage 2 (by stage) and one of the second in
+# stage 3 (its syncs counted)
+DAQ_SCHEDULE = ["model.daq.steps=[1]", "model.daq.increasing_step=[2]"]
+# the random cutter's class head x8, so that some queries score above the
+# selection thresholds and some below (DAQ_HEADS without its shifts)
+DAQ_TRAIN_HEADS = (("tracker.class_embed", 8.0, 0.0),)
+VPS_FRAME = (720, 1280)  # the synthetic VIPSeg and VSPW frames of the full-width slices
+
+
+def write_vps_vss(root, task, n_videos, length, H, W):
+    """``tools/synth_data.py::make_vipseg`` (JPEG frames, RGB-encoded
+    panoptic PNGs: a stuff segment and a moving thing a frame, 3 categories)
+    or ``make_vspw`` (class PNGs), registered in the port's catalog; returns
+    the training split's name."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import synth_data
+
+    from dvis_plus_tpu_torch.data.datasets import vps_vss
+
+    if task == "vps":
+        synth_data.make_vipseg(root, n_videos=n_videos, length=length, H=H, W=W)
+        vps_vss.register_all_vipseg(root)
+        return "panoVSPW_vps_video_train"
+    synth_data.make_vspw(root, n_videos=n_videos, length=length, H=H, W=W)
+    vps_vss.register_all_vspw(root)
+    return "VSPW_vss_video_train"
+
+
+@contextlib.contextmanager
+def daq_decisions(model, log, replay):
+    """Wrap DVIS-DAQ training's decisions: the segmenter's frame matchings,
+    the new-instance matchings, the slot auctions and the queries each
+    table update activates (stage 2's ranks, stage 3's and the stream's
+    thresholds). Record each into ``log`` (``replay`` False), or replace it
+    by the recorded one in the same order (``replay`` True). Yields the
+    counts by kind: [calls, those the run would have decided otherwise]."""
+    import torch
+
+    from dvis_plus_tpu_torch.models.daq import cutter as cutter_mod
+    from dvis_plus_tpu_torch.models.meta import daq as daq_mod
+
+    counts = {k: [0, 0] for k in ("frame_match", "new_ins_match", "slot_auction", "activated")}
+    recorded = iter(list(log))
+
+    def decide(kind, value):
+        counts[kind][0] += 1
+        if not replay:
+            log.append([v.cpu() for v in value])
+            return value
+        ref = next(recorded)
+        counts[kind][1] += int(not all(torch.equal(a.cpu(), b) for a, b in zip(value, ref)))
+        return [r.to(v.device) for r, v in zip(ref, value)]
+
+    frame_match, new_ins_match = daq_mod.frame_match, cutter_mod.new_ins_match
+    tracker = model.tracker
+    auction, activate = tracker._match_slots_to_seg, tracker._activate_slots
+
+    def matching(*a, **kw):
+        res = frame_match(*a, **kw)
+        return type(res)(*decide("frame_match", list(res)))
+
+    daq_mod.frame_match = matching
+    cutter_mod.new_ins_match = lambda *a, **kw: decide("new_ins_match", [new_ins_match(*a, **kw)])[0]
+    tracker._match_slots_to_seg = lambda *a: decide("slot_auction", [auction(*a)])[0]
+    tracker._activate_slots = lambda state, activated, *a, **kw: activate(
+        state, decide("activated", [activated])[0], *a, **kw)
+    try:
+        yield counts
+    finally:
+        daq_mod.frame_match, cutter_mod.new_ins_match = frame_match, new_ins_match
+        del tracker._match_slots_to_seg, tracker._activate_slots
+
+
+def daq_tiny_model(cfg, seed=SEED):
+    """The tiny DAQ with seeded weights, the cutter's class head x8 and its
+    positional MLP x20 a layer: at the random weights' scale the
+    new-instance queries (one learned embedding, told apart by their
+    positional embeds alone) match their ground truths at costs within
+    1e-6 of each other (tests/test_torch_daq_train.py)."""
+    import torch
+
+    from dvis_plus_tpu_torch.cli import build_model as build_arch
+
+    torch.manual_seed(seed)
+    model = build_arch(cfg.model)
+    with torch.no_grad():
+        model.tracker.class_embed.weight.mul_(8.0)
+        for name, p in model.tracker.pos_embed.named_parameters():
+            if name.endswith("weight"):
+                p.mul_(20.0)
+    return model
+
+
+def daq_batch(B=2, T=3, H=128, W=160, N=5):
+    """2 clips x 3 frames of 128x160 and their targets at the stride-4 size:
+    four instances a clip, the second leaving after frame 1 and the fourth
+    entering at frame 1, the last slot padding."""
+    import torch
+
+    from dvis_plus_tpu_torch.engine.trainer import Batch
+    from dvis_plus_tpu_torch.losses.targets import VideoTargets
+
+    g = torch.Generator().manual_seed(SEED)
+    masks = torch.zeros(B, N, T, H // 4, W // 4, dtype=torch.bool)
+    for b in range(B):
+        for n in range(N - 1):
+            y, x = 2 + 7 * n, 3 + 4 * b + 5 * n
+            for t in range(T):
+                if not ((n == 1 and t == T - 1) or (n == 3 and t == 0)):
+                    masks[b, n, t, y:y + 6, x + 2 * t:x + 2 * t + 8] = True
+    fv = masks.flatten(3).any(-1)
+    return Batch(torch.randn(B, T, 3, H, W, generator=g),
+                 VideoTargets(torch.randint(0, 5, (B, N), generator=g), masks, fv.any(-1), fv))
+
+
+def daq_step_parity(dev, arch, overrides, trained):
+    """One DAQ train step on the CPU, then on the card replaying the CPU's
+    decisions (:func:`daq_decisions`): (losses GPU against CPU, the trained
+    part's gradients as a norm, the decisions' counts, B1's launches on the
+    card)."""
+    import copy
+
+    import torch
+
+    from dvis_plus_tpu_torch.config import tiny
+    from dvis_plus_tpu_torch.engine.trainer import Batch, build_train_step
+    from dvis_plus_tpu_torch.losses.targets import VideoTargets
+    from dvis_plus_tpu_torch.utils.draws import Draws
+
+    cfg = tiny(arch, "model.num_classes=5", *DAQ_TRAIN_TINY, *overrides)
+    batch = daq_batch()
+    cpu_model = daq_tiny_model(cfg).train()
+    log, out = [], []
+    for d, model in ((torch.device("cpu"), cpu_model), (dev, copy.deepcopy(cpu_model).to(dev))):
+        b = Batch(batch.images.to(d), VideoTargets(*(t.to(d) for t in batch.targets)))
+        step, init = build_train_step(cfg, model)
+        reset_launches()
+        with daq_decisions(model, log, replay=d.type == "cuda") as counts:
+            _, metrics = step(init(), b, Draws(torch.Generator().manual_seed(SEED + 7)))
+        launches = read_launches()
+        grads = torch.cat([p.grad.detach().float().cpu().flatten() for n, p in model.named_parameters()
+                           if n.startswith(trained) and p.grad is not None])
+        out.append(({k: float(v) for k, v in metrics.items()}, grads, counts))
+    (want, gw, _), (got, gg, counts) = out
+    loss_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want)
+    return {"loss_rel_err": loss_err, "grad_rel_err_norm": ((gg - gw).norm() / gw.norm()).item(),
+            "total_loss": {"cpu": want["total_loss"], "cuda": got["total_loss"]},
+            "finite": all(np.isfinite(v) for v in got.values()), "decisions": counts,
+            "b1_launches": launches["msdeform_fwd"], "b1_backward_launches": launches["msdeform_bwd"],
+            "expected_b1": b1_per_step(cfg) * batch.images.shape[0]}
+
+
+def phase_daq_train_step_parity(dev):
+    """Small DVIS-DAQ training steps on the card against the CPU (the tiny
+    DAQ of :func:`daq_tiny_model`, 2 clips x 3 frames of 128x160, fp32, JV,
+    the same draws: a CPU generator's values moved to each device): an
+    online step in stage 2, one in stage 3, one offline step (the refiner
+    over the 2 best of 6 sequence rows). The card replays the CPU's
+    activations, and its own matchings and slot auctions must equal the
+    CPU's; the losses within 1e-4, the cutter's (offline: the refiner's)
+    gradients within 1e-3 as a norm; the frozen segmenter's B1 forward on
+    the card, its backward never."""
+    runs = {"stage_2": daq_step_parity(dev, "daq_online", ("model.daq.increasing_step=[100]",), "tracker."),
+            "stage_3": daq_step_parity(dev, "daq_online", ("model.daq.increasing_step=[0]",), "tracker."),
+            "offline": daq_step_parity(dev, "daq_offline", ("model.daq.offline_topk_num=2",), "refiner.")}
+    res = {"phase": "daq_train_step_parity", "clips": 2, "frames": 3, "input": [128, 160],
+           "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL, **runs}
+    emit(res)
+    for name, r in runs.items():
+        matched = all(r["decisions"][k][1] == 0 for k in ("frame_match", "new_ins_match", "slot_auction"))
+        if not (r["finite"] and matched and r["loss_rel_err"] <= TRAIN_LOSS_TOL
+                and r["grad_rel_err_norm"] <= TRAIN_GRAD_TOL and r["b1_launches"] == r["expected_b1"]
+                and r["b1_backward_launches"] == 0):
+            raise AssertionError(f"the DAQ {name} training step on the card disagrees with the CPU: {r}")
+
+
+def phase_vps_train_step_parity(dev):
+    """One MinVIS step on a VIPSeg batch (the port's loader and panoptic
+    training mapper on a synthetic set of 128x160 frames, 2 clips of 3
+    frames: a thing and a stuff slot) at small widths on the card against
+    the CPU, as :func:`phase_stage_step_parity`."""
+    import torch
+
+    from dvis_plus_tpu_torch.config import TINY_TRAIN, load_config
+    from dvis_plus_tpu_torch.data.build import build_combined_train_loader
+    from dvis_plus_tpu_torch.engine.trainer import to_batch
+
+    with tempfile.TemporaryDirectory() as root:
+        name = write_vps_vss(root, "vps", n_videos=2, length=4, H=128, W=160)
+        cfg = load_config("configs/dvis/minvis_r50_vipseg.yaml", [
+            *TINY_TRAIN, "model.num_classes=5", "solver.ims_per_batch=2", "input.sampling_frame_num=3",
+            "input.min_size_train=[128]", "input.max_size_train=160", f"datasets.train=[{name}]"])
+        raw = next(build_combined_train_loader(cfg, seed=SEED, num_workers=0))
+    batch = to_batch(raw, torch.device("cpu"))
+    phase_stage_step_parity(dev, "minvis", "vps_train_step_parity", batch=batch)
+
+
+def b1_daq_train_shapes(dev, bts):
+    """B1's forward at the DVIS-DAQ ViT-L training steps' shapes on the
+    480x768 canvas, for each of ``bts``, the frames of a clip (the frozen
+    segmenter runs a clip at a time): the extractors' (bt, 1440, 16, 64)
+    bf16 value (the canvas's ViT tokens; 7,560 queries) and the encoder's
+    (bt, 7560, 8, 32) fp32, against the twin, timed, with the bound."""
+    import torch
+
+    out = {}
+    for bt in bts:
+        value, loc, attn = extractor_inputs(dev, BT=bt, grid=VIT_TRAIN_GRID)
+        extractor = b1_check([VIT_TRAIN_GRID], value.to(torch.bfloat16), loc, attn.to(torch.bfloat16),
+                             iters=10, plain_iters=2)
+        value, loc, attn = msdeform_inputs(dev, TRAIN_LEVELS, BT=bt, M=8, D=32)
+        encoder = b1_check(TRAIN_LEVELS, value, loc, attn, iters=10, plain_iters=2)
+        del value, loc, attn
+        out[bt] = {"extractor": {"value": [bt, 1440, 16, 64], **extractor},
+                   "encoder": {"value": [bt, 7560, 8, 32], **encoder}}
+        emit({"phase": "b1_daq_train_shapes", "bt": bt, **out[bt]})
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_daq_training(dev):
+    """The DVIS-DAQ, VPS and VSS training phases: the small step-parity
+    phases; the full-width slices (:func:`phase_train_slice`, on synthetic
+    720x1280 frames, the DAQ ones under :data:`DAQ_SCHEDULE`): DVIS-DAQ
+    online at ``configs/daq/daq_online_vitl_ytvis19.yaml`` (a step of the
+    curriculum's 3 frames, then 5 in stage 2 by stage, then 5 in stage 3)
+    and on VIPSeg at ``daq_online_vitl_vipseg.yaml`` (2 frames, then 5 in
+    stages 2 and 3), offline at ``daq_offline_vitl_ytvis19.yaml`` (two steps
+    of the 15 sampled frames), MinVIS at
+    ``configs/dvis/minvis_r50_{vipseg,vspw}.yaml`` with B1 and B1' checked
+    at their encoder's shape; B1's forward at the DAQ ViT-L steps' shapes
+    and a tiny DAQ's 100-step overfit: (the slices' results by phase, B1's
+    DAQ training shapes by frames)."""
+    from dvis_plus_tpu_torch.config import load_config
+
+    phase_daq_train_step_parity(dev)
+    phase_vps_train_step_parity(dev)
+    slices = {}
+    for phase, name, timed in (("daq_train_slice", "daq_online_vitl_ytvis19", 1),
+                               ("daq_vps_train_slice", "daq_online_vitl_vipseg", 1),
+                               ("daq_offline_train_slice", "daq_offline_vitl_ytvis19", 0)):
+        yaml = f"configs/daq/{name}.yaml"
+        data = (lambda root, clips: write_vps_vss(root, "vps", clips, 7, *VPS_FRAME)) if "vipseg" in name else None
+        slices[phase] = phase_train_slice(dev, load_config(yaml).model.meta_architecture, phase, 0, timed,
+                                          preset=lambda y=yaml: load_config(y, DAQ_SCHEDULE), data=data,
+                                          frame=VPS_FRAME)
+    for task, phase in (("vps", "vps_train_slice"), ("vss", "vss_train_slice")):
+        yaml = f"configs/dvis/minvis_r50_{'vipseg' if task == 'vps' else 'vspw'}.yaml"
+        slices[phase] = phase_train_slice(
+            dev, "minvis", phase, 0, 2, preset=lambda y=yaml: load_config(y),
+            data=lambda root, clips, t=task: write_vps_vss(root, t, clips, 7, *VPS_FRAME), b1_shape=True)
+    # the largest clip each 480x768 DVIS-DAQ slice gave B1
+    bts = sorted({max(c["value"][0] for c in slices[p]["b1_calls"])
+                  for p in ("daq_train_slice", "daq_offline_train_slice")})
+    b1 = b1_daq_train_shapes(dev, bts)
+    phase_train_overfit(dev, "daq_online", "daq_train_overfit")
+    return slices, b1
+
+
 def main() -> int:
     import torch
 
@@ -2933,7 +3300,7 @@ def main() -> int:
         return 0
     if "--train" in sys.argv[1:]:
         phase_train_step_parity(dev)
-        phase_train_slice(dev)
+        phase_train_slice(dev, b1_shape=True)
         phase_train_overfit(dev)
         run_stages_1_and_3(dev)
         run_segmenter_training(dev)
@@ -2942,6 +3309,10 @@ def main() -> int:
     if "--train-segmenters" in sys.argv[1:]:
         phase_b1_backward(dev)
         run_segmenter_training(dev)
+        emit({"phase": "wall", "seconds": time.perf_counter() - start})
+        return 0
+    if "--train-daq" in sys.argv[1:]:
+        run_daq_training(dev)
         emit({"phase": "wall", "seconds": time.perf_counter() - start})
         return 0
     if "--ov" in sys.argv[1:]:
@@ -2977,10 +3348,12 @@ def main() -> int:
     ov_online = phase_ov_slice(dev, "dvis_online_ov", "ov_slice", classifier)
     ov_offline = phase_ov_slice(dev, "dvis_offline_ov", "ov_offline_slice", classifier)
     phase_train_step_parity(dev)
-    train = phase_train_slice(dev)
+    train = phase_train_slice(dev, b1_shape=True)
     phase_train_overfit(dev)
     b1b, stages = run_stages_1_and_3(dev)
     stages.update(run_segmenter_training(dev))
+    daq_train, b1_daq = run_daq_training(dev)
+    stages.update(daq_train)
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
     # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2
@@ -3001,6 +3374,15 @@ def main() -> int:
         b1_shapes["vitl_encoder_736x1280" + tag] = b1_form(b1["vitl_encoder"], offsets)
         b1_shapes["vitl_extractor" + tag] = b1_form(b1["vitl_extractor"], offsets, "bfloat16")
     b1_shapes["train_encoder_480x768"] = train["b1_train_encoder"]
+    for bt, forms in b1_daq.items():
+        b1_shapes[f"daq_vitl_train_extractor_bt{bt}"] = forms["extractor"]
+        b1_shapes[f"daq_vitl_train_encoder_bt{bt}"] = forms["encoder"]
+    # MinVIS on VIPSeg and VSPW: B1 and B1' at their encoder's training shape
+    for task in ("vps", "vss"):
+        r = stages[f"{task}_train_slice"]
+        b1_shapes[f"{task}_train_encoder"] = r["b1_train_encoder"]
+        b1_shapes[f"{task}_train_encoder_clamped_r7"] = r["b1_train_encoder_r7"]
+        b1b += [{"shape": f"{task}_train_encoder", "offsets": "uniform", **f} for f in r["b1_backward"]]
     b1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "gathered_bytes",
                "gathered_tb_per_s", "out_dtype")
     timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -3030,7 +3412,8 @@ def main() -> int:
         "replaces": "dvis_plus_tpu/ops/msdeform_pallas.py:67",
         "launches": runs["exact"]["launches"]["msdeform_fwd"],
         "launches_by_path": by_path("msdeform_fwd"),
-        "max_abs_err": max(f["max_abs_err"] for forms in b1.values() for f in forms),
+        "max_abs_err": max([f["max_abs_err"] for forms in b1.values() for f in forms]
+                           + [f["max_abs_err"] for f in b1_shapes.values()]),
         "ms": b1_main["ms"],
         "plain_ms": b1_main["plain_ms"],
         "bound_ms": b1_main["bound_ms"],

@@ -6,13 +6,20 @@
         [--device cuda|cpu] [weights=<state_dict .pth/.npz>] [key.path=value ...]
 
 Without ``--eval-only`` it trains, as ``train_net_video.py::do_train``
-(:112-190): the three stages of the DVIS++ recipe on the video instance
-sets of ``datasets.train``: MinVIS or CTVIS (``minvis``, ``ctvis``: the bare
+(:112-190): the three stages of the DVIS++ recipe on the video instance,
+panoptic (VIPSeg) and semantic (VSPW) sets of ``datasets.train``: MinVIS or
+CTVIS (``minvis``, ``ctvis``: the bare
 ``Segmenter`` on any ported backbone, frames folded into the batch, trained
 whole but for a ViT-Adapter's frozen trunk), DVIS++ online
 (``dvis_online``: the tracker on the frozen segmenter) and DVIS++ offline
 (``dvis_offline``: the refiner on the frozen online model, with its class
-memory); and the segmenter's pretraining on COCO pseudo-videos
+memory); DVIS-DAQ online (``daq_online``: the cutter on the frozen
+segmenter, stage 2 then stage 3 from ``daq.increasing_step[0]``, each
+batch cut to the frame-count curriculum's length first: ``engine.trainer.
+daq_curriculum_slice``, its generator ``random.Random(seed + 17)`` as the
+JAX CLI's :147-164) and offline (``daq_offline``: the refiner on the frozen
+segmenter and cutter, over every sampled frame), also on the
+class-agnostic object sets (``video_sot``); and the segmenter's pretraining on COCO pseudo-videos
 (``image_instance`` sets, ``data/pseudo_video.py``): Mask2Former
 (``maskformer``, clips of one frame) and Video Mask2Former
 (``video_maskformer``, also on video sets) (``config.check_trainable``
@@ -23,8 +30,9 @@ console line every 20 steps (``utils.events``), and a checkpoint
 ``<output_dir>/checkpoints/step_<n>.pth`` every ``solver.checkpoint_period``
 steps and at the end (``core.checkpoint``). ``--resume`` takes up the newest
 checkpoint there (weights, optimizer state, step, class memory; the loader skips the
-clips already taken and the draws of a step follow from (seed, step)), so a
-resumed run ends where an unbroken one does. ``weights=`` loads a state dict
+clips already taken, the curriculum's generator the draws of the steps
+taken, and the draws of a step follow from (seed, step)), so a resumed run
+ends where an unbroken one does. ``weights=`` loads a state dict
 before training, non-strictly: a key of another shape keeps the module's
 initialization and is logged.
 
@@ -162,7 +170,12 @@ def do_train(cfg, resume: bool, dev: torch.device):
     """Train ``cfg`` on ``dev``; returns the final ``TrainState``."""
     from dvis_plus_tpu_torch.core import checkpoint as ckpt
     from dvis_plus_tpu_torch.data.build import build_combined_train_loader
-    from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
+    from dvis_plus_tpu_torch.engine.trainer import (
+        build_train_step,
+        curriculum_rng,
+        daq_curriculum_slice,
+        to_batch,
+    )
     from dvis_plus_tpu_torch.losses.reid import ClassMemory
     from dvis_plus_tpu_torch.utils.events import EventWriter, device_memory_stats
 
@@ -185,9 +198,12 @@ def do_train(cfg, resume: bool, dev: torch.device):
         torch.set_rng_state(saved["generator"])
         logger.info("resumed from %s (step %d)", latest, state.step)
     loader = build_combined_train_loader(cfg, seed=cfg.seed, start_batches=state.step)
+    curriculum = curriculum_rng(cfg, state.step)
     writer = EventWriter(cfg.output_dir)
     for step in range(state.step, cfg.solver.max_iter):
-        state, metrics = train_step(state, to_batch(next(loader), dev))
+        # a no-op but for DVIS-DAQ's online stage
+        raw = daq_curriculum_slice(cfg, step, next(loader), curriculum)
+        state, metrics = train_step(state, to_batch(raw, dev))
         if step % LOG_EVERY == 0:
             writer.write(step, {**{k: float(v) for k, v in metrics.items()},
                                 **device_memory_stats(dev)})

@@ -493,7 +493,8 @@ def _trunk_attention_trains(flash, cfg) -> bool:
     forward only, and its wrapper raises under gradients. A frozen trunk runs
     without gradients, so B3 serves it."""
     b = cfg.model.backbone
-    segmenter_frozen = (cfg.model.meta_architecture in ("dvis_online", "dvis_offline")
+    segmenter_frozen = (cfg.model.meta_architecture in ("dvis_online", "dvis_offline", "daq_online",
+                                                        "daq_offline")
                         and "segmenter" in cfg.model.freeze)
     return not (flash and b.name == "vit_adapter_dinov2" and not b.vit_frozen
                 and not segmenter_frozen)
@@ -513,24 +514,27 @@ def _ctvis_weight(default: float):
     return lambda w, cfg: cfg.model.meta_architecture == "ctvis" or w == default
 
 
+TRAIN_DATASET_TYPES = ("video_instance", "image_instance", "video_panoptic", "video_semantic",
+                       "video_sot")
+
 # What training honours, in the form of :data:`SUPPORTED` (the eval rows hold
 # too): DVIS++ online and offline, MinVIS and CTVIS on every ported backbone,
-# Mask2Former and Video Mask2Former, on video instance sets and COCO
+# Mask2Former and Video Mask2Former, DVIS-DAQ online and offline, on video
+# instance, panoptic, semantic and class-agnostic object sets and COCO
 # pseudo-videos.
 TRAINABLE = (
     ("model.meta_architecture",
-     ("dvis_online", "dvis_offline", "minvis", "ctvis", "maskformer", "video_maskformer"),
-     "A14c.4, A14c.5 (DVIS-DAQ and open-vocabulary training)"),
+     ("dvis_online", "dvis_offline", "minvis", "ctvis", "maskformer", "video_maskformer",
+      "daq_online", "daq_offline"),
+     "A14c.5 (open-vocabulary training)"),
     ("model.ov.enabled", (False,), "A14c.5 (open-vocabulary training)"),
     ("model.backbone.vit_flash_attention", _trunk_attention_trains,
      "queue B (B3 is forward only: an unfrozen ViT trunk trains with vit_flash_attention=false)"),
     ("model.param_dtype", ("float32",), "A14b (fp32 parameters and optimizer state)"),
     ("model.tracker.noise_mode", ("none", "rs", "wa", "cc", "hard"), "A14b (the noiser's modes)"),
     ("model.criterion.matcher_solver", ("jv", "auction"), "A14b (the matchers' solvers)"),
-    ("datasets.dataset_type",
-     lambda types, cfg: all(t in ("video_instance", "image_instance") for t in types),
-     "A14c.3 (video_panoptic, video_semantic: their training mappers); ROADMAP A14c.5 "
-     "(image_panoptic)"),
+    ("datasets.dataset_type", lambda types, cfg: all(t in TRAIN_DATASET_TYPES for t in types),
+     "A14c.5 (image_panoptic: the COCO panoptic pseudo-video mapper)"),
     # the pseudo-video recipe's inputs: the image_instance mapper alone reads
     # them (in the JAX package too), so without such a set they would be
     # dropped silently
@@ -556,9 +560,16 @@ TRAINABLE = (
 def check_trainable(cfg: Any) -> None:
     """:func:`check_supported`, then the same for :data:`TRAINABLE`: raise
     ``NotImplementedError`` naming every key whose value training cannot
-    honour, and more than one process (``WORLD_SIZE``)."""
+    honour, a DVIS-DAQ model with the ReID branch, and more than one
+    process (``WORLD_SIZE``)."""
     check_supported(cfg)
     faults = _faults(cfg, TRAINABLE)
+    if str(_lookup(cfg, "model.meta_architecture")).startswith("daq_") and \
+            _lookup(cfg, "model.transformer_decoder.reid_branch") is True:
+        # no DAQ model builds with it, in the JAX package either
+        faults.append("model.transformer_decoder.reid_branch=True builds no DVIS-DAQ model (the "
+                      "cutter takes the segmenter's C-wide queries, the ReID branch makes them 2C "
+                      "wide); set model.transformer_decoder.reid_branch=false")
     if int(os.environ.get("WORLD_SIZE", "1")) != 1:
         faults.append(f"WORLD_SIZE={os.environ['WORLD_SIZE']} is not ported "
                       "(ROADMAP A15 (training on more than one device))")
@@ -722,14 +733,6 @@ def dvis_offline_r50_ytvis19() -> Config:
     return cfg
 
 
-# each trainable architecture's R50 preset: the three stages of the DVIS++
-# recipe on YouTube-VIS 2019 (stage 1 MinVIS or CTVIS, 2 online, 3 offline)
-# and the COCO pseudo-video pretraining (Mask2Former, Video Mask2Former)
-TRAIN_PRESETS = {"minvis": minvis_r50_ytvis19, "ctvis": ctvis_r50_ytvis19,
-                 "dvis_online": dvis_online_r50_ytvis19, "dvis_offline": dvis_offline_r50_ytvis19,
-                 "maskformer": maskformer_r50_coco, "video_maskformer": video_maskformer_r50_coco_joint}
-
-
 def tiny(arch: str, *overrides: str) -> Config:
     """``arch``'s preset of :data:`TRAIN_PRESETS` at the widths of
     :data:`TINY_TRAIN`, then ``overrides``."""
@@ -810,6 +813,16 @@ def daq_offline_r50_ovis() -> Config:
     cfg.datasets.train = ("ovis_train",)
     cfg.datasets.test = ("ovis_val",)
     return cfg
+
+
+# each trainable architecture's R50 preset: the three stages of the DVIS++
+# recipe on YouTube-VIS 2019 (stage 1 MinVIS or CTVIS, 2 online, 3 offline),
+# the COCO pseudo-video pretraining (Mask2Former, Video Mask2Former) and
+# DVIS-DAQ online and offline
+TRAIN_PRESETS = {"minvis": minvis_r50_ytvis19, "ctvis": ctvis_r50_ytvis19,
+                 "dvis_online": dvis_online_r50_ytvis19, "dvis_offline": dvis_offline_r50_ytvis19,
+                 "maskformer": maskformer_r50_coco, "video_maskformer": video_maskformer_r50_coco_joint,
+                 "daq_online": daq_online_r50_ytvis19, "daq_offline": daq_offline_r50_ovis}
 
 
 def ov_online_convnextl_zeroshot_ytvis19() -> Config:

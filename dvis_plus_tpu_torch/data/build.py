@@ -2,7 +2,7 @@
 ratio-weighted mixture of several.
 
 Counterpart: ``dvis_plus_tpu/data/build.py`` (``mapper_for_type``'s
-training branches for video instance and COCO instance sets, ``_collate`` :76,
+training branches, in ``data/mapper.py``, ``_collate`` :76,
 ``build_train_loader`` :89, ``CombinedDataLoader`` :141,
 ``build_combined_train_loader`` :164), the reference's loader stack. The
 records are shuffled an epoch at a time by ``random.Random(seed)``; clip k
@@ -107,7 +107,7 @@ def build_combined_train_loader(cfg, seed: int = 0, start_batches: int = 0,
     names = list(cfg.datasets.train)
     types = list(cfg.datasets.dataset_type) or ["video_instance"] * len(names)
     types += [types[-1]] * (len(names) - len(types))
-    mappers = [mapper_for_type(cfg, t, is_train=True) for t in types[:len(names)]]
+    mappers = [mapper_for_type(cfg, t, is_train=True, dataset_name=n) for n, t in zip(names, types)]
     bs = cfg.solver.ims_per_batch
     if len(names) == 1:
         return build_train_loader(cfg, names[0], mappers[0], seed=seed, num_workers=num_workers,

@@ -1,12 +1,18 @@
-"""VIPSeg (video panoptic) and VSPW (video semantic) dataset loading and
-registration, eval half.
+"""VIPSeg (video panoptic) and VSPW (video semantic) dataset loading,
+registration and training mappers.
 
 Counterpart: ``dvis_plus_tpu/data/datasets/vps_vss.py`` (``decode_panoptic_png``
 :27, ``load_vipseg_json`` :33, ``register_all_vipseg`` :60, ``load_vspw`` :85,
 ``register_all_vspw`` :109, ``panoptic_contiguous_maps`` :125,
-``SemanticVideoMapper.vspw_preprocess`` :218). The training mappers, which
-turn panoptic and semantic masks into target slots, come with training; at
-eval the frames alone go through ``data.mapper.YTVISDatasetMapper``.
+``PanopticVideoMapper`` :138-203, ``SemanticVideoMapper`` :206-249). In
+training the panoptic and semantic masks become target slots, the clip
+going through ``data.mapper.YTVISDatasetMapper`` as a video instance
+record: on VIPSeg a thing segment is a slot of its own and the stuff of one
+category one slot (id ``-1000 - category``), the classes things-first
+contiguous when the set's categories are known; on VSPW each class present
+is a slot. A frame's masks are read when the clip samples it (the JAX
+mappers read every frame of the video, to the same batch). At eval the
+frames alone go through the video mapper.
 
 VIPSeg records: ``{"video_id" (str), "length", "file_names",
 "pan_seg_file_names", "segments_infos", "height", "width"}``; panoptic PNGs
@@ -18,11 +24,12 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
 from dvis_plus_tpu_torch.data.catalog import register_dataset
+from dvis_plus_tpu_torch.data.mapper import YTVISDatasetMapper
 
 
 def decode_panoptic_png(img_rgb: np.ndarray) -> np.ndarray:
@@ -126,3 +133,85 @@ def vspw_preprocess(m: np.ndarray) -> np.ndarray:
     m = m.astype(np.int32)
     m = np.where(m == 0, 255, m) - 1
     return np.where(m == 254, 255, m)
+
+
+class _LazyFrames:
+    """A video's per-frame annotation lists, each made by ``make(i)`` when it
+    is first asked for."""
+
+    def __init__(self, n: int, make: Callable[[int], List[dict]]):
+        self._n, self._make, self._done = n, make, {}
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i: int) -> List[dict]:
+        if i not in self._done:
+            self._done[i] = self._make(i)
+        return self._done[i]
+
+
+class PanopticVideoMapper:
+    """VIPSeg record -> training clip arrays (``YTVISDatasetMapper``'s
+    training output). With ``categories`` (the set's metadata) the classes
+    are things-first contiguous and a segment without ``isthing`` is a thing
+    by its category; without them the dataset ids pass through and such a
+    segment is stuff."""
+
+    def __init__(self, cfg, categories: Optional[List[dict]] = None):
+        self._base = YTVISDatasetMapper(cfg, is_train=True)
+        self.to_contiguous = panoptic_contiguous_maps(categories)[0] if categories else None
+        self.thing_ids = {c["id"] for c in categories or () if c.get("isthing")}
+
+    def _frame(self, record: dict, i: int) -> List[dict]:
+        import cv2
+
+        img = cv2.imread(record["pan_seg_file_names"][i], cv2.IMREAD_COLOR)
+        if img is None:
+            return []
+        ids = decode_panoptic_png(img[:, :, ::-1])
+        anns = []
+        for seg in record["segments_infos"][i]:
+            m = (ids == seg["id"]).astype(np.uint8)
+            if not m.any():
+                continue
+            cat = seg["category_id"]
+            isthing = seg.get("isthing", cat in self.thing_ids)
+            if self.to_contiguous is not None:
+                cat = self.to_contiguous[cat]
+            anns.append({"id": seg["id"] if isthing else -1000 - cat, "category_id": cat,
+                         "segmentation": {"_raw": m}, "iscrowd": 0})
+        return anns
+
+    def __call__(self, record: dict, seed: Optional[int] = None) -> Dict[str, np.ndarray]:
+        rec = dict(record)
+        rec["annotations"] = _LazyFrames(len(record["pan_seg_file_names"]),
+                                         lambda i: self._frame(record, i))
+        return self._base(rec, seed)
+
+
+class SemanticVideoMapper:
+    """VSPW record -> training clip arrays: after :func:`vspw_preprocess`
+    each class present in a frame (but the ignore label 255 and classes from
+    ``num_classes`` on) is a slot, id ``-1000 - class``."""
+
+    def __init__(self, cfg, num_classes: int = 124, ignore_label: int = 255):
+        self._base = YTVISDatasetMapper(cfg, is_train=True)
+        self.num_classes, self.ignore_label = num_classes, ignore_label
+
+    def _frame(self, record: dict, i: int) -> List[dict]:
+        import cv2
+
+        m = cv2.imread(record["sem_seg_file_names"][i], cv2.IMREAD_GRAYSCALE)
+        if m is None:
+            return []
+        m = vspw_preprocess(m)
+        return [{"id": -1000 - int(c), "category_id": int(c),
+                 "segmentation": {"_raw": (m == c).astype(np.uint8)}, "iscrowd": 0}
+                for c in np.unique(m) if c != self.ignore_label and c < self.num_classes]
+
+    def __call__(self, record: dict, seed: Optional[int] = None) -> Dict[str, np.ndarray]:
+        rec = dict(record)
+        rec["annotations"] = _LazyFrames(len(record["sem_seg_file_names"]),
+                                         lambda i: self._frame(record, i))
+        return self._base(rec, seed)

@@ -3,7 +3,7 @@ training a sampled clip with its padded targets.
 
 Counterpart: ``dvis_plus_tpu/data/mapper.py`` (``decode_segmentation`` :41,
 ``select_frames`` :56, ``YTVISDatasetMapper`` :88-226) with the resize the
-eval half needs from ``dvis_plus_tpu/data/augmentation.py``
+eval mapper needs from ``dvis_plus_tpu/data/augmentation.py``
 (``ResizeShortestEdge`` :104, ``ResizeTransform`` :34) and the training
 augmentations of the port's ``data/augmentation.py``. At eval every frame of
 the video is read, resized so that its shorter edge is
@@ -12,12 +12,7 @@ normalized, and zero-padded at the bottom and the right up to a multiple of
 ``model.size_divisibility``.
 
 :func:`mapper_for_type` is ``dvis_plus_tpu/data/build.py::mapper_for_type``
-(:26-57) for the ported sets: the video instance, panoptic and semantic sets
-all map through this mapper at eval (the JAX panoptic and semantic mappers
-also decode the ground-truth masks, which no inference reads), the
-class-agnostic VOS sets through :class:`SOTDatasetMapper`, the COCO
-instance sets through ``data/pseudo_video.py``, and in training the video
-instance and COCO instance sets.
+(:26-73) for every set type but ``image_panoptic``.
 """
 from __future__ import annotations
 
@@ -232,35 +227,45 @@ class YTVISDatasetMapper:
 
 
 class SOTDatasetMapper:
-    """Class-agnostic video object segmentation sets (YouTube-VOS, MOSE),
-    eval half: the eval half of ``dvis_plus_tpu/data/mapper_sot.py::
-    SOTDatasetMapper`` (:19), which relabels every annotation to category 0
-    and maps the record through the video mapper. The eval mapper reads no
-    annotation, so its output is the video mapper's; like the JAX mapper it
-    gives no first-frame masks (``engine.daq_inference._vos_output``)."""
+    """Class-agnostic video object segmentation sets (YouTube-VOS, MOSE):
+    ``dvis_plus_tpu/data/mapper_sot.py::SOTDatasetMapper`` (:19), which
+    relabels every annotation to category 0 and maps the record through the
+    video mapper; in training the labels are zeroed after the mapping too.
+    The eval mapper reads no annotation, so its output is the video
+    mapper's; like the JAX mapper it gives no first-frame masks
+    (``engine.daq_inference._vos_output``)."""
 
-    def __init__(self, cfg):
-        self._base = YTVISDatasetMapper(cfg)
+    def __init__(self, cfg, is_train: bool = False):
+        self._base = YTVISDatasetMapper(cfg, is_train=is_train)
+        self.is_train = is_train
 
     def __call__(self, record: dict, seed: Optional[int] = None) -> Dict[str, np.ndarray]:
         rec = dict(record)
         if rec.get("annotations") is not None:
             rec["annotations"] = [[dict(a, category_id=0) for a in frame] for frame in rec["annotations"]]
-        return self._base(rec, seed)
+        out = self._base(rec, seed)
+        if self.is_train:
+            out["labels"][:] = 0
+        return out
 
 
 EVAL_DATASET_TYPES = ("video_instance", "video_panoptic", "video_semantic", "video_sot",
                       "image_instance")
 
 
-def mapper_for_type(cfg, dataset_type: str, is_train: bool = False):
+def mapper_for_type(cfg, dataset_type: str, is_train: bool = False, dataset_name: str = ""):
     """The mapper of a ``datasets.dataset_type_test`` entry, or in training
-    of a ``datasets.dataset_type`` entry (``dvis_plus_tpu/data/build.py::
-    mapper_for_type`` :26-57): the video instance sets through
-    :class:`YTVISDatasetMapper`, the COCO instance sets (``image_instance``)
-    through the pseudo-video mapper, in training and at eval. The panoptic
-    and semantic training mappers are ROADMAP A14c.3, ``image_panoptic``
-    A14c.5.
+    of a ``datasets.dataset_type`` entry for the set ``dataset_name``
+    (``dvis_plus_tpu/data/build.py::mapper_for_type`` :26-73): the video
+    instance sets through :class:`YTVISDatasetMapper`, the COCO instance
+    sets (``image_instance``) through the pseudo-video mapper, the
+    class-agnostic object sets through :class:`SOTDatasetMapper`; in
+    training the panoptic sets through ``PanopticVideoMapper`` with the
+    set's registered categories and the semantic sets through
+    ``SemanticVideoMapper`` with ``model.num_classes``
+    (``data/datasets/vps_vss.py``), at eval through the video mapper (the
+    JAX mappers also decode the ground-truth masks there, which no inference
+    reads). ``image_panoptic`` is ROADMAP A14c.5.
 
     ``datasets.dataset_need_map`` changes no mapper, as in the JAX package:
     there the video instance mapper is handed the set's
@@ -272,15 +277,20 @@ def mapper_for_type(cfg, dataset_type: str, is_train: bool = False):
         from dvis_plus_tpu_torch.data.pseudo_video import CocoPseudoVideoMapper
 
         return CocoPseudoVideoMapper(cfg, is_train=is_train)
-    if is_train:
-        if dataset_type != "video_instance":
-            raise NotImplementedError(
-                f"training on dataset type {dataset_type!r} is not ported (ROADMAP A14c.3, A14c.5)")
-        return YTVISDatasetMapper(cfg, is_train=True)
     if dataset_type == "video_sot":
-        return SOTDatasetMapper(cfg)
+        return SOTDatasetMapper(cfg, is_train=is_train)
+    if is_train and dataset_type == "video_panoptic":
+        from dvis_plus_tpu_torch.data.catalog import get_metadata
+        from dvis_plus_tpu_torch.data.datasets.vps_vss import PanopticVideoMapper
+
+        cats = getattr(get_metadata(dataset_name), "categories", None) if dataset_name else None
+        return PanopticVideoMapper(cfg, categories=cats)
+    if is_train and dataset_type == "video_semantic":
+        from dvis_plus_tpu_torch.data.datasets.vps_vss import SemanticVideoMapper
+
+        return SemanticVideoMapper(cfg, num_classes=cfg.model.num_classes)
     if dataset_type in EVAL_DATASET_TYPES:
-        return YTVISDatasetMapper(cfg)
+        return YTVISDatasetMapper(cfg, is_train=is_train)
     if dataset_type == "image_panoptic":
         raise NotImplementedError(
             f"dataset type {dataset_type!r} is not ported (ROADMAP A14c.5: the COCO panoptic "

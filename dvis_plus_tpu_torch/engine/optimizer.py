@@ -33,6 +33,7 @@ _NO_DECAY = ("norm", "query_embed", "query_feat", "level_embed", "pos_embed",
 
 # the JAX package's component names -> the port's top-level module names
 _COMPONENTS = {"segmenter": ("backbone.", "sem_seg_head."), "tracker": ("tracker.",),
+               "cutter": ("tracker.",),
                "backbone": ("backbone.",), "refiner": ("refiner.",)}
 
 
@@ -52,7 +53,8 @@ def is_backbone(name: str) -> bool:
 def make_frozen_predicate(frozen_components: Sequence[str]) -> Callable[[str], bool]:
     """``model.freeze`` names -> a predicate of a parameter's name:
     ``segmenter`` freezes the backbone and the pixel and query decoders,
-    ``tracker`` the tracker, ``backbone`` the backbone; another name freezes
+    ``tracker`` the tracker, ``cutter`` DVIS-DAQ's cutter (the port's
+    ``tracker``), ``backbone`` the backbone; another name freezes
     the parameters whose name holds it."""
     prefixes = [p for comp in frozen_components for p in _COMPONENTS.get(comp, ())]
     others = [c for c in frozen_components if c not in _COMPONENTS]

@@ -1,12 +1,14 @@
 """The training step of DVIS++ online and offline, MinVIS and CTVIS,
-Mask2Former and Video Mask2Former.
+Mask2Former and Video Mask2Former, DVIS-DAQ online and offline.
 
 Counterpart: ``dvis_plus_tpu/engine/trainer.py`` (``TrainState`` :37,
 ``Batch`` :44, ``criterion_config`` :49, ``build_loss_fn`` :81 with its
 ``minvis`` / ``ctvis`` :153-199, ``maskformer`` / ``video_maskformer``
-:201-213, ``dvis_online`` :215-233 and ``dvis_offline`` :235-254
-branches, ``build_train_step`` :320 and its ``init_state`` :349-360), the
-reference ``DefaultTrainer`` step:
+:201-213, ``dvis_online`` :215-233, ``dvis_offline`` :235-254,
+``daq_online`` :256-273 and ``daq_offline`` :275-297 branches,
+``daq_curriculum_slice`` :299, ``build_train_step`` :320 with its stage
+switch and its ``init_state`` :349-360), the reference ``DefaultTrainer``
+step:
 
 - ``dvis_online``: the frozen segmenter without gradients, the tracker with
   its noise, then ``dvis_online_train_loss``, the matcher guided by the
@@ -19,6 +21,20 @@ reference ``DefaultTrainer`` step:
 - ``dvis_offline``: the frozen online stack without gradients, the refiner,
   then ``dvis_offline_train_loss`` with the class memory, which the train
   state carries from step to step (:class:`TrainState` ``memory``);
+- ``daq_online``: the frozen segmenter without gradients, then each clip
+  through the cutter in stage 2, or in stage 3 from step
+  ``daq.increasing_step[0]`` on (the reference's switch; the JAX step
+  switches at ``daq.steps[0]``, which the curriculum reads too), and
+  ``daq_train_loss``;
+- ``daq_offline``: the frozen segmenter and cutter streaming each clip
+  without gradients, the refiner over its best sequences, and
+  ``dvis_offline_train_loss`` without the class memory;
+- a DAQ step trains every clip of the batch, one pass a clip, and its
+  losses are the mean of the clips' (each clip's as the JAX loss gives for
+  it alone, but with the mask losses divided by the batch's mean count,
+  :func:`shared_count`): what the reference's one clip a GPU under DDP
+  gives. The JAX step trains the first clip of its batch and drops the
+  others;
 - the total is the sum of the losses in the order of their sorted keys, as
   ``sum(jax.tree.leaves(losses))``;
 - one step: backward, the optimizer's clip and update (:mod:`engine.optimizer`);
@@ -34,11 +50,12 @@ reference ``DefaultTrainer`` step:
   modules casting their fp32 parameters at the call, as the JAX modules
   compute; parameters and the optimizer's moments stay fp32.
 
-The other families' losses (DVIS-DAQ, open vocabulary) are ROADMAP
-A14c.4-A14c.5: :func:`build_loss_fn` raises for them.
+Open-vocabulary training is ROADMAP A14c.5: :func:`build_loss_fn` raises
+for it.
 """
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -48,7 +65,7 @@ from dvis_plus_tpu_torch.engine.optimizer import AdamW, build_optimizer
 from dvis_plus_tpu_torch.losses.criterion import CriterionConfig
 from dvis_plus_tpu_torch.losses.reid import ClassMemory
 from dvis_plus_tpu_torch.losses.targets import VideoTargets
-from dvis_plus_tpu_torch.utils.draws import Draws, step_generator
+from dvis_plus_tpu_torch.utils.draws import Draws, Scoped, step_generator
 
 MEMORY_LEN = 20  # embeddings a class in the offline stage's class memory
 
@@ -145,7 +162,103 @@ def build_loss_fn(cfg, model) -> Callable:
 
         return loss_fn
 
-    raise NotImplementedError(f"training {arch!r} is not ported (ROADMAP A14c.4-A14c.5)")
+    if arch == "daq_online":
+        from dvis_plus_tpu_torch.models.daq.criterion import matched_count
+        from dvis_plus_tpu_torch.models.meta.daq import clip_targets, daq_train_loss
+
+        def loss_fn(batch: Batch, draws, step: int, memory):
+            per_clip = model.train_forward(batch.images, batch.targets, draws, daq_stage(cfg, step),
+                                           ccfg.costs())
+            num = shared_count([matched_count(o) for o, _ in per_clip])
+            slot_num = shared_count([matched_count(s) for _, s in per_clip]) if per_clip[0][1] else None
+            losses = mean_losses([
+                daq_train_loss(outputs, slot_outputs, clip_targets(batch.targets, b), ccfg,
+                               Scoped(draws, ("clip", b)), num, slot_num)
+                for b, (outputs, slot_outputs) in enumerate(per_clip)])
+            return total_of(losses), losses, memory
+
+        return loss_fn
+
+    if arch == "daq_offline":
+        from dvis_plus_tpu_torch.models.meta.dvis_offline import dvis_offline_train_loss
+
+        def loss_fn(batch: Batch, draws, step: int, memory):
+            num = shared_count(batch.targets.num_instances())
+            per_clip = []
+            for b, (online_out, refine_out) in enumerate(model.train_forward(batch.images)):
+                one = VideoTargets(*(t[b:b + 1] for t in batch.targets))
+                per_clip.append(dvis_offline_train_loss(
+                    online_out, refine_out, one, ccfg, use_matcher_guidance=step < half_iter,
+                    draws=Scoped(draws, ("clip", b)), memory=None, num_masks=num)[0])
+            losses = mean_losses(per_clip)
+            return total_of(losses), losses, memory
+
+        return loss_fn
+
+    raise NotImplementedError(f"training {arch!r} is not ported (ROADMAP A14c.5)")
+
+
+def mean_losses(per_clip):
+    """The clips' losses averaged key by key."""
+    return {k: sum(c[k] for c in per_clip) / len(per_clip) for k in per_clip[0]}
+
+
+def shared_count(counts) -> torch.Tensor:
+    """The mask losses' divisor of every clip of a DVIS-DAQ batch: the mean
+    of the clips' counts, at least 1. The reference trains a clip a GPU and
+    all-reduces its criterion's count over the GPUs, divided by their
+    number (``mask2former_video/modeling/criterion.py:232-234``); the mean
+    of the clips' losses is then the batch's sum over its whole count, as
+    the other families' one criterion call gives."""
+    return torch.stack(list(counts)).float().mean().clamp(min=1.0)
+
+
+def daq_stage(cfg, step: int) -> int:
+    """DVIS-DAQ's training stage at ``step``: 2, then 3 from
+    ``daq.increasing_step[0]`` on."""
+    return 2 if step < (cfg.model.daq.increasing_step or (cfg.solver.max_iter,))[0] else 3
+
+
+def curriculum_frames(cfg, step: int) -> int:
+    """DVIS-DAQ's frame-count curriculum: the frames a clip keeps at
+    ``step``, ``daq.using_frame_num[0]`` before ``daq.steps[0]`` and
+    ``using_frame_num[-1]`` from then on (0: the whole clip). Only the
+    online stage has it, as the reference's ``DVIS_DAQ_online.forward``
+    (:241-279); its offline stage trains on every sampled frame, where the
+    JAX CLI slices ``daq_offline`` clips too."""
+    ufn = cfg.model.daq.using_frame_num
+    if not ufn or cfg.model.meta_architecture != "daq_online":
+        return 0
+    return ufn[0] if step < (cfg.model.daq.steps or (cfg.solver.max_iter,))[0] else ufn[-1]
+
+
+def daq_curriculum_slice(cfg, step: int, raw: dict, rng: random.Random) -> dict:
+    """The curriculum on a collated batch (numpy): a contiguous run of
+    :func:`curriculum_frames` frames of every clip, its start drawn from
+    ``rng`` (one draw a step, none where the run is the whole clip).
+    ``valid`` stays the whole clip's, as in the JAX function."""
+    n, T = curriculum_frames(cfg, step), raw["images"].shape[1]
+    if n <= 0 or n >= T:
+        return raw
+    start = rng.randint(0, T - n)
+    out = dict(raw)
+    out["images"] = raw["images"][:, start:start + n]
+    out["masks"] = raw["masks"][:, :, start:start + n]
+    out["frame_valid"] = raw["frame_valid"][:, :, start:start + n]
+    return out
+
+
+def curriculum_rng(cfg, start_step: int = 0) -> random.Random:
+    """The curriculum's generator, ``random.Random(seed + 17)`` (as the JAX
+    CLI's), advanced past the draws of steps ``[0, start_step)`` (every clip
+    has ``input.sampling_frame_num`` frames), so that a resumed run slices
+    as an unbroken one."""
+    rng = random.Random(cfg.seed + 17)
+    T = cfg.input.sampling_frame_num
+    for step in range(start_step):
+        if 0 < curriculum_frames(cfg, step) < T:
+            rng.randint(0, T - curriculum_frames(cfg, step))
+    return rng
 
 
 def init_memory(cfg, device) -> Optional[ClassMemory]:

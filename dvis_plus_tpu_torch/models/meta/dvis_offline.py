@@ -105,15 +105,19 @@ def _flatten_clip(masks: torch.Tensor) -> torch.Tensor:
 
 def dvis_offline_train_loss(track_out: Dict[str, Any], refine_out: Dict[str, Any],
                             targets: VideoTargets, ccfg, use_matcher_guidance: bool, draws,
-                            memory: ClassMemory) -> Tuple[Dict[str, torch.Tensor], ClassMemory]:
+                            memory: Optional[ClassMemory], num_masks: Optional[torch.Tensor] = None
+                            ) -> Tuple[Dict[str, torch.Tensor], Optional[ClassMemory]]:
     """The offline stage's losses, the ReID ones against the class memory
-    included, and the memory after this step. The final
+    included (none without a memory: DVIS-DAQ's offline stage, the JAX
+    ``use_cl=False``), and the memory after this step. ``num_masks``
+    divides the mask losses (default: the batch's instances, at least 1). The final
     layer's matching draws its points once (site ``("match", "final")``),
     for the guided and the self matching alike, as the JAX function uses
     one key for both."""
     B, N, T = targets.masks.shape[:3]
     ccfg = ccfg._replace(match_mode="clip", num_points=ccfg.num_points * T)
-    num_masks = targets.num_instances().sum().float().clamp(min=1.0)
+    if num_masks is None:
+        num_masks = targets.num_instances().sum().float().clamp(min=1.0)
     flat = VideoTargets(targets.labels, _flatten_clip(targets.masks), targets.valid,
                         targets.valid[..., None])
 
@@ -136,6 +140,8 @@ def dvis_offline_train_loss(track_out: Dict[str, Any], refine_out: Dict[str, Any
         q4g_aux = q4g if use_matcher_guidance else match(a, flat, ccfg,
                                                          match_coords(draws, i, a, ccfg))
         losses.update(layer_losses(a, flat, q4g_aux, num_masks, ccfg, draws, i, f"_{i}"))
+    if memory is None:
+        return losses, None
     cl, memory = reid_loss_with_memory(refine_out["pred_embds"], q4g, targets.valid,
                                        targets.labels, memory)
     losses["loss_reid"] = 2.0 * cl["loss_reid"]

@@ -154,14 +154,16 @@ class TemporalRefiner(nn.Module):
     def forward(self, instance_embeds: torch.Tensor, frame_embeds: torch.Tensor,
                 mask_features: torch.Tensor, text_classifier: Optional[torch.Tensor] = None,
                 num_templates: Optional[Sequence[int]] = None,
-                training: bool = False) -> Dict[str, torch.Tensor]:
+                training: bool = False,
+                instance_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Whole-video forward: instance_embeds (B, T, Q, C), frame_embeds
         (B, T, fQ, C), mask_features (B, T, mask_dim, H, W); with ``ov`` the
         text classifier (R, Cc) and ``num_templates``. ``training``: also
         every earlier layer's logits and masks, ``aux_pred_logits`` /
         ``aux_pred_masks``, for the deep supervision (the JAX module emits
-        every layer then, :227-237; not with ``ov``)."""
-        layers = self._body(instance_embeds, frame_embeds)
+        every layer then, :227-237; not with ``ov``). ``instance_mask`` (B, Q)
+        False: a padded row, which no object attends to."""
+        layers = self._body(instance_embeds, frame_embeds, instance_mask=instance_mask)
         if training:
             if self.ov:
                 raise NotImplementedError("training the open-vocabulary refiner is ROADMAP A14c.5")

@@ -41,6 +41,23 @@ class Draws:
         return torch.randint(low, high, tuple(shape), generator=self.generator, device=self.device)
 
 
+class Scoped:
+    """A draws object whose sites carry ``prefix`` first (a clip's draws in
+    a batch, the slot branch's beside the main one)."""
+
+    def __init__(self, draws, prefix: Site):
+        self.draws, self.prefix = draws, tuple(prefix)
+
+    def uniform(self, site: Site, shape: Sequence[int]) -> torch.Tensor:
+        return self.draws.uniform((*self.prefix, *site), shape)
+
+    def permutation(self, site: Site, batch: int, n: int) -> torch.Tensor:
+        return self.draws.permutation((*self.prefix, *site), batch, n)
+
+    def randint(self, site: Site, low: int, high: int, shape: Sequence[int]) -> torch.Tensor:
+        return self.draws.randint((*self.prefix, *site), low, high, shape)
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of training step ``step`` (the counterpart of
     ``jax.random.fold_in(key(seed), step)``)."""

@@ -71,8 +71,8 @@ def test_category_tables_equal():
 
 def test_catalog_and_registration_equal(synth_root):
     # other tests of the same process may have registered further JAX-side
-    # sets, and the CLI registers the VIPSeg and VSPW sets beside these
-    names = [n for n in catalog.list_datasets() if not n.startswith(("panoVSPW_", "VSPW_"))]
+    # sets, and the CLI registers the VIPSeg, VSPW and COCO sets beside these
+    names = [n for n in catalog.list_datasets() if not n.startswith(("panoVSPW_", "VSPW_", "coco"))]
     assert len(names) == 20 and set(names) <= set(jax_catalog.list_datasets())
     for name in names:
         assert vars(catalog.get_metadata(name)) == vars(jax_catalog.get_metadata(name)), name

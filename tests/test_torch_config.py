@@ -439,9 +439,8 @@ def test_check_trainable_accepts_stages_1_and_3(yaml_name, overrides):
 
 
 TRAIN_REFUSED = [
-    (YAML, ["model.meta_architecture=daq_online"], "model.meta_architecture", "A14c"),
-    ("configs/dvis/dvis_offline_swinl_ytvis19.yaml", ["model.meta_architecture=daq_offline"],
-     "model.meta_architecture", "A14c"),
+    (YAML, ["model.meta_architecture=dvis_online_ov"], "model.meta_architecture", "A14c.5"),
+    ("configs/ov/ov_offline_convnextl_zeroshot_ytvis19.yaml", [], "model.ov.enabled", "A14c.5"),
     # an unfrozen ViT trunk trained through B3, which is forward only
     ("configs/dvis/minvis_vitl_ytvis19.yaml",
      ["model.backbone.vit_frozen=false", "model.backbone.vit_flash_attention=true"],
@@ -453,7 +452,8 @@ TRAIN_REFUSED = [
     (YAML, ["model.param_dtype=bfloat16"], "model.param_dtype", "A14b"),
     (YAML, ["model.tracker.noise_mode=mixup"], "model.tracker.noise_mode", "A14b"),
     (YAML, ["model.criterion.matcher_solver=greedy"], "model.criterion.matcher_solver", "A14b"),
-    ("configs/dvis/dvis_online_r50_vipseg.yaml", [], "datasets.dataset_type", "A14c"),
+    ("configs/dvis/dvis_online_r50_vipseg.yaml", ["datasets.dataset_type=[video_panoptic,image_panoptic]"],
+     "datasets.dataset_type", "A14c.5"),
     (YAML, ["input.pseudo=true"], "input.pseudo", "A14c"),
     (YAML, ["input.lsj_aug=true"], "input.lsj_aug", "A14c"),
     (YAML, ["input.augmentations=[brightness]"], "input.augmentations", "A14c"),
@@ -492,23 +492,50 @@ def test_check_trainable_accepts_the_vitl_and_coco_yamls(yaml_name):
     port_config.check_trainable(cfg)
 
 
+def _daq_yamls(reid_branch: bool):
+    return [p for p in sorted(glob.glob("configs/daq/*.yaml"))
+            if port_config.load_config(p).model.transformer_decoder.reid_branch == reid_branch]
+
+
 def _refused_training_yamls():
-    out = []
-    for path in sorted(glob.glob("configs/dvis/*_vipseg.yaml") + glob.glob("configs/dvis/*_vspw.yaml")):
-        out.append((path, "A14c.3"))
-    out += [(p, "A14c.4") for p in sorted(glob.glob("configs/daq/*.yaml"))]
-    out += [(p, "A14c.5") for p in sorted(glob.glob("configs/ov/*.yaml"))]
+    """The DVIS-DAQ YAMLs that inherit the DVIS++ ReID branch (the R50 ones
+    and ``daq_online_swinl_ovis.yaml``), with which no DAQ model builds (in
+    the JAX package either); open-vocabulary training is A14c.5."""
+    out = [(p, "model.transformer_decoder.reid_branch=True") for p in _daq_yamls(True)]
+    out += [(p, "ROADMAP A14c.5") for p in sorted(glob.glob("configs/ov/*.yaml"))]
     return out
 
 
 @pytest.mark.parametrize("yaml_name,item", _refused_training_yamls())
 def test_check_trainable_refuses_the_vps_vss_daq_and_ov_yamls(yaml_name, item):
-    """The VPS and VSS training mappers (A14c.3), DVIS-DAQ training (A14c.4)
-    and open-vocabulary training (A14c.5) are still to come: every such YAML
-    is refused, naming its item."""
+    """What training still refuses among the VPS, VSS, DVIS-DAQ and
+    open-vocabulary YAMLs, naming the key or the item: the R50 DAQ YAMLs
+    and the Swin-L OVIS one (their ReID branch) and every open-vocabulary YAML
+    (A14c.5)."""
     with pytest.raises(NotImplementedError) as exc:
         port_config.check_trainable(port_config.load_config(yaml_name))
-    assert f"ROADMAP {item}" in str(exc.value), str(exc.value)
+    assert item in str(exc.value), str(exc.value)
+
+
+def _trainable_vps_vss_daq_yamls():
+    return sorted(glob.glob("configs/dvis/*_vipseg.yaml") + glob.glob("configs/dvis/*_vspw.yaml")
+                  + _daq_yamls(False))
+
+
+@pytest.mark.parametrize("yaml_name", _trainable_vps_vss_daq_yamls())
+def test_check_trainable_accepts_the_vps_vss_and_daq_yamls(yaml_name):
+    """Every VIPSeg and VSPW YAML of ``configs/dvis/`` (A14c.3) and every
+    DVIS-DAQ YAML whose model builds (A14c.4: ViT-L and Swin-L, online,
+    offline and VOS)."""
+    assert len(_daq_yamls(False)) == 11
+    port_config.check_trainable(port_config.load_config(yaml_name))
+
+
+def test_a_daq_yaml_trains_with_the_reid_branch_off():
+    cfg = port_config.load_config("configs/daq/daq_online_r50_vipseg.yaml",
+                                  ["model.transformer_decoder.reid_branch=false"])
+    port_config.check_trainable(cfg)
+    assert cfg.datasets.dataset_type == ("video_panoptic",)
 
 
 def test_check_trainable_refuses_more_than_one_process(monkeypatch):

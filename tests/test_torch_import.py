@@ -10,8 +10,9 @@ presets run ``run_ov_inference`` and the RN50 trunk the OV route of the VSS
 loop, and its CLIs (``cli``; ``cli_ov --random-text``) evaluate the
 synthetic YouTube-VIS set with ``--device cpu``, and ``cli`` trains DVIS++
 online, MinVIS, CTVIS and DVIS++ offline on it, MinVIS with the
-ViT-Adapter, and Mask2Former and Video Mask2Former on a synthetic COCO set
-made pseudo-videos, for two steps each (``metrics.jsonl``, a checkpoint). The rows are encoded by the native
+ViT-Adapter, DVIS-DAQ online and offline with the ViT-Adapter (their
+curriculum cutting the clips), and Mask2Former and Video Mask2Former on a
+synthetic COCO set made pseudo-videos, for two steps each (``metrics.jsonl``, a checkpoint). The rows are encoded by the native
 codec, built with g++ on first use.
 
 Runs in a subprocess: the pytest process itself has jax loaded (conftest).
@@ -23,8 +24,10 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TRAIN_YAMLS = ("dvis_online_r50_ytvis19", "minvis_r50_ytvis19", "ctvis_r50_ytvis19", "dvis_offline_r50_ytvis19",
-               "minvis_vitl_ytvis19", "maskformer_r50_coco", "video_maskformer_r50_coco_joint")
+TRAIN_YAMLS = tuple(f"dvis/{n}" for n in (
+    "dvis_online_r50_ytvis19", "minvis_r50_ytvis19", "ctvis_r50_ytvis19", "dvis_offline_r50_ytvis19",
+    "minvis_vitl_ytvis19", "maskformer_r50_coco", "video_maskformer_r50_coco_joint")) + (
+    "daq/daq_online_vitl_ytvis19", "daq/daq_offline_vitl_ytvis19")
 
 SCRIPT = f"TRAIN_YAMLS = {TRAIN_YAMLS!r}\n" + r"""
 import importlib, json, os, pkgutil, sys, tempfile
@@ -207,10 +210,16 @@ with tempfile.TemporaryDirectory() as tmp:
                           "model.ov.clip_embed_dim=16", "output_dir=" + tmp])["ytvis_2019_val"]
 train = []
 for yaml in TRAIN_YAMLS:
-    # the COCO pseudo-video YAMLs keep their own clip lengths (1 and 2)
+    # the COCO pseudo-video YAMLs keep their own clip lengths (1 and 2); a
+    # DAQ cutter as many new-instance queries as the segmenter has, its
+    # curriculum 2 frames of 3, then all 3
     frames = [] if "coco" in yaml else ["input.sampling_frame_num=2"]
+    if yaml.startswith("daq/"):
+        frames = ["input.sampling_frame_num=3", "model.daq.num_new_ins=4", "model.daq.max_num_instances=4",
+                  "model.daq.num_slots=2", "model.daq.using_frame_num=[2,3]", "model.daq.steps=[1]",
+                  "model.daq.increasing_step=[1]"]
     with tempfile.TemporaryDirectory() as tmp:
-        trained = cli.main(["--config-file", f"configs/dvis/{yaml}.yaml", "--device", "cpu",
+        trained = cli.main(["--config-file", f"configs/{yaml}.yaml", "--device", "cpu",
                             *small, "solver.max_iter=2", "solver.ims_per_batch=1", *frames,
                             "input.min_size_train=[64]",
                             "input.max_size_train=96", "model.criterion.max_num_instances=4",

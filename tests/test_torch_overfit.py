@@ -11,7 +11,9 @@ YouTube-VIS set through the port's loader); the total loss falls.
   DVIS++ online its tracker on that segmenter frozen, DVIS++ offline its
   refiner on that online model frozen;
 - Mask2Former and Video Mask2Former on two synthetic COCO images made
-  pseudo-videos (the ``maskformer_train_overfit`` phase).
+  pseudo-videos (the ``maskformer_train_overfit`` phase);
+- DVIS-DAQ online, the tiny cutter on the segmenter a MinVIS run trained
+  (``test_daq_online_overfit``; the ``daq_train_overfit`` phase).
 
 Slow, as the JAX tests are."""
 import pytest
@@ -59,3 +61,14 @@ def test_mask2former_overfits_coco_pseudo_videos(arch):
     torch.set_num_threads(4)
     res = chip_smoke.phase_train_overfit(CPU, arch, f"{arch}_train_overfit")
     assert res["total_loss"][-1] < res["total_loss"][0], res
+
+
+def test_daq_online_overfits_on_a_trained_segmenter():
+    """The cutter trains on the MinVIS run's segmenter, frozen: its loss
+    falls and the segmenter stays as it was given."""
+    torch.set_num_threads(4)
+    stage1 = chip_smoke.phase_train_overfit(CPU, "minvis", "minvis_train_overfit")
+    res = chip_smoke.phase_train_overfit(CPU, "daq_online", "daq_train_overfit", weights=stage1["state_dict"])
+    assert res["total_loss"][-1] < res["total_loss"][0], res
+    for k, v in stage1["state_dict"].items():
+        assert torch.equal(res["state_dict"][k], v), k

@@ -146,8 +146,8 @@ def test_cli_trains_stages_1_and_3_and_resumes_to_the_unbroken_run(arch, synth_r
 
 
 def test_training_refuses_an_unported_setting_and_a_missing_card(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"model\.meta_architecture='daq_online'.*A14c"):
-        _train(tmp_path, ["model.meta_architecture=daq_online"])
+    with pytest.raises(NotImplementedError, match=r"model\.meta_architecture='minvis_ov'.*A14c"):
+        _train(tmp_path, ["model.meta_architecture=minvis_ov"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["--config-file", YAML, *TRAIN_TINY, f"output_dir={tmp_path}"])

@@ -127,11 +127,12 @@ def test_mapper_refuses_unported_types(dataset_type, item):
         mapper_for_type(load_config(None), dataset_type)
 
 
-@pytest.mark.parametrize("dataset_type,item", [("video_panoptic", "A14c.3"), ("video_semantic", "A14c.3"),
-                                               ("image_panoptic", "A14c.5")])
+@pytest.mark.parametrize("dataset_type,item", [("image_panoptic", "A14c.5"), ("video_unknown", "video_unknown"),
+                                               ("image_semantic", "image_semantic")])
 def test_training_mapper_refuses_unported_types(dataset_type, item):
-    """The panoptic and semantic training mappers (A14c.3) and the COCO
-    panoptic pseudo-videos (A14c.5); ``image_instance`` is ported
+    """The COCO panoptic pseudo-videos (A14c.5) and types no package knows;
+    the panoptic, semantic and object sets train
+    (``tests/test_torch_vps_vss_train.py``), ``image_instance`` too
     (``tests/test_torch_pseudo_video.py``)."""
     with pytest.raises(NotImplementedError, match=item):
         mapper_for_type(load_config(None), dataset_type, is_train=True)
