@@ -74,7 +74,18 @@ kernels:
   (B1 forward and backward, 6 each a step), all from synthetic 720x1280
   frames through the port's loader and panoptic or semantic training
   mapper, B1's forward at the DAQ ViT-L step's shapes, and 100 steps of a
-  tiny DVIS-DAQ whose loss must fall.
+  tiny DVIS-DAQ whose loss must fall;
+- open-vocabulary training: small steps of the FC-CLIP segmenter
+  (MinVIS OV), OV-DVIS++ online and offline, and of the FC-CLIP segmenter
+  at the full width of ``configs/ov/fcclip_r50_coco.yaml`` (the CLIP RN50
+  trunk), each GPU against CPU; then, with the CLIP ConvNeXt-L trunk frozen
+  and random text classifiers, the FC-CLIP segmenter at the full width of
+  ``configs/ov/fcclip_convnextl_coco.yaml`` (B1 forward and backward, 6
+  each a step, checked at the encoder's shape), OV-DVIS++ online and
+  offline at ``ov_{online,offline}_convnextl_coco.yaml`` (B1 forward only)
+  on synthetic COCO panoptic pseudo-videos, and the supervised mixture of
+  ``ov_online_convnextl_supervised.yaml`` on five synthetic sets, each
+  batch against its set's classifier.
 
 Run from a checkout of the repository:
 
@@ -96,6 +107,8 @@ Run from a checkout of the repository:
                                               # ViT-L, Swin and COCO training phases
     python3 chip_smoke.py --train-daq  # build, then the DVIS-DAQ, VPS and VSS
                                        # training phases
+    python3 chip_smoke.py --train-ov   # build, then the open-vocabulary training
+                                       # phases
 
 Kernel B1 (deformable attention) is held and timed at each of its three
 main shapes under two distributions of sampling offsets: uniform over +-10
@@ -2067,7 +2080,8 @@ def write_ytvis(root, name, n_videos, length, H, W, classes=None):
     """``tools/synth_data.py::make_ytvis`` (JPEG frames, a moving box for two
     instances a video, the second leaving half-way) with its masks encoded
     by the port's RLE codec, which writes the same strings; registered in the
-    port's catalog as ``<name>_train``."""
+    port's catalog as ``<name>_train``, with its class names (an
+    open-vocabulary classifier's vocabulary where no file has one)."""
     sys.path.insert(0, os.path.join(REPO, "tools"))
     import synth_data
 
@@ -2085,7 +2099,8 @@ def write_ytvis(root, name, n_videos, length, H, W, classes=None):
     synth_data.make_ytvis(root, name, classes, splits=("train",), n_videos=n_videos,
                           length=length, H=H, W=W)
     register_dataset(f"{name}_train", lambda: load_ytvis_json(
-        os.path.join(root, name, "train.json"), os.path.join(root, name, "train", "JPEGImages")))
+        os.path.join(root, name, "train.json"), os.path.join(root, name, "train", "JPEGImages")),
+        thing_classes=list(classes))
 
 
 @contextlib.contextmanager
@@ -2199,11 +2214,16 @@ def stage_marks(arch, model, optimizer):
     opt = [(optimizer, "zero_grad", "loss_end", None), (optimizer, "step", "backward_end", "end")]
     tail = [("loss", "forward_end", "loss_end"), ("backward", "loss_end", "backward_end"),
             ("optimizer", "backward_end", "end")]
-    if arch == "dvis_online":
+    if arch in ("dvis_online", "dvis_online_ov"):
         return ([(model, "train_forward", "forward", "forward_end"),
                  (model.tracker, "forward", "tracker", "tracker_end")] + opt,
                 [("segmenter_forward", "forward", "tracker"),
                  ("tracker_forward", "tracker", "tracker_end")] + tail)
+    if arch == "dvis_offline_ov":
+        return ([(model, "train_forward", "online", "forward_end"),
+                 (model.refiner, "forward", "refiner", None)] + opt,
+                [("online_forward", "online", "refiner"), ("refiner_forward", "refiner", "forward_end")]
+                + tail)
     if arch.startswith("daq_"):
         return ([(model, "train_forward", "forward", "forward_end")] + opt,
                 [("forward", "forward", "forward_end")] + tail)
@@ -2370,7 +2390,7 @@ def train_canvas(cfg):
 
 def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAIN_UNTIMED,
                       timed=TRAIN_TIMED, preset=None, lsj=False, data=None, frame=(TRAIN_H, TRAIN_W),
-                      b1_shape=False):
+                      b1_shape=False, loader_seed=SEED, count_syncs=True):
     """Training of ``arch`` at the full width of its preset (``preset``, or
     ``config.TRAIN_PRESETS[arch]``: ``configs/dvis/{arch}_r50_ytvis19.yaml``,
     ``maskformer_r50_coco.yaml``, ``video_maskformer_r50_coco_joint.yaml``;
@@ -2401,22 +2421,30 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
     ``input.lsj_aug`` on (the configuration's own LSJ size), and B1's
     backward is timed at the encoder shape that step gave it. ``data``
     (root, clips) -> dataset name writes another synthetic set instead (the
-    canvas then follows the configuration)."""
+    canvas then follows the configuration), or, returning None, the sets of
+    the configuration's ``datasets.train``. An open-vocabulary
+    configuration trains :func:`ov_model` against one random text
+    classifier a training set (:func:`ov_train_classifiers`), the CLIP
+    trunk frozen; the FC-CLIP segmenter (``minvis_ov``) also trains its
+    decoders, so B1's backward runs there, and the schedule gives each
+    step's training set. ``loader_seed`` seeds the loader (a mixture's
+    order of sets). Without ``count_syncs`` the step whose syncs are
+    counted is left out (a slow step taken once)."""
     import gc
 
     import torch
 
-    from dvis_plus_tpu_torch.config import TRAIN_PRESETS
+    from dvis_plus_tpu_torch.config import TRAIN_PRESETS, is_ov
     from dvis_plus_tpu_torch.core import checkpoint as ckpt
     from dvis_plus_tpu_torch.data.build import build_combined_train_loader
     from dvis_plus_tpu_torch.engine import trainer
 
     online, daq = arch == "dvis_online", arch.startswith("daq_")
     preset = preset or TRAIN_PRESETS[arch]
-    steps, tried, b1_calls = untimed + timed + 2, [], []
+    steps, tried, b1_calls = untimed + timed + 1 + count_syncs, [], []
     with tempfile.TemporaryDirectory() as root:
         cfg = preset()
-        coco = "image_instance" in cfg.datasets.dataset_type
+        coco = bool({"image_instance", "image_panoptic"} & set(cfg.datasets.dataset_type))
         if data is not None:
             train_set = data(root, cfg.solver.ims_per_batch)
         elif coco:
@@ -2428,15 +2456,24 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
         while True:
             cfg = preset()
             if data is not None:
-                cfg.datasets.train = (train_set,)
+                if train_set:
+                    cfg.datasets.train = (train_set,)
             elif not coco:
                 cfg.datasets.train = (f"ytvis_{phase}_train",)
             cfg.solver.ims_per_batch = clips
             tried.append(clips)
-            model = (daq_model(cfg, dev, DAQ_TRAIN_HEADS) if daq else build_model(cfg, dev)).train()
-            train_step, init = trainer.build_train_step(cfg, model)
+            if is_ov(cfg):
+                model = ov_model(cfg, dev).train()
+                classifiers = ov_train_classifiers(cfg, dev)
+            else:
+                model = (daq_model(cfg, dev, DAQ_TRAIN_HEADS) if daq else build_model(cfg, dev)).train()
+                classifiers = ()
+            train_step, init = trainer.build_train_step(cfg, model, classifiers)
+            # B1's backward runs where the pixel decoder trains
+            trains_segmenter = any(p.requires_grad for n, p in model.named_parameters()
+                                   if n.startswith("sem_seg_head.pixel_decoder."))
             state = init()
-            loader = build_combined_train_loader(cfg, seed=SEED)
+            loader = build_combined_train_loader(cfg, seed=loader_seed)
             curriculum = trainer.curriculum_rng(cfg)
             losses, wait_s, step_s, schedule, batch, stages, counts = [], [], [], [], None, {}, []
 
@@ -2444,7 +2481,8 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
                 raw = trainer.daq_curriculum_slice(cfg, state.step, next(loader), curriculum)
                 out = trainer.to_batch(raw, dev)
                 schedule.append([out.images.shape[1],
-                                 trainer.daq_stage(cfg, state.step) if arch == "daq_online" else None])
+                                 trainer.daq_stage(cfg, state.step) if arch == "daq_online" else None,
+                                 out.dataset_index])
                 return out
 
             def step(batch):
@@ -2471,13 +2509,15 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
                     staged_wait = time.perf_counter() - t0
                     with timing_stages(arch, model, state.optimizer, stages):
                         step(batch)
-                    schedule.append(schedule[-1][:1] + [
-                        trainer.daq_stage(cfg, state.step) if arch == "daq_online" else None])
-                    # the step's own syncs: its losses are read after the count
-                    with counting_syncs(counts):
-                        state, metrics = train_step(state, batch)
-                        torch.cuda.synchronize()
-                    losses.append({k: float(v) for k, v in metrics.items()})
+                    if count_syncs:
+                        schedule.append(schedule[-1][:1] + [
+                            trainer.daq_stage(cfg, state.step) if arch == "daq_online" else None,
+                            batch.dataset_index])
+                        # the step's own syncs: its losses are read after the count
+                        with counting_syncs(counts):
+                            state, metrics = train_step(state, batch)
+                            torch.cuda.synchronize()
+                        losses.append({k: float(v) for k, v in metrics.items()})
                     launches = read_launches()
                 # a count that leaves the card under 5 % free does not fit:
                 # the phase's later steps would risk running out
@@ -2508,17 +2548,16 @@ def phase_train_slice(dev, arch="dvis_online", phase="train_slice", untimed=TRAI
     per_step = {"msdeform_fwd": launches["msdeform_fwd"] / steps,
                 "msdeform_bwd": launches["msdeform_bwd"] / steps}
     n = b1_per_step(cfg) * (clips if daq else 1)
-    trains_segmenter = "segmenter" not in cfg.model.freeze
     want = {"msdeform_fwd": n, "msdeform_bwd": n if trains_segmenter else 0}
     res = {"phase": phase, "arch": arch, "backbone": cfg.model.backbone.name, "clips": clips,
            "clips_tried": tried, "frames": cfg.input.sampling_frame_num, "canvas": train_canvas(cfg),
            "dtype": cfg.model.compute_dtype, "steps": steps, "timed_steps": timed,
-           "schedule_frames_stage": schedule,
+           "schedule_frames_stage_set": schedule,
            "total_loss": [row["total_loss"] for row in losses], "losses_last": losses[-1],
            "finite": finite, "step_s_median": float(np.median(step_s)) if step_s else None,
            "step_s": step_s, "loader_wait_s": wait_s, "staged_step_loader_wait_s": staged_wait,
            "peak_memory_bytes": peak,
-           "host_syncs_per_step": {"event_waits": counts[0], "debug_mode": counts[1]},
+           "host_syncs_per_step": {"event_waits": counts[0], "debug_mode": counts[1]} if counts else None,
            "stages_ms": stages, "launches": launches, "b1_launches_per_step": per_step,
            "class_memory_pushed": memory, **extra}
     shapes = sorted({(c[0], c[1], c[2], tuple(map(tuple, c[3]))) for c in b1_calls})
@@ -2586,7 +2625,9 @@ def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=
     this phase on the CPU): DVIS++ online (or ``arch``: ``minvis``,
     ``ctvis``, ``dvis_offline``; ``daq_online`` with the cutter of
     :data:`DAQ_TRAIN_TINY`; ``maskformer`` and ``video_maskformer`` on
-    two synthetic COCO images as pseudo-videos of 1 and 2 frames) at the
+    two synthetic COCO images as pseudo-videos of 1 and 2 frames;
+    ``dvis_online_ov``, the OV tracker at :data:`OV_TRAIN_TINY` on its COCO
+    YAML, against a random classifier of the set's two classes) at the
     tiny widths of ``config.TINY_TRAIN`` with 2 classes, 2 clips of 3 frames
     at 64x96 from a 2-video synthetic set, 100 steps, from seeded weights or ``weights`` (a state dict: the
     earlier stage's model, loaded where the keys agree); the last total loss
@@ -2595,7 +2636,7 @@ def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=
     import torch
 
     from dvis_plus_tpu_torch.cli import build_model as build_arch
-    from dvis_plus_tpu_torch.config import tiny
+    from dvis_plus_tpu_torch.config import TINY_TRAIN, load_config, tiny
     from dvis_plus_tpu_torch.data.build import build_train_loader
     from dvis_plus_tpu_torch.data.datasets.categories import YTVIS_2019_CLASSES
     from dvis_plus_tpu_torch.data.mapper import mapper_for_type
@@ -2609,7 +2650,13 @@ def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=
         overrides += ("input.sampling_frame_num=3", "input.sampling_frame_range=1")
     if arch.startswith("daq_"):
         overrides += DAQ_TRAIN_TINY
-    cfg = tiny(arch, *overrides)
+    ov = arch in OV_TRAIN_YAMLS
+    if ov:
+        cfg = load_config(OV_TRAIN_YAMLS[arch], [*TINY_TRAIN, *OV_TRAIN_TINY, *overrides,
+                                                 "datasets.train=[ytvis_overfit_train]",
+                                                 "datasets.dataset_type=[video_instance]"])
+    else:
+        cfg = tiny(arch, *overrides)
     with tempfile.TemporaryDirectory() as root:
         if coco:  # two 64x96 COCO images, their two categories (coco_2017_train)
             write_coco(root, n_images=2, H=64, W=96)
@@ -2619,11 +2666,11 @@ def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=
                         classes=YTVIS_2019_CLASSES[:2])
             dataset, mapper = "ytvis_overfit_train", None
         torch.manual_seed(SEED + 1)
-        model = build_arch(cfg.model)
+        model = ov_model(cfg, dev) if ov else build_arch(cfg.model)
         if weights is not None:
             model.load_state_dict(weights, strict=False)
         model = model.to(dev).train()
-        step, init = build_train_step(cfg, model)
+        step, init = build_train_step(cfg, model, ov_train_classifiers(cfg, dev) if ov else ())
         state = init()
         loader = build_train_loader(cfg, dataset, mapper, seed=SEED, num_workers=2)
         losses = []
@@ -3234,8 +3281,8 @@ def run_daq_training(dev):
     online at ``configs/daq/daq_online_vitl_ytvis19.yaml`` (a step of the
     curriculum's 3 frames, then 5 in stage 2 by stage, then 5 in stage 3)
     and on VIPSeg at ``daq_online_vitl_vipseg.yaml`` (2 frames, then 5 in
-    stages 2 and 3), offline at ``daq_offline_vitl_ytvis19.yaml`` (two steps
-    of the 15 sampled frames), MinVIS at
+    stages 2 and 3), offline at ``daq_offline_vitl_ytvis19.yaml`` (one step
+    of the 15 sampled frames, by stage), MinVIS at
     ``configs/dvis/minvis_r50_{vipseg,vspw}.yaml`` with B1 and B1' checked
     at their encoder's shape; B1's forward at the DAQ ViT-L steps' shapes
     and a tiny DAQ's 100-step overfit: (the slices' results by phase, B1's
@@ -3250,9 +3297,11 @@ def run_daq_training(dev):
                                ("daq_offline_train_slice", "daq_offline_vitl_ytvis19", 0)):
         yaml = f"configs/daq/{name}.yaml"
         data = (lambda root, clips: write_vps_vss(root, "vps", clips, 7, *VPS_FRAME)) if "vipseg" in name else None
+        # the 15-frame offline step is taken once, by stage (its syncs are
+        # not counted: PERF.md has their count)
         slices[phase] = phase_train_slice(dev, load_config(yaml).model.meta_architecture, phase, 0, timed,
                                           preset=lambda y=yaml: load_config(y, DAQ_SCHEDULE), data=data,
-                                          frame=VPS_FRAME)
+                                          frame=VPS_FRAME, count_syncs=phase != "daq_offline_train_slice")
     for task, phase in (("vps", "vps_train_slice"), ("vss", "vss_train_slice")):
         yaml = f"configs/dvis/minvis_r50_{'vipseg' if task == 'vps' else 'vspw'}.yaml"
         slices[phase] = phase_train_slice(
@@ -3264,6 +3313,182 @@ def run_daq_training(dev):
     b1 = b1_daq_train_shapes(dev, bts)
     phase_train_overfit(dev, "daq_online", "daq_train_overfit")
     return slices, b1
+
+
+# ---------------------------------------------------------------------------
+# Open-vocabulary training: the FC-CLIP segmenter, OV-DVIS++ online and
+# offline, on COCO panoptic pseudo-videos and the supervised mixture
+# ---------------------------------------------------------------------------
+
+# the small OV step-parity phases: a ConvNeXt of depths (1, 1, 2, 1), CLIP
+# embedding 24, at the widths of config.TINY_TRAIN
+OV_TRAIN_TINY = ("model.backbone.clip_depths=[1,1,2,1]", "model.backbone.clip_dims=[16,24,32,40]",
+                 "model.ov.clip_embed_dim=24")
+OV_TRAIN_YAMLS = {"minvis_ov": "configs/ov/fcclip_convnextl_coco.yaml",
+                  "dvis_online_ov": "configs/ov/ov_online_convnextl_coco.yaml",
+                  "dvis_offline_ov": "configs/ov/ov_offline_convnextl_coco.yaml"}
+# the supervised mixture's loader seed: its first three batches come from
+# COCO panoptic, VIPSeg and OVIS (ratios 0.2/0.1/0.1/0.4/0.2); the fourth
+# step, whose syncs are counted, reuses the OVIS batch
+OV_MIXTURE_SEED = 1
+
+
+def random_text_encoder(dim):
+    """``--random-text``'s encoder with a seed of its own: random vectors
+    seeded by the crc32 of the prompts (the CLI's hash of them changes with
+    ``PYTHONHASHSEED``)."""
+    import zlib
+
+    def encode(prompts):
+        rng = np.random.RandomState(zlib.crc32("\n".join(prompts).encode()))
+        return rng.randn(len(prompts), dim).astype(np.float32)
+
+    return encode
+
+
+def ov_train_classifiers(cfg, dev):
+    """``cli_ov.train_classifiers`` of ``cfg`` on ``dev`` (set i with void
+    row i), from :func:`random_text_encoder`."""
+    from dvis_plus_tpu_torch.cli_ov import train_classifiers
+
+    return train_classifiers(cfg, random_text_encoder(cfg.model.ov.clip_embed_dim), dev)
+
+
+def phase_ov_train_step_parity(dev, arch, phase="ov_train_step_parity", yaml=None, T=3):
+    """One training step of the open-vocabulary ``arch`` on the card
+    against the CPU: its COCO YAML (:data:`OV_TRAIN_YAMLS`) at the small
+    widths (:data:`OV_TRAIN_TINY` over ``config.TINY_TRAIN``), or ``yaml`` at
+    its own widths; fp32, JV matchers; the same seeded weights
+    (:func:`ov_model`, the sampling offsets off the grid), batch (2 clips x
+    ``T`` frames of 128x160, 3 instances a clip among the first 5 classes),
+    classifier (:func:`ov_train_classifiers`) and draws; the card replays the
+    CPU's masked-attention decisions. The losses, the trained parameters'
+    gradients as a norm, every assignment the loss made, and B1's launches:
+    forward one an encoder layer, backward as often where the segmenter
+    trains (``minvis_ov``), never where it runs without gradients."""
+    import copy
+
+    import torch
+
+    from dvis_plus_tpu_torch.config import TINY_TRAIN, load_config
+    from dvis_plus_tpu_torch.engine.trainer import Batch, build_train_step
+    from dvis_plus_tpu_torch.losses.targets import VideoTargets
+    from dvis_plus_tpu_torch.utils.draws import Draws
+
+    opts = ["model.compute_dtype=float32", "model.tracker.matcher_solver=jv",
+            "model.criterion.matcher_solver=jv", "model.criterion.max_num_instances=4"]
+    if yaml is None:
+        yaml, opts = OV_TRAIN_YAMLS[arch], [*TINY_TRAIN, *OV_TRAIN_TINY, *opts]
+    cfg = load_config(yaml, opts)
+    B, N, H, W = 2, 4, 128, 160
+    g = torch.Generator().manual_seed(SEED)
+    masks = torch.zeros(B, N, T, H // 4, W // 4, dtype=torch.bool)
+    for b in range(B):
+        for n in range(N - 1):
+            y, x = 3 + 8 * n, 2 + 5 * b + 3 * n
+            for t in range(T):
+                if not (n == 1 and t == 0 and T > 1):
+                    masks[b, n, t, y:y + 7, x + t:x + t + 9] = True
+    fv = masks.flatten(3).any(-1)
+    batch = Batch(torch.randn(B, T, 3, H, W, generator=g),
+                  VideoTargets(torch.randint(0, 5, (B, N), generator=g), masks, fv.any(-1), fv))
+    cpu_model = ov_model(cfg, torch.device("cpu")).train()
+    off_grid(cpu_model)
+    out, decisions, attention = [], [], {}
+    reset_launches()
+    for d, model in ((torch.device("cpu"), cpu_model), (dev, copy.deepcopy(cpu_model).to(dev))):
+        b = Batch(batch.images.to(d), VideoTargets(*(t.to(d) for t in batch.targets)))
+        attention[d.type] = replay_attention(model.sem_seg_head.predictor, decisions,
+                                             replay=d.type == "cuda")
+        step, init = build_train_step(cfg, model, ov_train_classifiers(cfg, d))
+        matches = []
+        with recording_matches(matches):
+            _, metrics = step(init(), b, Draws(torch.Generator().manual_seed(SEED + 7)))
+        trained = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        grads = torch.cat([p.grad.detach().float().cpu().flatten() for _, p in trained])
+        out.append(({k: float(v) for k, v in metrics.items()}, grads, matches,
+                    sorted({n.split(".")[0] for n, _ in trained})))
+    launches = read_launches()
+    (want, gw, mw, parts), (got, gg, mg, _) = out
+    loss_err = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
+    grad_err = ((gg - gw).norm() / gw.norm()).item()
+    same = len(mw) == len(mg) and all(torch.equal(a, b) for a, b in zip(mw, mg))
+    finite = all(np.isfinite(v) for v in got.values())
+    n = b1_per_step(cfg)
+    expect = {"msdeform_fwd": n, "msdeform_bwd": n if arch == "minvis_ov" else 0,
+              "swin_window_attn_fwd": 0, "flash_attn_fwd": 0}
+    res = {"phase": phase, "arch": arch, "yaml": yaml, "backbone": cfg.model.backbone.name,
+           "queries": cfg.model.transformer_decoder.num_queries, "clips": B, "frames": T, "input": [H, W],
+           "trained": parts, "loss_rel_err": max(loss_err.values()), "loss_tol": TRAIN_LOSS_TOL,
+           "grad_rel_err_norm": grad_err, "grad_tol": TRAIN_GRAD_TOL,
+           "total_loss": {"cpu": want["total_loss"], "cuda": got["total_loss"]},
+           "assignments_equal": same, "launches": launches, "expected_launches": expect,
+           "attention_keys_replayed": attention["cuda"]}
+    emit(res)
+    if not (finite and same and max(loss_err.values()) <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+            and launches == expect):
+        raise AssertionError(f"the {arch} training step on the card disagrees with the CPU: {res}")
+    return res
+
+
+def write_ov_mixture(root, clips, length=7, H=480, W=640):
+    """The five sets of ``configs/ov/ov_online_convnextl_supervised.yaml``,
+    synthetic: COCO panoptic (:func:`write_coco`), YouTube-VIS 2019 and
+    2021 and OVIS (:func:`write_ytvis` with each set's classes) and VIPSeg
+    (:func:`write_vps_vss`), ``clips`` images or videos each, registered
+    under the YAML's names. Returns None: the phase trains the YAML's sets."""
+    from dvis_plus_tpu_torch.data.datasets.categories import (
+        OVIS_CLASSES,
+        YTVIS_2019_CLASSES,
+        YTVIS_2021_CLASSES,
+    )
+
+    write_coco(root, n_images=clips, H=H, W=W)
+    for name, classes in (("ytvis_2019", YTVIS_2019_CLASSES), ("ytvis_2021", YTVIS_2021_CLASSES),
+                          ("ovis", OVIS_CLASSES)):
+        write_ytvis(root, name, n_videos=clips, length=length, H=H, W=W, classes=classes)
+    write_vps_vss(root, "vps", clips, length, H, W)
+    return None
+
+
+def run_ov_training(dev):
+    """The open-vocabulary training phases: the small step-parity phases
+    (:func:`phase_ov_train_step_parity`) of the three architectures and of
+    the FC-CLIP segmenter at the full width of
+    ``configs/ov/fcclip_r50_coco.yaml`` (the CLIP RN50 trunk); then, at full
+    width from synthetic data (ConvNeXt-L frozen, bf16, random text
+    classifiers; :func:`phase_train_slice`): the FC-CLIP segmenter at
+    ``fcclip_convnextl_coco.yaml`` (250 queries, 16 one-frame COCO panoptic
+    pseudo-videos; B1 and B1' checked at the encoder's shape), OV-DVIS++
+    online at ``ov_online_convnextl_coco.yaml`` (8 clips x 5 frames),
+    offline at ``ov_offline_convnextl_coco.yaml`` (15 frames, clips halved
+    until a step fits) and the supervised mixture at
+    ``ov_online_convnextl_supervised.yaml`` (four steps: COCO panoptic,
+    VIPSeg, OVIS, then OVIS again on the sync-counted step, each against
+    its own classifier).
+    Returns the slices' results by phase."""
+    from dvis_plus_tpu_torch.config import load_config
+
+    for arch in OV_TRAIN_YAMLS:
+        phase_ov_train_step_parity(dev, arch, T=1 if arch == "minvis_ov" else 3)
+    phase_ov_train_step_parity(dev, "minvis_ov", "ov_rn50_train_step_parity",
+                               yaml="configs/ov/fcclip_r50_coco.yaml", T=1)
+    slices = {}
+    for phase, arch, steps in (("fcclip_train_slice", "minvis_ov", 1), ("ov_train_slice", "dvis_online_ov", 1),
+                               ("ov_offline_train_slice", "dvis_offline_ov", 0)):
+        yaml = OV_TRAIN_YAMLS[arch]
+        slices[phase] = phase_train_slice(dev, arch, phase, steps, steps, preset=lambda y=yaml: load_config(y),
+                                          b1_shape=arch == "minvis_ov")
+    slices["ov_supervised_train_slice"] = phase_train_slice(
+        dev, "dvis_online_ov", "ov_supervised_train_slice", 1, 1,
+        preset=lambda: load_config("configs/ov/ov_online_convnextl_supervised.yaml"), data=write_ov_mixture,
+        loader_seed=OV_MIXTURE_SEED)
+    sets = [row[2] for row in slices["ov_supervised_train_slice"]["schedule_frames_stage_set"]]
+    if 0 not in sets or not set(sets) - {0}:
+        raise AssertionError(f"ov_supervised_train_slice reached the sets {sets}: COCO and a video set expected")
+    return slices
+
+
 
 
 def main() -> int:
@@ -3315,6 +3540,10 @@ def main() -> int:
         run_daq_training(dev)
         emit({"phase": "wall", "seconds": time.perf_counter() - start})
         return 0
+    if "--train-ov" in sys.argv[1:]:
+        run_ov_training(dev)
+        emit({"phase": "wall", "seconds": time.perf_counter() - start})
+        return 0
     if "--ov" in sys.argv[1:]:
         classifier = ov_classifier(dev)
         phase_ov_slice_parity(dev, classifier)
@@ -3354,6 +3583,7 @@ def main() -> int:
     stages.update(run_segmenter_training(dev))
     daq_train, b1_daq = run_daq_training(dev)
     stages.update(daq_train)
+    stages.update(run_ov_training(dev))
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
     # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2
@@ -3377,12 +3607,14 @@ def main() -> int:
     for bt, forms in b1_daq.items():
         b1_shapes[f"daq_vitl_train_extractor_bt{bt}"] = forms["extractor"]
         b1_shapes[f"daq_vitl_train_encoder_bt{bt}"] = forms["encoder"]
-    # MinVIS on VIPSeg and VSPW: B1 and B1' at their encoder's training shape
-    for task in ("vps", "vss"):
-        r = stages[f"{task}_train_slice"]
-        b1_shapes[f"{task}_train_encoder"] = r["b1_train_encoder"]
-        b1_shapes[f"{task}_train_encoder_clamped_r7"] = r["b1_train_encoder_r7"]
-        b1b += [{"shape": f"{task}_train_encoder", "offsets": "uniform", **f} for f in r["b1_backward"]]
+    # MinVIS on VIPSeg and VSPW, and the FC-CLIP segmenter on COCO panoptic:
+    # B1 and B1' at their encoder's training shape
+    for name, phase in (("vps", "vps_train_slice"), ("vss", "vss_train_slice"),
+                        ("fcclip", "fcclip_train_slice")):
+        r = stages[phase]
+        b1_shapes[f"{name}_train_encoder"] = r["b1_train_encoder"]
+        b1_shapes[f"{name}_train_encoder_clamped_r7"] = r["b1_train_encoder_r7"]
+        b1b += [{"shape": f"{name}_train_encoder", "offsets": "uniform", **f} for f in r["b1_backward"]]
     b1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "gathered_bytes",
                "gathered_tb_per_s", "out_dtype")
     timing_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")

@@ -166,8 +166,11 @@ def _eval_vss(cfg, model, md, loader, out_dir, logits_masks_fn=None):
 LOG_EVERY = 20
 
 
-def do_train(cfg, resume: bool, dev: torch.device):
-    """Train ``cfg`` on ``dev``; returns the final ``TrainState``."""
+def do_train(cfg, resume: bool, dev: torch.device, build=build_model, classifiers=()):
+    """Train ``cfg`` on ``dev``; returns the final ``TrainState``. ``build``
+    makes the model of ``cfg.model`` (seeded by ``seed``); an
+    open-vocabulary one trains against ``classifiers``, one a training set
+    (``engine.trainer.build_train_step``)."""
     from dvis_plus_tpu_torch.core import checkpoint as ckpt
     from dvis_plus_tpu_torch.data.build import build_combined_train_loader
     from dvis_plus_tpu_torch.engine.trainer import (
@@ -180,11 +183,11 @@ def do_train(cfg, resume: bool, dev: torch.device):
     from dvis_plus_tpu_torch.utils.events import EventWriter, device_memory_stats
 
     torch.manual_seed(cfg.seed)
-    model = build_model(cfg.model)
+    model = build(cfg.model)
     if cfg.weights:
         load_weights(model, cfg.weights)
     model = model.to(dev).train()
-    train_step, init_state = build_train_step(cfg, model)
+    train_step, init_state = build_train_step(cfg, model, classifiers)
     state = init_state()
     ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
     latest = ckpt.latest(ckpt_dir) if resume else None
@@ -265,7 +268,7 @@ def main(argv=None) -> dict:
     for idx, name in enumerate(cfg.datasets.test):
         # the task follows test.task or the dataset's type, as in the JAX CLI
         dataset_type = types[idx] if idx < len(types) else "video_instance"
-        mapper = mapper_for_type(cfg, dataset_type)
+        mapper = mapper_for_type(cfg, dataset_type, dataset_name=name)
         loader = (mapper(rec, seed=0) for rec in get_dataset(name))
         out_dir = os.path.join(cfg.output_dir, "inference", name)
         if cfg.test.task in ("vos", "mots"):

@@ -1,8 +1,8 @@
-"""Evaluation CLI of the port's open-vocabulary models (the counterpart of
-``train_net_video_ov.py --eval-only``):
+"""Training and evaluation CLI of the port's open-vocabulary models (the
+counterpart of ``train_net_video_ov.py``):
 
     DVIS_DATASETS=<root> python -m dvis_plus_tpu_torch.cli_ov \\
-        --config-file configs/ov/ov_online_convnextl_zeroshot_ytvis19.yaml --eval-only \\
+        --config-file configs/ov/ov_online_convnextl_zeroshot_ytvis19.yaml [--eval-only] [--resume] \\
         (--clip-weights <open_clip checkpoint> --bpe <bpe_simple_vocab_16e6.txt.gz> | --random-text) \\
         [--device cuda|cpu] [weights=<state_dict .pth/.npz>] [key.path=value ...]
 
@@ -26,10 +26,20 @@ semantic loops, anything else to VIS (``results.json``), as in the JAX CLI.
 ``--device cuda`` (the default) raises when no card is present. The CLI
 prints each set's result dict and returns them.
 
+Without ``--eval-only`` it trains (``do_train`` :206-281 there): the FC-CLIP
+segmenter (``minvis``), OV-DVIS++ online or offline on the sets of
+``datasets.train`` (COCO panoptic pseudo-videos, ``image_panoptic``, and the
+video sets), each set against its own text classifier with its private void
+row i (``build_classifier(..., void_index=i)``), a batch routed by the set
+it came from; one optimizer and one train state for all of them, through
+``cli.do_train``'s loop: its checkpoints every ``solver.checkpoint_period``
+steps and at the end, and ``--resume`` from the newest (the JAX CLI parses
+``--resume`` and reads it nowhere: it starts from step 0).
+
 Counterpart: ``train_net_video_ov.py`` (``_VOCAB_BY_DATASET`` :27,
 ``_ov_arch`` :44, ``_maybe_things_first`` :65, ``vocabulary_for`` :91,
 ``make_text_encoder`` :118, ``void_index_for`` :173, ``build_classifier``
-:187, ``do_eval`` :272). Training is not ported.
+:187, ``do_train`` :206, ``do_eval`` :272).
 """
 from __future__ import annotations
 
@@ -185,6 +195,30 @@ def build_ov_model(cfg) -> torch.nn.Module:
     return models[arch](cfg.model)
 
 
+def train_classifiers(cfg, encode_fn, device) -> list:
+    """One ``engine.trainer.Classifier`` a training set of ``cfg`` on
+    ``device``: set i's vocabulary with void row i."""
+    from dvis_plus_tpu_torch.engine.trainer import Classifier
+
+    classifiers = []
+    for i, name in enumerate(cfg.datasets.train):
+        tc, nt, _ = build_classifier(cfg, name, encode_fn, void_index=i)
+        classifiers.append(Classifier(torch.from_numpy(np.asarray(tc, np.float32)).to(device),
+                                      tuple(int(n) for n in nt), i))
+    return classifiers
+
+
+def do_train(cfg, resume: bool, encode_fn, device):
+    """Train ``cfg``'s open-vocabulary model on ``device`` against
+    :func:`train_classifiers`; returns the final ``TrainState``."""
+    from dvis_plus_tpu_torch.cli import do_train as train_loop
+    from dvis_plus_tpu_torch.config import ov_arch
+
+    cfg.model.meta_architecture = ov_arch(cfg)
+    return train_loop(cfg, resume, device, build=lambda _: build_ov_model(cfg),
+                      classifiers=train_classifiers(cfg, encode_fn, device))
+
+
 def do_eval(cfg, encode_fn, device) -> dict:
     from dvis_plus_tpu_torch.cli import _eval_vis, _eval_vps, _eval_vss
     from dvis_plus_tpu_torch.config import ov_arch
@@ -210,7 +244,8 @@ def do_eval(cfg, encode_fn, device) -> dict:
         tc, nt, test_classes = build_classifier(cfg, name, encode_fn, void_index=vi)
         overlap = category_overlapping_mask(train_classes, test_classes)
         fn = ov_video_logits_masks_fn(cfg, model, tc, nt, overlap, void_index=vi)
-        mapper = mapper_for_type(cfg, types[idx] if idx < len(types) else "video_instance")
+        mapper = mapper_for_type(cfg, types[idx] if idx < len(types) else "video_instance",
+                                 dataset_name=name)
         loader = (mapper(rec, seed=0) for rec in get_dataset(name))
         out_dir = os.path.join(cfg.output_dir, "inference", name)
         run = {"vps": _eval_vps, "vss": _eval_vss}.get(cfg.test.task, _eval_vis)
@@ -222,15 +257,17 @@ def do_eval(cfg, encode_fn, device) -> dict:
 
 
 def main(argv=None) -> dict:
-    from dvis_plus_tpu_torch.config import check_supported, load_config
+    from dvis_plus_tpu_torch.config import check_supported, check_trainable, load_config
+    from dvis_plus_tpu_torch.data.datasets.coco import register_all_coco
     from dvis_plus_tpu_torch.data.datasets.vps_vss import register_all_vipseg, register_all_vspw
     from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config-file", required=True)
-    parser.add_argument("--eval-only", action="store_true", required=True,
-                        help="training is not ported; evaluation only")
-    parser.add_argument("--resume", action="store_true", help="read by training only")
+    parser.add_argument("--eval-only", action="store_true",
+                        help="evaluate the test sets; without it, train")
+    parser.add_argument("--resume", action="store_true",
+                        help="train on from the newest checkpoint of <output_dir>/checkpoints")
     parser.add_argument("--clip-weights", default=os.environ.get("DVIS_CLIP_WEIGHTS", ""))
     parser.add_argument("--bpe", default=os.environ.get("DVIS_CLIP_BPE", ""))
     parser.add_argument("--random-text", action="store_true",
@@ -243,14 +280,19 @@ def main(argv=None) -> dict:
 
     cfg = load_config(args.config_file, args.opts)
     cfg.model.ov.enabled = True
-    check_supported(cfg)  # a setting the port cannot honour raises here
+    # a setting the port cannot honour raises here
+    (check_supported if args.eval_only else check_trainable)(cfg)
     root = os.environ.get("DVIS_DATASETS", "datasets")
-    for register in (register_all_ytvis, register_all_vipseg, register_all_vspw):
+    for register in (register_all_ytvis, register_all_vipseg, register_all_vspw, register_all_coco):
         register(root)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
     device = torch.device(args.device)
-    return do_eval(cfg, make_text_encoder(cfg, args, device), device)
+    encode_fn = make_text_encoder(cfg, args, device)
+    if args.eval_only:
+        return do_eval(cfg, encode_fn, device)
+    state = do_train(cfg, args.resume, encode_fn, device)
+    return {"step": state.step, "device": str(device)}
 
 
 if __name__ == "__main__":

@@ -483,7 +483,8 @@ SUPPORTED = (
     ("test.task", _ported_task,
      "A12: vos and mots run through the DAQ eval loop, so only with a daq_* architecture"),
     ("datasets.dataset_type_test", _eval_dataset_types,
-     "A14c.5 (image_panoptic: the COCO panoptic pseudo-video mapper)"),
+     "A11 (the dataset types with a mapper: video_instance, video_panoptic, video_semantic, "
+     "video_sot, image_instance, image_panoptic)"),
     ("test.refiner_shard_devices", (0, 1), "A15 (the object-sharded refiner pass)"),
     ("test.eval_devices", (1,), "A15 (video-parallel eval)"),
 )
@@ -501,7 +502,9 @@ def _trunk_attention_trains(flash, cfg) -> bool:
 
 
 def _trains_images(cfg) -> bool:
-    return "image_instance" in tuple(cfg.datasets.dataset_type)
+    """A COCO pseudo-video set is trained: its mappers (instance and
+    panoptic) read the pseudo-video recipe's inputs."""
+    return bool({"image_instance", "image_panoptic"} & set(cfg.datasets.dataset_type))
 
 
 PSEUDO_AUGMENTATIONS = ("brightness", "contrast", "saturation")
@@ -514,37 +517,51 @@ def _ctvis_weight(default: float):
     return lambda w, cfg: cfg.model.meta_architecture == "ctvis" or w == default
 
 
-TRAIN_DATASET_TYPES = ("video_instance", "image_instance", "video_panoptic", "video_semantic",
-                       "video_sot")
+TRAIN_DATASET_TYPES = ("video_instance", "image_instance", "image_panoptic", "video_panoptic",
+                       "video_semantic", "video_sot")
+
+
+def _ov_trains(arch, cfg) -> bool:
+    """With ``model.ov.enabled`` CTVIS trains no open-vocabulary model: the
+    JAX CLI leaves it ``ctvis`` (``train_net_video_ov.py::_ov_arch``), which
+    then takes the closed-vocabulary loss with an OV segmenter that has no
+    class head for it; no YAML asks for it."""
+    return not (arch == "ctvis" and is_ov(cfg))
+
 
 # What training honours, in the form of :data:`SUPPORTED` (the eval rows hold
 # too): DVIS++ online and offline, MinVIS and CTVIS on every ported backbone,
-# Mask2Former and Video Mask2Former, DVIS-DAQ online and offline, on video
+# Mask2Former and Video Mask2Former, DVIS-DAQ online and offline, and the
+# open-vocabulary MinVIS (FC-CLIP), DVIS++ online and offline, on video
 # instance, panoptic, semantic and class-agnostic object sets and COCO
-# pseudo-videos.
+# instance and panoptic pseudo-videos.
 TRAINABLE = (
     ("model.meta_architecture",
      ("dvis_online", "dvis_offline", "minvis", "ctvis", "maskformer", "video_maskformer",
-      "daq_online", "daq_offline"),
-     "A14c.5 (open-vocabulary training)"),
-    ("model.ov.enabled", (False,), "A14c.5 (open-vocabulary training)"),
+      "daq_online", "daq_offline") + OV_ARCHS, "A14c (the trainable families)"),
+    ("model.meta_architecture", _ov_trains,
+     "\"Tree state\" (ctvis with model.ov.enabled: the JAX package trains it without any "
+     "open-vocabulary loss, and no YAML asks for it)"),
     ("model.backbone.vit_flash_attention", _trunk_attention_trains,
      "queue B (B3 is forward only: an unfrozen ViT trunk trains with vit_flash_attention=false)"),
     ("model.param_dtype", ("float32",), "A14b (fp32 parameters and optimizer state)"),
     ("model.tracker.noise_mode", ("none", "rs", "wa", "cc", "hard"), "A14b (the noiser's modes)"),
+    # the JAX DVISOnlineOV builds its tracker without noise_mode: 'wa' always
+    ("model.tracker.noise_mode", lambda v, cfg: not is_ov(cfg) or v in ("wa", "hard"),
+     "A14b (the open-vocabulary tracker noises with 'wa': the JAX DVISOnlineOV reads no noise_mode)"),
     ("model.criterion.matcher_solver", ("jv", "auction"), "A14b (the matchers' solvers)"),
     ("datasets.dataset_type", lambda types, cfg: all(t in TRAIN_DATASET_TYPES for t in types),
-     "A14c.5 (image_panoptic: the COCO panoptic pseudo-video mapper)"),
-    # the pseudo-video recipe's inputs: the image_instance mapper alone reads
-    # them (in the JAX package too), so without such a set they would be
+     "A14c (the training mappers: " + ", ".join(TRAIN_DATASET_TYPES) + ")"),
+    # the pseudo-video recipe's inputs: the COCO pseudo-video mappers alone
+    # read them (in the JAX package too), so without such a set they would be
     # dropped silently
     ("input.pseudo", lambda v, cfg: not v or _trains_images(cfg),
-     "A14c.2 (read by nothing: the image_instance sets make the pseudo-videos)"),
+     "A14c.2 (read by nothing: the image_instance and image_panoptic sets make the pseudo-videos)"),
     ("input.lsj_aug", lambda v, cfg: not v or _trains_images(cfg),
-     "A14c.2 (read by the image_instance mapper alone)"),
+     "A14c.2 (read by the image_instance and image_panoptic mappers alone)"),
     ("input.augmentations",
      lambda v, cfg: not v or (_trains_images(cfg) and set(v) <= set(PSEUDO_AUGMENTATIONS)),
-     "A14c.2 (brightness, contrast and saturation, read by the image_instance mapper alone)"),
+     "A14c.2 (brightness, contrast and saturation, read by the pseudo-video mappers alone)"),
     ("parallel.model_parallel_size", (1,), "A15 (training on more than one device)"),
     # read by nothing, in the JAX package either: a value but the default
     # would be dropped silently

@@ -250,7 +250,14 @@ class SOTDatasetMapper:
 
 
 EVAL_DATASET_TYPES = ("video_instance", "video_panoptic", "video_semantic", "video_sot",
-                      "image_instance")
+                      "image_instance", "image_panoptic")
+
+
+def _categories(dataset_name: str):
+    """The registered categories of ``dataset_name`` (None without a name)."""
+    from dvis_plus_tpu_torch.data.catalog import get_metadata
+
+    return getattr(get_metadata(dataset_name), "categories", None) if dataset_name else None
 
 
 def mapper_for_type(cfg, dataset_type: str, is_train: bool = False, dataset_name: str = ""):
@@ -258,14 +265,16 @@ def mapper_for_type(cfg, dataset_type: str, is_train: bool = False, dataset_name
     of a ``datasets.dataset_type`` entry for the set ``dataset_name``
     (``dvis_plus_tpu/data/build.py::mapper_for_type`` :26-73): the video
     instance sets through :class:`YTVISDatasetMapper`, the COCO instance
-    sets (``image_instance``) through the pseudo-video mapper, the
+    sets (``image_instance``) through the pseudo-video mapper and the COCO
+    panoptic ones (``image_panoptic``) through its panoptic form with the
+    set's registered categories (at eval too, as the JAX test loader), the
     class-agnostic object sets through :class:`SOTDatasetMapper`; in
     training the panoptic sets through ``PanopticVideoMapper`` with the
     set's registered categories and the semantic sets through
     ``SemanticVideoMapper`` with ``model.num_classes``
     (``data/datasets/vps_vss.py``), at eval through the video mapper (the
     JAX mappers also decode the ground-truth masks there, which no inference
-    reads). ``image_panoptic`` is ROADMAP A14c.5.
+    reads).
 
     ``datasets.dataset_need_map`` changes no mapper, as in the JAX package:
     there the video instance mapper is handed the set's
@@ -279,20 +288,18 @@ def mapper_for_type(cfg, dataset_type: str, is_train: bool = False, dataset_name
         return CocoPseudoVideoMapper(cfg, is_train=is_train)
     if dataset_type == "video_sot":
         return SOTDatasetMapper(cfg, is_train=is_train)
+    if dataset_type == "image_panoptic":
+        from dvis_plus_tpu_torch.data.pseudo_video import CocoPanopticPseudoVideoMapper
+
+        return CocoPanopticPseudoVideoMapper(cfg, is_train=is_train, categories=_categories(dataset_name))
     if is_train and dataset_type == "video_panoptic":
-        from dvis_plus_tpu_torch.data.catalog import get_metadata
         from dvis_plus_tpu_torch.data.datasets.vps_vss import PanopticVideoMapper
 
-        cats = getattr(get_metadata(dataset_name), "categories", None) if dataset_name else None
-        return PanopticVideoMapper(cfg, categories=cats)
+        return PanopticVideoMapper(cfg, categories=_categories(dataset_name))
     if is_train and dataset_type == "video_semantic":
         from dvis_plus_tpu_torch.data.datasets.vps_vss import SemanticVideoMapper
 
         return SemanticVideoMapper(cfg, num_classes=cfg.model.num_classes)
     if dataset_type in EVAL_DATASET_TYPES:
         return YTVISDatasetMapper(cfg, is_train=is_train)
-    if dataset_type == "image_panoptic":
-        raise NotImplementedError(
-            f"dataset type {dataset_type!r} is not ported (ROADMAP A14c.5: the COCO panoptic "
-            "pseudo-video mapper)")
     raise NotImplementedError(f"dataset_type {dataset_type}")

@@ -1,4 +1,5 @@
-"""COCO images as pseudo-video clips (the ``image_instance`` sets).
+"""COCO images as pseudo-video clips (the ``image_instance`` and
+``image_panoptic`` sets).
 
 Counterpart: ``dvis_plus_tpu/data/pseudo_video.py::CocoPseudoVideoMapper``
 (:29-124), the reference's ``CocoClipDatasetMapper``: one image record
@@ -12,6 +13,12 @@ augmentations (``augmentation.build_pseudo_augmentation``) in training, or
 the eval mapper's resize. The draws: the rotations from
 ``random.Random(seed)``, then the video mapper's own from a fresh
 ``random.Random(seed)``, as in the JAX package, so the arrays are bit-equal.
+
+:class:`CocoPanopticPseudoVideoMapper` (``CocoPanopticPseudoVideoMapper``
+:126-183 there, the reference's ``OpenVocabularyCocoPanoClipDatasetMapper``)
+makes the clip of a panoptic record: every non-crowd segment of its PNG,
+thing or stuff, becomes one tracked instance of its things-first contiguous
+class (the order of the COCO panoptic vocabulary's rows).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from dvis_plus_tpu_torch.data.augmentation import RandomRotation, build_pseudo_augmentation
+from dvis_plus_tpu_torch.data.datasets.vps_vss import decode_panoptic_png, panoptic_contiguous_maps
 from dvis_plus_tpu_torch.data.mapper import YTVISDatasetMapper, decode_segmentation
 
 
@@ -69,3 +77,41 @@ class CocoPseudoVideoMapper:
                "length": self.num_frames, "video_id": record.get("image_id", 0),
                "annotations": per_frame, "_frames": frames}
         return self.base(rec, seed=seed)
+
+
+class CocoPanopticPseudoVideoMapper(CocoPseudoVideoMapper):
+    """A COCO panoptic record (``data/datasets/coco.py::load_coco_panoptic``)
+    -> the clip of :class:`CocoPseudoVideoMapper` with one instance a
+    non-crowd segment present in the PNG, its class the segment category's
+    things-first contiguous id among ``categories`` (a category outside
+    them is dropped; without ``categories`` the ids stay). A record without
+    its size (0) takes the PNG's."""
+
+    def __init__(self, cfg, is_train: bool = True, categories=None):
+        super().__init__(cfg, is_train=is_train)
+        self.dataset_to_contiguous = panoptic_contiguous_maps(categories)[0] if categories else None
+
+    def __call__(self, record: dict, seed: Optional[int] = None) -> Dict[str, np.ndarray]:
+        import cv2
+
+        pan = cv2.imread(record["pan_seg_file_names"][0], cv2.IMREAD_COLOR)
+        anns = []
+        if pan is not None:
+            seg_ids = decode_panoptic_png(pan[:, :, ::-1])  # BGR -> RGB
+            for s in record.get("segments_infos", [[]])[0]:
+                cat = s["category_id"]
+                if s.get("iscrowd", 0):
+                    continue
+                if self.dataset_to_contiguous is not None:
+                    if cat not in self.dataset_to_contiguous:
+                        continue
+                    cat = self.dataset_to_contiguous[cat]
+                mask = (seg_ids == s["id"]).astype(np.uint8)
+                if mask.any():
+                    anns.append({"id": s["id"], "category_id": cat, "segmentation": {"_raw": mask},
+                                 "iscrowd": 0})
+        size = pan.shape[:2] if pan is not None else (0, 0)
+        return super().__call__({"file_name": record["file_names"][0], "image_id": record.get("video_id", 0),
+                                 "height": record.get("height", 0) or size[0],
+                                 "width": record.get("width", 0) or size[1], "annotations": anns},
+                                seed=seed)

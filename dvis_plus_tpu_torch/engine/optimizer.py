@@ -11,7 +11,8 @@ Counterpart: ``dvis_plus_tpu/engine/optimizer.py`` (``_no_weight_decay``
   the components ``model.freeze`` names are frozen, and so is the DINOv2
   trunk of a ViT-Adapter with ``backbone.vit_frozen`` (the reference's frozen
   trunk; the JAX optimizer leaves it in the backbone group, no code there
-  reading the field);
+  reading the field), and so are DVIS++ OV online's segmenter decoders,
+  which get no gradient (:func:`frozen_predicate`);
 - no weight decay on 1-D parameters (biases, norm scales) and on the names
   holding ``norm`` or an embedding (:func:`no_weight_decay`, the JAX rule on
   the reference names the port's modules carry);
@@ -28,11 +29,16 @@ from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from dvis_plus_tpu_torch.config import ov_arch
+
 _NO_DECAY = ("norm", "query_embed", "query_feat", "level_embed", "pos_embed",
              "relative_position", "absolute_pos")
 
-# the JAX package's component names -> the port's top-level module names
-_COMPONENTS = {"segmenter": ("backbone.", "sem_seg_head."), "tracker": ("tracker.",),
+# the JAX package's component names -> the port's top-level module names (the
+# open-vocabulary segmenter's learned void rows sit at the top level here,
+# under ``segmenter`` there)
+_COMPONENTS = {"segmenter": ("backbone.", "sem_seg_head.", "void_embedding.",
+                             "additional_void_embedding."), "tracker": ("tracker.",),
                "cutter": ("tracker.",),
                "backbone": ("backbone.",), "refiner": ("refiner.",)}
 
@@ -52,7 +58,8 @@ def is_backbone(name: str) -> bool:
 
 def make_frozen_predicate(frozen_components: Sequence[str]) -> Callable[[str], bool]:
     """``model.freeze`` names -> a predicate of a parameter's name:
-    ``segmenter`` freezes the backbone and the pixel and query decoders,
+    ``segmenter`` freezes the backbone, the pixel and query decoders and an
+    open-vocabulary model's void rows,
     ``tracker`` the tracker, ``cutter`` DVIS-DAQ's cutter (the port's
     ``tracker``), ``backbone`` the backbone; another name freezes
     the parameters whose name holds it."""
@@ -175,13 +182,21 @@ class AdamW:
 VIT_TRUNK = "backbone.vit_module."  # the DINOv2 trunk of a ViT-Adapter backbone
 
 
-def frozen_predicate(model_cfg) -> Callable[[str], bool]:
-    """What training keeps fixed: the components of ``model.freeze`` and,
-    with ``backbone.vit_frozen``, the ViT-Adapter's trunk."""
-    by_name = make_frozen_predicate(model_cfg.freeze)
-    b = model_cfg.backbone
+def frozen_predicate(cfg) -> Callable[[str], bool]:
+    """What training keeps fixed: the components of ``model.freeze``; with
+    ``backbone.vit_frozen``, the ViT-Adapter's trunk; in DVIS++ OV online,
+    the segmenter's decoders (``sem_seg_head.``), which run without
+    gradients there (the reference's ``torch.no_grad``, after which torch's
+    AdamW skips them; the JAX optimizer freezes only ``backbone`` for the
+    YAMLs' ``freeze: [backbone]`` and decays the decoders' zero-gradient
+    weights every step). The void rows still train there, on the tracker's
+    gradient."""
+    by_name = make_frozen_predicate(cfg.model.freeze)
+    b = cfg.model.backbone
     trunk = b.name == "vit_adapter_dinov2" and b.vit_frozen
-    return lambda name: by_name(name) or (trunk and name.startswith(VIT_TRUNK))
+    no_grad_decoders = ov_arch(cfg) == "dvis_online_ov"
+    return lambda name: (by_name(name) or (trunk and name.startswith(VIT_TRUNK))
+                         or (no_grad_decoders and name.startswith("sem_seg_head.")))
 
 
 def build_optimizer(cfg, model: torch.nn.Module) -> AdamW:
@@ -193,4 +208,4 @@ def build_optimizer(cfg, model: torch.nn.Module) -> AdamW:
                  warmup_multistep_schedule(s.base_lr, s.steps, s.gamma, s.warmup_iters,
                                            s.warmup_factor),
                  weight_decay=s.weight_decay, backbone_multiplier=s.backbone_multiplier,
-                 clip_value=s.clip_gradients_value, frozen=frozen_predicate(cfg.model))
+                 clip_value=s.clip_gradients_value, frozen=frozen_predicate(cfg))

@@ -1,11 +1,14 @@
 """The training step of DVIS++ online and offline, MinVIS and CTVIS,
-Mask2Former and Video Mask2Former, DVIS-DAQ online and offline.
+Mask2Former and Video Mask2Former, DVIS-DAQ online and offline, and the
+open-vocabulary FC-CLIP segmenter (``minvis_ov``) and OV-DVIS++ online and
+offline.
 
 Counterpart: ``dvis_plus_tpu/engine/trainer.py`` (``TrainState`` :37,
 ``Batch`` :44, ``criterion_config`` :49, ``build_loss_fn`` :81 with its
 ``minvis`` / ``ctvis`` :153-199, ``maskformer`` / ``video_maskformer``
 :201-213, ``dvis_online`` :215-233, ``dvis_offline`` :235-254,
-``daq_online`` :256-273 and ``daq_offline`` :275-297 branches,
+``daq_online`` :256-273 and ``daq_offline`` :275-297 branches, the
+``*_ov`` ones :92-152,
 ``daq_curriculum_slice`` :299, ``build_train_step`` :320 with its stage
 switch and its ``init_state`` :349-360), the reference ``DefaultTrainer``
 step:
@@ -29,6 +32,17 @@ step:
 - ``daq_offline``: the frozen segmenter and cutter streaming each clip
   without gradients, the refiner over its best sequences, and
   ``dvis_offline_train_loss`` without the class memory;
+- ``minvis_ov``: the FC-CLIP segmenter (the CLIP trunk frozen) on the
+  clips' frames folded into the batch, ``minvis_train_loss``;
+  ``dvis_online_ov`` and ``dvis_offline_ov``: the tracker and the refiner
+  as their closed forms (the segmenter without gradients; offline without
+  the class memory, the JAX ``use_cl=False``). Each scores against the
+  batch's training set's text classifier with that set's void row
+  (:class:`Classifier`), and the criterion's class count is the
+  classifier's (``len(num_templates) - 1``). One optimizer and one train
+  state serve every set: :func:`build_train_step` routes a batch to its
+  set's loss by ``Batch.dataset_index`` (the JAX CLI builds a jitted step a
+  set over one shared state);
 - a DAQ step trains every clip of the batch, one pass a clip, and its
   losses are the mean of the clips' (each clip's as the JAX loss gives for
   it alone, but with the mask losses divided by the batch's mean count,
@@ -49,18 +63,16 @@ step:
 - the compute dtype is ``model.compute_dtype`` (bf16 in the YAMLs), the
   modules casting their fp32 parameters at the call, as the JAX modules
   compute; parameters and the optimizer's moments stay fp32.
-
-Open-vocabulary training is ROADMAP A14c.5: :func:`build_loss_fn` raises
-for it.
 """
 from __future__ import annotations
 
 import random
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from dvis_plus_tpu_torch.config import OV_ARCHS, ov_arch
 from dvis_plus_tpu_torch.engine.optimizer import AdamW, build_optimizer
 from dvis_plus_tpu_torch.losses.criterion import CriterionConfig
 from dvis_plus_tpu_torch.losses.reid import ClassMemory
@@ -73,6 +85,17 @@ MEMORY_LEN = 20  # embeddings a class in the offline stage's class memory
 class Batch(NamedTuple):
     images: torch.Tensor  # (B, T, 3, H, W) normalized
     targets: VideoTargets
+    dataset_index: int = 0  # the training set the batch came from
+
+
+class Classifier(NamedTuple):
+    """An open-vocabulary training set's text classifier: the rows (R, Cc)
+    without the void rows, on the model's device, the rows a class (the
+    last entry the void rows' count) and the set's void row."""
+
+    text_classifier: torch.Tensor
+    num_templates: Tuple[int, ...]
+    void_index: int
 
 
 @dataclass
@@ -92,15 +115,20 @@ def criterion_config(cfg) -> CriterionConfig:
         matcher_solver=c.matcher_solver)
 
 
-def build_loss_fn(cfg, model) -> Callable:
+def total_of(losses):
+    return sum(losses[k] for k in sorted(losses))
+
+
+def build_loss_fn(cfg, model, classifier: Optional[Classifier] = None) -> Callable:
     """loss_fn(batch, draws, step, memory) -> (total, losses, memory after
-    the step)."""
-    arch = cfg.model.meta_architecture
+    the step). An open-vocabulary architecture takes its training set's
+    ``classifier``."""
+    arch = ov_arch(cfg)
     ccfg = criterion_config(cfg)
     half_iter = cfg.solver.max_iter // 2
 
-    def total_of(losses):
-        return sum(losses[k] for k in sorted(losses))
+    if arch in OV_ARCHS:
+        return ov_loss_fn(arch, model, ccfg, half_iter, classifier)
 
     if arch in ("minvis", "ctvis"):
         from dvis_plus_tpu_torch.losses import criterion
@@ -195,7 +223,45 @@ def build_loss_fn(cfg, model) -> Callable:
 
         return loss_fn
 
-    raise NotImplementedError(f"training {arch!r} is not ported (ROADMAP A14c.5)")
+    raise ValueError(f"unknown meta architecture {arch!r}")
+
+
+def ov_loss_fn(arch: str, model, ccfg, half_iter: int, classifier: Classifier) -> Callable:
+    """The loss of an open-vocabulary architecture against ``classifier``
+    (``build_loss_fn`` :92-152 there): the criterion's classes are the
+    classifier's."""
+    if classifier is None:
+        raise ValueError(f"{arch} trains against a text classifier: pass its Classifier")
+    tc, nt, vi = classifier
+    ccfg = ccfg._replace(num_classes=len(nt) - 1)
+    if arch == "minvis_ov":
+        from dvis_plus_tpu_torch.models.meta.minvis import minvis_train_loss
+
+        def loss_fn(batch: Batch, draws, step: int, memory):
+            out = model(batch.images.flatten(0, 1), tc, nt, vi, aux=True)
+            losses = minvis_train_loss(out, batch.targets, ccfg, draws)
+            return total_of(losses), losses, memory
+
+    elif arch == "dvis_online_ov":
+        from dvis_plus_tpu_torch.models.meta.dvis_online import dvis_online_train_loss
+
+        def loss_fn(batch: Batch, draws, step: int, memory):
+            seg_out, track_out = model.train_forward(batch.images, tc, nt, vi, draws)
+            losses = dvis_online_train_loss(seg_out, track_out, batch.targets, ccfg,
+                                            use_matcher_guidance=step < half_iter, draws=draws)
+            return total_of(losses), losses, memory
+
+    else:
+        from dvis_plus_tpu_torch.models.meta.dvis_offline import dvis_offline_train_loss
+
+        def loss_fn(batch: Batch, draws, step: int, memory):
+            track_out, refine_out = model.train_forward(batch.images, tc, nt, vi)
+            losses, _ = dvis_offline_train_loss(track_out, refine_out, batch.targets, ccfg,
+                                                use_matcher_guidance=step < half_iter, draws=draws,
+                                                memory=None)
+            return total_of(losses), losses, memory
+
+    return loss_fn
 
 
 def mean_losses(per_clip):
@@ -264,8 +330,9 @@ def curriculum_rng(cfg, start_step: int = 0) -> random.Random:
 def init_memory(cfg, device) -> Optional[ClassMemory]:
     """The offline stage's empty class memory (``init_state`` :351-355):
     ``MEMORY_LEN`` embeddings a class, as wide as the refiner's queries;
-    None for the other families."""
-    if cfg.model.meta_architecture != "dvis_offline":
+    None for the other families (the open-vocabulary offline stage among
+    them)."""
+    if ov_arch(cfg) != "dvis_offline":
         return None
     td = cfg.model.transformer_decoder
     return ClassMemory.create(cfg.model.num_classes, MEMORY_LEN,
@@ -282,21 +349,25 @@ def set_modes(model: torch.nn.Module) -> None:
             m.eval()
 
 
-def build_train_step(cfg, model):
+def build_train_step(cfg, model, classifiers: Sequence[Classifier] = ()):
     """(train_step, init_state). ``train_step(state, batch, draws=None)``
     advances ``state`` by one step in place and returns (state, metrics:
     the losses and ``total_loss`` as 0-dim tensors, and ``grad_norm``);
     ``draws`` replaces the step's own (the parity tests pass the JAX
     draws). Builds the optimizer (which freezes what the configuration
-    keeps fixed) and sets the modules' modes (:func:`set_modes`)."""
+    keeps fixed) and sets the modules' modes (:func:`set_modes`). An
+    open-vocabulary model takes ``classifiers``, one a training set, and a
+    batch trains against ``classifiers[batch.dataset_index]``; a closed
+    model has one loss for every set of its mixture."""
     optimizer = build_optimizer(cfg, model)
     set_modes(model)
-    loss_fn = build_loss_fn(cfg, model)
+    loss_fns = [build_loss_fn(cfg, model, c) for c in classifiers] or [build_loss_fn(cfg, model)]
     device = next(model.parameters()).device
 
     def train_step(state: TrainState, batch: Batch, draws=None):
         if draws is None:
             draws = Draws(step_generator(cfg.seed, state.step, device))
+        loss_fn = loss_fns[batch.dataset_index if classifiers else 0]
         total, losses, memory = loss_fn(batch, draws, state.step, state.memory)
         state.optimizer.zero_grad()
         total.backward()
@@ -316,7 +387,7 @@ def build_train_step(cfg, model):
 
 def to_batch(raw: dict, device) -> Batch:
     """A collated loader batch (numpy, NHWC images) -> :class:`Batch` on
-    ``device``."""
+    ``device``, with the batch's ``dataset_index`` (0 if it has none)."""
     images = torch.from_numpy(raw["images"]).permute(0, 1, 4, 2, 3)
     pin = device.type == "cuda"
 
@@ -326,4 +397,5 @@ def to_batch(raw: dict, device) -> Batch:
 
     return Batch(images=put(images.contiguous()),
                  targets=VideoTargets(put(raw["labels"]).long(), put(raw["masks"]),
-                                      put(raw["valid"]), put(raw["frame_valid"])))
+                                      put(raw["valid"]), put(raw["frame_valid"])),
+                 dataset_index=int(raw.get("dataset_index", 0)))

@@ -24,6 +24,12 @@ dict is the reference checkpoints' flat key space (``backbone.clip_model.*``,
 ``sem_seg_head.*``, ``void_embedding.weight``, ``tracker.*``,
 ``refiner.*``), which ``core/zoo_convert.py::convert_reference_checkpoint``
 routes for ``minvis_ov``, ``dvis_online_ov`` and ``dvis_offline_ov``.
+
+Training (``engine/trainer.py``): the FC-CLIP segmenter trains with the
+CLIP trunk frozen (``OVSegmenter.forward(..., aux=True)``); DVIS++ OV
+online and offline train the tracker and the refiner
+(``DVISOnlineOV.train_forward``, ``DVISOfflineOV.train_forward``) against
+the training set's classifier and its private void row.
 """
 from __future__ import annotations
 
@@ -58,9 +64,10 @@ class OVSegmenter(nn.Module):
     def full_classifier(self, text_classifier: torch.Tensor,
                         void_index: Optional[int] = None) -> torch.Tensor:
         """The text classifier with the void row(s) appended, normalized:
-        ``void_index=i`` appends dataset i's private row; ``None`` merges the
-        rows by ``ov.void_merge_mode`` (``coco``: row 0, ``mean``: the mean
-        row, ``max``: every row, max-ensembled downstream as one group)."""
+        ``void_index=i`` appends dataset i's private row, with its gradient
+        (the training path); ``None`` merges the rows, detached, by
+        ``ov.void_merge_mode`` (``coco``: row 0, ``mean``: the mean row,
+        ``max``: every row, max-ensembled downstream as one group)."""
         v = self.void_embedding.weight
         if self.additional_void_embedding is not None:
             v = torch.cat([v, self.additional_void_embedding.weight])
@@ -68,6 +75,7 @@ class OVSegmenter(nn.Module):
         if void_index is not None:
             rows = v[int(void_index) : int(void_index) + 1]
         else:
+            v = v.detach()
             mode = self.cfg.ov.void_merge_mode
             if mode == "mean":
                 rows = v.mean(dim=0, keepdim=True)
@@ -88,16 +96,21 @@ class OVSegmenter(nn.Module):
         return text_classifier
 
     def forward(self, images: torch.Tensor, text_classifier: torch.Tensor,
-                num_templates: Sequence[int], void_index: Optional[int] = None) -> Dict[str, Any]:
+                num_templates: Sequence[int], void_index: Optional[int] = None,
+                aux: bool = False) -> Dict[str, Any]:
         """images (BT, 3, H, W) normalized -> the per-frame dict, with the
-        stride-32 CLIP features (``clip_vis_dense``)."""
+        stride-32 CLIP features (``clip_vis_dense``); with ``aux`` every
+        earlier decoder layer's logits and masks too (FC-CLIP training).
+        The CLIP trunk runs without gradients (it is frozen: the JAX
+        module's ``stop_gradient`` :125)."""
         tc = self.with_void(text_classifier, num_templates, void_index)
         cdt = self.compute_dtype
-        features = self.backbone(images.to(cdt))
+        with torch.no_grad():
+            features = self.backbone(images.to(cdt))
         mask_features, multi_scale = self.sem_seg_head.pixel_decoder(
             {k: v for k, v in features.items() if k.startswith("res")})
         out = self.sem_seg_head.predictor([m.to(cdt) for m in multi_scale], mask_features.to(cdt),
-                                          text_classifier=tc, num_templates=num_templates)
+                                          aux=aux, text_classifier=tc, num_templates=num_templates)
         out["clip_vis_dense"] = features["clip_vis_dense"]
         return out
 
@@ -127,6 +140,7 @@ class DVISOnlineOV(OVSegmenter):
             matcher=cfg.tracker.matcher_solver,
             ov=True,
             clip_embed_dim=cfg.ov.clip_embed_dim,
+            noise_ratio=cfg.tracker.noise_ratio,  # noise_mode: 'wa', as the JAX module's default
         )
 
     def forward(self, images: torch.Tensor, text_classifier: torch.Tensor,
@@ -151,6 +165,31 @@ class DVISOnlineOV(OVSegmenter):
             num_templates=num_templates,
         )
         return seg_out, track_out, new_state
+
+    def train_forward(self, images: torch.Tensor, text_classifier: torch.Tensor,
+                      num_templates: Sequence[int], void_index: Optional[int], draws
+                      ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """The training forward (``DVISOnlineOV.__call__`` with ``training``,
+        :184-218): the segmenter without gradients (the reference's
+        ``torch.no_grad``), then the tracker with its noise from ``draws``
+        and every layer's outputs, scored against the set's classifier with
+        its void row ``void_index`` (which takes the tracker's gradient).
+        images (B, T, 3, H, W) normalized. Returns (seg_out, track_out)."""
+        B, T = images.shape[:2]
+        tc = self.with_void(text_classifier, num_templates, void_index)
+        with torch.no_grad():
+            seg_out = OVSegmenter.forward(self, images.flatten(0, 1), tc, num_templates)
+        C = seg_out["pred_embds"].shape[-1]
+        mf = seg_out["mask_features"]
+        track_out, _ = self.tracker(
+            seg_out["pred_embds"].reshape(B, T, -1, C),
+            mf.reshape(B, T, *mf.shape[1:]),
+            frame_embeds_no_norm=seg_out["pred_embds_without_norm"].reshape(B, T, -1, C),
+            text_classifier=tc,
+            num_templates=num_templates,
+            draws=draws,
+        )
+        return seg_out, track_out
 
 
 class DVISOfflineOV(DVISOnlineOV):
@@ -183,6 +222,25 @@ class DVISOfflineOV(DVISOnlineOV):
             track_out["pred_embds"], seg_out["pred_embds_without_norm"].reshape(B, T, -1, C),
             mf.reshape(B, T, *mf.shape[1:]), tc, num_templates)
         return seg_out, track_out, refine_out, new_state
+
+    def train_forward(self, images: torch.Tensor, text_classifier: torch.Tensor,
+                      num_templates: Sequence[int], void_index: Optional[int]
+                      ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """The training forward (``DVISOfflineOV.__call__`` with
+        ``training``, :251-284): the online stack without gradients and
+        without the tracker's noise, then the refiner with every layer's
+        predictions against the set's classifier with its void row
+        ``void_index``. Returns (track_out, refine_out)."""
+        B, T = images.shape[:2]
+        tc = self.with_void(text_classifier, num_templates, void_index)
+        with torch.no_grad():
+            seg_out, track_out, _ = DVISOnlineOV.forward(self, images, tc, num_templates)
+        C = seg_out["pred_embds_without_norm"].shape[-1]
+        mf = seg_out["mask_features"]
+        refine_out = self.refiner(
+            track_out["pred_embds"], seg_out["pred_embds_without_norm"].reshape(B, T, -1, C),
+            mf.reshape(B, T, *mf.shape[1:]), tc, num_templates, training=True)
+        return track_out, refine_out
 
     def online_step(self, images: torch.Tensor, text_classifier: torch.Tensor,
                     num_templates: Sequence[int], state: Optional[TrackerState] = None,

@@ -10,8 +10,9 @@ Counterpart: ``dvis_plus_tpu/models/ov/heads.py``
   block. The JAX op promotes a bf16 embedding times the fp32 classifier to
   fp32; here the product is taken in fp32 the same way;
 - :func:`mask_pooling`: mask logits resized bilinearly (no antialias) to the
-  feature map, thresholded ``> 0``, features averaged over each mask with a
-  +1e-8 guard on the pixel count, in the features' dtype;
+  feature map, thresholded ``> 0`` (no gradient through the mask, as the
+  JAX ``stop_gradient``), features averaged over each mask with a +1e-8
+  guard on the pixel count, in the features' dtype;
 - :func:`geometric_ensemble`: fp32 softmaxes, ``alpha`` for the classes
   seen in training and ``beta`` for the others, ``clip(., 1e-20, 1)``, the
   void probability renormalization and ``log(p + 1e-8)``.
@@ -59,8 +60,14 @@ def resize_masks(mask: torch.Tensor, size) -> torch.Tensor:
 
 def mask_pooling(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """x (B, C, H, W) dense features; mask (B, Q, Hm, Wm) logits ->
-    (B, Q, C) features averaged over each binary (> 0) mask."""
-    m = (resize_masks(mask, x.shape[-2:]) > 0.0).to(x.dtype)  # (B, Q, H, W)
+    (B, Q, C) features averaged over each binary (> 0) mask. The binary
+    mask carries no gradient; the features do."""
+    return binary_mask_pooling(x, resize_masks(mask, x.shape[-2:]) > 0.0)
+
+
+def binary_mask_pooling(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """:func:`mask_pooling` of the binary masks ``m`` (B, Q, H, W) bool."""
+    m = m.to(x.dtype)
     denom = m.sum(dim=(-1, -2))[..., None] + 1e-8  # (B, Q, 1)
     return torch.einsum("bchw,bqhw->bqc", x, m) / denom
 

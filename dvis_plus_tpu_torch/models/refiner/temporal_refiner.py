@@ -30,7 +30,8 @@ Parameter names follow the reference ``dvis_Plus/refiner.py``
 ``ov=True`` is the open-vocabulary refiner (:94-126, :247-262, ``ov_classify``
 :299-340; the reference ``TemporalRefiner_OV``): the class head is the
 FC-CLIP one (``models/ov/ov_decoder.py::add_ov_head``), fed the mask
-features pooled under the video's masks plus the time-pooled query;
+features pooled under the video's binary masks (:func:`video_mask_pooling`,
+every layer's in training) plus the time-pooled query;
 :meth:`embed_pass` then returns the time-pooled query (``fused``) for
 :meth:`ov_classify`, which the eval loop calls with features it pooled
 window by window. Not ported: the object-sharded pass (ROADMAP). Every
@@ -158,41 +159,27 @@ class TemporalRefiner(nn.Module):
                 instance_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Whole-video forward: instance_embeds (B, T, Q, C), frame_embeds
         (B, T, fQ, C), mask_features (B, T, mask_dim, H, W); with ``ov`` the
-        text classifier (R, Cc) and ``num_templates``. ``training``: also
-        every earlier layer's logits and masks, ``aux_pred_logits`` /
-        ``aux_pred_masks``, for the deep supervision (the JAX module emits
-        every layer then, :227-237; not with ``ov``). ``instance_mask`` (B, Q)
-        False: a padded row, which no object attends to."""
+        text classifier (R, Cc) and ``num_templates``. Each layer's logits
+        are time-pooled and repeated a frame (B, T, Q, K+1), its masks
+        (B, Q, T, H, W). ``training``: also every earlier layer's logits and
+        masks, ``aux_pred_logits`` / ``aux_pred_masks``, for the deep
+        supervision (the JAX module emits every layer then, :227-276).
+        ``instance_mask`` (B, Q) False: a padded row, which no object attends
+        to."""
         layers = self._body(instance_embeds, frame_embeds, instance_mask=instance_mask)
+        xs = [self.decoder_norm(y) for y in (layers if training else layers[-1:])]
+        masks = [self.mask_window(self.mask_embed(x), mask_features) for x in xs]  # (B, Q, T, H, W)
+        if self.ov:
+            pooled = video_mask_pooling(mask_features, masks)  # (L', B, Q, Cm)
+            logits = [self.ov_classify(self._pred_class(x), p.to(x.dtype), text_classifier,
+                                       num_templates)[:, None].expand(*x.shape[:3], -1)
+                      for x, p in zip(xs, pooled)]
+        else:
+            logits = [self.class_embed(self._pred_class(x).expand(x.shape)) for x in xs]
+        out = {"pred_logits": logits[-1], "pred_masks": masks[-1], "pred_embds": xs[-1]}
         if training:
-            if self.ov:
-                raise NotImplementedError("training the open-vocabulary refiner is ROADMAP A14c.5")
-            aux = [self._layer_predictions(self.decoder_norm(y), mask_features)
-                   for y in layers[:-1]]
-            out = self._layer_predictions(self.decoder_norm(layers[-1]), mask_features)
-            out["aux_pred_logits"] = [a["pred_logits"] for a in aux]
-            out["aux_pred_masks"] = [a["pred_masks"] for a in aux]
-            return out
-        x = self.decoder_norm(layers[-1])
-        if not self.ov:
-            return self._layer_predictions(x, mask_features)
-        fused = self._pred_class(x)
-        masks = self.mask_window(self.mask_embed(x), mask_features)  # (B, Q, T, H, W)
-        # the video's binary masks pool the mask features (fp32 sums)
-        m = (masks > 0.0).float()
-        pooled = torch.einsum("bqthw,btchw->bqc", m, mask_features.float())
-        pooled = pooled / (m.sum(dim=(-1, -2, -3))[..., None] + 1e-8)
-        logits = self.ov_classify(fused, pooled.to(x.dtype), text_classifier, num_templates)
-        logits = logits[:, None].expand(*x.shape[:3], logits.shape[-1])
-        return {"pred_logits": logits, "pred_masks": masks, "pred_embds": x}
-
-    def _layer_predictions(self, x: torch.Tensor, mask_features: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One layer's normed output x (B, T, Q, C) -> its time-pooled class
-        logits, duplicated over the frames (B, T, Q, K+1), and its masks
-        (B, Q, T, H, W)."""
-        logits = self.class_embed(self._pred_class(x).expand(x.shape))
-        return {"pred_logits": logits, "pred_masks": self.mask_window(self.mask_embed(x), mask_features),
-                "pred_embds": x}
+            out["aux_pred_logits"], out["aux_pred_masks"] = logits[:-1], masks[:-1]
+        return out
 
     def embed_pass(self, instance_embeds: torch.Tensor, frame_embeds: torch.Tensor,
                    time_mask: Optional[torch.Tensor] = None,
@@ -221,3 +208,15 @@ class TemporalRefiner(nn.Module):
         """Mask head on one time window: mask_embed (B, Tw, Q, Cm),
         mask_features (B, Tw, Cm, H, W) -> (B, Q, Tw, H, W) fp32 logits."""
         return torch.einsum("btqc,btchw->bqthw", mask_embed.float(), mask_features.float())
+
+
+def video_mask_pooling(mask_features: torch.Tensor, masks: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The mask features (B, T, Cm, H, W) averaged under each of L' layers'
+    binary (> 0) video masks (B, Q, T, H, W), without gradient through the
+    masks: (L', B, Q, Cm) fp32. One batched product a video, (L'·Q, T·H·W)
+    by (T·H·W, Cm), fp32 sums (the JAX refiner's ``lbqthw,bthwc->lbqc``)."""
+    B, Q = masks[0].shape[:2]
+    m = torch.stack([mk > 0.0 for mk in masks], dim=1).reshape(B, len(masks) * Q, -1).float()
+    mf = mask_features.float().permute(0, 1, 3, 4, 2).reshape(B, m.shape[-1], -1)  # (B, T·H·W, Cm)
+    pooled = torch.bmm(m, mf) / (m.sum(dim=-1, keepdim=True) + 1e-8)
+    return pooled.reshape(B, len(masks), Q, -1).transpose(0, 1)

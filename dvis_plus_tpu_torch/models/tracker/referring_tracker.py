@@ -18,13 +18,15 @@ activations are recomputed in the backward pass. The alignment and the
 noise are drawn outside the checkpointed part, so the recomputation replays
 them. Parameter names follow the reference ``dvis_Plus/tracker.py``.
 
-``ov=True`` is the open-vocabulary tracker (:263-345, the reference
+``ov=True`` is the open-vocabulary tracker (:263-362, the reference
 ``ReferringTracker_noiser_OV``): no ``mask_feature_proj`` (the masks are
 taken against the segmenter's raw mask features), and the class head is
 ``merge`` (concat(reference, output) -> C), plus the raw mask features
-pooled under each predicted mask through ``_mask_pooling_proj``, mapped
-into CLIP space by ``class_embed`` and scored against the text classifier
-(``models/ov/ov_decoder.py::add_ov_head``; ``zoo_convert.py::convert_ov_tracker``).
+pooled under each predicted mask (binary, no gradient through the mask)
+through ``_mask_pooling_proj``, mapped into CLIP space by ``class_embed``
+and scored against the text classifier
+(``models/ov/ov_decoder.py::add_ov_head``; ``zoo_convert.py::convert_ov_tracker``);
+in training every layer's masks and logits, as the closed tracker's.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from dvis_plus_tpu_torch.models.layers import Conv2d, LayerNorm, Linear
-from dvis_plus_tpu_torch.models.ov.heads import mask_pooling
+from dvis_plus_tpu_torch.models.ov.heads import binary_mask_pooling
 from dvis_plus_tpu_torch.models.ov.ov_decoder import add_ov_head, ov_head_logits
 from dvis_plus_tpu_torch.models.segmenter.transformer_decoder import (
     MLP,
@@ -233,7 +235,8 @@ class ReferringTracker(nn.Module):
         """With ``ov`` the class logits need the masks: without
         ``predict_masks`` there are none. In training (``draws`` given) the
         outputs also hold ``aux_pred_logits`` and ``aux_pred_masks``, one
-        entry a layer before the last."""
+        entry a layer before the last (with ``ov`` each layer's logits from
+        its own masks)."""
         B, T, Q, C = frame_embeds.shape
         if frame_embeds_no_norm is None:
             frame_embeds_no_norm = frame_embeds
@@ -264,13 +267,9 @@ class ReferringTracker(nn.Module):
             "pred_references": refs,
             "indices": torch.stack(indices, dim=1),  # (B, T, Q)
         }
+        logits = None
         if not self.ov:
             logits = self.class_embed(cls_in)  # (L', B, T, Q, K+1)
-            out["pred_logits"] = logits[-1]
-            if training:
-                out["aux_pred_logits"] = list(logits[:-1])
-        if self.ov:  # eval only: the one emitted layer
-            x, cls_in = x[-1], cls_in[-1]
         if predict_masks:
             mf = mask_features
             if not self.ov:
@@ -278,15 +277,21 @@ class ReferringTracker(nn.Module):
                 mf = mf.reshape(B, T, *mf.shape[1:])
             membd = self.mask_embed(x)
             # (L', B, Q, T, H, W) fp32
-            masks = torch.einsum("...btqc,btchw->...bqthw", membd.float(), mf.float())
-            if not self.ov:
-                if training:
-                    out["aux_pred_masks"] = list(masks[:-1])
-                masks = masks[-1]
-            out["pred_masks"] = masks
+            masks = torch.einsum("lbtqc,btchw->lbqthw", membd.float(), mf.float())
+            out["pred_masks"] = masks[-1]
+            if training:
+                out["aux_pred_masks"] = list(masks[:-1])
             if self.ov:
-                pooled = mask_pooling(mf.flatten(0, 1), masks.transpose(1, 2).flatten(0, 1))
-                out["pred_logits"] = ov_head_logits(
-                    self, pooled.reshape(B, T, Q, -1), self.merge(cls_in), text_classifier,
-                    num_templates)  # (B, T, Q, K+1) fp32
+                # every layer's masks pool the raw mask features of its frame
+                # (L' x Q masks a frame, one product)
+                L = masks.shape[0]
+                m = (masks > 0.0).permute(1, 3, 0, 2, 4, 5).flatten(0, 1).flatten(1, 2)
+                pooled = binary_mask_pooling(mf.flatten(0, 1), m)  # (B·T, L'·Q, Cm)
+                pooled = pooled.reshape(B, T, L, Q, -1).permute(2, 0, 1, 3, 4)
+                logits = ov_head_logits(self, pooled, self.merge(cls_in), text_classifier,
+                                        num_templates)  # (L', B, T, Q, K+1) fp32
+        if logits is not None:
+            out["pred_logits"] = logits[-1]
+            if training:
+                out["aux_pred_logits"] = list(logits[:-1])
         return out, state

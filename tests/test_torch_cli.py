@@ -71,8 +71,10 @@ def test_category_tables_equal():
 
 def test_catalog_and_registration_equal(synth_root):
     # other tests of the same process may have registered further JAX-side
-    # sets, and the CLI registers the VIPSeg, VSPW and COCO sets beside these
-    names = [n for n in catalog.list_datasets() if not n.startswith(("panoVSPW_", "VSPW_", "coco"))]
+    # sets, and the CLI registers the VIPSeg, VSPW and COCO sets (with the
+    # ADE20k and Mapillary panoptic ones) beside these
+    names = [n for n in catalog.list_datasets()
+             if not n.startswith(("panoVSPW_", "VSPW_", "coco", "ade20k_", "mapillary_"))]
     assert len(names) == 20 and set(names) <= set(jax_catalog.list_datasets())
     for name in names:
         assert vars(catalog.get_metadata(name)) == vars(jax_catalog.get_metadata(name)), name

@@ -205,7 +205,7 @@ def _expected_fault(cfg):
     if cfg.test.task not in ("vis", "vps", "vss") and not (
             cfg.test.task in ("vos", "mots") and m.meta_architecture.startswith("daq_")):
         return "test.task"
-    if any(t not in ("video_instance", "video_panoptic", "video_semantic", "video_sot")
+    if any(t not in ("video_instance", "video_panoptic", "video_semantic", "video_sot", "image_panoptic")
            for t in cfg.datasets.dataset_type_test):
         return "datasets.dataset_type_test"
     return None
@@ -293,6 +293,9 @@ SLICE_CASES = [
     ("ov/ov_online_convnextl_supervised.yaml", ["model.ov.void_merge_mode=max"]),
     ("ov/ov_online_convnextl_coco.yaml", ["model.meta_architecture=dvis_offline_ov"]),
     ("ov/fcclip_r50_coco.yaml", ["model.meta_architecture=ctvis"]),
+    # COCO panoptic pseudo-videos as a test set: the JAX test loader maps
+    # them (tests/test_torch_ov_data.py)
+    ("daq/daq_vos_r50_ytvos.yaml", ["datasets.dataset_type_test=[image_panoptic]"]),
 ]
 
 
@@ -313,7 +316,7 @@ REFUSED_CASES = [
     ("daq/daq_online_r50_ytvis19.yaml", ["model.meta_architecture=daq_online_ov"],
      "model.meta_architecture"),  # an OV architecture
     ("daq/daq_offline_r50_ovis.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
-    ("daq/daq_vos_r50_ytvos.yaml", ["datasets.dataset_type_test=[image_panoptic]"],
+    ("daq/daq_vos_r50_ytvos.yaml", ["datasets.dataset_type_test=[image_semantic]"],
      "datasets.dataset_type_test"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["test.refiner_shard_devices=2"], "test.refiner_shard_devices"),
@@ -433,27 +436,37 @@ def test_check_trainable_accepts_the_online_yaml_and_preset():
     ("configs/dvis/video_maskformer_r50_ytvis19.yaml",
      ["datasets.train=[ytvis_2019_train,coco2ytvis2019_train]",
       "datasets.dataset_type=[video_instance,image_instance]", "datasets.dataset_ratio=[1.0,0.5]"]),
+    # open vocabulary (A14c.5): the *_ov names, and COCO panoptic
+    # pseudo-videos for a closed model too (its mapper reads the recipe's inputs)
+    (YAML, ["model.meta_architecture=dvis_online_ov", "model.backbone.name=clip_convnext_l"]),
+    ("configs/ov/ov_offline_convnextl_zeroshot_ytvis19.yaml", ["model.tracker.noise_mode=hard"]),
+    ("configs/dvis/maskformer_r50_coco.yaml", ["datasets.dataset_type=[image_panoptic]", "input.lsj_aug=true"]),
+    ("configs/dvis/dvis_online_r50_vipseg.yaml", ["datasets.dataset_type=[video_panoptic,image_panoptic]"]),
 ])
 def test_check_trainable_accepts_stages_1_and_3(yaml_name, overrides):
     port_config.check_trainable(port_config.load_config(yaml_name, overrides))
 
 
 TRAIN_REFUSED = [
-    (YAML, ["model.meta_architecture=dvis_online_ov"], "model.meta_architecture", "A14c.5"),
-    ("configs/ov/ov_offline_convnextl_zeroshot_ytvis19.yaml", [], "model.ov.enabled", "A14c.5"),
+    # CTVIS trains no OV model (the JAX CLI keeps it ctvis: no OV loss); the
+    # OV tracker noises with 'wa' whatever noise_mode says, in the JAX package
+    ("configs/ov/fcclip_r50_coco.yaml", ["model.meta_architecture=ctvis"], "model.meta_architecture",
+     '"Tree state"'),
+    ("configs/ov/ov_offline_convnextl_zeroshot_ytvis19.yaml", ["model.tracker.noise_mode=rs"],
+     "model.tracker.noise_mode", "A14b"),
     # an unfrozen ViT trunk trained through B3, which is forward only
     ("configs/dvis/minvis_vitl_ytvis19.yaml",
      ["model.backbone.vit_frozen=false", "model.backbone.vit_flash_attention=true"],
      "model.backbone.vit_flash_attention", "queue B"),
-    ("configs/dvis/maskformer_r50_coco.yaml", ["datasets.dataset_type=[image_panoptic]"],
-     "datasets.dataset_type", "A14c.5"),
+    ("configs/dvis/maskformer_r50_coco.yaml", ["datasets.dataset_type=[image_semantic]"],
+     "datasets.dataset_type", "A14c"),
     ("configs/dvis/maskformer_r50_coco.yaml", ["input.augmentations=[hue]"], "input.augmentations",
      "A14c.2"),
     (YAML, ["model.param_dtype=bfloat16"], "model.param_dtype", "A14b"),
     (YAML, ["model.tracker.noise_mode=mixup"], "model.tracker.noise_mode", "A14b"),
     (YAML, ["model.criterion.matcher_solver=greedy"], "model.criterion.matcher_solver", "A14b"),
-    ("configs/dvis/dvis_online_r50_vipseg.yaml", ["datasets.dataset_type=[video_panoptic,image_panoptic]"],
-     "datasets.dataset_type", "A14c.5"),
+    ("configs/dvis/dvis_online_r50_vipseg.yaml", ["datasets.dataset_type=[video_panoptic,image_semantic]"],
+     "datasets.dataset_type", "A14c"),
     (YAML, ["input.pseudo=true"], "input.pseudo", "A14c"),
     (YAML, ["input.lsj_aug=true"], "input.lsj_aug", "A14c"),
     (YAML, ["input.augmentations=[brightness]"], "input.augmentations", "A14c"),
@@ -500,21 +513,33 @@ def _daq_yamls(reid_branch: bool):
 def _refused_training_yamls():
     """The DVIS-DAQ YAMLs that inherit the DVIS++ ReID branch (the R50 ones
     and ``daq_online_swinl_ovis.yaml``), with which no DAQ model builds (in
-    the JAX package either); open-vocabulary training is A14c.5."""
-    out = [(p, "model.transformer_decoder.reid_branch=True") for p in _daq_yamls(True)]
-    out += [(p, "ROADMAP A14c.5") for p in sorted(glob.glob("configs/ov/*.yaml"))]
-    return out
+    the JAX package either)."""
+    return [(p, "model.transformer_decoder.reid_branch=True") for p in _daq_yamls(True)]
 
 
 @pytest.mark.parametrize("yaml_name,item", _refused_training_yamls())
 def test_check_trainable_refuses_the_vps_vss_daq_and_ov_yamls(yaml_name, item):
     """What training still refuses among the VPS, VSS, DVIS-DAQ and
-    open-vocabulary YAMLs, naming the key or the item: the R50 DAQ YAMLs
-    and the Swin-L OVIS one (their ReID branch) and every open-vocabulary YAML
-    (A14c.5)."""
+    open-vocabulary YAMLs, naming the key: the R50 DAQ YAMLs and the Swin-L
+    OVIS one (their ReID branch); no open-vocabulary YAML
+    (:func:`test_check_trainable_accepts_the_ov_yamls`)."""
     with pytest.raises(NotImplementedError) as exc:
         port_config.check_trainable(port_config.load_config(yaml_name))
     assert item in str(exc.value), str(exc.value)
+
+
+OV_YAMLS = sorted(glob.glob("configs/ov/*.yaml"))
+
+
+@pytest.mark.parametrize("yaml_name", OV_YAMLS)
+def test_check_trainable_accepts_the_ov_yamls(yaml_name):
+    """Every open-vocabulary YAML (A14c.5): the FC-CLIP segmenter, OV-DVIS++
+    online and offline, on COCO panoptic pseudo-videos, the video sets and
+    the supervised mixtures; no row of the tables names A14c.5 any more."""
+    assert len(OV_YAMLS) == 48
+    port_config.check_trainable(port_config.load_config(yaml_name))
+    rows = port_config.SUPPORTED + port_config.TRAINABLE
+    assert not any("A14c.5" in item for _, _, item in rows)
 
 
 def _trainable_vps_vss_daq_yamls():

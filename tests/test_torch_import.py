@@ -12,7 +12,9 @@ synthetic YouTube-VIS set with ``--device cpu``, and ``cli`` trains DVIS++
 online, MinVIS, CTVIS and DVIS++ offline on it, MinVIS with the
 ViT-Adapter, DVIS-DAQ online and offline with the ViT-Adapter (their
 curriculum cutting the clips), and Mask2Former and Video Mask2Former on a
-synthetic COCO set made pseudo-videos, for two steps each (``metrics.jsonl``, a checkpoint). The rows are encoded by the native
+synthetic COCO set made pseudo-videos, and ``cli_ov`` the FC-CLIP segmenter
+and OV-DVIS++ online and offline on its panoptic pseudo-videos, for two
+steps each (``metrics.jsonl``, a checkpoint). The rows are encoded by the native
 codec, built with g++ on first use.
 
 Runs in a subprocess: the pytest process itself has jax loaded (conftest).
@@ -24,12 +26,13 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OV_TRAIN_YAMLS = ("fcclip_convnextl_coco", "ov_online_convnextl_coco", "ov_offline_convnextl_coco")
 TRAIN_YAMLS = tuple(f"dvis/{n}" for n in (
     "dvis_online_r50_ytvis19", "minvis_r50_ytvis19", "ctvis_r50_ytvis19", "dvis_offline_r50_ytvis19",
     "minvis_vitl_ytvis19", "maskformer_r50_coco", "video_maskformer_r50_coco_joint")) + (
     "daq/daq_online_vitl_ytvis19", "daq/daq_offline_vitl_ytvis19")
 
-SCRIPT = f"TRAIN_YAMLS = {TRAIN_YAMLS!r}\n" + r"""
+SCRIPT = f"TRAIN_YAMLS = {TRAIN_YAMLS!r}\nOV_TRAIN_YAMLS = {OV_TRAIN_YAMLS!r}\n" + r"""
 import importlib, json, os, pkgutil, sys, tempfile
 import numpy as np, torch
 torch.set_num_threads(2)
@@ -227,6 +230,19 @@ for yaml in TRAIN_YAMLS:
         with open(os.path.join(tmp, "metrics.jsonl")) as f:
             train.append([yaml, trained["step"], len(f.read().splitlines()),
                           sorted(os.listdir(os.path.join(tmp, "checkpoints")))])
+# open-vocabulary training on the COCO panoptic pseudo-videos: the FC-CLIP
+# segmenter, OV-DVIS++ online and offline
+ov_train = []
+for yaml in OV_TRAIN_YAMLS:
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = cli_ov.main(["--config-file", f"configs/ov/{yaml}.yaml", "--device", "cpu", "--random-text",
+                               *small, "model.backbone.clip_depths=[1,1,1,1]",
+                               "model.backbone.clip_dims=[8,16,24,32]", "model.ov.clip_embed_dim=16",
+                               "solver.max_iter=2", "solver.ims_per_batch=1", "input.sampling_frame_num=2",
+                               "input.min_size_train=[64]", "input.max_size_train=96",
+                               "model.criterion.max_num_instances=4", "model.criterion.train_num_points=64",
+                               "output_dir=" + tmp])
+        ov_train.append([yaml, trained["step"], sorted(os.listdir(os.path.join(tmp, "checkpoints")))])
 roots = ("jax", "jaxlib", "flax", "optax", "dvis_plus_tpu", "triton")
 print(json.dumps({
     "rows": rows,
@@ -234,6 +250,7 @@ print(json.dumps({
     "ov_rows": ov_rows,
     "ov_cli": [ov_res["device"], ov_res["predictions"], "AP" in ov_res],
     "train": train,
+    "ov_train": ov_train,
     "loaded": sorted(k for k in sys.modules if k.split(".")[0] in roots),
     "containers": containers,
     "tasks": tasks,
@@ -267,6 +284,7 @@ def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
     assert out == {"rows": [20] * 6 + [16] * 2, "cli": ["cpu", 6, True], "loaded": [],
                    "ov_rows": [20] * 3, "ov_cli": ["cpu", 6, True],
                    "train": [[yaml, 2, 1, ["step_0000002.pth"]] for yaml in TRAIN_YAMLS],
+                   "ov_train": [[yaml, 2, ["step_0000002.pth"]] for yaml in OV_TRAIN_YAMLS],
                    "containers": ["ColRunMasks"] * 11,
                    "tasks": [["vps", 1, 3], ["vss", 1, 3], ["daq_vps", 1, 3], ["mots", 16, True],
                              ["vos", 3], ["ov_vss", 1, 4]],

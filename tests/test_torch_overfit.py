@@ -13,7 +13,10 @@ YouTube-VIS set through the port's loader); the total loss falls.
 - Mask2Former and Video Mask2Former on two synthetic COCO images made
   pseudo-videos (the ``maskformer_train_overfit`` phase);
 - DVIS-DAQ online, the tiny cutter on the segmenter a MinVIS run trained
-  (``test_daq_online_overfit``; the ``daq_train_overfit`` phase).
+  (``test_daq_online_overfit``; the ``daq_train_overfit`` phase);
+- OV-DVIS++ online, the open-vocabulary tracker against a random text
+  classifier on a frozen tiny FC-CLIP segmenter
+  (``test_ov_online_loss_declines``).
 
 Slow, as the JAX tests are."""
 import pytest
@@ -72,3 +75,11 @@ def test_daq_online_overfits_on_a_trained_segmenter():
     assert res["total_loss"][-1] < res["total_loss"][0], res
     for k, v in stage1["state_dict"].items():
         assert torch.equal(res["state_dict"][k], v), k
+
+
+def test_ov_online_loss_declines():
+    """The OV tracker's CLIP-space class head and mask losses fall (its
+    quality needs trained CLIP weights, which the repository has none of)."""
+    torch.set_num_threads(4)
+    res = chip_smoke.phase_train_overfit(CPU, "dvis_online_ov", "ov_train_overfit")
+    assert res["total_loss"][-1] < res["total_loss"][0], res

@@ -23,11 +23,16 @@ from dvis_plus_tpu.data.datasets.ytvis import register_all_ytvis as jax_register
 from dvis_plus_tpu_torch import cli
 from dvis_plus_tpu_torch.config import TINY_TRAIN, load_config
 from dvis_plus_tpu_torch.core import checkpoint as ckpt
-from dvis_plus_tpu_torch.data.build import build_combined_train_loader, build_train_loader
+from dvis_plus_tpu_torch.data.build import (
+    CombinedDataLoader,
+    build_combined_train_loader,
+    build_train_loader,
+)
+from dvis_plus_tpu_torch.data.datasets.coco import register_all_coco
 from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
-from synth_data import make_ytvis  # noqa: E402
+from synth_data import make_coco, make_ytvis  # noqa: E402
 
 torch.set_num_threads(2)
 YAML = "configs/dvis/dvis_online_r50_ytvis19.yaml"
@@ -41,7 +46,9 @@ TRAIN_TINY = [*TINY_TRAIN, "model.tracker.matcher_solver=jv", "model.criterion.t
 def synth_root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("dvis_synth_train"))
     make_ytvis(root, "ytvis_2019", YTVIS_2019_CLASSES, n_videos=3, length=6)
+    make_coco(root, n_images=3)
     register_all_ytvis(root)
+    register_all_coco(root)
     jax_register_all_ytvis(root)
     return root
 
@@ -145,9 +152,23 @@ def test_cli_trains_stages_1_and_3_and_resumes_to_the_unbroken_run(arch, synth_r
         assert a["memory"] is None and b["memory"] is None
 
 
+def test_cli_trains_a_closed_mixture_on_both_sets(synth_root, monkeypatch, tmp_path):
+    """The joint COCO recipe of a closed model (YouTube-VIS 2019 and its
+    COCO pseudo-videos): both sets' batches train against the one loss."""
+    monkeypatch.setenv("DVIS_DATASETS", synth_root)
+    mixture = ["datasets.train=[ytvis_2019_train,coco2ytvis2019_train]",
+               "datasets.dataset_type=[video_instance,image_instance]",
+               "datasets.dataset_ratio=[1.0,1.0]", "solver.max_iter=2"]
+    replay = CombinedDataLoader([iter(())] * 2, [1.0, 1.0], seed=load_config(YAML).seed)
+    assert sorted({replay.next_index() for _ in range(2)}) == [0, 1]
+    assert _train(tmp_path, mixture, yaml="configs/dvis/video_maskformer_r50_ytvis19.yaml") == {
+        "step": 2, "device": "cpu"}
+    assert os.listdir(tmp_path / "checkpoints") == ["step_0000002.pth"]
+
+
 def test_training_refuses_an_unported_setting_and_a_missing_card(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"model\.meta_architecture='minvis_ov'.*A14c"):
-        _train(tmp_path, ["model.meta_architecture=minvis_ov"])
+    with pytest.raises(NotImplementedError, match=r"parallel\.model_parallel_size=2.*A15"):
+        _train(tmp_path, ["parallel.model_parallel_size=2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["--config-file", YAML, *TRAIN_TINY, f"output_dir={tmp_path}"])

@@ -121,18 +121,19 @@ def test_eval_mapper_equals_jax(synth_root, task):
         assert (got["height"], got["width"]) == ((64, 96) if task == "vps" else (48, 90))
 
 
-@pytest.mark.parametrize("dataset_type,item", [("image_panoptic", "A14"), ("video_unknown", "video_unknown")])
+@pytest.mark.parametrize("dataset_type,item", [("image_semantic", "image_semantic"),
+                                               ("video_unknown", "video_unknown")])
 def test_mapper_refuses_unported_types(dataset_type, item):
     with pytest.raises(NotImplementedError, match=item):
         mapper_for_type(load_config(None), dataset_type)
 
 
-@pytest.mark.parametrize("dataset_type,item", [("image_panoptic", "A14c.5"), ("video_unknown", "video_unknown"),
+@pytest.mark.parametrize("dataset_type,item", [("panoptic", "panoptic"), ("video_unknown", "video_unknown"),
                                                ("image_semantic", "image_semantic")])
 def test_training_mapper_refuses_unported_types(dataset_type, item):
-    """The COCO panoptic pseudo-videos (A14c.5) and types no package knows;
-    the panoptic, semantic and object sets train
-    (``tests/test_torch_vps_vss_train.py``), ``image_instance`` too
-    (``tests/test_torch_pseudo_video.py``)."""
+    """Types no package knows; the panoptic, semantic and object sets train
+    (``tests/test_torch_vps_vss_train.py``), ``image_instance`` and
+    ``image_panoptic`` too (``tests/test_torch_pseudo_video.py``,
+    ``tests/test_torch_ov_data.py``)."""
     with pytest.raises(NotImplementedError, match=item):
         mapper_for_type(load_config(None), dataset_type, is_train=True)
