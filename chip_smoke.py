@@ -85,7 +85,20 @@ kernels:
   offline at ``ov_{online,offline}_convnextl_coco.yaml`` (B1 forward only)
   on synthetic COCO panoptic pseudo-videos, and the supervised mixture of
   ``ov_online_convnextl_supervised.yaml`` on five synthetic sets, each
-  batch against its set's classifier.
+  batch against its set's classifier;
+- multi-device training and eval on the one card: DVIS++ online training
+  at the full width of ``configs/dvis/dvis_online_r50_ytvis19.yaml``
+  through the CLI's loop under a process group of one NCCL rank against
+  the same run in one process (``ddp_train_slice``: B1 forward, 6 launches
+  a step); two gloo ranks spawned on the card, a step of 4 + 4 clips
+  against one process's step of 8 (``ddp2_train_step_parity``), then the
+  CLI's eval with each rank its stripe of the videos, rank 0 writing the
+  rows rank by rank (``dist_eval_slice``); the eval fanned out over two
+  worker threads on the card (``parallel_eval_slice``: ``results.json``
+  equal to the sequential run's bytes); and the offline refiner's
+  object-sharded pass over the card named twice against the plain pass
+  (``refiner_sharded_parity``). A run over more than one card needs a
+  machine with more.
 
 Run from a checkout of the repository:
 
@@ -109,6 +122,7 @@ Run from a checkout of the repository:
                                        # training phases
     python3 chip_smoke.py --train-ov   # build, then the open-vocabulary training
                                        # phases
+    python3 chip_smoke.py --parallel   # build, then the multi-device phases
 
 Kernel B1 (deformable attention) is held and timed at each of its three
 main shapes under two distributions of sampling offsets: uniform over +-10
@@ -3489,6 +3503,479 @@ def run_ov_training(dev):
     return slices
 
 
+# ---------------------------------------------------------------------------
+# multi-device training and eval: data-parallel steps, video-parallel and
+# multi-process eval, the object-sharded refiner (one card: two ranks or two
+# eval workers share it)
+# ---------------------------------------------------------------------------
+
+DDP_YAML = "configs/dvis/dvis_online_r50_ytvis19.yaml"
+DDP_STEPS = 3  # 1 untimed and 2 timed steps
+PARALLEL_VIDEOS, PARALLEL_FRAMES = 4, 15
+DIST_EVAL_FRAMES = 6  # a video of the two-rank CLI eval's synthetic set
+REFINER_FRAMES, REFINER_TOL = 40, 1e-5
+
+
+def ddp_cfg(out, steps=DDP_STEPS, *overrides):
+    """DVIS++ online training at the YAML's full width (8 clips of 5 frames
+    on the 480x768 canvas, bf16) on the synthetic set ``ytvis_ddp_train``."""
+    from dvis_plus_tpu_torch.config import load_config
+
+    return load_config(os.path.join(REPO, DDP_YAML), [
+        "datasets.train=[ytvis_ddp_train]", f"solver.max_iter={steps}",
+        "solver.checkpoint_period=1000000", f"output_dir={out}", *overrides])
+
+
+# the two-rank step parity runs fp32, as every other parity phase: in bf16
+# the card's choice of convolution algorithm by batch size (4 clips against
+# 8) would move the segmenter's features by bf16 ulps
+PARITY_FP32 = ("model.compute_dtype=float32",)
+
+
+def set_rank_env(rank, world_size):
+    os.environ.update(WORLD_SIZE=str(world_size), RANK=str(rank), LOCAL_RANK=str(rank))
+
+
+def clear_rank_env():
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        os.environ.pop(k, None)
+
+
+def flat_grads(model):
+    import torch
+
+    return torch.cat([p.grad.detach().float().flatten().cpu()
+                      for p in model.parameters() if p.requires_grad])
+
+
+def grad_gap(got, want) -> float:
+    return ((got - want).norm() / want.norm()).item()
+
+
+def loss_gap(got: dict, want: dict) -> float:
+    """The largest relative difference of the losses (and ``total_loss``)."""
+    keys = [k for k in want if k.startswith(("loss", "total_loss"))]
+    assert keys and all(k in got for k in keys), (sorted(got), sorted(want))
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in keys)
+
+
+@contextlib.contextmanager
+def first_step_grads(out):
+    """Append the flat trained gradients of the first step that each
+    ``engine.trainer.build_train_step`` built inside the block takes."""
+    from dvis_plus_tpu_torch.engine import trainer
+
+    build = trainer.build_train_step
+
+    def recording(cfg, model, *args, **kwargs):
+        train_step, init = build(cfg, model, *args, **kwargs)
+
+        def step(state, batch, draws=None):
+            state, metrics = train_step(state, batch, draws)
+            if state.step == 1:
+                out.append(flat_grads(model))
+            return state, metrics
+
+        return step, init
+
+    trainer.build_train_step = recording
+    try:
+        yield
+    finally:
+        trainer.build_train_step = build
+
+
+def phase_ddp_train_slice(dev):
+    """DVIS++ online training through the CLI's loop (``cli.do_train``) at
+    ``DDP_YAML``'s full width, 3 steps from the seeded random weights, once
+    in one process and once under a process group of one NCCL rank on the
+    card (``parallel.mesh.init_distributed``: the gradients and the logged
+    losses all-reduced, the loader mapping the rank's block). On the first
+    step, the same weights and batch, the group's losses rel <=
+    ``TRAIN_LOSS_TOL`` and its gradients within ``TRAIN_GRAD_TOL`` as a
+    norm of the one process's; the later steps' losses are reported beside
+    them (the weights there differ by the first step's rounding, which the
+    tracker's matchings can amplify); B1 forward ``b1_per_step`` a step
+    (the segmenter frozen: no backward). Reports the timed steps' seconds
+    (``metrics.jsonl``'s clock, a line a step, the loader's wait included),
+    the peak memory and the host syncs of each whole run (sync debug mode
+    plus event waits)."""
+    import gc
+
+    import torch
+
+    from dvis_plus_tpu_torch import cli
+    from dvis_plus_tpu_torch.parallel.mesh import init_distributed
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        cfg = ddp_cfg(root)
+        write_ytvis(root, "ytvis_ddp", n_videos=cfg.solver.ims_per_batch,
+                    length=cfg.input.sampling_frame_num + 2, H=TRAIN_H, W=TRAIN_W)
+        for name in ("one_process", "nccl_world_1"):
+            cfg = ddp_cfg(os.path.join(root, name))
+            grouped = name != "one_process"
+            counts = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            if grouped:
+                set_rank_env(0, 1)
+                init_distributed("cuda", init_method="file://" + os.path.join(root, "rendezvous"))
+            first = []
+            try:
+                backend = torch.distributed.get_backend() if grouped else None
+                reset_launches()
+                with counting_syncs(counts), first_step_grads(first):
+                    state = cli.do_train(cfg, False, dev, log_every=1)
+                    torch.cuda.synchronize()
+                launches = read_launches()
+            finally:
+                if grouped:
+                    torch.distributed.destroy_process_group()
+                    clear_rank_env()
+            with open(os.path.join(root, name, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            runs[name] = {"rows": rows, "grads": first[0], "launches": launches,
+                          "peak": torch.cuda.max_memory_allocated(dev), "syncs": counts,
+                          "backend": backend}
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    one, ddp = runs["one_process"], runs["nccl_world_1"]
+    steps = [row["step"] for row in ddp["rows"]]
+    loss_err = loss_gap(ddp["rows"][0], one["rows"][0])
+    later_err = [loss_gap(g, w) for g, w in zip(ddp["rows"][1:], one["rows"][1:])]
+    grad_err = grad_gap(ddp["grads"], one["grads"])
+    want = {"msdeform_fwd": b1_per_step(cfg) * DDP_STEPS, "msdeform_bwd": 0}
+    step_s = {name: [r["rows"][i]["time"] - r["rows"][i - 1]["time"] for i in range(1, DDP_STEPS)]
+              for name, r in runs.items()}
+    res = {"phase": "ddp_train_slice", "yaml": DDP_YAML, "backend": ddp["backend"], "world_size": 1,
+           "clips": cfg.solver.ims_per_batch, "frames": cfg.input.sampling_frame_num,
+           "canvas": train_canvas(cfg), "dtype": cfg.model.compute_dtype, "steps": steps,
+           "untimed_steps": 1, "step_s": step_s["nccl_world_1"], "one_process_step_s": step_s["one_process"],
+           "peak_memory_bytes": ddp["peak"], "one_process_peak_memory_bytes": one["peak"],
+           "host_syncs_whole_run": {"event_waits": ddp["syncs"][0], "debug_mode": ddp["syncs"][1]},
+           "one_process_host_syncs_whole_run": {"event_waits": one["syncs"][0], "debug_mode": one["syncs"][1]},
+           "total_loss": [r["total_loss"] for r in ddp["rows"]],
+           "one_process_total_loss": [r["total_loss"] for r in one["rows"]],
+           "loss_rel_err": loss_err, "loss_tol": TRAIN_LOSS_TOL, "grad_rel_err": grad_err,
+           "grad_tol": TRAIN_GRAD_TOL, "later_steps_loss_rel_err": later_err, "launches": ddp["launches"]}
+    emit(res)
+    ok = (ddp["backend"] == "nccl" and steps == list(range(DDP_STEPS)) and loss_err <= TRAIN_LOSS_TOL
+          and grad_err <= TRAIN_GRAD_TOL
+          and all(ddp["launches"][k] == v for k, v in want.items()))
+    if not ok:
+        raise AssertionError(f"ddp_train_slice: backend {ddp['backend']}, steps {steps}, losses {loss_err}, "
+                             f"gradients {grad_err}, B1 launches {ddp['launches']} (expected {want})")
+    return res
+
+
+@contextlib.contextmanager
+def step_decisions(model, log, block=None):
+    """Record into ``log`` (``block`` None) the discrete decisions of a
+    DVIS++ online training step, in call order: the frozen segmenter's
+    masked-attention masks (each layer's blocked keys), the tracker's
+    alignments and the loss's assignments; or replay them (``block``:
+    (start, size, total), this rank's clips of the recorded batch, whose
+    rows it takes). A random model puts many of these near a tie (the 'wa'
+    noise repeats reference rows), and the card's kernels round a batch of
+    4 clips otherwise than one of 8. Returns the counts: decisions replayed
+    and how many the run would have made otherwise."""
+    import torch
+
+    from dvis_plus_tpu_torch.losses import criterion
+    from dvis_plus_tpu_torch.models.segmenter import transformer_decoder
+    from dvis_plus_tpu_torch.models.tracker import referring_tracker
+
+    predictor = model.sem_seg_head.predictor
+    heads, match, align = predictor._prediction_heads, criterion.match, referring_tracker.match_embds
+    stats = {"calls": 0, "decisions": 0, "differ": 0}
+
+    def decide(got):
+        if block is None:
+            log.append(got.cpu())
+            return got
+        start, size, _ = block
+        k = got.shape[0] // size
+        ref = log[stats["calls"]][k * start:k * (start + size)].to(got.device)
+        stats["calls"] += 1
+        stats["decisions"] += got.numel()
+        stats["differ"] += int((ref != got).sum())
+        return ref
+
+    def attention(output, mask_features, attn_size):
+        x, masks, additive = heads(output, mask_features, attn_size)
+        blocked = decide(additive != 0)
+        return x, masks, torch.zeros_like(additive).masked_fill(blocked, transformer_decoder._NEG_INF)
+
+    predictor._prediction_heads = attention
+    criterion.match = lambda *a, **kw: decide(match(*a, **kw))
+    referring_tracker.match_embds = lambda *a, **kw: decide(align(*a, **kw))
+    try:
+        yield stats
+    finally:
+        del predictor._prediction_heads
+        criterion.match, referring_tracker.match_embds = match, align
+
+
+def _parallel_rank(rank, world_size, root):
+    """A spawned rank of :func:`run_two_ranks` on the card, gloo: one
+    training step on its block of the batch in ``root``, then the CLI's eval
+    of the synthetic YouTube-VIS set; writes what it saw."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dvis_plus_tpu_torch import cli
+    from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
+    from dvis_plus_tpu_torch.parallel.mesh import init_distributed, shard_batch
+
+    set_rank_env(rank, world_size)
+    dev = init_distributed("cuda", backend="gloo", init_method="file://" + os.path.join(root, "rendezvous"))
+    out = {"device": str(dev), "backend": torch.distributed.get_backend()}
+    cfg = ddp_cfg(os.path.join(root, "unused"), DDP_STEPS, *PARITY_FP32)
+    torch.manual_seed(cfg.seed)
+    model = cli.build_model(cfg.model).to(dev)
+    train_step, init = build_train_step(cfg, model)
+    with open(os.path.join(root, "batch.pkl"), "rb") as f:
+        raw = shard_batch(pickle.load(f), rank, world_size)
+    decisions = torch.load(os.path.join(root, "decisions.pt"))
+    blk = raw["block"]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with step_decisions(model, decisions, (blk.start, blk.size, blk.total)) as replayed:
+        _, metrics = train_step(init(), to_batch(raw, dev))
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["replayed"] = replayed
+    out["train_launches"] = read_launches()
+    out["clips"] = int(raw["images"].shape[0])
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    if rank == 0:
+        torch.save(flat_grads(model), os.path.join(root, "ddp_grads.pt"))
+    del model, train_step
+    torch.cuda.empty_cache()
+    os.environ["DVIS_DATASETS"] = os.path.join(root, "eval")
+    reset_launches()
+    out["eval"] = cli.main(eval_argv(os.path.join(root, "eval_two_ranks")))["ytvis_2019_val"]
+    out["eval_launches"] = read_launches()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def eval_argv(out):
+    return ["--config-file", os.path.join(REPO, DDP_YAML), "--eval-only", "--device", "cuda",
+            "datasets.test=[ytvis_2019_val]", f"output_dir={out}"]
+
+
+def run_two_ranks(dev):
+    """Two ranks spawned on the one card, gloo (NCCL takes one card a rank):
+    ``ddp2_train_step_parity``, a DVIS++ online step at ``DDP_YAML``'s full
+    width in fp32 (``PARITY_FP32``) over the loader's first batch of 8
+    clips, 4 a rank, against one process's step over the 8 (losses rel <=
+    ``TRAIN_LOSS_TOL``, gradients within ``TRAIN_GRAD_TOL`` as a norm, the
+    same draws from the step's generator, each rank replaying its rows of
+    the one process's discrete decisions, ``step_decisions``); then ``dist_eval_slice``, the CLI's eval of a synthetic
+    YouTube-VIS set of ``PARALLEL_VIDEOS`` videos at the YAML's width, each
+    rank its stripe of the videos: rank 0's ``results.json`` must hold the
+    one-process CLI's rows rank by rank (rank 0's videos, then rank 1's)
+    and the same AP."""
+    import gc
+    import pickle
+
+    import torch
+
+    from dvis_plus_tpu_torch import cli
+    from dvis_plus_tpu_torch.data.build import build_combined_train_loader
+    from dvis_plus_tpu_torch.data.catalog import get_dataset
+    from dvis_plus_tpu_torch.data.datasets.categories import YTVIS_2019_CLASSES
+    from dvis_plus_tpu_torch.engine.trainer import build_train_step, to_batch
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = ddp_cfg(os.path.join(root, "unused"), DDP_STEPS, *PARITY_FP32)
+        write_ytvis(root, "ytvis_ddp", n_videos=cfg.solver.ims_per_batch,
+                    length=cfg.input.sampling_frame_num + 2, H=TRAIN_H, W=TRAIN_W)
+        raw = next(build_combined_train_loader(cfg, seed=cfg.seed))
+        with open(os.path.join(root, "batch.pkl"), "wb") as f:
+            pickle.dump(raw, f)
+        torch.manual_seed(cfg.seed)
+        model = cli.build_model(cfg.model).to(dev)
+        train_step, init = build_train_step(cfg, model)
+        decisions = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with step_decisions(model, decisions):
+            _, metrics = train_step(init(), to_batch(raw, dev))
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        torch.save(decisions, os.path.join(root, "decisions.pt"))
+        del decisions
+        want_metrics, want_grads = {k: float(v) for k, v in metrics.items()}, flat_grads(model)
+        del model, train_step
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the eval set, with its ground truth, and the one-process CLI run
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        import synth_data
+
+        from dvis_plus_tpu_torch.utils import rle
+
+        synth_data._rle = lambda m: (lambda e: {"size": e["size"], "counts": e["counts"].decode("ascii")})(
+            rle.encode(m.astype(np.uint8)))
+        synth_data.make_ytvis(os.path.join(root, "eval"), "ytvis_2019", YTVIS_2019_CLASSES, splits=("valid",),
+                              n_videos=PARALLEL_VIDEOS, length=DIST_EVAL_FRAMES, H=H_IN, W=W_IN)
+        os.environ["DVIS_DATASETS"] = os.path.join(root, "eval")
+        t0 = time.perf_counter()
+        alone = cli.main(eval_argv(os.path.join(root, "eval_one")))["ytvis_2019_val"]
+        alone_s = time.perf_counter() - t0
+        ids = [r["video_id"] for r in get_dataset("ytvis_2019_val")]
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(_parallel_rank, args=(2, root), nprocs=2, join=False,
+                                                    start_method="spawn")
+        while not ctx.join():
+            pass
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        ddp_grads = torch.load(os.path.join(root, "ddp_grads.pt"))
+        rows = {}
+        for name in ("eval_one", "eval_two_ranks"):
+            with open(os.path.join(root, name, "inference", "ytvis_2019_val", "results.json")) as f:
+                rows[name] = json.load(f)
+    loss_err = max(loss_gap(r["metrics"], want_metrics) for r in ranks)
+    grad_err = grad_gap(ddp_grads, want_grads)
+    b1 = b1_per_step(cfg)
+    train_ok = (all(r["backend"] == "gloo" and r["device"] == "cuda:0" and r["clips"] == 4
+                    and r["replayed"]["decisions"] > 0 for r in ranks)
+                and loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+                and all(r["train_launches"]["msdeform_fwd"] == b1 for r in ranks))
+    train = {"phase": "ddp2_train_step_parity", "yaml": DDP_YAML, "backend": "gloo", "world_size": 2,
+             "device": [r["device"] for r in ranks], "clips_per_rank": [r["clips"] for r in ranks],
+             "frames": cfg.input.sampling_frame_num, "canvas": train_canvas(cfg), "dtype": cfg.model.compute_dtype,
+             "loss_rel_err": loss_err, "loss_tol": TRAIN_LOSS_TOL, "grad_rel_err": grad_err,
+             "grad_tol": TRAIN_GRAD_TOL, "total_loss": {"one_process": want_metrics["total_loss"],
+                                                        "ranks": [r["metrics"]["total_loss"] for r in ranks]},
+             "decisions_replayed": [r["replayed"]["decisions"] for r in ranks],
+             "decisions_the_ranks_made_otherwise": [r["replayed"]["differ"] for r in ranks],
+             "step_s": [r["step_s"] for r in ranks], "one_process_step_s": one_s,
+             "spawn_and_both_phases_s": spawn_s,
+             "launches": {k: sum(r["train_launches"][k] for r in ranks) for k in ranks[0]["train_launches"]}}
+    emit(train)
+    by_video = {v: [r for r in rows["eval_one"] if r["video_id"] == v] for v in ids}
+    want_rows = [r for v in ids[0::2] + ids[1::2] for r in by_video[v]]
+    eval_ok = (rows["eval_two_ranks"] == want_rows and ranks[0]["eval"]["AP"] == alone["AP"]
+               and all(r["eval"]["predictions"] == len(rows["eval_one"]) for r in ranks)
+               and sum(r["eval_launches"]["msdeform_fwd"] for r in ranks) > 0)
+    dist_eval = {"phase": "dist_eval_slice", "yaml": DDP_YAML, "backend": "gloo", "world_size": 2,
+                 "videos": len(ids), "frames": DIST_EVAL_FRAMES, "input": [H_IN, W_IN],
+                 "rows": len(rows["eval_two_ranks"]),
+                 "rows_rank_by_rank": rows["eval_two_ranks"] == want_rows,
+                 "ap": {"one_process": alone["AP"], "two_ranks": ranks[0]["eval"].get("AP")},
+                 "one_process_s": alone_s,
+                 "launches": {k: sum(r["eval_launches"][k] for r in ranks) for k in ranks[0]["eval_launches"]}}
+    emit(dist_eval)
+    if not (train_ok and eval_ok):
+        raise AssertionError(f"two ranks on the card: training ok {train_ok} (losses {loss_err}, gradients "
+                             f"{grad_err}), eval ok {eval_ok}")
+    return train, dist_eval
+
+
+def phase_parallel_eval_slice(dev):
+    """``engine.parallel_eval.run_device_parallel`` over the card named twice
+    (two worker threads, each with its copy of the model), DVIS++ online at
+    ``DDP_YAML``'s full width, bf16, ``PARALLEL_VIDEOS`` videos of
+    ``PARALLEL_FRAMES`` frames at 480x640, the default eval settings: the
+    ``results.json`` bytes must equal the sequential run's, and B1 launch
+    as often."""
+    import torch
+
+    from dvis_plus_tpu_torch.config import load_config
+    from dvis_plus_tpu_torch.engine.inference import run_vis_inference
+    from dvis_plus_tpu_torch.engine.parallel_eval import run_device_parallel
+    from dvis_plus_tpu_torch.evaluation.evaluators import YTVISEvaluator
+
+    cfg = load_config(os.path.join(REPO, DDP_YAML))
+    model = build_model(cfg, dev)
+    videos = list(synthetic_videos(PARALLEL_VIDEOS, PARALLEL_FRAMES, H_IN, W_IN, H_OUT, W_OUT, SEED + 21))
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, devices in (("sequential", None), ("two_workers", [dev, dev])):
+            ev = YTVISEvaluator("synthetic", os.path.join(root, name))
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_device_parallel(cfg, lambda m, ld, e: run_vis_inference(cfg, m, ld, e),
+                                lambda i, n: iter(videos[i::n]), ev, model, devices)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            with open(ev.write_results(), "rb") as f:
+                out[name] = (f.read(), seconds, read_launches())
+    (want, seq_s, seq_l), (got, par_s, par_l) = out["sequential"], out["two_workers"]
+    res = {"phase": "parallel_eval_slice", "yaml": DDP_YAML, "devices": [str(dev)] * 2,
+           "videos": PARALLEL_VIDEOS, "frames": PARALLEL_FRAMES, "input": [H_IN, W_IN],
+           "dtype": cfg.model.compute_dtype, "results_json_bytes": len(got), "equal": got == want,
+           "sequential_s": seq_s, "two_workers_s": par_s, "launches": par_l, "sequential_launches": seq_l}
+    emit(res)
+    if not (got == want and par_l == seq_l and par_l["msdeform_fwd"] > 0):
+        raise AssertionError(f"parallel_eval_slice: results.json equal {got == want}, B1 launches "
+                             f"{par_l} against {seq_l}")
+    return res
+
+
+def phase_refiner_sharded_parity(dev):
+    """The object-sharded refiner pass (``parallel.sp``) over the card named
+    twice against the plain ``embed_pass``: the refiner of
+    ``configs/dvis/dvis_offline_r50_ytvis19.yaml`` at full width (as
+    ``DVISOffline`` builds it), the YAML's queries, ``REFINER_FRAMES``
+    frames, fp32, seeded weights and inputs; every output rel <=
+    ``REFINER_TOL``; both timed."""
+    import torch
+
+    from dvis_plus_tpu_torch.config import load_config
+    from dvis_plus_tpu_torch.models.refiner.temporal_refiner import TemporalRefiner
+    from dvis_plus_tpu_torch.parallel.sp import refiner_embed_pass_sharded
+
+    m = load_config(os.path.join(REPO, "configs/dvis/dvis_offline_r50_ytvis19.yaml")).model
+    td = m.transformer_decoder
+    C = td.hidden_dim * (2 if td.reid_branch else 1)
+    torch.manual_seed(SEED)
+    refiner = TemporalRefiner(m.num_classes, C, m.refiner.feedforward_dim, m.refiner.num_heads,
+                              m.refiner.num_layers, td.hidden_dim).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ie = torch.randn(1, REFINER_FRAMES, td.num_queries, C, device=dev, generator=g)
+    fe = torch.randn(1, REFINER_FRAMES, td.num_queries, C, device=dev, generator=g)
+    devices = [dev, dev]
+    with torch.no_grad():
+        want = refiner.embed_pass(ie, fe)
+        got = refiner_embed_pass_sharded(refiner, ie, fe, devices)
+        errs = {k: ((got[k] - want[k]).abs().max() / want[k].abs().max()).item() for k in want}
+        plain_ms = cuda_ms(lambda: refiner.embed_pass(ie, fe), iters=5)
+        sharded_ms = cuda_ms(lambda: refiner_embed_pass_sharded(refiner, ie, fe, devices), iters=5)
+    res = {"phase": "refiner_sharded_parity", "hidden_dim": C, "layers": m.refiner.num_layers,
+           "queries": td.num_queries, "frames": REFINER_FRAMES, "shards": len(devices),
+           "devices": [str(d) for d in devices], "dtype": "float32", "rel_err": errs, "tol": REFINER_TOL,
+           "plain_ms": plain_ms, "sharded_ms": sharded_ms}
+    emit(res)
+    if not (sorted(got) == sorted(want) and max(errs.values()) <= REFINER_TOL):
+        raise AssertionError(f"refiner_sharded_parity: {errs}")
+    return res
+
+
+def run_parallel(dev):
+    """The multi-device phases; returns the training and eval paths'
+    lines by phase (their kernel launches feed the ``kernels`` line)."""
+    paths = {"ddp_train_slice": phase_ddp_train_slice(dev)}
+    paths["ddp2_train_step_parity"], paths["dist_eval_slice"] = run_two_ranks(dev)
+    paths["parallel_eval_slice"] = phase_parallel_eval_slice(dev)
+    phase_refiner_sharded_parity(dev)
+    return paths
 
 
 def main() -> int:
@@ -3544,6 +4031,10 @@ def main() -> int:
         run_ov_training(dev)
         emit({"phase": "wall", "seconds": time.perf_counter() - start})
         return 0
+    if "--parallel" in sys.argv[1:]:
+        run_parallel(dev)
+        emit({"phase": "wall", "seconds": time.perf_counter() - start})
+        return 0
     if "--ov" in sys.argv[1:]:
         classifier = ov_classifier(dev)
         phase_ov_slice_parity(dev, classifier)
@@ -3584,6 +4075,7 @@ def main() -> int:
     daq_train, b1_daq = run_daq_training(dev)
     stages.update(daq_train)
     stages.update(run_ov_training(dev))
+    stages.update(run_parallel(dev))
 
     # the timed forms: B1 exact fp32 (R50 / Swin-L encoder shape; the ViT-L
     # slice's two shapes stand beside it under "by_shape"); B2 Swin-L stage 2

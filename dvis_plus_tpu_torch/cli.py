@@ -5,6 +5,16 @@
         --config-file configs/dvis/dvis_online_r50_ytvis19.yaml [--eval-only] [--resume] \\
         [--device cuda|cpu] [weights=<state_dict .pth/.npz>] [key.path=value ...]
 
+Under torchrun (``torchrun --nproc_per_node N -m dvis_plus_tpu_torch.cli ...``)
+each rank joins the process group (``parallel.mesh.init_distributed``: NCCL
+and a card a rank, or gloo with ``--device cpu``): training is data-parallel,
+its step equal to the one-process step over the whole batch
+(``engine.trainer.build_train_step``), and eval stripes the videos over the
+ranks, rank 0 writing the gathered rows (``evaluation.dist``). In one
+process ``test.eval_devices`` fans the eval out over the cards
+(``engine.parallel_eval``) and ``test.refiner_shard_devices`` shards the
+offline refiner's objects over them (``parallel.sp``).
+
 Without ``--eval-only`` it trains, as ``train_net_video.py::do_train``
 (:112-190): the three stages of the DVIS++ recipe on the video instance,
 panoptic (VIPSeg) and semantic (VSPW) sets of ``datasets.train``: MinVIS or
@@ -108,13 +118,26 @@ def _score(md, rows):
     return evaluate_vis(gt_anns, rows, nframes)
 
 
-def _eval_vis(cfg, model, md, loader, out_dir, logits_masks_fn=None):
+# The task drivers below take ``make_loader(i, n)`` (the videos of worker i of
+# n, ``data.build.build_test_loader``'s ``shard``) and run through
+# ``engine.parallel_eval.run_device_parallel`` (``test.eval_devices`` cards,
+# or ``devices``). ``fn_for(model) -> logits_masks_fn``: the open-vocabulary
+# forward of a worker's copy of the model (``cli_ov``), or None.
+
+
+def _fn(fn_for, model):
+    return None if fn_for is None else fn_for(model)
+
+
+def _eval_vis(cfg, model, md, make_loader, out_dir, fn_for=None, devices=None):
     """VIS (``run_vis_inference``), and VOS and MOTS (the DAQ eval loop with the
     MOTS evaluator, as ``train_net_video.py::run_task_eval``): VOS writes
-    its PNGs and returns ``{"task": "vos"}``. ``logits_masks_fn``: the
-    open-vocabulary forward (``cli_ov``)."""
+    its PNGs and returns ``{"task": "vos"}``. The rows of every rank are
+    gathered; rank 0 writes and scores them."""
     from dvis_plus_tpu_torch.engine.daq_inference import run_daq_inference
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference
+    from dvis_plus_tpu_torch.engine.parallel_eval import run_device_parallel
+    from dvis_plus_tpu_torch.evaluation.dist import is_main_process
     from dvis_plus_tpu_torch.evaluation.evaluators import UniYTVISEvaluator, YTVISEvaluator
 
     task = cfg.test.task
@@ -122,23 +145,27 @@ def _eval_vis(cfg, model, md, loader, out_dir, logits_masks_fn=None):
     evaluator = kind(md.name, out_dir, contiguous_to_dataset_id={
         v: k for k, v in getattr(md, "thing_dataset_id_to_contiguous_id", {}).items()})
     if task in ("vos", "mots"):
-        run_daq_inference(cfg, model, loader, evaluator)
+        driver = lambda m, ld, ev: run_daq_inference(cfg, m, ld, ev)  # noqa: E731
     else:
-        run_vis_inference(cfg, model, loader, evaluator, logits_masks_fn=logits_masks_fn)
+        driver = lambda m, ld, ev: run_vis_inference(  # noqa: E731
+            cfg, m, ld, ev, logits_masks_fn=_fn(fn_for, m))
+    run_device_parallel(cfg, driver, make_loader, evaluator, model, devices)
     if task == "vos":
         return {"task": "vos"}
-    res = {"predictions": len(evaluator.predictions), "results_json": evaluator.write_results()}
+    path = evaluator.write_results()  # every rank's rows, gathered
+    res = {"predictions": len(evaluator.predictions), "results_json": path}
     json_file = getattr(md, "json_file", None)
-    if json_file and os.path.exists(json_file):
+    if is_main_process() and json_file and os.path.exists(json_file):
         res.update(_score(md, evaluator.predictions))
     return res
 
 
-def _eval_vps(cfg, model, md, loader, out_dir, logits_masks_fn=None):
+def _eval_vps(cfg, model, md, make_loader, out_dir, fn_for=None, devices=None):
     """The thing-class count and the contiguous -> dataset id map come from
     the registered categories; without them, VIPSeg's 58 thing classes."""
     from dvis_plus_tpu_torch.data.datasets.vps_vss import panoptic_contiguous_maps
     from dvis_plus_tpu_torch.engine.inference import run_vps_inference
+    from dvis_plus_tpu_torch.engine.parallel_eval import run_device_parallel
     from dvis_plus_tpu_torch.evaluation.evaluators import VPSEvaluator
 
     cats = getattr(md, "categories", None) or []
@@ -148,29 +175,47 @@ def _eval_vps(cfg, model, md, loader, out_dir, logits_masks_fn=None):
         contig_to_dataset, n_thing = {}, 58
     evaluator = VPSEvaluator(md.name, out_dir, contiguous_to_dataset_id=contig_to_dataset,
                              gt_json=getattr(md, "json_file", None), gt_dir=getattr(md, "gt_dir", None))
-    run_vps_inference(cfg, model, loader, evaluator, n_thing, logits_masks_fn=logits_masks_fn)
+    run_device_parallel(cfg, lambda m, ld, ev: run_vps_inference(
+        cfg, m, ld, ev, n_thing, logits_masks_fn=_fn(fn_for, m)), make_loader, evaluator, model, devices)
     return evaluator.evaluate()
 
 
-def _eval_vss(cfg, model, md, loader, out_dir, logits_masks_fn=None):
+def _eval_vss(cfg, model, md, make_loader, out_dir, fn_for=None, devices=None):
     from dvis_plus_tpu_torch.engine.inference import run_vss_inference
+    from dvis_plus_tpu_torch.engine.parallel_eval import run_device_parallel
     from dvis_plus_tpu_torch.evaluation.evaluators import VSSEvaluator
 
     evaluator = VSSEvaluator(md.name, out_dir, gt_root=getattr(md, "gt_root", None),
                              split=getattr(md, "split", "val"),
                              num_classes=getattr(md, "num_classes", cfg.model.num_classes))
-    run_vss_inference(cfg, model, loader, evaluator, logits_masks_fn=logits_masks_fn)
+    run_device_parallel(cfg, lambda m, ld, ev: run_vss_inference(
+        cfg, m, ld, ev, logits_masks_fn=_fn(fn_for, m)), make_loader, evaluator, model, devices)
     return evaluator.evaluate()
+
+
+def eval_loaders(cfg, name: str, dataset_type: str):
+    """``make_loader(i, n)`` of a test set: worker i's stripe of this
+    rank's videos (``data.build.build_test_loader``)."""
+    from dvis_plus_tpu_torch.data.build import build_test_loader
+
+    return lambda i, n: build_test_loader(cfg, name, dataset_type=dataset_type,
+                                          shard=None if n == 1 else (i, n))
 
 
 LOG_EVERY = 20
 
 
-def do_train(cfg, resume: bool, dev: torch.device, build=build_model, classifiers=()):
+def do_train(cfg, resume: bool, dev: torch.device, build=build_model, classifiers=(),
+             log_every: int = LOG_EVERY):
     """Train ``cfg`` on ``dev``; returns the final ``TrainState``. ``build``
     makes the model of ``cfg.model`` (seeded by ``seed``); an
     open-vocabulary one trains against ``classifiers``, one a training set
-    (``engine.trainer.build_train_step``)."""
+    (``engine.trainer.build_train_step``). Under a process group
+    (``parallel.mesh.init_distributed``) the step is data-parallel: each
+    rank maps and trains its block of every batch (``parallel.mesh.
+    batch_block``), the losses logged are the whole batch's, and rank 0
+    alone writes ``metrics.jsonl`` and the checkpoints, which every rank
+    resumes from."""
     from dvis_plus_tpu_torch.core import checkpoint as ckpt
     from dvis_plus_tpu_torch.data.build import build_combined_train_loader
     from dvis_plus_tpu_torch.engine.trainer import (
@@ -180,8 +225,12 @@ def do_train(cfg, resume: bool, dev: torch.device, build=build_model, classifier
         to_batch,
     )
     from dvis_plus_tpu_torch.losses.reid import ClassMemory
+    from dvis_plus_tpu_torch.parallel.mesh import batch_block, world
     from dvis_plus_tpu_torch.utils.events import EventWriter, device_memory_stats
 
+    rank, world_size = world()
+    block = batch_block(cfg.solver.ims_per_batch, rank, world_size, cfg.parallel.model_parallel_size)
+    grouped = torch.distributed.is_initialized()
     torch.manual_seed(cfg.seed)
     model = build(cfg.model)
     if cfg.weights:
@@ -200,33 +249,40 @@ def do_train(cfg, resume: bool, dev: torch.device, build=build_model, classifier
             state.memory = ClassMemory(**{k: v.to(dev) for k, v in saved["memory"].items()})
         torch.set_rng_state(saved["generator"])
         logger.info("resumed from %s (step %d)", latest, state.step)
-    loader = build_combined_train_loader(cfg, seed=cfg.seed, start_batches=state.step)
+    loader = build_combined_train_loader(cfg, seed=cfg.seed, start_batches=state.step,
+                                         block=(block.start, block.size))
     curriculum = curriculum_rng(cfg, state.step)
-    writer = EventWriter(cfg.output_dir)
+    writer = EventWriter(cfg.output_dir) if rank == 0 else None
     for step in range(state.step, cfg.solver.max_iter):
         # a no-op but for DVIS-DAQ's online stage
         raw = daq_curriculum_slice(cfg, step, next(loader), curriculum)
+        if grouped:
+            raw["block"] = block
         state, metrics = train_step(state, to_batch(raw, dev))
-        if step % LOG_EVERY == 0:
+        if writer is not None and step % log_every == 0:
             writer.write(step, {**{k: float(v) for k, v in metrics.items()},
                                 **device_memory_stats(dev)})
             writer.log_console(step)
-        if (step + 1) % cfg.solver.checkpoint_period == 0 or step + 1 == cfg.solver.max_iter:
+        if rank == 0 and ((step + 1) % cfg.solver.checkpoint_period == 0
+                          or step + 1 == cfg.solver.max_iter):
             path = os.path.join(ckpt_dir, f"step_{step + 1:07d}.pth")
             ckpt.save(path, model, state.optimizer.state_dict(), state.step, torch.get_rng_state(),
                       state.memory)
             logger.info("saved %s", path)
-    writer.close()
+    if writer is not None:
+        writer.close()
+    if grouped:
+        torch.distributed.barrier()  # the last checkpoint is on disk for every rank
     return state
 
 
 def main(argv=None) -> dict:
     from dvis_plus_tpu_torch.config import check_supported, check_trainable, is_ov, load_config
-    from dvis_plus_tpu_torch.data.catalog import get_dataset, get_metadata
+    from dvis_plus_tpu_torch.data.catalog import get_metadata
     from dvis_plus_tpu_torch.data.datasets.coco import register_all_coco
     from dvis_plus_tpu_torch.data.datasets.vps_vss import register_all_vipseg, register_all_vspw
     from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
-    from dvis_plus_tpu_torch.data.mapper import mapper_for_type
+    from dvis_plus_tpu_torch.parallel.mesh import init_distributed
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config-file", required=True)
     parser.add_argument("--eval-only", action="store_true",
@@ -253,7 +309,8 @@ def main(argv=None) -> dict:
         register(root)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
-    dev = torch.device(args.device)
+    # under torchrun: this rank's card (NCCL) or the CPU (gloo)
+    dev = init_distributed(args.device)
     if not args.eval_only:
         state = do_train(cfg, args.resume, dev)
         return {"step": state.step, "device": str(dev)}
@@ -268,8 +325,6 @@ def main(argv=None) -> dict:
     for idx, name in enumerate(cfg.datasets.test):
         # the task follows test.task or the dataset's type, as in the JAX CLI
         dataset_type = types[idx] if idx < len(types) else "video_instance"
-        mapper = mapper_for_type(cfg, dataset_type, dataset_name=name)
-        loader = (mapper(rec, seed=0) for rec in get_dataset(name))
         out_dir = os.path.join(cfg.output_dir, "inference", name)
         if cfg.test.task in ("vos", "mots"):
             run = _eval_vis
@@ -279,7 +334,7 @@ def main(argv=None) -> dict:
             run = _eval_vss
         else:
             run = _eval_vis
-        res = run(cfg, model, get_metadata(name), loader, out_dir)
+        res = run(cfg, model, get_metadata(name), eval_loaders(cfg, name, dataset_type), out_dir)
         results[name] = {**res, "device": str(dev)}
         logger.info("%s: %s", name, results[name])
     print(json.dumps(results, indent=2))

@@ -34,7 +34,8 @@ row i (``build_classifier(..., void_index=i)``), a batch routed by the set
 it came from; one optimizer and one train state for all of them, through
 ``cli.do_train``'s loop: its checkpoints every ``solver.checkpoint_period``
 steps and at the end, and ``--resume`` from the newest (the JAX CLI parses
-``--resume`` and reads it nowhere: it starts from step 0).
+``--resume`` and reads it nowhere: it starts from step 0). Under torchrun it
+trains and evaluates data-parallel, as ``cli`` does.
 
 Counterpart: ``train_net_video_ov.py`` (``_VOCAB_BY_DATASET`` :27,
 ``_ov_arch`` :44, ``_maybe_things_first`` :65, ``vocabulary_for`` :91,
@@ -220,10 +221,13 @@ def do_train(cfg, resume: bool, encode_fn, device):
 
 
 def do_eval(cfg, encode_fn, device) -> dict:
-    from dvis_plus_tpu_torch.cli import _eval_vis, _eval_vps, _eval_vss
+    """Evaluate every test set of ``cfg`` against its classifier, through
+    ``engine.parallel_eval.run_device_parallel`` as the closed CLI (each
+    worker's forward built on its copy of the model), the ranks of a
+    process group striping the videos."""
+    from dvis_plus_tpu_torch.cli import _eval_vis, _eval_vps, _eval_vss, eval_loaders
     from dvis_plus_tpu_torch.config import ov_arch
-    from dvis_plus_tpu_torch.data.catalog import get_dataset, get_metadata
-    from dvis_plus_tpu_torch.data.mapper import mapper_for_type
+    from dvis_plus_tpu_torch.data.catalog import get_metadata
     from dvis_plus_tpu_torch.engine.ov_inference import ov_video_logits_masks_fn
 
     cfg.model.meta_architecture = ov_arch(cfg)
@@ -243,13 +247,14 @@ def do_eval(cfg, encode_fn, device) -> dict:
         vi = void_index_for(cfg, name)
         tc, nt, test_classes = build_classifier(cfg, name, encode_fn, void_index=vi)
         overlap = category_overlapping_mask(train_classes, test_classes)
-        fn = ov_video_logits_masks_fn(cfg, model, tc, nt, overlap, void_index=vi)
-        mapper = mapper_for_type(cfg, types[idx] if idx < len(types) else "video_instance",
-                                 dataset_name=name)
-        loader = (mapper(rec, seed=0) for rec in get_dataset(name))
+
+        def fn_for(m, tc=tc, nt=nt, overlap=overlap, vi=vi):
+            return ov_video_logits_masks_fn(cfg, m, tc, nt, overlap, void_index=vi)
+
+        loaders = eval_loaders(cfg, name, types[idx] if idx < len(types) else "video_instance")
         out_dir = os.path.join(cfg.output_dir, "inference", name)
         run = {"vps": _eval_vps, "vss": _eval_vss}.get(cfg.test.task, _eval_vis)
-        res = run(cfg, model, get_metadata(name), loader, out_dir, logits_masks_fn=fn)
+        res = run(cfg, model, get_metadata(name), loaders, out_dir, fn_for=fn_for)
         results[name] = {**res, "device": str(device)}
         logger.info("%s: %s", name, results[name])
     print(json.dumps(results, indent=2))
@@ -261,6 +266,7 @@ def main(argv=None) -> dict:
     from dvis_plus_tpu_torch.data.datasets.coco import register_all_coco
     from dvis_plus_tpu_torch.data.datasets.vps_vss import register_all_vipseg, register_all_vspw
     from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
+    from dvis_plus_tpu_torch.parallel.mesh import init_distributed
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config-file", required=True)
@@ -287,7 +293,7 @@ def main(argv=None) -> dict:
         register(root)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
-    device = torch.device(args.device)
+    device = init_distributed(args.device)  # under torchrun: the rank's card, or gloo on the CPU
     encode_fn = make_text_encoder(cfg, args, device)
     if args.eval_only:
         return do_eval(cfg, encode_fn, device)

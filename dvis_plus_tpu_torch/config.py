@@ -266,6 +266,20 @@ class TestConfig:
     eval_pipeline: bool = True  # post-processing on a worker thread, loader prefetched
     mask_download: str = "runs"  # runs | packed (engine/inference.py::paged_inference_video)
     rle_col_k: int = 8  # per-column change capacity of the runs download
+    # > 1: the offline refiner's eval pass with its objects sharded over that
+    # many devices (parallel/sp.py)
+    refiner_shard_devices: int = 0
+    # video-parallel eval over that many cards of one process (0: every
+    # card; engine/parallel_eval.py); not with refiner_shard_devices
+    eval_devices: int = 1
+
+
+@dataclass
+class ParallelConfig:
+    """Data-parallel training over a process group (``parallel/mesh.py``):
+    the ranks of a model group take the same block of the batch."""
+
+    model_parallel_size: int = 1
 
 
 @dataclass
@@ -275,6 +289,7 @@ class Config:
     input: InputConfig = field(default_factory=InputConfig)
     datasets: DatasetsConfig = field(default_factory=DatasetsConfig)
     test: TestConfig = field(default_factory=TestConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     output_dir: str = "./output"
     seed: int = 42
     weights: str = ""  # state dict to load (.npz or a torch checkpoint)
@@ -485,8 +500,6 @@ SUPPORTED = (
     ("datasets.dataset_type_test", _eval_dataset_types,
      "A11 (the dataset types with a mapper: video_instance, video_panoptic, video_semantic, "
      "video_sot, image_instance, image_panoptic)"),
-    ("test.refiner_shard_devices", (0, 1), "A15 (the object-sharded refiner pass)"),
-    ("test.eval_devices", (1,), "A15 (video-parallel eval)"),
 )
 
 def _trunk_attention_trains(flash, cfg) -> bool:
@@ -562,7 +575,6 @@ TRAINABLE = (
     ("input.augmentations",
      lambda v, cfg: not v or (_trains_images(cfg) and set(v) <= set(PSEUDO_AUGMENTATIONS)),
      "A14c.2 (brightness, contrast and saturation, read by the pseudo-video mappers alone)"),
-    ("parallel.model_parallel_size", (1,), "A15 (training on more than one device)"),
     # read by nothing, in the JAX package either: a value but the default
     # would be dropped silently
     ("model.criterion.deep_supervision", (True,), "A14b (every layer is supervised)"),
@@ -577,8 +589,7 @@ TRAINABLE = (
 def check_trainable(cfg: Any) -> None:
     """:func:`check_supported`, then the same for :data:`TRAINABLE`: raise
     ``NotImplementedError`` naming every key whose value training cannot
-    honour, a DVIS-DAQ model with the ReID branch, and more than one
-    process (``WORLD_SIZE``)."""
+    honour, and a DVIS-DAQ model with the ReID branch."""
     check_supported(cfg)
     faults = _faults(cfg, TRAINABLE)
     if str(_lookup(cfg, "model.meta_architecture")).startswith("daq_") and \
@@ -587,9 +598,6 @@ def check_trainable(cfg: Any) -> None:
         faults.append("model.transformer_decoder.reid_branch=True builds no DVIS-DAQ model (the "
                       "cutter takes the segmenter's C-wide queries, the ReID branch makes them 2C "
                       "wide); set model.transformer_decoder.reid_branch=false")
-    if int(os.environ.get("WORLD_SIZE", "1")) != 1:
-        faults.append(f"WORLD_SIZE={os.environ['WORLD_SIZE']} is not ported "
-                      "(ROADMAP A15 (training on more than one device))")
     if faults:
         raise NotImplementedError("training cannot honour: " + "; ".join(faults))
 

@@ -359,7 +359,13 @@ def _online_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_tracker_
     inst = torch.cat(inst_l, dim=1)[:, :T]
     frame = torch.cat(frame_l, dim=1)[:, :T]
 
-    r = model.refine_embeds(inst, frame)
+    n_sp = int(getattr(cfg.test, "refiner_shard_devices", 0))
+    if n_sp > 1:  # the objects sharded over n_sp devices (parallel/sp.py)
+        from dvis_plus_tpu_torch.parallel.sp import refiner_embed_pass_sharded, shard_devices
+
+        r = refiner_embed_pass_sharded(model.refiner, inst, frame, shard_devices(n_sp, dev))
+    else:
+        r = model.refine_embeds(inst, frame)
     r_logits, membd = r["pred_logits"][0], r["mask_embed"]  # (Q, K+1), (1, T, Q, Cm)
     masks_l = []
     for i in range(n_windows):

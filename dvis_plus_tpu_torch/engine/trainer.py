@@ -48,7 +48,8 @@ step:
   it alone, but with the mask losses divided by the batch's mean count,
   :func:`shared_count`): what the reference's one clip a GPU under DDP
   gives. The JAX step trains the first clip of its batch and drops the
-  others;
+  others. Clip b draws from a generator of its own
+  (``utils.draws.clip_draws``), as what a clip draws depends on its data;
 - the total is the sum of the losses in the order of their sorted keys, as
   ``sum(jax.tree.leaves(losses))``;
 - one step: backward, the optimizer's clip and update (:mod:`engine.optimizer`);
@@ -62,7 +63,10 @@ step:
   unbroken one does;
 - the compute dtype is ``model.compute_dtype`` (bf16 in the YAMLs), the
   modules casting their fp32 parameters at the call, as the JAX modules
-  compute; parameters and the optimizer's moments stay fp32.
+  compute; parameters and the optimizer's moments stay fp32;
+- under a process group the step is data-parallel and equals the
+  one-process step over the whole batch, as the JAX ``build_train_step``
+  over a data-sharded mesh (:func:`build_train_step`, ``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -77,7 +81,9 @@ from dvis_plus_tpu_torch.engine.optimizer import AdamW, build_optimizer
 from dvis_plus_tpu_torch.losses.criterion import CriterionConfig
 from dvis_plus_tpu_torch.losses.reid import ClassMemory
 from dvis_plus_tpu_torch.losses.targets import VideoTargets
-from dvis_plus_tpu_torch.utils.draws import Draws, Scoped, step_generator
+from dvis_plus_tpu_torch.parallel import mesh
+from dvis_plus_tpu_torch.parallel.mesh import Block
+from dvis_plus_tpu_torch.utils.draws import BlockDraws, Draws, clip_draws, step_generator
 
 MEMORY_LEN = 20  # embeddings a class in the offline stage's class memory
 
@@ -86,6 +92,9 @@ class Batch(NamedTuple):
     images: torch.Tensor  # (B, T, 3, H, W) normalized
     targets: VideoTargets
     dataset_index: int = 0  # the training set the batch came from
+    # under data parallelism, this rank's block of the whole batch
+    # (``parallel.mesh.batch_block``); None: the batch is the whole one
+    block: Optional[Block] = None
 
 
 class Classifier(NamedTuple):
@@ -201,7 +210,7 @@ def build_loss_fn(cfg, model, classifier: Optional[Classifier] = None) -> Callab
             slot_num = shared_count([matched_count(s) for _, s in per_clip]) if per_clip[0][1] else None
             losses = mean_losses([
                 daq_train_loss(outputs, slot_outputs, clip_targets(batch.targets, b), ccfg,
-                               Scoped(draws, ("clip", b)), num, slot_num)
+                               clip_draws(draws, b), num, slot_num)
                 for b, (outputs, slot_outputs) in enumerate(per_clip)])
             return total_of(losses), losses, memory
 
@@ -215,9 +224,10 @@ def build_loss_fn(cfg, model, classifier: Optional[Classifier] = None) -> Callab
             per_clip = []
             for b, (online_out, refine_out) in enumerate(model.train_forward(batch.images)):
                 one = VideoTargets(*(t[b:b + 1] for t in batch.targets))
-                per_clip.append(dvis_offline_train_loss(
-                    online_out, refine_out, one, ccfg, use_matcher_guidance=step < half_iter,
-                    draws=Scoped(draws, ("clip", b)), memory=None, num_masks=num)[0])
+                with mesh.local_sums():  # the clip's own class weights
+                    per_clip.append(dvis_offline_train_loss(
+                        online_out, refine_out, one, ccfg, use_matcher_guidance=step < half_iter,
+                        draws=clip_draws(draws, b), memory=None, num_masks=num)[0])
             losses = mean_losses(per_clip)
             return total_of(losses), losses, memory
 
@@ -265,18 +275,23 @@ def ov_loss_fn(arch: str, model, ccfg, half_iter: int, classifier: Classifier) -
 
 
 def mean_losses(per_clip):
-    """The clips' losses averaged key by key."""
-    return {k: sum(c[k] for c in per_clip) / len(per_clip) for k in per_clip[0]}
+    """The clips' losses averaged key by key over the whole batch's clips
+    (under data parallelism a rank's clips add their share)."""
+    n = mesh.batch_total(len(per_clip))
+    return {k: sum(c[k] for c in per_clip) / n for k in per_clip[0]}
 
 
 def shared_count(counts) -> torch.Tensor:
     """The mask losses' divisor of every clip of a DVIS-DAQ batch: the mean
-    of the clips' counts, at least 1. The reference trains a clip a GPU and
-    all-reduces its criterion's count over the GPUs, divided by their
-    number (``mask2former_video/modeling/criterion.py:232-234``); the mean
-    of the clips' losses is then the batch's sum over its whole count, as
-    the other families' one criterion call gives."""
-    return torch.stack(list(counts)).float().mean().clamp(min=1.0)
+    of the whole batch's clips' counts, at least 1. The reference trains a
+    clip a GPU and all-reduces its criterion's count over the GPUs, divided
+    by their number (``mask2former_video/modeling/criterion.py:232-234``),
+    which is what a data-parallel step does here; the mean of the clips'
+    losses is then the batch's sum over its whole count, as the other
+    families' one criterion call gives."""
+    counts = list(counts)
+    total = mesh.global_sum(torch.stack(counts).float().sum())
+    return (total / mesh.batch_total(len(counts))).clamp(min=1.0)
 
 
 def daq_stage(cfg, step: int) -> int:
@@ -358,7 +373,17 @@ def build_train_step(cfg, model, classifiers: Sequence[Classifier] = ()):
     keeps fixed) and sets the modules' modes (:func:`set_modes`). An
     open-vocabulary model takes ``classifiers``, one a training set, and a
     batch trains against ``classifiers[batch.dataset_index]``; a closed
-    model has one loss for every set of its mixture."""
+    model has one loss for every set of its mixture.
+
+    Under a process group (``parallel.mesh.init_distributed``) the step is
+    data-parallel and equals the one-process step over the whole batch:
+    ``batch`` is this rank's block of it (``batch.block``; None: every rank
+    holds the whole batch), the draws are the whole batch's with the
+    block's rows kept (``utils.draws.BlockDraws``), the divisors and the
+    class memory's pushes span the batch (``parallel.mesh``), the
+    gradients are summed over the ranks before the optimizer's clip, and
+    the metrics are the summed losses. ``draws`` is then the whole batch's
+    too."""
     optimizer = build_optimizer(cfg, model)
     set_modes(model)
     loss_fns = [build_loss_fn(cfg, model, c) for c in classifiers] or [build_loss_fn(cfg, model)]
@@ -367,15 +392,26 @@ def build_train_step(cfg, model, classifiers: Sequence[Classifier] = ()):
     def train_step(state: TrainState, batch: Batch, draws=None):
         if draws is None:
             draws = Draws(step_generator(cfg.seed, state.step, device))
+        block = None
+        if torch.distributed.is_initialized():
+            B = batch.images.shape[0]
+            block = batch.block or Block(0, B, B, mesh.world()[0] == 0)
+            if block.size != block.total:
+                draws = BlockDraws(draws, block.start, block.size, block.total)
         loss_fn = loss_fns[batch.dataset_index if classifiers else 0]
-        total, losses, memory = loss_fn(batch, draws, state.step, state.memory)
+        with mesh.data_parallel(block):
+            total, losses, memory = loss_fn(batch, draws, state.step, state.memory)
         state.optimizer.zero_grad()
         total.backward()
+        if block is not None:
+            mesh.reduce_gradients(list(state.optimizer.params.values()), block)
         grad_norm = state.optimizer.step()
         state.step += 1
         state.memory = memory
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
+        if block is not None:
+            metrics = mesh.reduce_metrics(metrics, block)
         metrics["grad_norm"] = grad_norm
         return state, metrics
 
@@ -387,7 +423,8 @@ def build_train_step(cfg, model, classifiers: Sequence[Classifier] = ()):
 
 def to_batch(raw: dict, device) -> Batch:
     """A collated loader batch (numpy, NHWC images) -> :class:`Batch` on
-    ``device``, with the batch's ``dataset_index`` (0 if it has none)."""
+    ``device``, with the batch's ``dataset_index`` (0 if it has none) and
+    its ``block`` (a rank's share, ``parallel.mesh.shard_batch``)."""
     images = torch.from_numpy(raw["images"]).permute(0, 1, 4, 2, 3)
     pin = device.type == "cuda"
 
@@ -398,4 +435,4 @@ def to_batch(raw: dict, device) -> Batch:
     return Batch(images=put(images.contiguous()),
                  targets=VideoTargets(put(raw["labels"]).long(), put(raw["masks"]),
                                       put(raw["valid"]), put(raw["frame_valid"])),
-                 dataset_index=int(raw.get("dataset_index", 0)))
+                 dataset_index=int(raw.get("dataset_index", 0)), block=raw.get("block"))

@@ -7,8 +7,12 @@ whose ``process`` builds the same rows, the reference being
 ``VSSEvaluator`` :193; ``UniYTVISEvaluator`` :237, MOTS). The CLI scores
 VIS and MOTS rows with ``evaluation.ytvos_eval``; the VPS and VSS evaluators
 score in-process (``evaluation.offline_scoring``) when the ground truth is
-on disk. All are single-process: the cross-host gather comes with multi-device eval
-(ROADMAP A15). PNGs are written by ``utils.png`` (no OpenCV).
+on disk. Under a process group each rank processes its stripe of the
+videos and the rows are gathered rank by rank (``evaluation.dist``; the JAX
+evaluators' ``evaluate`` :78-81, :172-175, :219-225, :255-263): only rank 0
+writes ``results.json``, ``pred.json`` and the BDD files and scores; every
+rank writes its own videos' PNGs. PNGs are written by ``utils.png`` (no
+OpenCV).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from dvis_plus_tpu_torch.evaluation.dist import gather_predictions, is_main_process
 from dvis_plus_tpu_torch.utils import rle as rle_codec
 from dvis_plus_tpu_torch.utils.png import write_png
 
@@ -56,11 +61,14 @@ class YTVISEvaluator:
             })
 
     def write_results(self) -> str:
-        """Write ``<output_dir>/results.json``; returns its path."""
-        os.makedirs(self.output_dir, exist_ok=True)
+        """Gather the ranks' rows into ``predictions`` (rank by rank) and,
+        on rank 0, write ``<output_dir>/results.json``; returns its path."""
+        self.predictions = gather_predictions(self.predictions)
         path = os.path.join(self.output_dir, "results.json")
-        with open(path, "w") as f:
-            json.dump(self.predictions, f)
+        if is_main_process():
+            os.makedirs(self.output_dir, exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(self.predictions, f)
         return path
 
 
@@ -68,8 +76,8 @@ class UniYTVISEvaluator(YTVISEvaluator):
     """MOTS evaluator (``dvis_plus_tpu/evaluation/evaluators.py::
     UniYTVISEvaluator`` :237): the YTVIS rows, and BDD-format dict outputs
     (``process_bdd``) passed through per key, each key written as
-    ``<output_dir>/<key>.json`` beside ``results.json``. Single-process: the
-    cross-host gather of the keys comes with ROADMAP A15."""
+    ``<output_dir>/<key>.json`` beside ``results.json``, each key's lists
+    gathered rank by rank."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -81,9 +89,15 @@ class UniYTVISEvaluator(YTVISEvaluator):
 
     def write_results(self) -> str:
         path = super().write_results()
-        for k, v in sorted(self._bdd.items()):
-            with open(os.path.join(self.output_dir, f"{k}.json"), "w") as f:
-                json.dump(v, f)
+        gathered = {}
+        for part in gather_predictions([self._bdd]):
+            for k, v in part.items():
+                gathered.setdefault(k, []).extend(v)
+        self._bdd = gathered
+        if is_main_process():
+            for k, v in sorted(gathered.items()):
+                with open(os.path.join(self.output_dir, f"{k}.json"), "w") as f:
+                    json.dump(v, f)
         return path
 
 
@@ -136,10 +150,14 @@ class VPSEvaluator:
         self.annotations.append({"video_id": str(video_id), "annotations": annos})
 
     def evaluate(self) -> Dict[str, float]:
-        """Write ``pred.json``; with the ground truth on disk, VPQ and STQ."""
+        """Gather the ranks' rows; on rank 0 write ``pred.json`` and, with
+        the ground truth on disk, score VPQ and STQ."""
+        self.annotations = gather_predictions(self.annotations)
+        res: Dict[str, float] = {"videos": len(self.annotations)}
+        if not is_main_process():
+            return res
         with open(os.path.join(self.output_dir, "pred.json"), "w") as f:
             json.dump({"annotations": self.annotations}, f)
-        res: Dict[str, float] = {"videos": len(self.annotations)}
         if (self.gt_json and os.path.exists(self.gt_json)
                 and self.gt_dir and os.path.isdir(self.gt_dir)):
             from dvis_plus_tpu_torch.evaluation.offline_scoring import score_vps
@@ -170,8 +188,11 @@ class VSSEvaluator:
         self.videos += 1
 
     def evaluate(self) -> Dict[str, float]:
-        res: Dict[str, float] = {"videos": self.videos}
-        if self.gt_root and os.path.exists(os.path.join(self.gt_root, f"{self.split}.txt")):
+        """The videos of every rank; on rank 0, with a VSPW tree, mIoU and
+        VC over every rank's PNGs (the gather waits for every rank's)."""
+        res: Dict[str, float] = {"videos": sum(gather_predictions([self.videos]))}
+        if is_main_process() and self.gt_root and \
+                os.path.exists(os.path.join(self.gt_root, f"{self.split}.txt")):
             from dvis_plus_tpu_torch.evaluation.offline_scoring import score_vss
 
             res.update(score_vss(self.output_dir, self.gt_root, split=self.split,

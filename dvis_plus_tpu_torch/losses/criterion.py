@@ -18,7 +18,9 @@ Counterpart: ``dvis_plus_tpu/losses/criterion.py`` (``CriterionConfig``
 
 Every random point set comes from ``draws`` (:mod:`utils.draws`) under the
 site ``("match", layer)`` or ``("points", layer, "over" | "fill")``, layer
-``"final"`` or an auxiliary layer's index.
+``"final"`` or an auxiliary layer's index. Under data parallelism the
+divisors (``num_masks``, the cross-entropy's weight sum) are the whole
+batch's (``parallel.mesh.global_sum``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from dvis_plus_tpu_torch.losses.matcher import MatchCosts, consistent_match, video_hungarian_match
 from dvis_plus_tpu_torch.losses.targets import VideoTargets
 from dvis_plus_tpu_torch.ops.point_sample import point_sample, uncertain_point_coords_with_randomness
+from dvis_plus_tpu_torch.parallel.mesh import global_sum
 
 
 class CriterionConfig(NamedTuple):
@@ -98,7 +101,7 @@ def loss_labels(pred_logits: torch.Tensor, targets: VideoTargets, query_for_gt: 
     logp = F.log_softmax(pred_logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, target_classes[..., None])[..., 0]
     w = torch.where(target_classes == K, cfg.eos_coef, 1.0)
-    return (nll * w).sum() / w.sum().clamp(min=1.0)
+    return (nll * w).sum() / global_sum(w.sum()).clamp(min=1.0)
 
 
 def loss_masks(pred_masks: torch.Tensor, targets: VideoTargets, query_for_gt: torch.Tensor,
@@ -149,7 +152,7 @@ def video_criterion(outputs: LayerOutputs, aux_outputs: Sequence[LayerOutputs],
     """(losses, query_for_gt of the final layer): ``loss_ce`` /
     ``loss_mask`` / ``loss_dice``, with ``_{i}`` for auxiliary layer i."""
     if num_masks is None:
-        num_masks = targets.num_instances().sum().float().clamp(min=1.0)
+        num_masks = global_sum(targets.num_instances().sum().float()).clamp(min=1.0)
     match_from = matcher_outputs if matcher_outputs is not None else outputs
     q4g = match(match_from, targets, cfg, match_coords(draws, "final", match_from, cfg))
     losses = layer_losses(outputs, targets, q4g, num_masks, cfg, draws, "final")

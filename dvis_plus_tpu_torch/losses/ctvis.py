@@ -23,6 +23,7 @@ from typing import Dict
 import torch
 
 from dvis_plus_tpu_torch.losses.reid import multi_pos_items, normed
+from dvis_plus_tpu_torch.parallel.mesh import global_sum
 
 
 def sgff_scan(embeds: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -113,5 +114,5 @@ def ctvis_reid_loss(reid_embeds: torch.Tensor, query_for_gt: torch.Tensor,
         c_sum = c_sum + (c * item_w).sum()
         a_sum = a_sum + (a * item_w).sum()
         w_sum = w_sum + item_w.sum()
-    num = w_sum.clamp(min=1.0)
+    num = global_sum(w_sum).clamp(min=1.0)
     return {"loss_reid": c_sum / num, "loss_aux_reid": a_sum / num}

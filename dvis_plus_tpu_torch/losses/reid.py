@@ -25,6 +25,8 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from dvis_plus_tpu_torch.parallel.mesh import gather_batch, global_sum
+
 _NEG_INF = -1e30
 
 
@@ -73,7 +75,7 @@ def reid_loss(references: torch.Tensor, query_for_gt: torch.Tensor,
         nxt = list(range(1, T - 1))
         c2, a2, n2 = pair(nxt, [i + 1 for i in nxt])
         c, a, n = c + c2, a + a2, n + n2
-    num = n.clamp(min=1.0)
+    num = global_sum(n).clamp(min=1.0)
     return {"loss_reid": c / num, "loss_aux_reid": a / num}
 
 
@@ -146,10 +148,11 @@ def reid_loss_with_memory(pred_embds: torch.Tensor, query_for_gt: torch.Tensor,
     con2, aux2 = multi_pos_items(dpos, cos_pos, d2, c2, mem_valid[:, None])
     w1 = inst_w[:, None]  # (B, 1, N)
     w2 = (inst_w * has_mem)[:, None]
-    num = (T * (inst_w.sum() + (inst_w * has_mem).sum())).clamp(min=1.0)
+    num = global_sum(T * (inst_w.sum() + (inst_w * has_mem).sum())).clamp(min=1.0)
     losses = {"loss_reid": (con1 * w1 + con2 * w2).sum() / num,
               "loss_aux_reid": (aux1 * w1 + aux2 * w2).sum() / num}
-    return losses, push_memory(memory, refs.detach(), query_for_gt, valid, labels)
+    # every rank pushes the whole batch, in its order: the memories stay equal
+    return losses, push_memory(memory, *gather_batch(refs.detach(), query_for_gt, valid, labels))
 
 
 @torch.no_grad()

@@ -34,7 +34,7 @@ from dvis_plus_tpu_torch.models.daq.cutter import CutterState, VideoInstanceCutt
 from dvis_plus_tpu_torch.models.daq.matcher import frame_match
 from dvis_plus_tpu_torch.models.refiner.temporal_refiner import TemporalRefiner
 from dvis_plus_tpu_torch.models.segmenter.segmenter import Segmenter
-from dvis_plus_tpu_torch.utils.draws import Scoped
+from dvis_plus_tpu_torch.utils.draws import Scoped, clip_draws
 
 
 def clip_targets(targets: VideoTargets, b: int) -> VideoTargets:
@@ -117,21 +117,21 @@ class DAQOnline(Segmenter):
         normalized, targets of the B clips, ``costs`` the matchers'
         (``losses.matcher.MatchCosts``). Each frame of a clip is matched to
         its ground truths on the segmenter's outputs (points from the site
-        ``("frame_match", t)``), then the cutter runs the clip (its draws
-        under ``("clip", b)``).
+        ``("frame_match", t)``), then the cutter runs the clip, every draw
+        of clip b from ``utils.draws.clip_draws(draws, b)``.
         Returns (outputs, slot outputs) a clip (:meth:`VideoInstanceCutter.forward`)."""
         dev = images.device
         result = []
         for b in range(images.shape[0]):
             seg = self._segment_clip(images[b])
-            tb, clip_draws = clip_targets(targets, b), Scoped(draws, ("clip", b))
+            tb, cd = clip_targets(targets, b), clip_draws(draws, b)
             fms = [frame_match(seg["pred_logits"][t], seg["pred_masks"][t], tb.labels,
                                tb.masks[:, t], tb.frame_valid[:, t],
-                               clip_draws.uniform(("frame_match", t), (costs.num_points, 2)).to(dev),
+                               cd.uniform(("frame_match", t), (costs.num_points, 2)).to(dev),
                                select_thr=0.01, costs=costs)
                    for t in range(images.shape[1])]
             result.append(self.tracker(seg["pred_embds_without_norm"], seg["mask_features"],
-                                       seg["query_feat"], seg["pred_masks"], fms, tb, clip_draws,
+                                       seg["query_feat"], seg["pred_masks"], fms, tb, cd,
                                        stage=stage, match_costs=costs))
         return result
 

@@ -32,6 +32,7 @@ from dvis_plus_tpu_torch.losses.targets import VideoTargets
 from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
 from dvis_plus_tpu_torch.models.refiner.temporal_refiner import TemporalRefiner
 from dvis_plus_tpu_torch.models.tracker.referring_tracker import TrackerState
+from dvis_plus_tpu_torch.parallel.mesh import global_sum
 
 
 class DVISOffline(DVISOnline):
@@ -117,7 +118,7 @@ def dvis_offline_train_loss(track_out: Dict[str, Any], refine_out: Dict[str, Any
     B, N, T = targets.masks.shape[:3]
     ccfg = ccfg._replace(match_mode="clip", num_points=ccfg.num_points * T)
     if num_masks is None:
-        num_masks = targets.num_instances().sum().float().clamp(min=1.0)
+        num_masks = global_sum(targets.num_instances().sum().float()).clamp(min=1.0)
     flat = VideoTargets(targets.labels, _flatten_clip(targets.masks), targets.valid,
                         targets.valid[..., None])
 

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from dvis_plus_tpu_torch.models.meta.minvis import topk_select, upsample_masks
 from dvis_plus_tpu_torch.models.segmenter.segmenter import Segmenter
 from dvis_plus_tpu_torch.models.tracker.referring_tracker import ReferringTracker, TrackerState
+from dvis_plus_tpu_torch.parallel.mesh import global_sum
 
 
 class DVISOnline(Segmenter):
@@ -116,7 +117,7 @@ def dvis_online_train_loss(seg_out: Dict[str, Any], track_out: Dict[str, Any], t
 
     B, N, T = targets.masks.shape[:3]
     ccfg = ccfg._replace(match_mode="frame_consistent")
-    num_masks = (targets.num_instances().sum().float() * T).clamp(min=1.0)
+    num_masks = global_sum(targets.num_instances().sum().float() * T).clamp(min=1.0)
     outputs = LayerOutputs(track_out["pred_logits"], track_out["pred_masks"])
     aux = [LayerOutputs(lg, mk) for lg, mk in zip(track_out["aux_pred_logits"],
                                                  track_out["aux_pred_masks"])]

@@ -27,6 +27,7 @@ from dvis_plus_tpu_torch.losses.criterion import CriterionConfig, LayerOutputs, 
 from dvis_plus_tpu_torch.losses.targets import VideoTargets
 from dvis_plus_tpu_torch.ops.assignment import auction_lap
 from dvis_plus_tpu_torch.ops.hungarian import hungarian
+from dvis_plus_tpu_torch.parallel.mesh import global_sum
 
 
 def frame_fold_targets(targets: VideoTargets) -> VideoTargets:
@@ -47,7 +48,7 @@ def minvis_train_loss(decoder_out: Dict[str, Any], targets: VideoTargets, ccfg: 
     clip-level matching a frame and the criterion over every layer,
     ``num_masks`` the instances a frame summed over the frames."""
     ft = frame_fold_targets(targets)
-    num_masks = ft.num_instances().sum().float().clamp(min=1.0)
+    num_masks = global_sum(ft.num_instances().sum().float()).clamp(min=1.0)
     outputs = LayerOutputs(decoder_out["pred_logits"], decoder_out["pred_masks"][:, :, None])
     aux = [LayerOutputs(lg, mk[:, :, None])
            for lg, mk in zip(decoder_out["aux_pred_logits"], decoder_out["aux_pred_masks"])]

@@ -34,8 +34,11 @@ features pooled under the video's binary masks (:func:`video_mask_pooling`,
 every layer's in training) plus the time-pooled query;
 :meth:`embed_pass` then returns the time-pooled query (``fused``) for
 :meth:`ov_classify`, which the eval loop calls with features it pooled
-window by window. Not ported: the object-sharded pass (ROADMAP). Every
-layer computes in its input's dtype.
+window by window. The object-sharded eval pass (``parallel/sp.py``, the JAX
+``_body(axis_name=)`` :143-195) runs the layer's pieces
+(:meth:`temporal_part`, :meth:`frame_part`) a shard at a time, the object
+self-attention between them taking every shard's queries as its keys and
+values. Every layer computes in its input's dtype.
 """
 from __future__ import annotations
 
@@ -118,31 +121,53 @@ class TemporalRefiner(nn.Module):
               instance_mask: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """instance_embeds (B, T, Q, C), frame_embeds (B, T, fQ, C) ->
         every layer's output (B, T, Q, C), the last one last."""
-        B, T, Q, C = instance_embeds.shape
-        obj_bias = None
-        if instance_mask is not None:
-            key_ok = instance_mask.repeat_interleave(T, dim=0)  # (B*T, Q)
-            obj_bias = torch.zeros(key_ok.shape, dtype=torch.float32, device=key_ok.device)
-            obj_bias = obj_bias.masked_fill(~key_ok, _NEG_INF)[:, None, None, :]
-        tmask_bias = key_ok_t = None
-        if time_mask is not None:
-            key_ok_t = time_mask.repeat_interleave(Q, dim=0)  # (B*Q, T)
-            tmask_bias = torch.zeros(key_ok_t.shape, dtype=torch.float32, device=key_ok_t.device)
-            tmask_bias = tmask_bias.masked_fill(~key_ok_t, _NEG_INF)[:, None, None, :]
-        mem = frame_embeds.reshape(B * T, frame_embeds.shape[2], C)
+        T = instance_embeds.shape[1]
+        obj_bias = object_bias(instance_mask, T)
+        time = self.time_masks(time_mask, instance_embeds.shape[2])
+        mem = self.frame_memory(frame_embeds)
         output = instance_embeds
         outputs = []
         for i in range(self.num_layers):
-            x = output.transpose(1, 2).reshape(B * Q, T, C)
-            x = self.transformer_time_self_attention_layers[i](x, mask=tmask_bias)
-            x = self._conv_block(i, x, key_ok_t)
-            x = x.reshape(B, Q, T, C).transpose(1, 2).reshape(B * T, Q, C)
+            x = self.temporal_part(i, output, time)
             x = self.transformer_obj_self_attention_layers[i](x, mask=obj_bias)
-            x = self.transformer_cross_attention_layers[i](x, mem, 0.0, 0.0)
-            x = self.transformer_ffn_layers[i](x)
-            output = x.reshape(B, T, Q, C)
+            output = self.frame_part(i, x, mem, output.shape)
             outputs.append(output)
         return outputs
+
+    # the pieces of a layer, which the object-sharded pass (parallel/sp.py)
+    # runs a shard at a time: only the object self-attention between them
+    # needs every shard's queries
+
+    @staticmethod
+    def time_masks(time_mask: Optional[torch.Tensor], Q: int):
+        """(temporal attention's additive key mask (B*Q, 1, 1, T), the
+        frames kept (B*Q, T)), both None without ``time_mask``."""
+        if time_mask is None:
+            return None, None
+        key_ok_t = time_mask.repeat_interleave(Q, dim=0)  # (B*Q, T)
+        bias = torch.zeros(key_ok_t.shape, dtype=torch.float32, device=key_ok_t.device)
+        return bias.masked_fill(~key_ok_t, _NEG_INF)[:, None, None, :], key_ok_t
+
+    @staticmethod
+    def frame_memory(frame_embeds: torch.Tensor) -> torch.Tensor:
+        B, T, fQ, C = frame_embeds.shape
+        return frame_embeds.reshape(B * T, fQ, C)
+
+    def temporal_part(self, i: int, output: torch.Tensor, time) -> torch.Tensor:
+        """Layer i's temporal self-attention and conv block: (B, T, Q, C) ->
+        (B*T, Q, C), the object self-attention's input."""
+        B, T, Q, C = output.shape
+        tmask_bias, key_ok_t = time
+        x = output.transpose(1, 2).reshape(B * Q, T, C)
+        x = self.transformer_time_self_attention_layers[i](x, mask=tmask_bias)
+        x = self._conv_block(i, x, key_ok_t)
+        return x.reshape(B, Q, T, C).transpose(1, 2).reshape(B * T, Q, C)
+
+    def frame_part(self, i: int, x: torch.Tensor, mem: torch.Tensor, shape) -> torch.Tensor:
+        """Layer i's cross-attention to the frame's segmenter queries and
+        FFN: (B*T, Q, C) -> (B, T, Q, C)."""
+        x = self.transformer_cross_attention_layers[i](x, mem, 0.0, 0.0)
+        return self.transformer_ffn_layers[i](x).reshape(shape)
 
     def _pred_class(self, x: torch.Tensor, time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Activation-weighted temporal pooling. x normalized (B, T, Q, C) ->
@@ -188,7 +213,13 @@ class TemporalRefiner(nn.Module):
         instead the time-pooled query ``fused`` (B, 1, Q, C) for
         :meth:`ov_classify`) and the mask-head embeddings (B, T, Q, mask_dim)
         for :meth:`mask_window`."""
-        x = self.decoder_norm(self._body(instance_embeds, frame_embeds, time_mask, instance_mask)[-1])
+        return self.embed_heads(
+            self._body(instance_embeds, frame_embeds, time_mask, instance_mask)[-1], time_mask)
+
+    def embed_heads(self, last: torch.Tensor, time_mask: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """:meth:`embed_pass`'s heads on the last layer's output (B, T, Q, C)."""
+        x = self.decoder_norm(last)
         fused = self._pred_class(x, time_mask)
         out = {"mask_embed": self.mask_embed(x), "pred_embds": x}
         if self.ov:
@@ -208,6 +239,16 @@ class TemporalRefiner(nn.Module):
         """Mask head on one time window: mask_embed (B, Tw, Q, Cm),
         mask_features (B, Tw, Cm, H, W) -> (B, Q, Tw, H, W) fp32 logits."""
         return torch.einsum("btqc,btchw->bqthw", mask_embed.float(), mask_features.float())
+
+
+def object_bias(instance_mask: Optional[torch.Tensor], T: int) -> Optional[torch.Tensor]:
+    """The object self-attention's additive key mask (B*T, 1, 1, Q) of an
+    ``instance_mask`` (B, Q) (False: a padded row), or None."""
+    if instance_mask is None:
+        return None
+    key_ok = instance_mask.repeat_interleave(T, dim=0)  # (B*T, Q)
+    bias = torch.zeros(key_ok.shape, dtype=torch.float32, device=key_ok.device)
+    return bias.masked_fill(~key_ok, _NEG_INF)[:, None, None, :]
 
 
 def video_mask_pooling(mask_features: torch.Tensor, masks: Sequence[torch.Tensor]) -> torch.Tensor:

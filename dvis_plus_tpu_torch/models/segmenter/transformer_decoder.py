@@ -84,16 +84,19 @@ class MultiheadAttention(nn.Module):
 
 
 class SelfAttentionLayer(nn.Module):
-    """Post-norm self-attention over queries."""
+    """Post-norm self-attention over queries. ``kv`` replaces the keys and
+    values (the object-sharded refiner: a shard's queries against every
+    shard's, ``parallel/sp.py``)."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.self_attn = MultiheadAttention(dim, num_heads)
         self.norm = LayerNorm(dim, eps=1e-5)
 
-    def forward(self, tgt, query_pos=None, mask=None):
+    def forward(self, tgt, query_pos=None, mask=None, kv=None):
         q = tgt if query_pos is None else tgt + query_pos
-        return self.norm(tgt + self.self_attn(q, q, tgt, mask))
+        k, v = (q, tgt) if kv is None else (kv, kv)
+        return self.norm(tgt + self.self_attn(q, k, v, mask))
 
 
 class CrossAttentionLayer(nn.Module):

@@ -319,9 +319,6 @@ REFUSED_CASES = [
     ("daq/daq_vos_r50_ytvos.yaml", ["datasets.dataset_type_test=[image_semantic]"],
      "datasets.dataset_type_test"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
-    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.refiner_shard_devices=2"], "test.refiner_shard_devices"),
-    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_devices=4"], "test.eval_devices"),
-    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_devices=0"], "test.eval_devices"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["test.task=mots"], "test.task"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.sem_seg_head=fcclip"], "model.sem_seg_head"),
@@ -330,16 +327,30 @@ REFUSED_CASES = [
      "model.backbone.swin_fast_softmax"),
     # the limits hold for the MinVIS, CTVIS and Video Mask2Former slices too
     ("dvis/minvis_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
-    ("dvis/video_maskformer_r50_ytvis19.yaml", ["test.eval_devices=2"], "test.eval_devices"),
     ("dvis/ctvis_r50_ytvis19.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
     # and for DVIS-DAQ
     ("daq/daq_online_r50_vipseg.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
-    ("daq/daq_offline_r50_ovis.yaml", ["test.eval_devices=2"], "test.eval_devices"),
     # and for open vocabulary
     ("ov/ov_online_convnextl_coco.yaml", ["model.backbone.clip_model_type=vit"],
      "model.backbone.clip_model_type"),
-    ("ov/ov_offline_convnextl_zeroshot_ytvis19.yaml", ["test.eval_devices=2"], "test.eval_devices"),
 ]
+
+
+# multi-device eval (A15): the values the port once refused, now served
+A15_EVAL_CASES = [
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.refiner_shard_devices=2"]),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_devices=4"]),
+    ("dvis/dvis_online_r50_ytvis19.yaml", ["test.eval_devices=0"]),
+    ("dvis/video_maskformer_r50_ytvis19.yaml", ["test.eval_devices=2"]),
+    ("daq/daq_offline_r50_ovis.yaml", ["test.eval_devices=2"]),
+    ("ov/ov_offline_convnextl_zeroshot_ytvis19.yaml", ["test.eval_devices=2"]),
+]
+
+
+@pytest.mark.parametrize("yaml_name,overrides", A15_EVAL_CASES)
+def test_multi_device_eval_settings_pass_the_check(yaml_name, overrides):
+    port_config.check_supported(port_config.load_config(os.path.join("configs", yaml_name), overrides))
+    assert not any("A15" in item for _, _, item in port_config.SUPPORTED + port_config.TRAINABLE)
 
 
 @pytest.mark.parametrize("yaml_name,overrides,key", REFUSED_CASES)
@@ -470,8 +481,6 @@ TRAIN_REFUSED = [
     (YAML, ["input.pseudo=true"], "input.pseudo", "A14c"),
     (YAML, ["input.lsj_aug=true"], "input.lsj_aug", "A14c"),
     (YAML, ["input.augmentations=[brightness]"], "input.augmentations", "A14c"),
-    (YAML, ["parallel.model_parallel_size=2"], "parallel.model_parallel_size", "A15"),
-    (YAML, ["test.eval_devices=2"], "test.eval_devices", "A15"),  # the eval rows hold too
     # keys no code reads, in either package: only their defaults pass
     (YAML, ["model.criterion.deep_supervision=false"], "model.criterion.deep_supervision", "A14b"),
     (YAML, ["model.criterion.reid_weight=1.0"], "model.criterion.reid_weight", "A14c"),
@@ -480,6 +489,15 @@ TRAIN_REFUSED = [
     (YAML, ["input.image_format=BGR"], "input.image_format", "A14b"),
     (YAML, ["solver.amp=false"], "solver.amp", "A14b"),
 ]
+
+
+@pytest.mark.parametrize("overrides", [["parallel.model_parallel_size=2"], ["test.eval_devices=2"]])
+def test_check_trainable_accepts_multi_device_settings(overrides, monkeypatch):
+    """A model group of two ranks and video-parallel eval (A15): training
+    takes them, at two processes too."""
+    port_config.check_trainable(port_config.load_config(YAML, overrides))
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    port_config.check_trainable(port_config.load_config(YAML, overrides))
 
 
 @pytest.mark.parametrize("yaml_name,overrides,key,item", TRAIN_REFUSED)
@@ -563,7 +581,25 @@ def test_a_daq_yaml_trains_with_the_reid_branch_off():
     assert cfg.datasets.dataset_type == ("video_panoptic",)
 
 
-def test_check_trainable_refuses_more_than_one_process(monkeypatch):
+def test_check_trainable_accepts_more_than_one_process(monkeypatch):
+    """Data-parallel training (A15): ``WORLD_SIZE`` is no fault."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=r"WORLD_SIZE=2.*ROADMAP A15"):
-        port_config.check_trainable(port_config.load_config(YAML))
+    port_config.check_trainable(port_config.load_config(YAML))
+
+
+@pytest.mark.parametrize("yaml_name", ALL_YAMLS)
+def test_every_yaml_checks_the_same_at_two_processes(yaml_name, monkeypatch):
+    """Each YAML passes or fails ``check_supported`` and ``check_trainable``
+    with ``WORLD_SIZE=2`` as it does in one process."""
+    cfg = port_config.load_config(os.path.join("configs", yaml_name))
+
+    def outcome(check):
+        try:
+            check(cfg)
+            return None
+        except NotImplementedError as e:
+            return str(e)
+
+    alone = [outcome(port_config.check_supported), outcome(port_config.check_trainable)]
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    assert [outcome(port_config.check_supported), outcome(port_config.check_trainable)] == alone

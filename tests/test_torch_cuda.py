@@ -1208,3 +1208,67 @@ def test_swin_trains_through_the_plain_op_and_serves_through_b2(cuda_device):
     with torch.no_grad():
         net(x)
     assert swin_window_attn.launches == 8
+
+
+@pytest.mark.cuda
+def test_nccl_world_size_one_step_matches_the_one_process_step(cuda_device, tmp_path, monkeypatch):
+    """One DVIS++ online step on the card under a process group of one NCCL
+    rank (``parallel.mesh.init_distributed``: the gradients all-reduced,
+    the losses summed over the group) against the same step without a
+    group: losses rel <= 1e-4, the tracker's gradients within 1e-3 as a
+    norm."""
+    import copy
+
+    from dvis_plus_tpu_torch.config import tiny
+    from dvis_plus_tpu_torch.engine.trainer import Batch, build_train_step
+    from dvis_plus_tpu_torch.losses.targets import VideoTargets
+    from dvis_plus_tpu_torch.models.meta.dvis_online import DVISOnline
+    from dvis_plus_tpu_torch.parallel.mesh import init_distributed
+    from dvis_plus_tpu_torch.utils.draws import Draws
+
+    cfg = tiny("dvis_online", "model.num_classes=5", "model.tracker.matcher_solver=jv")
+    torch.manual_seed(0)
+    models = [DVISOnline(cfg.model).to(cuda_device)]
+    models.append(copy.deepcopy(models[0]))
+    batch = _tiny_batch()
+    batch = Batch(batch.images.to(cuda_device), VideoTargets(*(t.to(cuda_device) for t in batch.targets)))
+    out = []
+    for grouped, model in zip((False, True), models):
+        if grouped:
+            monkeypatch.setenv("WORLD_SIZE", "1")
+            monkeypatch.setenv("RANK", "0")
+            monkeypatch.setenv("LOCAL_RANK", "0")
+            assert init_distributed("cuda", init_method=f"file://{tmp_path}/rendezvous") == torch.device("cuda", 0)
+            assert torch.distributed.get_backend() == "nccl"
+        try:
+            step, init = build_train_step(cfg, model)
+            _, metrics = step(init(), batch, Draws(torch.Generator().manual_seed(7)))
+            grads = torch.cat([p.grad.flatten().cpu() for n, p in model.named_parameters() if p.requires_grad])
+            out.append(({k: float(v) for k, v in metrics.items()}, grads))
+        finally:
+            if grouped:
+                torch.distributed.destroy_process_group()
+    (want, gw), (got, gg) = out
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * max(abs(want[k]), 1e-6), (k, got[k], want[k])
+    assert ((gg - gw).norm() / gw.norm()).item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_sharded_refiner_on_the_card_names_the_device_twice(cuda_device):
+    """The object-sharded refiner pass over ``[cuda:0, cuda:0]`` (Q = 9 in
+    two shards: one padded row) against the plain pass, fp32: rel <= 1e-5."""
+    from dvis_plus_tpu_torch.models.refiner.temporal_refiner import TemporalRefiner
+    from dvis_plus_tpu_torch.parallel.sp import refiner_embed_pass_sharded
+
+    torch.manual_seed(0)
+    refiner = TemporalRefiner(5, 64, 128, 4, 2, 32).to(cuda_device).eval()
+    ie = torch.randn(1, 12, 9, 64, device=cuda_device)
+    fe = torch.randn(1, 12, 10, 64, device=cuda_device)
+    with torch.no_grad():
+        want = refiner.embed_pass(ie, fe)
+        got = refiner_embed_pass_sharded(refiner, ie, fe, [torch.device("cuda", 0)] * 2)
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].device == ie.device
+        assert _rel(got[k], want[k]) <= 1e-5, k

@@ -1,6 +1,7 @@
 """The port imports no jax, flax or JAX-package module, and no triton, and
 builds no CUDA library, when every module is imported (the RLE codec's
-loader among them), its CPU path runs for the DVIS++ online, offline Swin,
+loader and the multi-device modules, ``parallel/``, ``engine/parallel_eval``
+and ``evaluation/dist``, among them), its CPU path runs for the DVIS++ online, offline Swin,
 offline ViT, MinVIS, CTVIS, Video Mask2Former and DVIS-DAQ online and
 offline presets at a small size (the JAX default eval settings: ``runs``
 download, threaded pipeline), its VPS and VSS loops run for the VIPSeg and
@@ -252,6 +253,9 @@ print(json.dumps({
     "train": train,
     "ov_train": ov_train,
     "loaded": sorted(k for k in sys.modules if k.split(".")[0] in roots),
+    "parallel": [m in sys.modules for m in ("dvis_plus_tpu_torch.parallel.mesh", "dvis_plus_tpu_torch.parallel.sp",
+                                            "dvis_plus_tpu_torch.engine.parallel_eval",
+                                            "dvis_plus_tpu_torch.evaluation.dist")],
     "containers": containers,
     "tasks": tasks,
     "built": _build.library.cache_info().currsize,
@@ -282,6 +286,7 @@ def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
     # (its sequences padded to 16 rows), their masks downloaded as
     # per-column runs; the CLI scored 2 videos x top-3 on the CPU
     assert out == {"rows": [20] * 6 + [16] * 2, "cli": ["cpu", 6, True], "loaded": [],
+                   "parallel": [True] * 4,
                    "ov_rows": [20] * 3, "ov_cli": ["cpu", 6, True],
                    "train": [[yaml, 2, 1, ["step_0000002.pth"]] for yaml in TRAIN_YAMLS],
                    "ov_train": [[yaml, 2, ["step_0000002.pth"]] for yaml in OV_TRAIN_YAMLS],
