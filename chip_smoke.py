@@ -39,7 +39,7 @@ kernels:
   ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (kernel B1 forward in the
   frozen segmenter, 6 launches a step): 8 clips of 5 frames at 480x768 from
   a synthetic set through the port's loader, train step and checkpoint; one
-  small step GPU against CPU first, then 100 steps of a tiny model whose
+  small step GPU against CPU first, then 60 steps of a tiny model whose
   loss must fall;
 - stages 1 and 3 of the DVIS++ recipe: B1's backward kernels against
   autograd of their twin (``b1_backward``: uniform, initialisation's and
@@ -60,7 +60,7 @@ kernels:
   extractors, 12 each a step), Mask2Former and Video Mask2Former at the
   full width of ``configs/dvis/maskformer_r50_coco.yaml`` and
   ``video_maskformer_r50_coco_joint.yaml`` on synthetic COCO images made
-  pseudo-videos (one step with large-scale jitter), and 100 steps of a
+  pseudo-videos (one step with large-scale jitter), and 60 steps of a
   tiny Mask2Former whose loss must fall;
 - DVIS-DAQ training and the segmenter trained on VIPSeg and VSPW: small
   DAQ steps (online in stages 2 and 3, offline) and a MinVIS step on a
@@ -70,10 +70,10 @@ kernels:
   segmenter: B1 forward only, 12 launches a step, stage 2 then 3, the
   frame-count curriculum's two lengths) and offline at
   ``daq_offline_vitl_ytvis19.yaml`` (the refiner on the frozen segmenter
-  and cutter), MinVIS at ``configs/dvis/minvis_r50_{vipseg,vspw}.yaml``
+  and cutter, 10 of its 15 sampled frames), MinVIS at ``configs/dvis/minvis_r50_{vipseg,vspw}.yaml``
   (B1 forward and backward, 6 each a step), all from synthetic 720x1280
   frames through the port's loader and panoptic or semantic training
-  mapper, B1's forward at the DAQ ViT-L step's shapes, and 100 steps of a
+  mapper, B1's forward at the DAQ ViT-L step's shapes, and 60 steps of a
   tiny DVIS-DAQ whose loss must fall;
 - open-vocabulary training: small steps of the FC-CLIP segmenter
   (MinVIS OV), OV-DVIS++ online and offline, and of the FC-CLIP segmenter
@@ -86,6 +86,15 @@ kernels:
   on synthetic COCO panoptic pseudo-videos, and the supervised mixture of
   ``ov_online_convnextl_supervised.yaml`` on five synthetic sets, each
   batch against its set's classifier;
+- the demo and the last modules: ``python -m dvis_plus_tpu_torch.demo`` at the
+  full width of ``configs/dvis/dvis_online_r50_ytvis19.yaml`` on 30
+  synthetic 720x1280 JPEG frames, whole-video and ``--chunk-size 10`` (B1
+  6 launches a window), its fp32 overlays on the card against the CPU's
+  (``demo_slice``); the FPN pixel decoder on the same YAML, eval (no B1
+  launch) and a small training step card against CPU (``fpn_slice``,
+  ``fpn_train_step_parity``); ``backbone.swin_fast_softmax`` on the Swin-L
+  offline model, one eval window through B2 and B2 held against the
+  bf16-score plain path on that window's inputs (``swin_fast_softmax``);
 - multi-device training and eval on the one card: DVIS++ online training
   at the full width of ``configs/dvis/dvis_online_r50_ytvis19.yaml``
   through the CLI's loop under a process group of one NCCL rank against
@@ -123,6 +132,8 @@ Run from a checkout of the repository:
     python3 chip_smoke.py --train-ov   # build, then the open-vocabulary training
                                        # phases
     python3 chip_smoke.py --parallel   # build, then the multi-device phases
+    python3 chip_smoke.py --demo       # build, then the demo, FPN decoder and Swin
+                                       # bf16-score phases
 
 Kernel B1 (deformable attention) is held and timed at each of its three
 main shapes under two distributions of sampling offsets: uniform over +-10
@@ -210,7 +221,14 @@ SWIN_STAGES = [
 ]
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``at_s``, the script's
+    seconds so far, so that a run's lines give each phase's time."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2091,24 +2109,16 @@ VIT_TRAIN_GRID = (30, 48)  # the ViT-L trunk's tokens on the 480x768 canvas
 
 
 def write_ytvis(root, name, n_videos, length, H, W, classes=None):
-    """``tools/synth_data.py::make_ytvis`` (JPEG frames, a moving box for two
-    instances a video, the second leaving half-way) with its masks encoded
-    by the port's RLE codec, which writes the same strings; registered in the
-    port's catalog as ``<name>_train``, with its class names (an
-    open-vocabulary classifier's vocabulary where no file has one)."""
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import synth_data
-
+    """``dvis_plus_tpu_torch/tools/synth_data.py::make_ytvis`` (JPEG frames,
+    a moving box for two instances a video, the second leaving half-way);
+    registered in the port's catalog as ``<name>_train``, with its class
+    names (an open-vocabulary classifier's vocabulary where no file has
+    one)."""
     from dvis_plus_tpu_torch.data.catalog import register_dataset
     from dvis_plus_tpu_torch.data.datasets.categories import YTVIS_2019_CLASSES
     from dvis_plus_tpu_torch.data.datasets.ytvis import load_ytvis_json
-    from dvis_plus_tpu_torch.utils import rle
+    from dvis_plus_tpu_torch.tools import synth_data
 
-    def port_rle(mask):
-        e = rle.encode(mask.astype(np.uint8))
-        return {"size": e["size"], "counts": e["counts"].decode("ascii")}
-
-    synth_data._rle = port_rle
     classes = classes or YTVIS_2019_CLASSES
     synth_data.make_ytvis(root, name, classes, splits=("train",), n_videos=n_videos,
                           length=length, H=H, W=W)
@@ -2360,31 +2370,23 @@ def recording_b1(calls):
 
 
 def b1_per_step(cfg):
-    """B1 launches a training step of ``cfg``: one an encoder layer, and
-    with the ViT-Adapter one an extractor (one an interaction, and the last
-    interaction's two extra)."""
-    n = cfg.model.pixel_decoder.transformer_enc_layers
+    """B1 launches a training step of ``cfg``: one an encoder layer (none
+    with the FPN pixel decoder), and with the ViT-Adapter one an extractor
+    (one an interaction, and the last interaction's two extra)."""
+    n = 0 if cfg.model.pixel_decoder.name == "fpn" else cfg.model.pixel_decoder.transformer_enc_layers
     if cfg.model.backbone.name == "vit_adapter_dinov2":
         n += len(cfg.model.backbone.vit_interaction_indexes) + 2
     return n
 
 
 def write_coco(root, n_images, H, W):
-    """``tools/synth_data.py::make_coco`` (JPEG images, two moving boxes an
-    image, COCO's person and bicycle) with its masks encoded by the port's
-    RLE codec; every COCO split registered in the port's catalog
-    (``coco2ytvis2019_train`` among them)."""
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import synth_data
-
+    """``dvis_plus_tpu_torch/tools/synth_data.py::make_coco`` (JPEG images,
+    two moving boxes an image, COCO's person and bicycle); every COCO split
+    registered in the port's catalog (``coco2ytvis2019_train`` among
+    them)."""
     from dvis_plus_tpu_torch.data.datasets.coco import register_all_coco
-    from dvis_plus_tpu_torch.utils import rle
+    from dvis_plus_tpu_torch.tools import synth_data
 
-    def port_rle(mask):
-        e = rle.encode(mask.astype(np.uint8))
-        return {"size": e["size"], "counts": e["counts"].decode("ascii")}
-
-    synth_data._rle = port_rle
     synth_data.make_coco(root, n_images=n_images, H=H, W=W)
     register_all_coco(root)
 
@@ -2634,6 +2636,10 @@ def lsj_step(dev, cfg, model, state, train_step):
             "b1_backward": {k: b1b[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "rel_err")}}
 
 
+# the overfit phases' steps: every loss curve has fallen by about half by then
+OVERFIT_STEPS = 60
+
+
 def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=None):
     """The port's slow overfit tests (``tests/test_torch_overfit.py`` runs
     this phase on the CPU): DVIS++ online (or ``arch``: ``minvis``,
@@ -2643,7 +2649,7 @@ def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=
     ``dvis_online_ov``, the OV tracker at :data:`OV_TRAIN_TINY` on its COCO
     YAML, against a random classifier of the set's two classes) at the
     tiny widths of ``config.TINY_TRAIN`` with 2 classes, 2 clips of 3 frames
-    at 64x96 from a 2-video synthetic set, 100 steps, from seeded weights or ``weights`` (a state dict: the
+    at 64x96 from a 2-video synthetic set, :data:`OVERFIT_STEPS` steps, from seeded weights or ``weights`` (a state dict: the
     earlier stage's model, loaded where the keys agree); the last total loss
     must be below the first, as the JAX slow test asserts. Returns the result
     with the trained model's state dict under ``state_dict``."""
@@ -2658,7 +2664,7 @@ def phase_train_overfit(dev, arch="dvis_online", phase="train_overfit", weights=
 
     coco = arch in ("maskformer", "video_maskformer")
     overrides = ("model.num_classes=2", "solver.ims_per_batch=2", "solver.base_lr=3e-4",
-                 "solver.warmup_iters=10", "solver.steps=[100000]", "solver.max_iter=100",
+                 "solver.warmup_iters=10", "solver.steps=[100000]", f"solver.max_iter={OVERFIT_STEPS}",
                  "input.min_size_train=[64]", "input.max_size_train=96")
     if not coco:
         overrides += ("input.sampling_frame_num=3", "input.sampling_frame_range=1")
@@ -3071,6 +3077,9 @@ DAQ_TRAIN_TINY = ("model.daq.num_new_ins=8", "model.daq.max_num_instances=6", "m
 # (timed), one of the second in stage 2 (by stage) and one of the second in
 # stage 3 (its syncs counted)
 DAQ_SCHEDULE = ["model.daq.steps=[1]", "model.daq.increasing_step=[2]"]
+# the offline DAQ slice's clips: 10 of the YAML's 15 sampled frames, to keep
+# the whole default run inside its time limit (its slot auctions dominate it)
+DAQ_OFFLINE_FRAMES = 10
 # the random cutter's class head x8, so that some queries score above the
 # selection thresholds and some below (DAQ_HEADS without its shifts)
 DAQ_TRAIN_HEADS = (("tracker.class_embed", 8.0, 0.0),)
@@ -3078,14 +3087,12 @@ VPS_FRAME = (720, 1280)  # the synthetic VIPSeg and VSPW frames of the full-widt
 
 
 def write_vps_vss(root, task, n_videos, length, H, W):
-    """``tools/synth_data.py::make_vipseg`` (JPEG frames, RGB-encoded
-    panoptic PNGs: a stuff segment and a moving thing a frame, 3 categories)
-    or ``make_vspw`` (class PNGs), registered in the port's catalog; returns
-    the training split's name."""
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import synth_data
-
+    """``dvis_plus_tpu_torch/tools/synth_data.py::make_vipseg`` (JPEG
+    frames, RGB-encoded panoptic PNGs: a stuff segment and a moving thing a
+    frame, 3 categories) or ``make_vspw`` (class PNGs), registered in the
+    port's catalog; returns the training split's name."""
     from dvis_plus_tpu_torch.data.datasets import vps_vss
+    from dvis_plus_tpu_torch.tools import synth_data
 
     if task == "vps":
         synth_data.make_vipseg(root, n_videos=n_videos, length=length, H=H, W=W)
@@ -3296,10 +3303,10 @@ def run_daq_training(dev):
     curriculum's 3 frames, then 5 in stage 2 by stage, then 5 in stage 3)
     and on VIPSeg at ``daq_online_vitl_vipseg.yaml`` (2 frames, then 5 in
     stages 2 and 3), offline at ``daq_offline_vitl_ytvis19.yaml`` (one step
-    of the 15 sampled frames, by stage), MinVIS at
+    of :data:`DAQ_OFFLINE_FRAMES` sampled frames, by stage), MinVIS at
     ``configs/dvis/minvis_r50_{vipseg,vspw}.yaml`` with B1 and B1' checked
     at their encoder's shape; B1's forward at the DAQ ViT-L steps' shapes
-    and a tiny DAQ's 100-step overfit: (the slices' results by phase, B1's
+    and a tiny DAQ's 60-step overfit: (the slices' results by phase, B1's
     DAQ training shapes by frames)."""
     from dvis_plus_tpu_torch.config import load_config
 
@@ -3311,10 +3318,12 @@ def run_daq_training(dev):
                                ("daq_offline_train_slice", "daq_offline_vitl_ytvis19", 0)):
         yaml = f"configs/daq/{name}.yaml"
         data = (lambda root, clips: write_vps_vss(root, "vps", clips, 7, *VPS_FRAME)) if "vipseg" in name else None
-        # the 15-frame offline step is taken once, by stage (its syncs are
-        # not counted: PERF.md has their count)
+        # the offline step is taken once, by stage (its syncs are not
+        # counted: PERF.md has their count)
+        opts = DAQ_SCHEDULE + ([f"input.sampling_frame_num={DAQ_OFFLINE_FRAMES}"]
+                               if "offline" in name else [])
         slices[phase] = phase_train_slice(dev, load_config(yaml).model.meta_architecture, phase, 0, timed,
-                                          preset=lambda y=yaml: load_config(y, DAQ_SCHEDULE), data=data,
+                                          preset=lambda y=yaml, o=opts: load_config(y, o), data=data,
                                           frame=VPS_FRAME, count_syncs=phase != "daq_offline_train_slice")
     for task, phase in (("vps", "vps_train_slice"), ("vss", "vss_train_slice")):
         yaml = f"configs/dvis/minvis_r50_{'vipseg' if task == 'vps' else 'vspw'}.yaml"
@@ -3510,7 +3519,7 @@ def run_ov_training(dev):
 # ---------------------------------------------------------------------------
 
 DDP_YAML = "configs/dvis/dvis_online_r50_ytvis19.yaml"
-DDP_STEPS = 3  # 1 untimed and 2 timed steps
+DDP_STEPS = 2  # 1 untimed and 1 timed step: the whole default run keeps inside its time limit
 PARALLEL_VIDEOS, PARALLEL_FRAMES = 4, 15
 DIST_EVAL_FRAMES = 6  # a video of the two-rank CLI eval's synthetic set
 REFINER_FRAMES, REFINER_TOL = 40, 1e-5
@@ -3587,7 +3596,7 @@ def first_step_grads(out):
 
 def phase_ddp_train_slice(dev):
     """DVIS++ online training through the CLI's loop (``cli.do_train``) at
-    ``DDP_YAML``'s full width, 3 steps from the seeded random weights, once
+    ``DDP_YAML``'s full width, ``DDP_STEPS`` steps from the seeded random weights, once
     in one process and once under a process group of one NCCL rank on the
     card (``parallel.mesh.init_distributed``: the gradients and the logged
     losses all-reduced, the loader mapping the rank's block). On the first
@@ -3820,13 +3829,8 @@ def run_two_ranks(dev):
         gc.collect()
         torch.cuda.empty_cache()
         # the eval set, with its ground truth, and the one-process CLI run
-        sys.path.insert(0, os.path.join(REPO, "tools"))
-        import synth_data
+        from dvis_plus_tpu_torch.tools import synth_data
 
-        from dvis_plus_tpu_torch.utils import rle
-
-        synth_data._rle = lambda m: (lambda e: {"size": e["size"], "counts": e["counts"].decode("ascii")})(
-            rle.encode(m.astype(np.uint8)))
         synth_data.make_ytvis(os.path.join(root, "eval"), "ytvis_2019", YTVIS_2019_CLASSES, splits=("valid",),
                               n_videos=PARALLEL_VIDEOS, length=DIST_EVAL_FRAMES, H=H_IN, W=W_IN)
         os.environ["DVIS_DATASETS"] = os.path.join(root, "eval")
@@ -3978,6 +3982,281 @@ def run_parallel(dev):
     return paths
 
 
+DEMO_YAML = "configs/dvis/dvis_online_r50_ytvis19.yaml"
+DEMO_FRAMES, DEMO_H, DEMO_W = 30, 720, 1280
+DEMO_CHUNK, DEMO_PARITY_FRAMES = 10, 6
+DEMO_PIXEL_AGREE = 0.999  # decoded overlays equal, card against CPU
+FAST_SOFTMAX_TOL = 1e-2  # B2 against the bf16-score plain path
+
+
+def demo_frames(root, n, H, W):
+    """``n`` seeded JPEG frames of HxW under ``root``: smooth colour ramps
+    with a moving block (noise would make every overlay pixel a JPEG edge)."""
+    import cv2
+
+    os.makedirs(root)
+    y, x = np.mgrid[0:H, 0:W]
+    for t in range(n):
+        img = np.stack([(x * 255 // W), (y * 255 // H), np.full_like(x, (37 * t) % 256)], -1)
+        img[H // 4 : H // 2, W // 8 + 8 * t : W // 3 + 8 * t] = (200, 60, 30)
+        cv2.imwrite(os.path.join(root, f"{t:05d}.jpg"), img.astype(np.uint8))
+    return root
+
+
+def overlay_agreement(a_dir, b_dir, frames_dir) -> dict:
+    """Decoded overlays of two runs: the share of pixels equal in all three
+    channels, over every frame, and the share the first run drew on (that
+    differ from the input frame)."""
+    import cv2
+
+    names = sorted(os.listdir(a_dir))
+    if names != sorted(os.listdir(b_dir)):
+        raise AssertionError(f"overlay sets differ: {names} vs {sorted(os.listdir(b_dir))}")
+    equal = drawn = total = 0
+    for n in names:
+        a, b = cv2.imread(os.path.join(a_dir, n)), cv2.imread(os.path.join(b_dir, n))
+        equal += int((a == b).all(-1).sum())
+        drawn += int((a != cv2.imread(os.path.join(frames_dir, n))).any(-1).sum())
+        total += a.shape[0] * a.shape[1]
+    return {"frames": len(names), "pixel_agree": equal / total, "drawn": drawn / total}
+
+
+def phase_demo_slice(dev):
+    """The demo (``python -m dvis_plus_tpu_torch.demo``) at the full width of
+    ``configs/dvis/dvis_online_r50_ytvis19.yaml`` (bf16), seeded random
+    weights saved as a ``.pth`` and given as ``weights=``, on 30 synthetic
+    JPEG frames of 720x1280: the whole-video mode, then ``--chunk-size 10``
+    (the tracker's carry across chunks), after an untimed warm-up run.
+    frames/s are the demo's own, end to end (JPEG decode and resize,
+    windows, top-K, overlays written as JPEG); B1 launches 6 a window. Then
+    the first 6 frames in fp32 (JV matcher, every top-K instance drawn) on
+    the card against ``--device cpu``, the card replaying the CPU's
+    masked-attention decisions, the frames and so the overlays as PNG: the
+    decoded overlays equal on at least 99.9 % of pixels, and drawn on at
+    least half of them."""
+    import cv2
+    import torch
+
+    from dvis_plus_tpu_torch import cli, demo
+    from dvis_plus_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(REPO, DEMO_YAML))
+    W_sz = cfg.test.window_size
+    out = {"phase": "demo_slice", "yaml": DEMO_YAML, "frames": DEMO_FRAMES, "input": [DEMO_H, DEMO_W],
+           "compute_dtype": cfg.model.compute_dtype, "window": W_sz}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.manual_seed(SEED)
+        pth = os.path.join(tmp, "weights.pth")
+        torch.save(cli.build_model(cfg.model).state_dict(), pth)
+        frames = demo_frames(os.path.join(tmp, "frames"), DEMO_FRAMES, DEMO_H, DEMO_W)
+        warm = os.path.join(tmp, "warm")
+        os.makedirs(warm)
+        for i in range(W_sz):
+            os.link(os.path.join(frames, f"{i:05d}.jpg"), os.path.join(warm, f"{i:05d}.jpg"))
+
+        def run(name, frame_dir, *extra, device="cuda"):
+            res = demo.main(["--config-file", os.path.join(REPO, DEMO_YAML), "--input", frame_dir,
+                             "--output", os.path.join(tmp, name), "--device", device, *extra,
+                             f"weights={pth}"])
+            return res, len(os.listdir(os.path.join(tmp, name)))
+
+        expect_windows = {"whole": -(-DEMO_FRAMES // W_sz),
+                          "chunked": sum(-(-min(DEMO_CHUNK, DEMO_FRAMES - s) // W_sz)
+                                         for s in range(0, DEMO_FRAMES, max(DEMO_CHUNK, W_sz)))}
+        run("warm", warm)  # cuDNN autotuning and the allocator, not timed
+        for mode, extra in (("whole", ()), ("chunked", ("--chunk-size", str(DEMO_CHUNK)))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            res, written = run(mode, frames, *extra)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            expect = {"msdeform_fwd": cfg.model.pixel_decoder.transformer_enc_layers * expect_windows[mode],
+                      "msdeform_bwd": 0, "swin_window_attn_fwd": 0, "flash_attn_fwd": 0}
+            out[mode] = {"fps": res["fps"], "seconds": res["seconds"], "overlays": written,
+                         "chunked": res["chunked"], "windows": expect_windows[mode],
+                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "launches": launches, "expected_launches": expect}
+            if not (written == DEMO_FRAMES and res["chunked"] == (mode == "chunked")
+                    and launches == expect):
+                emit(out)
+                raise AssertionError(f"demo {mode} run failed its check: {out[mode]}")
+        out["launches"] = out["whole"]["launches"]
+        # fp32 parity: the first frames, card against CPU, as lossless PNG
+        # (the demo writes each overlay in its frame's format): a JPEG
+        # overlay spreads a flipped mask pixel over its 16x16 block
+        first = os.path.join(tmp, "first")
+        os.makedirs(first)
+        for i in range(DEMO_PARITY_FRAMES):
+            cv2.imwrite(os.path.join(first, f"{i:05d}.png"), cv2.imread(os.path.join(frames, f"{i:05d}.jpg")))
+        # every top-K instance drawn: the random model's scores lie below
+        # the default threshold of 0.3
+        fp32 = ("--confidence-threshold", "0", "model.compute_dtype=float32",
+                "model.tracker.matcher_solver=jv")
+        # the card replays the CPU's masked-attention decisions (the random
+        # model's mask logits lie near the threshold; the line counts the
+        # keys the card would have decided otherwise)
+        decisions, attention = [], {}
+
+        def recording(device):
+            def wrap(build):
+                def build_replaying(model_cfg):
+                    model = build(model_cfg)
+                    attention[device] = replay_attention(model.sem_seg_head.predictor, decisions,
+                                                         replay=device == "cuda")
+                    return model
+                return build_replaying
+            return [(cli, "build_model", wrap)]
+
+        t0 = time.perf_counter()
+        with wrapping(recording("cpu")):
+            run("parity_cpu", first, *fp32, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        with wrapping(recording("cuda")):
+            run("parity_cuda", first, *fp32)
+        out["parity"] = {"frames": DEMO_PARITY_FRAMES, "cpu_s": cpu_s,
+                         "attention_keys_replayed": attention["cuda"],
+                         **overlay_agreement(os.path.join(tmp, "parity_cuda"), os.path.join(tmp, "parity_cpu"),
+                                             first),
+                         "tol": DEMO_PIXEL_AGREE}
+    emit(out)
+    if out["parity"]["pixel_agree"] < DEMO_PIXEL_AGREE or out["parity"]["drawn"] < 0.5:
+        raise AssertionError(f"the demo's overlays on the card disagree with the CPU's: {out['parity']}")
+    return out
+
+
+def phase_fpn_slice(dev):
+    """The FPN pixel decoder (``model.pixel_decoder.name=fpn``) on the full
+    width of ``configs/dvis/dvis_online_r50_ytvis19.yaml``: eval over 2
+    videos x 15 frames of 480x640 (bf16; B1 never launches: the FPN decoder
+    has no deformable attention), model fps and peak memory; then a small
+    fp32 MinVIS training step with the FPN decoder trained, card against
+    CPU (``phase_stage_step_parity``: losses 1e-4, the decoders' gradients
+    1e-3 as a norm, assignments equal)."""
+    from dvis_plus_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(REPO, DEMO_YAML), ["model.pixel_decoder.name=fpn"])
+    res, rows_ok, _ = timed_slice(cfg, dev)
+    expect = {"msdeform_fwd": 0, "msdeform_bwd": 0, "swin_window_attn_fwd": 0, "flash_attn_fwd": 0}
+    res = {"phase": "fpn_slice", "yaml": DEMO_YAML, "pixel_decoder": "fpn", **res,
+           "expected_launches": expect}
+    emit(res)
+    if not (rows_ok and res["launches"] == expect):
+        raise AssertionError(f"FPN slice check failed: {res}")
+    phase_stage_step_parity(dev, "minvis", "fpn_train_step_parity", ("model.pixel_decoder.name=fpn",))
+    return res
+
+
+def window_attention_inputs(mod, x, mask):
+    """q, k, v (views of the qkv output), the (H, N, N) fp32 bias and the
+    mask a Swin ``WindowAttention`` hands the kernel for input ``x``."""
+    C, H, N = mod.dim, mod.num_heads, x.shape[1]
+    q, k, v = mod.qkv(x).split(C, dim=-1)
+    bias = mod.relative_position_bias_table[mod.relative_position_index.reshape(-1)]
+    return q, k, v, bias.reshape(N, N, H).permute(2, 0, 1).float().contiguous(), mask
+
+
+def phase_swin_fast_softmax(dev):
+    """``backbone.swin_fast_softmax`` on the full-width Swin-L DVIS++
+    offline model (bf16): one eval window of 5 frames at 480x640 with the
+    key set, B2 launching for every block (24) and B1 for every encoder
+    layer (6), the JAX precedence of the fused kernel over the bf16 scores.
+    The inputs that window gave the first two blocks of each stage
+    (unshifted and shifted) are then held: B2 against the port's
+    bf16-score plain path (``window_attention_fast_softmax_torch``) on the
+    same tensors, within 1e-2 of its largest output, both timed. Beside
+    them, at each stage's shape, unit-variance q, k and v: the same two,
+    and the fp32-score twin, not held (bf16 scores of order 4 round to
+    steps a few percent of their exp: the gap is the bf16-score path's own,
+    and the fp32-score twin sits as far from it as B2 does)."""
+    import torch
+
+    from dvis_plus_tpu_torch.config import dvis_offline_swinl_ytvis19
+    from dvis_plus_tpu_torch.engine.inference import _online_video
+    from dvis_plus_tpu_torch.models.backbones.swin import WindowAttention
+    from dvis_plus_tpu_torch.ops import swin_window_attn
+
+    cfg = dvis_offline_swinl_ytvis19()
+    cfg.model.backbone.swin_fast_softmax = True
+    model = build_model(cfg, dev)
+    captured = {}
+
+    def hook(stage, shifted):
+        def pre(mod, args):
+            if (stage, shifted) not in captured:
+                captured[stage, shifted] = (mod, args[0].detach().clone(),
+                                            None if len(args) < 2 else args[1])
+        return pre
+
+    handles = []
+    for s, layer in enumerate(model.backbone.layers):
+        for b in (0, 1):
+            attn = layer.blocks[b].attn
+            assert isinstance(attn, WindowAttention) and attn.fast_softmax
+            handles.append(attn.register_forward_pre_hook(hook(s, b == 1)))
+    W_sz = cfg.test.window_size
+    images = next(synthetic_videos(1, W_sz, H_IN, W_IN, H_OUT, W_OUT, SEED + 5))["images"]
+    with torch.inference_mode():
+        _online_video(cfg, model, images, W_sz)  # warm-up (cuDNN autotuning, allocator)
+        captured.clear()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, masks, aux = _online_video(cfg, model, images, W_sz)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        launches = read_launches()
+    for h in handles:
+        h.remove()
+    expect = {"msdeform_fwd": cfg.model.pixel_decoder.transformer_enc_layers, "msdeform_bwd": 0,
+              "swin_window_attn_fwd": sum(cfg.model.backbone.swin_depths), "flash_attn_fwd": 0}
+    forms = []
+    g = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    with torch.inference_mode():
+        for (stage, shifted), (mod, x, mask) in sorted(captured.items(), key=lambda kv: kv[0]):
+            q, k, v, bias, mask = window_attention_inputs(mod, x, mask)
+            H = mod.num_heads
+            kernel = lambda: swin_window_attn.window_attention(q, k, v, bias, mask, H, fast_softmax=True)  # noqa: E731
+            plain = lambda: swin_window_attn.window_attention_fast_softmax_torch(q, k, v, bias, mask, H)  # noqa: E731
+            got, want = kernel().float(), plain().float()
+            err = (got - want).abs().max().item()
+            f = {"stage": stage, "shifted": shifted, "B_": q.shape[0], "heads": H, "N": q.shape[1],
+                 "dtype": str(q.dtype).split(".")[1], "max_abs_err": err,
+                 "rel_err": err / want.abs().max().item(), "tol": FAST_SOFTMAX_TOL,
+                 "ms": cuda_ms(kernel, 10, KERNEL_REPS), "plain_ms": cuda_ms(plain, 5, KERNEL_REPS)}
+            f["bound_ms"], f["bound_by"] = bound(
+                (q, k, v, got.to(q.dtype), bias) + (() if mask is None else (mask,)),
+                4 * q.shape[0] * H * q.shape[1] ** 2 * 32, q.dtype)
+            # unit-variance inputs at the same shape: the gap is the definition's
+            qkv = torch.randn(q.shape[0], q.shape[1], 3 * mod.dim, generator=g).to(dev, torch.bfloat16)
+            uq, uk, uv = qkv.split(mod.dim, dim=-1)
+            u_plain = swin_window_attn.window_attention_fast_softmax_torch(uq, uk, uv, bias, mask, H).float()
+            u_kernel = swin_window_attn.window_attention(uq, uk, uv, bias, mask, H, fast_softmax=True).float()
+            u_twin = swin_window_attn.window_attention_torch(uq, uk, uv, bias, mask, H).float()
+            scale = u_plain.abs().max().item()
+            f["unit_inputs_rel_err"] = {"kernel": (u_kernel - u_plain).abs().max().item() / scale,
+                                        "fp32_score_twin": (u_twin - u_plain).abs().max().item() / scale}
+            forms.append(f)
+            del qkv, uq, uk, uv
+    finite = all(torch.isfinite(t.float()).all().item() for t in (logits, masks, aux))
+    res = {"phase": "swin_fast_softmax", "backbone": cfg.model.backbone.name,
+           "meta_architecture": cfg.model.meta_architecture, "compute_dtype": cfg.model.compute_dtype,
+           "frames": W_sz, "input": [H_IN, W_IN], "window_s": window_s, "finite": finite,
+           "launches": launches, "expected_launches": expect, "forms": forms}
+    emit(res)
+    if not (finite and launches == expect and len(forms) == 8
+            and all(f["rel_err"] <= FAST_SOFTMAX_TOL for f in forms)):
+        raise AssertionError(f"swin_fast_softmax check failed: {res}")
+    return res
+
+
+def run_last_modules(dev) -> dict:
+    """The demo, the FPN pixel decoder and the Swin bf16-score knob: their
+    results by phase."""
+    return {"demo_slice": phase_demo_slice(dev), "fpn_slice": phase_fpn_slice(dev),
+            "swin_fast_softmax": phase_swin_fast_softmax(dev)}
+
+
 def main() -> int:
     import torch
 
@@ -4035,6 +4314,10 @@ def main() -> int:
         run_parallel(dev)
         emit({"phase": "wall", "seconds": time.perf_counter() - start})
         return 0
+    if "--demo" in sys.argv[1:]:
+        run_last_modules(dev)
+        emit({"phase": "wall", "seconds": time.perf_counter() - start})
+        return 0
     if "--ov" in sys.argv[1:]:
         classifier = ov_classifier(dev)
         phase_ov_slice_parity(dev, classifier)
@@ -4067,6 +4350,7 @@ def main() -> int:
     phase_ov_slice_parity(dev, classifier)
     ov_online = phase_ov_slice(dev, "dvis_online_ov", "ov_slice", classifier)
     ov_offline = phase_ov_slice(dev, "dvis_offline_ov", "ov_offline_slice", classifier)
+    last = run_last_modules(dev)
     phase_train_step_parity(dev)
     train = phase_train_slice(dev, b1_shape=True)
     phase_train_overfit(dev)
@@ -4124,7 +4408,8 @@ def main() -> int:
     paths = {"slice": runs["exact"], "swinl_slice": swinl, "vitl_slice": vitl,
              "minvis_slice": minvis, "clip_slice": clip, "vps_slice": vps, "vss_slice": vss,
              "daq_slice": daq_online, "daq_offline_slice": daq_offline,
-             "ov_slice": ov_online, "ov_offline_slice": ov_offline, "train_slice": train, **stages}
+             "ov_slice": ov_online, "ov_offline_slice": ov_offline, **last, "train_slice": train,
+             **stages}
 
     def by_path(kernel):
         return {name: r["launches"][kernel] for name, r in paths.items()}

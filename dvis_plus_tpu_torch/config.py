@@ -60,7 +60,7 @@ class BackboneConfig:
     swin_drop_path_rate: float = 0.3  # training: stochastic depth, 0 to this over the blocks
     swin_patch_size: int = 4
     swin_qkv_bias: bool = True
-    swin_fast_softmax: bool = False  # bf16 attention scores: not ported (raises)
+    swin_fast_softmax: bool = False  # bf16 scores in the plain op; eval on CUDA runs B2 either way
     swin_fused_attn: bool = False  # eval: both values run kernel B2 on CUDA; training the plain op
     # ViT-Adapter (DINOv2); the trunk runs on a stride-16 grid whatever
     # vit_patch_size says, as in the JAX package
@@ -88,6 +88,7 @@ class BackboneConfig:
 
 @dataclass
 class PixelDecoderConfig:
+    name: str = "msdeform"  # msdeform | fpn (the FPN decoder, widths conv_dim and mask_dim alone)
     conv_dim: int = 256
     mask_dim: int = 256
     transformer_nheads: int = 8
@@ -457,6 +458,18 @@ def _ported_ov(enabled, cfg) -> bool:
     return str(_lookup(cfg, "model.backbone.name")).startswith("clip") and not arch.startswith("daq_")
 
 
+def _read_pixel_decoder(name, cfg) -> bool:
+    """The JAX ``Segmenter`` builds the decoder ``pixel_decoder.name`` names
+    (``msdeform`` or ``fpn``), so every closed-vocabulary model built on it
+    does. The open-vocabulary segmenter and the clip Mask2Formers build
+    MSDeformAttn whatever the name, so ``fpn`` would be dropped silently
+    there."""
+    if name == "msdeform":
+        return True
+    arch = str(_lookup(cfg, "model.meta_architecture"))
+    return name == "fpn" and not is_ov(cfg) and arch not in ("maskformer", "video_maskformer")
+
+
 def _eval_dataset_types(types, cfg) -> bool:
     from dvis_plus_tpu_torch.data.mapper import EVAL_DATASET_TYPES
 
@@ -489,10 +502,11 @@ SUPPORTED = (
     ("model.backbone.name", _ported_backbone,
      "A13 (the clip_* trunks serve the open-vocabulary models only)"),
     ("model.backbone.clip_model_type", ("convnext", "resnet"), "A13 (the CLIP trunk families)"),
-    ("model.backbone.swin_fast_softmax", (False,), "queue A, small pieces left open (bf16 scores)"),
     ("model.sem_seg_head", ("mask_former",),
      "A13 (read by nothing: the FC-CLIP head comes with model.ov.enabled)"),
-    ("model.pixel_decoder.name", ("msdeform",), "A6 (FPNPixelDecoder)"),
+    ("model.pixel_decoder.name", _read_pixel_decoder,
+     "A6 (read by nothing here: the open-vocabulary, Mask2Former and Video Mask2Former models "
+     "build the MSDeformAttn decoder whatever the name, as the JAX OVSegmenter and VideoMaskFormer)"),
     ("model.ov.enabled", _ported_ov,
      "A13 (open vocabulary runs a clip_* backbone; A12: the JAX package has no DAQ OV model)"),
     ("test.task", _ported_task,

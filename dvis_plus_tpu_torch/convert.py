@@ -2,7 +2,9 @@
 
 Counterpart: the Flax trees of ``dvis_plus_tpu/models/segmenter/segmenter.py::
 Segmenter`` (:41, the MinVIS and CTVIS model: ``{"backbone",
-"pixel_decoder", "transformer_decoder"}``, with ``reid_embed`` for CTVIS),
+"pixel_decoder", "transformer_decoder"}``, with ``reid_embed`` for CTVIS;
+the pixel decoder MSDeformAttn or, with ``pixel_decoder.name=fpn``, the FPN
+decoder, whose tree the zoo converter has no route for),
 ``dvis_plus_tpu/models/meta/video_maskformer.py::VideoMaskFormer`` (:29, the
 same three with the clip decoder's ``level_embed`` / ``query_feat`` /
 ``query_embed`` / ``input_proj_i`` / ``cross_i`` / ``self_i`` / ``ffn_i`` /
@@ -220,8 +222,54 @@ def _vit_backbone(p, out: Dict[str, np.ndarray]) -> None:
     out[f"{pre}level_embed"] = _a(p["level_embed"])
 
 
+def _fpn_pixel_decoder(p, pre: str, out: Dict[str, np.ndarray]) -> None:
+    """The JAX ``FPNPixelDecoder``: ``adapter_i`` / ``layer_i`` top-down
+    (i = 0 is res5) -> the port's ``adapter_{4-i}`` / ``layer_{4-i}``;
+    ``enc_self_j`` / ``enc_ffn_j`` -> ``transformer.encoder.layers.j``."""
+    for i in range(4):
+        for kind in ("adapter", "layer"):
+            sub = p[f"{kind}_{i}"]
+            _conv(sub["conv"], f"{pre}{kind}_{4 - i}", out)
+            _norm(sub["norm"], f"{pre}{kind}_{4 - i}.norm", out)
+    _conv(p["mask_features"], f"{pre}mask_features", out)
+    _detr_layers(p, f"{pre}transformer.", out)
+
+
+def _detr_layers(p, pre: str, out: Dict[str, np.ndarray]) -> None:
+    """``enc_self_i`` / ``enc_ffn_i`` / ``dec_self_i`` / ``dec_cross_i`` /
+    ``dec_ffn_i`` / ``dec_norm`` -> the reference DETR ``Transformer``'s
+    ``{encoder,decoder}.layers.i`` and ``decoder.norm``
+    (``models/segmenter/detr_transformer.py``)."""
+    norms = {"self": "norm1", "cross": "norm2"}
+    for name, sub in p.items():
+        side, _, rest = name.partition("_")
+        kind, _, idx = rest.partition("_")
+        if side not in ("enc", "dec") or not idx.isdigit():
+            continue
+        e = f"{pre}{'encoder' if side == 'enc' else 'decoder'}.layers.{idx}"
+        if kind in norms:
+            _mha(sub["attn"], f"{e}.{'self_attn' if kind == 'self' else 'multihead_attn'}", out)
+            _norm(sub["norm"], f"{e}.{norms[kind]}", out)
+        elif kind == "ffn":
+            for lin in ("linear1", "linear2"):
+                _dense(sub[lin], f"{e}.{lin}", out)
+            _norm(sub["norm"], f"{e}.{'norm2' if side == 'enc' else 'norm3'}", out)
+    if "dec_norm" in p:
+        _norm(p["dec_norm"], f"{pre}decoder.norm", out)
+
+
+def detr_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ``DETRTransformer``'s params -> the port's
+    ``detr_transformer.DETRTransformer`` ``state_dict``."""
+    out: Dict[str, np.ndarray] = {}
+    _detr_layers(params.get("params", params), "", out)
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
 def _pixel_decoder(p, out: Dict[str, np.ndarray]) -> None:
     pre = "sem_seg_head.pixel_decoder."
+    if "layer_0" in p:
+        return _fpn_pixel_decoder(p, pre, out)
     for name, sub in p.items():
         if name.startswith("input_proj_") and name.endswith("_conv"):
             _conv(sub, f"{pre}input_proj.{name.split('_')[2]}.0", out)

@@ -14,9 +14,13 @@ loads with no missing or unexpected backbone key.
 Input (B, 3, H, W) NCHW, output {res2..res5} NCHW; the blocks work NHWC as
 the JAX module does. Every layer computes in its input's dtype (the caller
 casts the images to ``model.compute_dtype``); window attention keeps fp32
-scores and softmax. In eval mode it runs kernel B2 on CUDA
-(``ops/swin_window_attn.py``) for both values of
-``backbone.swin_fused_attn``; in training mode (the module's ``training``
+scores and softmax, or, with ``backbone.swin_fast_softmax`` and bf16 inputs,
+the JAX module's bf16 scores (:111-126;
+``ops/swin_window_attn.py::window_attention_fast_softmax_torch``). In eval
+mode it runs kernel B2 on CUDA (``ops/swin_window_attn.py``) for both values
+of ``backbone.swin_fused_attn`` and of ``backbone.swin_fast_softmax`` (the
+JAX module's fused kernel takes precedence over the bf16 scores where it
+runs, :97-106); in training mode (the module's ``training``
 flag, which the trainer sets) it runs the plain op, which autograd
 differentiates, as the JAX package trains with ``swin_fused_attn`` off.
 
@@ -50,7 +54,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dvis_plus_tpu_torch.models.layers import Conv2d, LayerNorm, Linear
-from dvis_plus_tpu_torch.ops.swin_window_attn import window_attention, window_attention_torch
+from dvis_plus_tpu_torch.ops.swin_window_attn import (
+    window_attention,
+    window_attention_fast_softmax_torch,
+    window_attention_torch,
+)
 
 SWIN_VARIANTS = {
     "swin_t": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
@@ -100,11 +108,15 @@ def shift_mask(H: int, W: int, ws: int, shift: int, device: torch.device) -> tor
 
 class WindowAttention(nn.Module):
     """In training mode the plain op (autograd through it), in eval kernel
-    B2 on CUDA tensors."""
+    B2 on CUDA tensors. ``fast_softmax`` (``backbone.swin_fast_softmax``):
+    the plain op keeps bf16 scores for bf16 inputs; B2 serves it on the card
+    all the same, the JAX precedence of the fused kernel (``swin.py:97-106``)."""
 
-    def __init__(self, dim: int, num_heads: int, window_size: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, window_size: int, qkv_bias: bool = True,
+                 fast_softmax: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
+        self.fast_softmax = fast_softmax
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads)
         )
@@ -121,8 +133,11 @@ class WindowAttention(nn.Module):
         q, k, v = self.qkv(x).split(C, dim=-1)  # strided views, heads on columns
         bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
         bias = bias.reshape(N, N, H).permute(2, 0, 1).float().contiguous()  # (H, N, N)
-        attend = window_attention_torch if self.training else window_attention
-        return self.proj(attend(q, k, v, bias, mask, H))
+        if self.training:
+            plain = window_attention_fast_softmax_torch if self.fast_softmax else window_attention_torch
+            return self.proj(plain(q, k, v, bias, mask, H))
+        kw = {"fast_softmax": True} if self.fast_softmax else {}
+        return self.proj(window_attention(q, k, v, bias, mask, H, **kw))
 
 
 class Mlp(nn.Module):
@@ -148,12 +163,12 @@ def drop_path(x: torch.Tensor, rate: float, draws, site) -> torch.Tensor:
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, drop_path: float = 0.0,
-                 index: int = 0):
+                 index: int = 0, fast_softmax: bool = False):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
         self.drop_path, self.index = drop_path, index
         self.norm1 = LayerNorm(dim, eps=1e-5)
-        self.attn = WindowAttention(dim, num_heads, window_size, qkv_bias)
+        self.attn = WindowAttention(dim, num_heads, window_size, qkv_bias, fast_softmax)
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
@@ -205,14 +220,15 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float, qkv_bias: bool, downsample: bool, drop_paths: Sequence[float] = (),
-                 first: int = 0):
+                 first: int = 0, fast_softmax: bool = False):
         """``drop_paths``: the blocks' rates; ``first``: the first block's
         index in the whole trunk."""
         super().__init__()
         rates = list(drop_paths) or [0.0] * depth
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, 0 if b % 2 == 0 else window_size // 2,
-                      mlp_ratio, qkv_bias, drop_path=rates[b], index=first + b)
+                      mlp_ratio, qkv_bias, drop_path=rates[b], index=first + b,
+                      fast_softmax=fast_softmax)
             for b in range(depth)
         )
         self.downsample = PatchMerging(dim) if downsample else None
@@ -238,7 +254,7 @@ class SwinTransformer(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, patch_size: int = 4,
                  out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5"),
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, fast_softmax: bool = False):
         super().__init__()
         self.out_features = tuple(out_features)
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
@@ -248,7 +264,7 @@ class SwinTransformer(nn.Module):
         self.layers = nn.ModuleList(
             BasicLayer(embed_dim * 2**s, depths[s], num_heads[s], window_size, mlp_ratio,
                        qkv_bias, downsample=s < n - 1, drop_paths=rates[starts[s]:starts[s + 1]],
-                       first=int(starts[s]))
+                       first=int(starts[s]), fast_softmax=fast_softmax)
             for s in range(n)
         )
         self.out_channels: Dict[str, int] = {}
@@ -277,8 +293,6 @@ def build_swin(cfg) -> SwinTransformer:
     """cfg: a backbone config. The named variants fix their widths; another
     ``swin_*`` name reads ``swin_embed_dim`` / ``swin_depths`` /
     ``swin_num_heads``."""
-    if cfg.swin_fast_softmax:
-        raise NotImplementedError("backbone.swin_fast_softmax (bf16 scores) is not ported")
     kw = dict(SWIN_VARIANTS[cfg.name]) if cfg.name in SWIN_VARIANTS else dict(
         embed_dim=cfg.swin_embed_dim,
         depths=tuple(cfg.swin_depths),
@@ -291,5 +305,6 @@ def build_swin(cfg) -> SwinTransformer:
         patch_size=cfg.swin_patch_size,
         out_features=tuple(cfg.out_features),
         drop_path_rate=cfg.swin_drop_path_rate,
+        fast_softmax=cfg.swin_fast_softmax,
         **kw,
     )

@@ -15,7 +15,8 @@ input's dtype, so these do too; the multi-head attention computes in the
 dtype of its queries. Parameter names follow the reference
 ``DVIS_DAQ/dvis_daq/slot_attention.py`` (``norm_inputs``,
 ``project_q.{0,1}``, ``project_k``, ``multihead_attn``, ``slot_attn``,
-``norm``). ``hard_softmax`` is training only (ROADMAP A14).
+``norm``). ``hard_softmax`` (the JAX :24, the reference :69-75) is kept for
+completeness: no path of either package calls it.
 """
 from __future__ import annotations
 
@@ -26,6 +27,15 @@ import torch.nn as nn
 
 from dvis_plus_tpu_torch.models.layers import LayerNorm, Linear
 from dvis_plus_tpu_torch.models.segmenter.transformer_decoder import MultiheadAttention
+
+
+def hard_softmax(logits: torch.Tensor, dim: int) -> torch.Tensor:
+    """Straight-through argmax: the forward is the one-hot of the softmax's
+    argmax along ``dim``, the gradient the softmax's."""
+    y_soft = logits.softmax(dim=dim)
+    index = y_soft.argmax(dim=dim, keepdim=True)
+    y_hard = torch.zeros_like(logits).scatter_(dim, index, 1.0)
+    return y_hard - y_soft.detach() + y_soft
 
 
 class SlotAttention(nn.Module):

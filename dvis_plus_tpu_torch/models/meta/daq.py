@@ -6,7 +6,8 @@ Counterpart: ``dvis_plus_tpu/models/meta/daq.py`` (``DAQOnline`` :37 with
 its training ``__call__`` :66, ``segment_only`` :116, ``cutter_step`` :120
 and ``cutter_window`` :135; ``daq_train_loss`` :172; ``DAQOffline`` :196
 with its training ``__call__`` :229, ``refine_embeds`` :328 and
-``refine_mask_window`` :335; ``offline_topk_mask`` :339). The JAX modules
+``refine_mask_window`` :335; ``offline_topk_mask`` :339; ``mask_nms_keep``
+:351). The JAX modules
 nest the parts (``segmenter`` / ``cutter``, and ``online`` / ``refiner``);
 here ``DAQOnline`` extends the port's ``Segmenter`` with a ``tracker`` child
 (the cutter, named as in the reference checkpoints) and ``DAQOffline`` adds
@@ -20,7 +21,7 @@ its one clip (the reference trains one clip a GPU): the frozen segmenter
 over the clip's frames without gradients, then the cutter (or the frozen
 cutter's stream and the refiner). A clip's
 draws carry the prefix ``("clip", b)``. ``mask_nms_keep`` is reached by no
-path of the JAX package.
+path of the JAX package, nor here: it is kept for completeness.
 """
 from __future__ import annotations
 
@@ -64,6 +65,27 @@ def offline_topk_mask(mean_scores: torch.Tensor, alive: torch.Tensor, topk: int)
     masked = torch.where(alive, mean_scores, torch.full_like(mean_scores, -1.0))
     thresh = torch.topk(masked, min(topk, masked.shape[0])).values[-1]
     return alive & (masked >= thresh)
+
+
+def mask_nms_keep(masks: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                  thr: float) -> torch.Tensor:
+    """Sequential mask NMS (the reference's OVIS inference): in descending
+    score order (stable), a valid mask is kept unless the share of its
+    pixels inside an already kept mask exceeds ``thr``. masks (S, H, W)
+    logits (a pixel is on above 0), scores and valid (S,); returns keep
+    (S,) bool."""
+    S = masks.shape[0]
+    on = (masks > 0.0).reshape(S, -1).float()
+    areas = on.sum(dim=1)
+    ratio = (on @ on.T) / areas.clamp(min=1.0)[:, None]  # ratio[s, t]: share of s inside t
+    over = (ratio > thr).cpu()
+    order = torch.argsort(-scores, stable=True).cpu().tolist()
+    valid_host = valid.cpu()
+    keep = torch.zeros(S, dtype=torch.bool)
+    for i, s in enumerate(order):
+        suppressed = any(bool(keep[t] and over[s, t]) for t in order[:i])
+        keep[s] = bool(valid_host[s]) and not suppressed
+    return keep.to(masks.device)
 
 
 class DAQOnline(Segmenter):

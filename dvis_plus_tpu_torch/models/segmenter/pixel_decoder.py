@@ -1,9 +1,10 @@
-"""MSDeformAttn pixel decoder: a multi-scale deformable-attention encoder over
-{res3, res4, res5} plus FPN fusion down to stride-4 mask features.
+"""Pixel decoders: the MSDeformAttn pixel decoder (a multi-scale
+deformable-attention encoder over {res3, res4, res5} plus FPN fusion down to
+stride-4 mask features) and the plain lateral FPN decoder.
 
 Counterpart: ``dvis_plus_tpu/models/segmenter/pixel_decoder.py``
 (``MSDeformAttnLayer`` :49, ``_reference_points`` :133, ``GroupNormConv``
-:146, ``MSDeformAttnPixelDecoder`` :214). Feature maps are NCHW; token
+:146, ``FPNPixelDecoder`` :167, ``MSDeformAttnPixelDecoder`` :214). Feature maps are NCHW; token
 sequences (B, Len, C) as there. Parameter names follow the reference
 ``msdeformattn.py`` (``input_proj.{i}.{0,1}``, ``transformer.level_embed``,
 ``transformer.encoder.layers.{i}.self_attn.*``, ``adapter_1``, ``layer_1``,
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from dvis_plus_tpu_torch.models.layers import Conv2d, GroupNorm, LayerNorm, Linear
 from dvis_plus_tpu_torch.models.segmenter.position_encoding import position_embedding_sine_2d
+from dvis_plus_tpu_torch.models.segmenter.detr_transformer import EncoderLayer
 from dvis_plus_tpu_torch.ops.msdeform import ms_deform_attn
 
 LOCAL_RADIUS = 7  # ms_deform_attn_local's default clamp radius
@@ -218,3 +220,100 @@ class MSDeformAttnPixelDecoder(nn.Module):
         y = F.relu(self.layer_1(lateral + top_up.float()))
         mask_features = self.mask_features(y)
         return mask_features, [m.to(in_dtype) for m in out_maps]
+
+
+class FPNPixelDecoder(nn.Module):
+    """The plain lateral FPN pixel decoder (the reference
+    ``BasePixelDecoder``, ``mask2former/modeling/pixel_decoder/fpn.py:38``, in
+    the JAX module's form): top-down from res5 to res2, a 1x1 lateral conv
+    with GroupNorm(32, eps 1e-5), the coarser map's nearest upsample added,
+    then a 3x3 conv with GroupNorm and ReLU; the mask features are a 1x1 conv
+    of the stride-4 map. With ``transformer_enc_layers > 0`` (the reference
+    ``TransformerEncoderPixelDecoder`` :205) a post-norm transformer encoder
+    with the sine position encoding runs over the res5 lateral's tokens
+    first (``detr_transformer.EncoderLayer``, post-norm: the JAX
+    ``SelfAttentionLayer`` then ``FFNLayer``). Inputs: dict res2..res5 NCHW. Output: (mask_features (B,
+    mask_dim, H/4, W/4), [the stride 32, 16, 8 maps]), all fp32: the JAX
+    convs compute in fp32, the dtype their fp32 parameters promote the
+    inputs to, and the segmenter casts the maps to its compute dtype.
+
+    Names: level res{k} has ``adapter_{k-1}`` and ``layer_{k-1}`` (the
+    reference's numbering, bottom-up from 1; JAX ``adapter_{5-k}``); the
+    reference has no lateral on res5, where the JAX module has one, here
+    ``adapter_4``. The encoder is ``transformer.encoder.layers.{i}``.
+
+    The upsample is ``jax.image.resize(..., "nearest")``, which samples at
+    half-pixel centres: source index floor((o + 0.5) * in / out), PyTorch's
+    ``nearest-exact``. (Plain ``nearest`` floors o * in / out, which differs
+    where a map is not an exact double of the coarser one.) No kernel of the
+    port runs here: the convolutions are PyTorch's."""
+
+    LEVELS = ("res5", "res4", "res3", "res2")
+
+    def __init__(self, in_channels: Dict[str, int], conv_dim: int = 256, mask_dim: int = 256,
+                 transformer_enc_layers: int = 0, n_heads: int = 8, d_ffn: int = 2048):
+        super().__init__()
+        self.conv_dim = conv_dim
+        for name in self.LEVELS:
+            k = int(name[3:]) - 1
+            self.add_module(f"adapter_{k}", Conv2d(
+                in_channels[name], conv_dim, 1, bias=False, norm=GroupNorm(32, conv_dim, eps=1e-5)))
+            self.add_module(f"layer_{k}", Conv2d(
+                conv_dim, conv_dim, 3, padding=1, bias=False, norm=GroupNorm(32, conv_dim, eps=1e-5)))
+        if transformer_enc_layers > 0:
+            self.transformer = nn.Module()
+            self.transformer.encoder = nn.Module()
+            self.transformer.encoder.layers = nn.ModuleList(
+                EncoderLayer(conv_dim, n_heads, d_ffn) for _ in range(transformer_enc_layers))
+        else:
+            self.transformer = None
+        self.mask_features = Conv2d(conv_dim, mask_dim, 1)
+
+    def _encode(self, y: torch.Tensor) -> torch.Tensor:
+        B, C, H5, W5 = y.shape
+        tokens = y.flatten(2).transpose(1, 2)  # (B, H5*W5, C)
+        pos = position_embedding_sine_2d(H5, W5, C // 2, device=y.device).reshape(1, H5 * W5, C)
+        for layer in self.transformer.encoder.layers:
+            tokens = layer(tokens, pos)
+        return tokens.transpose(1, 2).reshape(B, C, H5, W5)
+
+    def forward(self, features: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        y = None
+        outs = []
+        for name in self.LEVELS:
+            k = int(name[3:]) - 1
+            lateral = getattr(self, f"adapter_{k}")(features[name].float())
+            if y is None:
+                y = lateral if self.transformer is None else self._encode(lateral)
+            else:
+                y = lateral + F.interpolate(y, size=lateral.shape[-2:], mode="nearest-exact")
+            y = F.relu(getattr(self, f"layer_{k}")(y))
+            outs.append(y)
+        return self.mask_features(outs[-1]), outs[:3]
+
+
+def build_pixel_decoder(cfg, in_channels: Dict[str, int], impl: str = None,
+                        named: bool = True) -> nn.Module:
+    """The pixel decoder ``model.pixel_decoder.name`` asks for (the JAX
+    ``Segmenter`` :48-67): ``fpn`` builds :class:`FPNPixelDecoder` from the
+    two widths alone, as there (no encoder); anything else the MSDeformAttn
+    decoder. ``named=False`` builds the MSDeformAttn decoder whatever the
+    name, as the JAX ``VideoMaskFormer`` and ``OVSegmenter`` do
+    (``config.check_supported`` refuses ``fpn`` there). ``cfg``: a model
+    config; ``impl`` overrides ``msdeform_impl``."""
+    pd = cfg.pixel_decoder
+    if named and pd.name == "fpn":
+        return FPNPixelDecoder(in_channels, conv_dim=pd.conv_dim, mask_dim=pd.mask_dim)
+    return MSDeformAttnPixelDecoder(
+        in_channels=in_channels,
+        conv_dim=pd.conv_dim,
+        mask_dim=pd.mask_dim,
+        num_enc_layers=pd.transformer_enc_layers,
+        n_heads=pd.transformer_nheads,
+        d_ffn=pd.transformer_dim_feedforward,
+        n_points=pd.num_points,
+        transformer_in_features=tuple(pd.transformer_in_features),
+        value_dtype=pd.msdeform_value_dtype,
+        island_dtype=pd.island_dtype,
+        impl=impl or pd.msdeform_impl,
+    )

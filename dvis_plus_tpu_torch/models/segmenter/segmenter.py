@@ -23,10 +23,7 @@ from dvis_plus_tpu_torch.models.backbones.swin import build_swin
 from dvis_plus_tpu_torch.models.backbones.vit_adapter import build_vit_adapter
 from dvis_plus_tpu_torch.models.ov.ov_decoder import OVMaskedTransformerDecoder
 from dvis_plus_tpu_torch.models.segmenter.clip_decoder import ClipMaskedTransformerDecoder
-from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import (
-    MSDeformAttnPixelDecoder,
-    dtype_of,
-)
+from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import build_pixel_decoder, dtype_of
 from dvis_plus_tpu_torch.models.segmenter.transformer_decoder import MaskedTransformerDecoder
 
 
@@ -46,28 +43,21 @@ def build_backbone(cfg) -> nn.Module:
 
 
 class MaskFormerHead(nn.Module):
-    """Container for the reference ``sem_seg_head`` key group. ``clip``: the
-    clip-joint query decoder of Video Mask2Former, whose pixel decoder the
-    JAX ``VideoMaskFormer`` builds without the ``msdeform_impl`` knob, so it
-    is always the exact form there. ``ov``: the FC-CLIP query decoder of
-    the open-vocabulary models (``models/ov/ov_decoder.py``)."""
+    """Container for the reference ``sem_seg_head`` key group. The pixel
+    decoder is the one ``model.pixel_decoder.name`` names (the FPN decoder
+    or MSDeformAttn), as in the JAX ``Segmenter``. ``clip``: the clip-joint
+    query decoder of Video Mask2Former, whose pixel decoder the JAX
+    ``VideoMaskFormer`` builds as MSDeformAttn whatever the name, without
+    the ``msdeform_impl`` knob, so it is always the exact form there.
+    ``ov``: the FC-CLIP query decoder of the open-vocabulary models
+    (``models/ov/ov_decoder.py``), whose pixel decoder is MSDeformAttn
+    whatever the name, as in the JAX ``OVSegmenter``."""
 
     def __init__(self, cfg, in_channels: Dict[str, int], clip: bool = False, ov: bool = False):
         super().__init__()
         pd, td = cfg.pixel_decoder, cfg.transformer_decoder
-        self.pixel_decoder = MSDeformAttnPixelDecoder(
-            in_channels=in_channels,
-            conv_dim=pd.conv_dim,
-            mask_dim=pd.mask_dim,
-            num_enc_layers=pd.transformer_enc_layers,
-            n_heads=pd.transformer_nheads,
-            d_ffn=pd.transformer_dim_feedforward,
-            n_points=pd.num_points,
-            transformer_in_features=tuple(pd.transformer_in_features),
-            value_dtype=pd.msdeform_value_dtype,
-            island_dtype=pd.island_dtype,
-            impl="exact" if clip else pd.msdeform_impl,
-        )
+        self.pixel_decoder = build_pixel_decoder(cfg, in_channels, impl="exact" if clip else None,
+                                                 named=not (clip or ov))
         widths = dict(
             num_classes=cfg.num_classes,
             in_channels=pd.conv_dim,

@@ -13,7 +13,10 @@ probabilities are rounded to v's dtype, P.V accumulates in fp32 and is
 written in q's dtype. The JAX default path and its fused Pallas path compute
 this same math (the Pallas kernel casts bias and mask to q's dtype first,
 which only matters in bf16; here both are added in fp32, as the default path
-does), so one kernel serves both values of ``backbone.swin_fused_attn``.
+does), so one kernel serves both values of ``backbone.swin_fused_attn``; it serves
+both values of ``backbone.swin_fast_softmax`` too, as the fused kernel wins
+over the bf16-score path in the JAX module where it runs (:97-106). The CPU
+twin of the bf16-score path is :func:`window_attention_fast_softmax_torch`.
 (The bf16 CUDA kernel rounds ``exp(x - max)`` to bf16 for the product and
 divides the fp32 result by the fp32 row sum, instead of rounding the
 normalised probabilities: the same relative rounding of p, within one bf16
@@ -87,6 +90,43 @@ def window_attention_torch(
     return out.transpose(1, 2).reshape(B_, N, C)
 
 
+def window_attention_fast_softmax_torch(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    num_heads: int,
+) -> torch.Tensor:
+    """The ``backbone.swin_fast_softmax`` form for bfloat16 inputs (the JAX
+    ``WindowAttention`` bf16-score path, ``models/backbones/swin.py:111-126``):
+    the q.k product, the scale, the bias and mask adds, the max subtraction
+    and the exp in bfloat16, the row sum in fp32, the probabilities
+    ``e * (1 / sum)`` rounded to bfloat16, and P.V in bfloat16. Another dtype
+    takes :func:`window_attention_torch`, as the JAX path engages on bf16
+    alone."""
+    if q.dtype != torch.bfloat16:
+        return window_attention_torch(q, k, v, bias, mask, num_heads)
+    B_, N, C = q.shape
+    H = num_heads
+    Dh = C // H
+
+    def heads(x):
+        return x.reshape(B_, N, H, Dh).transpose(1, 2)  # (B_, H, N, Dh)
+
+    bf = torch.bfloat16
+    attn = torch.matmul(heads(q), heads(k).transpose(-1, -2))
+    attn = attn * torch.tensor(Dh ** -0.5, dtype=bf) + bias.to(bf)[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        attn = attn.reshape(B_ // nW, nW, H, N, N) + mask.to(bf)[None, :, None]
+        attn = attn.reshape(B_, H, N, N)
+    e = torch.exp(attn - attn.amax(dim=-1, keepdim=True))
+    s = e.sum(dim=-1, keepdim=True, dtype=torch.float32)
+    p = e * (1.0 / s).to(bf)
+    return torch.matmul(p, heads(v)).transpose(1, 2).reshape(B_, N, C)
+
+
 def _check(q, k, v, bias, mask, num_heads):
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B_, N, C) shape, got "
@@ -146,12 +186,18 @@ def window_attention(
     bias: torch.Tensor,
     mask: Optional[torch.Tensor],
     num_heads: int,
+    fast_softmax: bool = False,
 ) -> torch.Tensor:
     """Window attention forward: the CUDA kernel on CUDA tensors, the twin on
-    CPU tensors. Returns (B_, N, C) in q's dtype."""
+    CPU tensors (with ``fast_softmax`` its bf16-score form,
+    :func:`window_attention_fast_softmax_torch`). The kernel serves both
+    values of ``fast_softmax``, as the JAX fused kernel takes precedence
+    over the bf16-score path where it runs (``swin.py:97-106``). Returns
+    (B_, N, C) in q's dtype."""
     _check(q, k, v, bias, mask, num_heads)
     if q.device.type == "cpu":
-        return window_attention_torch(q, k, v, bias, mask, num_heads)
+        plain = window_attention_fast_softmax_torch if fast_softmax else window_attention_torch
+        return plain(q, k, v, bias, mask, num_heads)
     if q.device.type != "cuda":
         raise ValueError(f"no window-attention kernel for device {q.device}")
     from dvis_plus_tpu_torch.ops import _build

@@ -318,22 +318,74 @@ REFUSED_CASES = [
     ("daq/daq_offline_r50_ovis.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
     ("daq/daq_vos_r50_ytvos.yaml", ["datasets.dataset_type_test=[image_semantic]"],
      "datasets.dataset_type_test"),
-    ("dvis/dvis_online_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
+    # the open-vocabulary segmenter builds MSDeformAttn whatever the name
+    ("dvis/dvis_online_r50_ytvis19.yaml",
+     ["model.pixel_decoder.name=fpn", "model.ov.enabled=true", "model.backbone.name=clip_rn50"],
+     "model.pixel_decoder.name"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["test.task=mots"], "test.task"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.sem_seg_head=fcclip"], "model.sem_seg_head"),
     ("dvis/dvis_online_r50_ytvis19.yaml", ["model.backbone.name=clip_rn50"], "model.backbone.name"),
-    ("dvis/dvis_offline_swinl_ytvis19.yaml", ["model.backbone.swin_fast_softmax=true"],
-     "model.backbone.swin_fast_softmax"),
+    # swin_fast_softmax is served; another unported value beside it is not
+    ("dvis/dvis_offline_swinl_ytvis19.yaml",
+     ["model.backbone.swin_fast_softmax=true", "model.backbone.clip_model_type=vit"],
+     "model.backbone.clip_model_type"),
     # the limits hold for the MinVIS, CTVIS and Video Mask2Former slices too
-    ("dvis/minvis_r50_ytvis19.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
+    ("dvis/minvis_r50_ytvis19.yaml", ["model.pixel_decoder.name=transformer_encoder"],
+     "model.pixel_decoder.name"),  # a decoder no package builds
     ("dvis/ctvis_r50_ytvis19.yaml", ["model.ov.enabled=true"], "model.ov.enabled"),
     # and for DVIS-DAQ
-    ("daq/daq_online_r50_vipseg.yaml", ["model.pixel_decoder.name=fpn"], "model.pixel_decoder.name"),
+    ("daq/daq_online_r50_vipseg.yaml", ["model.pixel_decoder.name=fpn", "model.ov.enabled=true"],
+     "model.pixel_decoder.name"),
     # and for open vocabulary
     ("ov/ov_online_convnextl_coco.yaml", ["model.backbone.clip_model_type=vit"],
      "model.backbone.clip_model_type"),
 ]
+
+
+# A6 and the Swin serving knob: the FPN pixel decoder on every YAML whose
+# model the JAX package builds on its Segmenter (every closed-vocabulary
+# architecture but the two clip Mask2Formers, which build MSDeformAttn
+# whatever the name, as the open-vocabulary models do), in eval and in
+# training; bf16 scores on every Swin YAML
+CLOSED_YAMLS = sorted(
+    os.path.relpath(p, "configs") for p in glob.glob("configs/*/*.yaml")
+    if not p.startswith("configs/ov/") and "maskformer" not in os.path.basename(p))
+SWIN_YAMLS = sorted(os.path.relpath(p, "configs") for p in glob.glob("configs/*/*swinl*.yaml"))
+
+
+@pytest.mark.parametrize("yaml_name", CLOSED_YAMLS)
+def test_fpn_pixel_decoder_passes_on_closed_vocabulary_yamls(yaml_name):
+    cfg = port_config.load_config(os.path.join("configs", yaml_name), ["model.pixel_decoder.name=fpn"])
+    port_config.check_supported(cfg)
+    assert cfg.model.pixel_decoder.name == "fpn"
+
+
+@pytest.mark.parametrize("yaml_name", SWIN_YAMLS)
+def test_swin_fast_softmax_passes_on_swin_yamls(yaml_name):
+    cfg = port_config.load_config(os.path.join("configs", yaml_name),
+                                  ["model.backbone.swin_fast_softmax=true"])
+    port_config.check_supported(cfg)
+    assert cfg.model.backbone.swin_fast_softmax is True
+
+
+@pytest.mark.parametrize("yaml_name", ["dvis/maskformer_r50_coco.yaml",
+                                       "dvis/video_maskformer_r50_coco_joint.yaml",
+                                       "dvis/video_maskformer_r50_ytvis19.yaml",
+                                       "ov/ov_online_r50_zeroshot_ytvis19.yaml",
+                                       "ov/fcclip_r50_coco.yaml"])
+def test_fpn_is_refused_where_nothing_reads_it(yaml_name):
+    cfg = port_config.load_config(os.path.join("configs", yaml_name), ["model.pixel_decoder.name=fpn"])
+    with pytest.raises(NotImplementedError, match=r"model\.pixel_decoder\.name='fpn'"):
+        port_config.check_supported(cfg)
+
+
+def test_fpn_trains_on_the_staged_recipe():
+    for yaml_name in ("dvis/minvis_r50_ytvis19.yaml", "dvis/dvis_online_r50_ytvis19.yaml",
+                      "dvis/dvis_offline_r50_ytvis19.yaml"):
+        port_config.check_trainable(port_config.load_config(
+            os.path.join("configs", yaml_name), ["model.pixel_decoder.name=fpn"]))
+    assert "model.backbone.swin_fast_softmax" not in {key for key, _, _ in port_config.SUPPORTED}
 
 
 # multi-device eval (A15): the values the port once refused, now served
@@ -364,7 +416,8 @@ def test_unported_settings_raise_with_the_key(yaml_name, overrides, key):
 
 def test_check_names_every_fault_at_once():
     cfg = port_config.load_config(
-        "configs/dvis/dvis_online_r50_ytvis19.yaml", ["test.task=vos", "model.pixel_decoder.name=fpn"])
+        "configs/dvis/dvis_online_r50_ytvis19.yaml",
+        ["test.task=vos", "model.pixel_decoder.name=fpn", "model.meta_architecture=video_maskformer"])
     with pytest.raises(NotImplementedError) as exc:
         port_config.check_supported(cfg)
     assert "test.task='vos'" in str(exc.value) and "model.pixel_decoder.name='fpn'" in str(exc.value)
@@ -388,7 +441,7 @@ def test_inherited_jax_defaults_pass_and_presets_pass():
         port_config.check_supported(preset())
 
 
-@pytest.mark.parametrize("key,value", [("test.task", "vos"), ("model.pixel_decoder.name", "fpn"),
+@pytest.mark.parametrize("key,value", [("test.task", "vos"), ("model.pixel_decoder.name", "pixel_shuffle"),
                                        ("model.ov.enabled", "true")])
 def test_run_vis_inference_refuses_before_it_reads_a_video(key, value):
     from dvis_plus_tpu_torch.engine.inference import run_vis_inference

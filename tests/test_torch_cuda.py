@@ -1272,3 +1272,79 @@ def test_sharded_refiner_on_the_card_names_the_device_twice(cuda_device):
     for k in want:
         assert got[k].shape == want[k].shape and got[k].device == ie.device
         assert _rel(got[k], want[k]) <= 1e-5, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_,N,H,nW", [(40, 144, 6, 20), (60, 144, 24, 12), (12, 49, 3, 6), (13, 49, 6, 0)])
+def test_swin_fast_softmax_serves_through_b2(cuda_device, B_, N, H, nW):
+    """``backbone.swin_fast_softmax`` on the card: the wrapper launches B2
+    (the fused kernel's precedence), within 1e-2 of the bf16-score plain
+    path on the same tensors (q, k, v at half scale: scores of order 1, as
+    a model's, where bf16 scores round to steps well under 1 % of their
+    exp)."""
+    q, k, v, bias, mask = _swin_inputs(cuda_device, torch.bfloat16, B_, N, H, nW)
+    q, k, v = q * 0.5, k * 0.5, v * 0.5
+    swin_window_attn.reset_launches()
+    got = swin_window_attn.window_attention(q, k, v, bias * 0.25, mask, H, fast_softmax=True)
+    torch.cuda.synchronize()
+    assert swin_window_attn.launches == 1
+    want = swin_window_attn.window_attention_fast_softmax_torch(q, k, v, bias * 0.25, mask, H)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_fpn_segmenter_on_the_card_matches_the_cpu(cuda_device):
+    """MinVIS with ``pixel_decoder.name=fpn`` at small widths, fp32: the
+    card (cuDNN convolutions, no B1 launch) against the CPU, rel <= 1e-4."""
+    from dvis_plus_tpu_torch.cli import build_model
+    from dvis_plus_tpu_torch.config import tiny
+
+    cfg = tiny("minvis", "model.pixel_decoder.name=fpn")
+    torch.manual_seed(0)
+    model = build_model(cfg.model).eval()
+    x = torch.randn(3, 3, 96, 128)
+    msdeform.reset_launches()
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda_device)(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert msdeform.launches == 0
+    for key in ("pred_logits", "pred_masks", "pred_embds"):
+        assert _rel(got[key].cpu(), want[key]) <= 1e-4, key
+
+
+@pytest.mark.cuda
+def test_demo_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """The demo's long-video mode (DVIS++ online, ``--chunk-size 3``) at
+    small widths, fp32, every top-K instance drawn: the card's overlays
+    equal to the CPU's on at least 99.9 % of pixels."""
+    import cv2
+
+    from dvis_plus_tpu_torch import demo
+    from dvis_plus_tpu_torch.cli import build_model
+    from dvis_plus_tpu_torch.config import TINY_TRAIN, load_config
+
+    yaml = "configs/dvis/dvis_online_r50_ytvis19.yaml"
+    opts = [*TINY_TRAIN, "model.tracker.matcher_solver=jv", "input.min_size_test=64",
+            "input.max_size_test=96", "test.window_size=2", "test.max_num=4"]
+    torch.manual_seed(0)
+    torch.save(build_model(load_config(yaml, opts).model).state_dict(), tmp_path / "w.pth")
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    y, x = np.mgrid[0:64, 0:96]
+    for t in range(5):
+        img = np.stack([x * 2, y * 3, np.full_like(x, 40 * t)], -1).astype(np.uint8)
+        cv2.imwrite(str(frames / f"{t:05d}.jpg"), img)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = tmp_path / device
+        demo.main(["--config-file", yaml, "--input", str(frames), "--output", str(outs[device]),
+                   "--device", device, "--chunk-size", "3", "--confidence-threshold", "0", *opts,
+                   f"weights={tmp_path / 'w.pth'}"])
+    equal = total = 0
+    for t in range(5):
+        a, b = (cv2.imread(str(outs[d] / f"{t:05d}.jpg")) for d in ("cuda", "cpu"))
+        equal += int((a == b).all(-1).sum())
+        total += a.shape[0] * a.shape[1]
+    assert equal >= 0.999 * total, equal / total

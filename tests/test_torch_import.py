@@ -19,8 +19,17 @@ steps each (``metrics.jsonl``, a checkpoint). The rows are encoded by the native
 codec, built with g++ on first use.
 
 Runs in a subprocess: the pytest process itself has jax loaded (conftest).
-The synthetic set is written by the pytest process (``tools/synth_data.py``
-encodes its masks with the JAX package's codec)."""
+The synthetic set is written by the pytest process with the port's own
+writer (``dvis_plus_tpu_torch/tools/synth_data.py``).
+
+A second subprocess runs the port's demo (``python -m
+dvis_plus_tpu_torch.demo``: MinVIS whole-video, DVIS++ online with
+``--chunk-size``, the open-vocabulary custom classes with ``--random-text``)
+and each tool (the synthetic-data writer, the offline VSS scorer, both
+converters, the zoo runbook's ``--dry-run``, a reduced serving-deviation
+run) with ``--device cpu``: none loads a jax, flax, JAX-package or triton
+module. ``chip_smoke.py`` imports nothing of ``tools/``."""
+import ast
 import json
 import os
 import subprocess
@@ -267,10 +276,8 @@ print(json.dumps({
 
 def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
     """No jax, jaxlib, flax, optax, JAX-package or triton module is loaded."""
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    from synth_data import make_coco, make_ytvis
-
-    from dvis_plus_tpu.data.datasets.categories import YTVIS_2019_CLASSES
+    from dvis_plus_tpu_torch.data.datasets.categories import YTVIS_2019_CLASSES
+    from dvis_plus_tpu_torch.tools.synth_data import make_coco, make_ytvis
 
     make_ytvis(str(tmp_path), "ytvis_2019", YTVIS_2019_CLASSES, n_videos=2, length=3)
     make_coco(str(tmp_path), n_images=2)
@@ -295,3 +302,97 @@ def test_port_imports_and_cpu_path_need_no_jax_triton_or_nvcc(tmp_path):
                              ["vos", 3], ["ov_vss", 1, 4]],
                    "built": 0, "codec": 1,
                    "launches": [0, 0, 0]}
+
+
+TOOLS_SCRIPT = r"""
+import json, os, sys, tempfile
+import cv2, numpy as np, torch
+torch.set_num_threads(2)
+from dvis_plus_tpu_torch import demo
+from dvis_plus_tpu_torch.tools import (
+    coco2ytvis, convert_vos_to_cocovid, eval_video_metrics, serving_deviation_ap, synth_data, zoo_runbook,
+)
+tmp = tempfile.mkdtemp()
+synth_data.main(["--root", os.path.join(tmp, "data"), "--datasets", "ytvis_2019", "coco", "vspw"])
+small = ["model.compute_dtype=float32", "model.pixel_decoder.conv_dim=32", "model.pixel_decoder.mask_dim=32",
+         "model.pixel_decoder.transformer_enc_layers=1", "model.pixel_decoder.transformer_dim_feedforward=64",
+         "model.transformer_decoder.hidden_dim=32", "model.transformer_decoder.num_queries=4",
+         "model.transformer_decoder.nheads=4", "model.transformer_decoder.dim_feedforward=64",
+         "model.transformer_decoder.dec_layers=1", "model.transformer_decoder.mask_dim=32",
+         "model.transformer_decoder.reid_hidden_dim=32", "model.tracker.num_layers=1",
+         "model.tracker.feedforward_dim=64", "input.min_size_test=64", "input.max_size_test=96",
+         "test.window_size=2", "test.max_num=3"]
+frames = os.path.join(tmp, "data", "ytvis_2019", "valid", "JPEGImages", "v1")
+runs = []
+for yaml, extra in (("dvis/minvis_r50_ytvis19", ["--vocabulary", "cat,dog"]),
+                    ("dvis/dvis_online_r50_ytvis19", ["--chunk-size", "3"]),
+                    ("ov/ov_online_r50_zeroshot_ytvis19",
+                     ["--random-text", "--thing-classes", "cat,dog", "--stuff-classes", "sky"])):
+    ov = ["model.backbone.clip_depths=[1,1,1,1]", "model.backbone.clip_resnet_width=8",
+          "model.ov.clip_embed_dim=16"] if yaml.startswith("ov/") else []
+    out = os.path.join(tmp, "demo_" + yaml.split("/")[1])
+    res = demo.main(["--config-file", f"configs/{yaml}.yaml", "--input", frames, "--output", out,
+                     "--device", "cpu", *extra, *small, *ov])
+    runs.append([res["frames"], res["overlays"], res["chunked"], len(os.listdir(out))])
+vspw = os.path.join(tmp, "data", "VSPW_480p")
+pred = os.path.join(tmp, "vss_pred")
+for v in ("video_0001", "video_0002"):
+    os.makedirs(os.path.join(pred, v))
+    for f in sorted(os.listdir(os.path.join(vspw, "data", v, "mask"))):
+        m = cv2.imread(os.path.join(vspw, "data", v, "mask", f), cv2.IMREAD_GRAYSCALE)
+        cv2.imwrite(os.path.join(pred, v, f), (m.astype(np.int64) - 1).astype(np.uint8))
+vss = eval_video_metrics.main(["vss", "--pred-dir", pred, "--gt-root", vspw, "--num-classes", "3",
+                               "--vc-clips", "2"])
+coco2ytvis.main(["--input", os.path.join(tmp, "data", "coco", "annotations", "instances_train2017.json"),
+                 "--output", os.path.join(tmp, "c2y.json"), "--map", "ytvis19"])
+vos = os.path.join(tmp, "vos")
+for d in ("JPEGImages", "Annotations"):
+    os.makedirs(os.path.join(vos, d, "a"))
+cv2.imwrite(os.path.join(vos, "JPEGImages", "a", "00000.jpg"), np.zeros((8, 8, 3), np.uint8))
+m = np.zeros((8, 8), np.uint8)
+m[2:5, 2:6] = 1
+cv2.imwrite(os.path.join(vos, "Annotations", "a", "00000.png"), m)
+convert_vos_to_cocovid.main(["--images", os.path.join(vos, "JPEGImages"), "--masks",
+                             os.path.join(vos, "Annotations"), "--output", os.path.join(tmp, "vos.json")])
+book = zoo_runbook.main(["--dry-run", "--output-dir", os.path.join(tmp, "book"), "--device", "cpu"])
+serving_deviation_ap.write_synth(os.path.join(tmp, "sda"))
+sda = serving_deviation_ap.measure(os.path.join(tmp, "sda"), torch.device("cpu"), 0.0, 1)
+roots = ("jax", "jaxlib", "flax", "optax", "dvis_plus_tpu", "triton")
+print(json.dumps({
+    "demo": runs, "vss": [vss["videos"], vss["mIoU"]],
+    "c2y": len(json.load(open(os.path.join(tmp, "c2y.json")))["videos"]),
+    "vos": len(json.load(open(os.path.join(tmp, "vos.json")))["annotations"]),
+    "book": [book["diff"]["ok"], book["convert"]["left_at_init"]],
+    "sda": sorted(sda),
+    "loaded": sorted(k for k in sys.modules if k.split(".")[0] in roots),
+}))
+"""
+
+
+def test_demo_and_tools_run_on_the_cpu_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run([sys.executable, "-c", TOOLS_SCRIPT], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"demo": [[6, 6, False, 6], [6, 6, True, 6], [6, 6, False, 6]], "vss": [2, 100.0],
+                   "c2y": 4, "vos": 1, "book": [True, []], "sda": ["offline", "online"],
+                   "loaded": []}
+
+
+def test_chip_smoke_imports_nothing_of_tools():
+    """The smoke script writes its sets with the port's writer: no import of
+    ``tools/`` (or of its ``synth_data`` by path), no monkeypatched codec."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        src = f.read()
+    tree = ast.parse(src)
+    modules = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            modules.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            modules.add(node.module)
+    assert "dvis_plus_tpu_torch.tools" in modules
+    assert not any(m.split(".")[0] in ("tools", "synth_data", "dvis_plus_tpu") for m in modules), modules
+    assert 'os.path.join(REPO, "tools")' not in src and "_rle =" not in src

@@ -28,6 +28,13 @@ pytestmark = pytest.mark.slow
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True)
+def hundred_steps(monkeypatch):
+    """The JAX slow tests' step count; the chip's default run takes fewer
+    (``chip_smoke.OVERFIT_STEPS``) to stay inside its time limit."""
+    monkeypatch.setattr(chip_smoke, "OVERFIT_STEPS", 100)
+
+
 def test_online_tracker_overfits():
     torch.set_num_threads(4)
     res = chip_smoke.phase_train_overfit(CPU)
