@@ -1,0 +1,1 @@
+"""Plain PyTorch reference of the benchmarked models: imports nothing of the benchmarked package."""
