@@ -1962,8 +1962,7 @@ def phase_profile(dev, name):
     15 frames at 480x640, three windows; ``daq``: DVIS-DAQ online's
     streaming pass over 5 frames at 480x640), bf16: CUDA-event time of
     every stage (device work plus dispatch gaps), then ``torch.profiler``
-    over the same video: the device-busy share (sum of kernel times over
-    wall) and the time by kernel and by operator."""
+    over the same video: the time by kernel and by operator."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2063,7 +2062,6 @@ def phase_profile(dev, name):
           "window": cfg.test.window_size, "compute_dtype": cfg.model.compute_dtype,
           "video_ms": {"plain": plain_ms, "staged": staged_ms, "profiled": profiled_ms},
           "stage_ms": stage_ms, "device_ms": device_ms,
-          "busy_share": {"of_profiled_wall": device_ms / profiled_ms, "of_plain_wall": device_ms / plain_ms},
           "kernel_launches": sum(r[1] for r in kernels),
           "flash_attn_fwd": share("flash_attn"), "msdeform_fwd": share("msdeform_fwd"),
           "swin_window_attn_fwd": share("swin_window_attn"),

@@ -3,7 +3,8 @@
 
     DVIS_DATASETS=<root> python -m dvis_plus_tpu_torch.cli \\
         --config-file configs/dvis/dvis_online_r50_ytvis19.yaml [--eval-only] [--resume] \\
-        [--device cuda|cpu] [weights=<state_dict .pth/.npz>] [key.path=value ...]
+        [--device cuda|cpu] [--trace-out <file.json>] [weights=<state_dict .pth/.npz>] \\
+        [key.path=value ...]
 
 Under torchrun (``torchrun --nproc_per_node N -m dvis_plus_tpu_torch.cli ...``)
 each rank joins the process group (``parallel.mesh.init_distributed``: NCCL
@@ -74,6 +75,9 @@ dict in the reference checkpoints' key space (the port's own
 ``state_dict()``, a zoo ``.pth``, a training checkpoint, or the same as
 ``.npz``); without ``weights=`` the model keeps its random initialization
 from ``seed``. The CLI prints each set's result dict and returns them.
+``--trace-out <file.json>`` (with ``--eval-only``) switches the program's
+tracer on for the evaluation (``utils/trace.py``) and, once it ends, writes
+its span totals, counters and records to the file.
 """
 from __future__ import annotations
 
@@ -85,6 +89,7 @@ import os
 import torch
 
 from dvis_plus_tpu_torch.core.checkpoint import load_weights
+from dvis_plus_tpu_torch.utils import trace
 
 logger = logging.getLogger("dvis_plus_tpu_torch.cli")
 
@@ -278,7 +283,6 @@ def do_train(cfg, resume: bool, dev: torch.device, build=build_model, classifier
 
 def main(argv=None) -> dict:
     from dvis_plus_tpu_torch.config import check_supported, check_trainable, is_ov, load_config
-    from dvis_plus_tpu_torch.data.catalog import get_metadata
     from dvis_plus_tpu_torch.data.datasets.coco import register_all_coco
     from dvis_plus_tpu_torch.data.datasets.vps_vss import register_all_vipseg, register_all_vspw
     from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
@@ -291,8 +295,13 @@ def main(argv=None) -> dict:
                         help="train on from the newest checkpoint of <output_dir>/checkpoints")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda (default) raises without a card; cpu must be asked for")
+    parser.add_argument("--trace-out", metavar="FILE.json",
+                        help="with --eval-only: trace the evaluation (utils/trace.py) and write the "
+                             "span totals, counters and records here at its end")
     parser.add_argument("opts", nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
+    if args.trace_out and not args.eval_only:
+        parser.error("--trace-out traces an evaluation: give --eval-only")
     logging.basicConfig(level=logging.INFO)
 
     cfg = load_config(args.config_file, args.opts)
@@ -319,6 +328,32 @@ def main(argv=None) -> dict:
     if cfg.weights:
         load_weights(model, cfg.weights)
     model = model.to(dev).eval()
+    if args.trace_out:
+        trace.reset()
+        trace.enable()
+    try:
+        results = _evaluate(cfg, model, dev)
+    finally:
+        if args.trace_out:
+            trace.disable()
+            write_trace(args.trace_out)
+    print(json.dumps(results, indent=2))
+    return results
+
+
+def write_trace(path: str) -> None:
+    """The tracer's span totals, counters and records as one JSON file."""
+    out = {"totals": trace.totals(), "counters": trace.counters(),
+           "records": [r._asdict() for r in trace.records()]}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, default=str)
+    logger.info("trace: %d records, %d counters -> %s", len(out["records"]), len(out["counters"]), path)
+
+
+def _evaluate(cfg, model, dev) -> dict:
+    """Every test set of ``cfg.datasets.test``, routed by its task."""
+    from dvis_plus_tpu_torch.data.catalog import get_metadata
 
     results = {}
     types = list(cfg.datasets.dataset_type_test)
@@ -337,7 +372,6 @@ def main(argv=None) -> dict:
         res = run(cfg, model, get_metadata(name), eval_loaders(cfg, name, dataset_type), out_dir)
         results[name] = {**res, "device": str(dev)}
         logger.info("%s: %s", name, results[name])
-    print(json.dumps(results, indent=2))
     return results
 
 

@@ -21,6 +21,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from dvis_plus_tpu_torch.utils import trace
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -140,14 +142,18 @@ class YTVISDatasetMapper:
             return self._train(record, seed)
         import cv2
 
-        frames = _read_frames(record, range(record["length"]))
-        H0, W0 = frames[0].shape[:2]
-        h, w = resize_shortest_edge(H0, W0, self.min_size, self.max_size)
-        frames = [cv2.resize(f, (w, h), interpolation=cv2.INTER_LINEAR) for f in frames]
-        ch, cw = _round_up(h, self.div), _round_up(w, self.div)
-        images = np.zeros((len(frames), ch, cw, 3), np.float32)
-        for t, f in enumerate(frames):
-            images[t, :h, :w] = (f.astype(np.float32) - self.pixel_mean) / self.pixel_std
+        video = record.get("video_id", 0)
+        with trace.span("data.decode", video=video):
+            frames = _read_frames(record, range(record["length"]))
+        trace.count("data.frames", len(frames))
+        with trace.span("data.normalize", video=video):
+            H0, W0 = frames[0].shape[:2]
+            h, w = resize_shortest_edge(H0, W0, self.min_size, self.max_size)
+            frames = [cv2.resize(f, (w, h), interpolation=cv2.INTER_LINEAR) for f in frames]
+            ch, cw = _round_up(h, self.div), _round_up(w, self.div)
+            images = np.zeros((len(frames), ch, cw, 3), np.float32)
+            for t, f in enumerate(frames):
+                images[t, :h, :w] = (f.astype(np.float32) - self.pixel_mean) / self.pixel_std
         return {
             "images": images,
             "image_size": np.asarray([h, w], np.int32),

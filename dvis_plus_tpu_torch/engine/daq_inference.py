@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -47,6 +46,7 @@ from dvis_plus_tpu_torch.engine.inference import (
 )
 from dvis_plus_tpu_torch.models.daq.cutter import init_cutter_state
 from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import dtype_of
+from dvis_plus_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -219,7 +219,8 @@ def run_daq_inference(cfg, model, loader: Iterator[dict], evaluator,
     loop: no pipeline worker, no prefetch. ``timings`` (optional dict)
     accumulates ``model_s`` (streaming pass, sequences, refiner), ``post_s``
     (top-K, upsample, download, evaluator rows) and of it ``rows_s`` (the
-    evaluator rows) in wall seconds."""
+    evaluator rows) in wall seconds: the tracer's spans ``eval.forward``,
+    ``eval.post`` and ``eval.evaluator`` (``utils/trace.py``)."""
     check_supported(cfg)
     dev = next(model.parameters()).device
     W_sz = resolve_window_size(cfg)
@@ -227,32 +228,29 @@ def run_daq_inference(cfg, model, loader: Iterator[dict], evaluator,
         for sample in loader:
             images = sample["images"]
             H, W = images.shape[1:3]
-            t0 = time.perf_counter()
-            pred_cls, full_masks = _video_sequences(cfg, model, images)
-            t1 = time.perf_counter()
-            if cfg.test.task == "vos":
+            video = sample.get("video_id", 0)
+            vos = cfg.test.task == "vos"  # writes PNGs and keeps no timings
+            with trace.span("eval.forward", video, None if vos else timings, "model_s"):
+                pred_cls, full_masks = _video_sequences(cfg, model, images)
+            if vos:
                 _vos_output(cfg, sample, pred_cls, full_masks)
                 continue
-            logits, masks = _bucketed(pred_cls, full_masks, dev)
-            h, w = [int(v) for v in sample["image_size"]]
-            scores, labels, out_masks = paged_inference_video(
-                logits, masks, img_size=(h, w),
-                output_size=(int(sample["height"]), int(sample["width"])),
-                padded_size=(H, W), topk=min(cfg.test.max_num, logits.shape[0]), chunk=W_sz,
-                download=getattr(cfg.test, "mask_download", "runs"),
-                k_col=getattr(cfg.test, "rle_col_k", 8),
-            )
-            t2 = time.perf_counter()
-            evaluator.process(sample.get("video_id", 0), {
-                "pred_scores": scores.cpu().tolist(),
-                "pred_labels": labels.cpu().tolist(),
-                "pred_masks": out_masks,
-            })
-            if timings is not None:
-                t3 = time.perf_counter()
-                timings["model_s"] = timings.get("model_s", 0.0) + t1 - t0
-                timings["post_s"] = timings.get("post_s", 0.0) + t3 - t1
-                timings["rows_s"] = timings.get("rows_s", 0.0) + t3 - t2
+            with trace.span("eval.post", video, timings, "post_s"):
+                logits, masks = _bucketed(pred_cls, full_masks, dev)
+                h, w = [int(v) for v in sample["image_size"]]
+                scores, labels, out_masks = paged_inference_video(
+                    logits, masks, img_size=(h, w),
+                    output_size=(int(sample["height"]), int(sample["width"])),
+                    padded_size=(H, W), topk=min(cfg.test.max_num, logits.shape[0]), chunk=W_sz,
+                    download=getattr(cfg.test, "mask_download", "runs"),
+                    k_col=getattr(cfg.test, "rle_col_k", 8),
+                )
+                with trace.span("eval.evaluator", video, timings, "rows_s"):
+                    evaluator.process(video, {
+                        "pred_scores": scores.cpu().tolist(),
+                        "pred_labels": labels.cpu().tolist(),
+                        "pred_masks": out_masks,
+                    })
 
 
 def _offline_refine(cfg, model, pred_cls: np.ndarray, embeds: np.ndarray, features):

@@ -42,7 +42,6 @@ import contextlib
 import os
 import queue
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional
 
@@ -65,6 +64,7 @@ from dvis_plus_tpu_torch.models.meta.minvis import (
 )
 from dvis_plus_tpu_torch.models.segmenter.pixel_decoder import dtype_of
 from dvis_plus_tpu_torch.models.tracker.referring_tracker import init_tracker_state
+from dvis_plus_tpu_torch.utils import trace
 from dvis_plus_tpu_torch.utils.rle import ColRunMasks, PackedMasks
 
 
@@ -148,6 +148,23 @@ def _to_host(x: torch.Tensor):
     done = torch.cuda.Event()
     done.record()
     return host, done
+
+
+def _page_out(x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x`` paged to the host (as ``dtype``) beyond the eval memory budget;
+    the tracer's ``eval.page_out`` span and bytes."""
+    with trace.span("eval.page_out"):
+        host = x.to("cpu", dtype)
+        trace.count("eval.page_out_bytes", host.nbytes)
+    return host
+
+
+def _page_in(x: torch.Tensor, dev) -> torch.Tensor:
+    """A paged tensor back on ``dev``; the tracer's ``eval.page_in`` span and
+    bytes."""
+    with trace.span("eval.page_in"):
+        trace.count("eval.page_in_bytes", x.nbytes)
+        return x.to(dev)
 
 
 def paged_inference_video(
@@ -281,7 +298,7 @@ def _minvis_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_segmente
     for i in range(n_windows):
         lg, mk, em = window_fn(model, _frames(images[i * W_sz : (i + 1) * W_sz], dev))
         logits_l.append(lg)
-        masks_l.append(mk.to("cpu", torch.float16) if page_to_host else mk)  # (W_sz, Q, H4, W4)
+        masks_l.append(_page_out(mk, torch.float16) if page_to_host else mk)  # (W_sz, Q, H4, W4)
         embds_l.append(em)
     logits = torch.cat(logits_l)[:T]  # (T, Q, K+1)
     embds = torch.cat(embds_l)[:T]
@@ -337,7 +354,7 @@ def _online_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_tracker_
         for i in range(n_windows):
             lg, mk, state = window_fn(model, window(i), state)
             logits_l.append(lg)
-            masks_l.append(mk.to("cpu", torch.float16) if page_to_host else mk)
+            masks_l.append(_page_out(mk, torch.float16) if page_to_host else mk)
         logits = torch.cat(logits_l, dim=0)[:T]  # (T, Q, K+1)
         masks = torch.cat(masks_l, dim=1)[:, :T]  # (Q, T, H4, W4)
         return online_post_processing(logits.float()), masks, None
@@ -354,7 +371,7 @@ def _online_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_tracker_
         online_logits_l.append(lg[0])
         inst_l.append(inst)
         frame_l.append(frame)
-        mf_l.append(mf if keep_on_device else mf.cpu())
+        mf_l.append(mf if keep_on_device else _page_out(mf))
     online_logits = torch.cat(online_logits_l, dim=0)[:T]  # (T, Q, K+1)
     inst = torch.cat(inst_l, dim=1)[:, :T]
     frame = torch.cat(frame_l, dim=1)[:, :T]
@@ -370,8 +387,9 @@ def _online_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_tracker_
     masks_l = []
     for i in range(n_windows):
         t0, t1 = i * W_sz, min((i + 1) * W_sz, T)
-        mw = model.refine_mask_window(membd[:, t0:t1], mf_l[i][:, : t1 - t0].to(dev))[0]
-        masks_l.append(mw if keep_on_device else mw.to("cpu", torch.float16))
+        mf = mf_l[i][:, : t1 - t0]
+        mw = model.refine_mask_window(membd[:, t0:t1], mf if keep_on_device else _page_in(mf, dev))[0]
+        masks_l.append(mw if keep_on_device else _page_out(mw, torch.float16))
     r_masks = torch.cat(masks_l, dim=1)  # (Q, T, H4, W4)
     # aux = the online logits' raw mean over time; the max-of-probabilities
     # fusion happens in topk_select after its softmax, without renormalizing
@@ -439,7 +457,9 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
     tensors in stream order. ``timings`` (optional dict) accumulates
     ``model_s`` (the forwards, synchronized), ``post_s`` (top-K, upsample,
     download, evaluator rows) and ``rows_s`` (of it, the evaluator rows: the
-    RLE encoding) in wall seconds; with the pipeline on, the forwards and the
+    RLE encoding) in wall seconds, the seconds of the tracer's spans
+    ``eval.forward``, ``eval.post`` and ``eval.evaluator``
+    (``utils/trace.py``); with the pipeline on, the forwards and the
     post-processing overlap, and the synchronization that ends ``model_s``
     also waits for the worker's device work queued before it. A setting the port cannot honour raises
     ``NotImplementedError`` (``config.check_supported``). DVIS-DAQ goes to
@@ -465,8 +485,8 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
 
     def post_and_process(sample, logits, masks, aux, H, W):
         on_device = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-        with torch.inference_mode(), on_device:
-            t1 = time.perf_counter()
+        video = sample.get("video_id", 0)
+        with torch.inference_mode(), on_device, trace.span("eval.post", video, timings, "post_s"):
             h, w = [int(v) for v in sample["image_size"]]
             scores, labels, out_masks = paged_inference_video(
                 logits, masks, img_size=(h, w),
@@ -474,19 +494,15 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
                 padded_size=(H, W), topk=cfg.test.max_num, aux_pred_cls=aux,
                 chunk=W_sz, download=download, k_col=k_col,
             )
-            t2 = time.perf_counter()
-            evaluator.process(
-                sample.get("video_id", 0),
-                {
-                    "pred_scores": scores.cpu().tolist(),
-                    "pred_labels": labels.cpu().tolist(),
-                    "pred_masks": out_masks,
-                },
-            )
-            if timings is not None:
-                t3 = time.perf_counter()
-                timings["post_s"] = timings.get("post_s", 0.0) + t3 - t1
-                timings["rows_s"] = timings.get("rows_s", 0.0) + t3 - t2
+            with trace.span("eval.evaluator", video, timings, "rows_s"):
+                evaluator.process(
+                    video,
+                    {
+                        "pred_scores": scores.cpu().tolist(),
+                        "pred_labels": labels.cpu().tolist(),
+                        "pred_masks": out_masks,
+                    },
+                )
 
     pipeline = bool(getattr(cfg.test, "eval_pipeline", True))
     executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="eval-post") if pipeline else None
@@ -498,11 +514,9 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
             for sample in loader:
                 images = sample["images"]  # (T, H, W, 3) numpy
                 H, W = images.shape[1:3]
-                t0 = time.perf_counter()
-                logits, masks, aux = _forward(cfg, model, images, W_sz, logits_masks_fn)
-                sync()
-                if timings is not None:
-                    timings["model_s"] = timings.get("model_s", 0.0) + time.perf_counter() - t0
+                with trace.span("eval.forward", sample.get("video_id", 0), timings, "model_s"):
+                    logits, masks, aux = _forward(cfg, model, images, W_sz, logits_masks_fn)
+                    sync()
                 if executor is None:
                     post_and_process(sample, logits, masks, aux, H, W)
                     continue
@@ -534,8 +548,8 @@ def _task_chunks(cfg, model, loader, timings, logits_masks_fn=None):
     """Shared by the VPS and VSS loops: per video (sample, logits, aux,
     chunk iterator, padded (H, W)), where the iterator yields each
     ``W_sz``-frame time chunk of the masks on the model's device (masks
-    paged to host fp16 come back one chunk at a time). ``model_s`` in
-    ``timings`` accumulates the synchronized forwards."""
+    on the host come back one chunk at a time, ``eval.page_in``). ``model_s``
+    in ``timings`` accumulates the synchronized forwards (``eval.forward``)."""
     check_supported(cfg)
     _check_ov(cfg, logits_masks_fn)
     W_sz = resolve_window_size(cfg)
@@ -543,14 +557,15 @@ def _task_chunks(cfg, model, loader, timings, logits_masks_fn=None):
     for sample in loader:
         images = sample["images"]  # (T, H, W, 3) numpy
         T, H, W = images.shape[:3]
-        t0 = time.perf_counter()
-        logits, masks, aux = _forward(cfg, model, images, W_sz, logits_masks_fn)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        if timings is not None:
-            timings["model_s"] = timings.get("model_s", 0.0) + time.perf_counter() - t0
+        with trace.span("eval.forward", sample.get("video_id", 0), timings, "model_s"):
+            logits, masks, aux = _forward(cfg, model, images, W_sz, logits_masks_fn)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         masks = masks[:, :T]
-        chunks = (masks[:, s0 : s0 + W_sz].to(dev) for s0 in range(0, T, W_sz))
+        # masks on the host (paged, or DVIS-DAQ's) come back a chunk at a time
+        on_host = masks.device.type == "cpu"
+        chunks = (_page_in(c, dev) if on_host else c
+                  for c in (masks[:, s0 : s0 + W_sz] for s0 in range(0, T, W_sz)))
         yield sample, logits, aux, chunks, (H, W)
 
 
@@ -562,31 +577,32 @@ def run_vps_inference(cfg, model, loader: Iterator[dict], evaluator, num_thing_c
     (``panoptic_segments_device``), and the (T, H, W) int32 id map with its
     ``segments_infos`` to ``evaluator.process``. ``timings`` (optional dict)
     accumulates ``model_s`` (the forwards), ``post_s`` (everything after),
-    of it ``segments_s`` (the host loop over the queries) and ``png_s`` (the
-    evaluator: PNGs and rows), in wall seconds. ``logits_masks_fn`` as in
-    :func:`run_vis_inference` (the open-vocabulary route)."""
+    of it ``segments_s`` (the host loop over the queries), ``download_s``
+    (the map's download, which waits for the card's queued work) and
+    ``png_s`` (the evaluator: PNGs and rows), in wall seconds: the tracer's
+    spans ``eval.forward``, ``eval.post``, ``eval.segments``,
+    ``eval.download`` and ``eval.evaluator`` (``utils/trace.py``).
+    ``logits_masks_fn`` as in :func:`run_vis_inference` (the open-vocabulary
+    route)."""
     with torch.inference_mode():
         for sample, logits, aux, chunks, padded in _task_chunks(cfg, model, loader, timings,
                                                                 logits_masks_fn):
-            t1 = time.perf_counter()
-            h, w = [int(v) for v in sample["image_size"]]
-            out_size = (int(sample["height"]), int(sample["width"]))
-            thr = cfg.test.object_mask_threshold
-            per_chunk = (panoptic_probs(logits, chunk, img_size=(h, w), output_size=out_size,
-                                        padded_size=padded, object_mask_threshold=thr,
-                                        aux_pred_cls=aux)[3:]
-                         for chunk in chunks)
-            panoptic_seg, segments_infos, _ = panoptic_segments_device(
-                *panoptic_scores(logits, thr, aux), per_chunk, num_thing_classes,
-                cfg.test.overlap_threshold, timings)
-            panoptic_seg = panoptic_seg.cpu().numpy()
-            t2 = time.perf_counter()
-            evaluator.process(sample.get("video_id", 0), sample["file_names"], panoptic_seg,
-                              segments_infos)
-            if timings is not None:
-                t3 = time.perf_counter()
-                timings["post_s"] = timings.get("post_s", 0.0) + t3 - t1
-                timings["png_s"] = timings.get("png_s", 0.0) + t3 - t2
+            video = sample.get("video_id", 0)
+            with trace.span("eval.post", video, timings, "post_s"):
+                h, w = [int(v) for v in sample["image_size"]]
+                out_size = (int(sample["height"]), int(sample["width"]))
+                thr = cfg.test.object_mask_threshold
+                per_chunk = (panoptic_probs(logits, chunk, img_size=(h, w), output_size=out_size,
+                                            padded_size=padded, object_mask_threshold=thr,
+                                            aux_pred_cls=aux)[3:]
+                             for chunk in chunks)
+                panoptic_seg, segments_infos, _ = panoptic_segments_device(
+                    *panoptic_scores(logits, thr, aux), per_chunk, num_thing_classes,
+                    cfg.test.overlap_threshold, timings)
+                with trace.span("eval.download", video, timings, "download_s"):
+                    panoptic_seg = panoptic_seg.cpu().numpy()
+                with trace.span("eval.evaluator", video, timings, "png_s"):
+                    evaluator.process(video, sample["file_names"], panoptic_seg, segments_infos)
 
 
 def run_vss_inference(cfg, model, loader: Iterator[dict], evaluator,
@@ -595,20 +611,23 @@ def run_vss_inference(cfg, model, loader: Iterator[dict], evaluator,
     semantic argmax (``semantic_inference``) on the device; only the
     (T, H, W) class map, as uint8 (the class ids the evaluator writes),
     leaves the card. ``timings`` as in :func:`run_vps_inference`, without
-    ``segments_s``; ``logits_masks_fn`` as in :func:`run_vis_inference`."""
+    ``segments_s``; within ``eval.post`` the tracer's spans
+    ``eval.class_map`` (the class maps on the card, with the paged masks'
+    ``eval.page_in``), ``eval.download`` and ``eval.evaluator``.
+    ``logits_masks_fn`` as in :func:`run_vis_inference`."""
     with torch.inference_mode():
         for sample, logits, aux, chunks, padded in _task_chunks(cfg, model, loader, timings,
                                                                 logits_masks_fn):
-            t1 = time.perf_counter()
-            h, w = [int(v) for v in sample["image_size"]]
-            out_size = (int(sample["height"]), int(sample["width"]))
-            sem = torch.cat([
-                semantic_inference(logits, chunk, img_size=(h, w), output_size=out_size,
-                                   padded_size=padded, aux_pred_cls=aux).to(torch.uint8)
-                for chunk in chunks]).cpu().numpy()
-            t2 = time.perf_counter()
-            evaluator.process(sample.get("video_id", 0), sample["file_names"], sem)
-            if timings is not None:
-                t3 = time.perf_counter()
-                timings["post_s"] = timings.get("post_s", 0.0) + t3 - t1
-                timings["png_s"] = timings.get("png_s", 0.0) + t3 - t2
+            video = sample.get("video_id", 0)
+            with trace.span("eval.post", video, timings, "post_s"):
+                h, w = [int(v) for v in sample["image_size"]]
+                out_size = (int(sample["height"]), int(sample["width"]))
+                with trace.span("eval.class_map", video):
+                    sem = torch.cat([
+                        semantic_inference(logits, chunk, img_size=(h, w), output_size=out_size,
+                                           padded_size=padded, aux_pred_cls=aux).to(torch.uint8)
+                        for chunk in chunks])
+                with trace.span("eval.download", video, timings, "download_s"):
+                    sem = sem.cpu().numpy()
+                with trace.span("eval.evaluator", video, timings, "png_s"):
+                    evaluator.process(video, sample["file_names"], sem)

@@ -18,7 +18,6 @@ the same result (:func:`panoptic_segments_host` is the plain version).
 """
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -29,6 +28,7 @@ from dvis_plus_tpu_torch.models.meta.minvis import topk_select, upsample_masks
 from dvis_plus_tpu_torch.models.segmenter.segmenter import Segmenter
 from dvis_plus_tpu_torch.models.tracker.referring_tracker import ReferringTracker, TrackerState
 from dvis_plus_tpu_torch.parallel.mesh import global_sum
+from dvis_plus_tpu_torch.utils import trace
 
 
 class DVISOnline(Segmenter):
@@ -348,7 +348,7 @@ def panoptic_segments_device(
     pixels are disjoint, so this equals the sequential writes). Returns
     (panoptic_seg (T, H, W) int32 on the device, segments_infos, kept query
     indices). ``timings["segments_s"]`` accumulates the host loop's wall
-    time."""
+    time (the tracer's span ``eval.segments``)."""
     counts, ids_l, own_l = None, [], []
     for masks, mask_ids in chunks:
         c, own = panoptic_chunk_counts(masks, mask_ids)
@@ -357,12 +357,10 @@ def panoptic_segments_device(
         own_l.append(own)
         del masks, mask_ids  # one chunk's probabilities alive at a time, not two
     counts = counts.cpu().numpy()
-    t0 = time.perf_counter()
-    table, segments_infos, out_ids = panoptic_segment_table(
-        scores.cpu().numpy(), labels.cpu().numpy(), keep.cpu().numpy(), counts,
-        num_thing_classes, overlap_threshold)
-    if timings is not None:
-        timings["segments_s"] = timings.get("segments_s", 0.0) + time.perf_counter() - t0
+    with trace.span("eval.segments", timings=timings, key="segments_s"):
+        table, segments_infos, out_ids = panoptic_segment_table(
+            scores.cpu().numpy(), labels.cpu().numpy(), keep.cpu().numpy(), counts,
+            num_thing_classes, overlap_threshold)
     ids, own = torch.cat(ids_l), torch.cat(own_l)
     table = torch.from_numpy(table).to(ids.device)
     panoptic_seg = torch.where(own, table[ids.long()], torch.zeros((), dtype=torch.int32, device=ids.device))

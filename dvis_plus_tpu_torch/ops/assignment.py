@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from dvis_plus_tpu_torch.utils import trace
+
 _NEG = -1e30
 _MAX_RUN = 128  # most rounds between two convergence checks
 
@@ -35,10 +37,19 @@ def auction_lap(cost: torch.Tensor, max_rounds: int = 3000, first_check: int = 1
     one its problem gives alone. Returns col4row (n,) or (B, n) int64 on
     the cost's device. Ties resolve to the lowest column index, as
     ``jax.lax.top_k`` and ``jnp.argmax`` do. ``first_check``: rounds before
-    the first convergence check (the result does not depend on it).
+    the first convergence check (the result does not depend on it). The
+    tracer's span ``assignment.auction`` times a call, and its counters add
+    the calls, the bidding rounds, the convergence checks (one host
+    synchronization each) and the calls that reached ``max_rounds``.
     """
     if cost.dim() == 2:
         return auction_lap(cost[None], max_rounds, first_check)[0]
+    with trace.span("assignment.auction"):
+        trace.count("assignment.auction_calls")
+        return _auction(cost, max_rounds, first_check)
+
+
+def _auction(cost: torch.Tensor, max_rounds: int, first_check: int) -> torch.Tensor:
     B, n, m = cost.shape
     if n > m:
         raise ValueError(f"auction_lap needs n <= m, got {tuple(cost.shape)}")
@@ -82,14 +93,16 @@ def auction_lap(cost: torch.Tensor, max_rounds: int = 3000, first_check: int = 1
         slots.scatter_(1, torch.where(has_bid, winner, n), torch.where(has_bid, cols, 0))
         return slots[:, :n], owner, prices
 
-    done, run = 0, max(1, first_check)
+    done, run, checks = 0, max(1, first_check), 0
     while done < max_rounds:
         for _ in range(min(run, max_rounds - done)):
             col4row, owner, prices = bidding_round(col4row, owner, prices)
         done, run = done + min(run, max_rounds - done), min(2 * run, max(_MAX_RUN, first_check))
+        checks += 1
         if not bool((col4row < 0).any()):  # one host sync per check
             break
     else:  # round cap reached: place leftovers on free columns, on the host
+        trace.count("assignment.auction_capped")
         fixed = col4row.cpu()
         for b in range(B):
             taken = torch.zeros(m, dtype=torch.bool)
@@ -100,4 +113,6 @@ def auction_lap(cost: torch.Tensor, max_rounds: int = 3000, first_check: int = 1
                     fixed[b, i] = free
                     taken[free] = True
         col4row = fixed.to(dev)
+    trace.count("assignment.auction_rounds", done)
+    trace.count("assignment.auction_checks", checks)
     return col4row

@@ -2,8 +2,9 @@
 
 Counterpart: ``dvis_plus_tpu/utils/events.py`` (``EventWriter`` :21,
 ``device_memory_stats`` :82), the reference's ``EventStorage``. The JAX
-profiler hooks there have no counterpart: ``torch.profiler`` is called
-where it is wanted (``chip_smoke.py --profile``).
+profiler hooks there have no counterpart here: the program's spans and
+counters are ``utils/trace.py``'s, which also put ``dvis:<span>`` ranges on
+the timeline of a ``torch.profiler`` recording at the same time.
 """
 from __future__ import annotations
 
