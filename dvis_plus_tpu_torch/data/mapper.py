@@ -1,5 +1,5 @@
-"""Dataset mappers: a video record -> normalized, padded frames, and in
-training a sampled clip with its padded targets.
+"""Dataset mappers: a video record -> padded frames, and in training a
+sampled clip with its padded targets.
 
 Counterpart: ``dvis_plus_tpu/data/mapper.py`` (``decode_segmentation`` :41,
 ``select_frames`` :56, ``YTVISDatasetMapper`` :88-226) with the resize the
@@ -7,9 +7,12 @@ eval mapper needs from ``dvis_plus_tpu/data/augmentation.py``
 (``ResizeShortestEdge`` :104, ``ResizeTransform`` :34) and the training
 augmentations of the port's ``data/augmentation.py``. At eval every frame of
 the video is read, resized so that its shorter edge is
-``input.min_size_test`` (the longer at most ``input.max_size_test``),
-normalized, and zero-padded at the bottom and the right up to a multiple of
-``model.size_divisibility``.
+``input.min_size_test`` (the longer at most ``input.max_size_test``), and
+zero-padded at the bottom and the right up to a multiple of
+``model.size_divisibility``, as uint8: the eval loops normalize the frames on
+the model's device as they upload them (``engine/inference.py::_frames``),
+which gives the JAX mapper's float32 canvas bit for bit. A training clip is
+normalized here, in float32.
 
 :func:`mapper_for_type` is ``dvis_plus_tpu/data/build.py::mapper_for_type``
 (:26-73) for every set type but ``image_panoptic``.
@@ -102,15 +105,17 @@ def _read_frames(record: dict, frame_idx) -> List[np.ndarray]:
 
 
 class YTVISDatasetMapper:
-    """record -> {"images": (T, H, W, 3) float32 normalized and padded,
-    "image_size": valid (h, w) on the canvas, "height" / "width": original,
-    "video_id", "file_names", "frame_indices"}; in training also the padded
+    """record -> {"images": (T, H, W, 3) padded, uint8 at eval, float32
+    normalized in training, "image_size": valid (h, w) on the canvas,
+    "height" / "width": original, "video_id", "file_names",
+    "frame_indices"}; in training also the padded
     targets "labels" (N,), "masks" (N, T, H, W) bool, "valid" (N,) and
     "frame_valid" (N, T).
 
     Eval: every frame, resized to ``input.min_size_test`` (longer edge at
-    most ``max_size_test``), padded to a multiple of
-    ``model.size_divisibility``. Training (``is_train``): a clip of
+    most ``max_size_test``), into a zeroed uint8 canvas of a multiple of
+    ``model.size_divisibility``, not normalized (the eval loops' ``_frames``
+    normalizes it on the device). Training (``is_train``): a clip of
     ``input.sampling_frame_num`` frames (:func:`select_frames`), the
     instances of its frames in order of first appearance up to
     ``model.criterion.max_num_instances``, the clip augmentations, and one
@@ -151,9 +156,9 @@ class YTVISDatasetMapper:
             h, w = resize_shortest_edge(H0, W0, self.min_size, self.max_size)
             frames = [cv2.resize(f, (w, h), interpolation=cv2.INTER_LINEAR) for f in frames]
             ch, cw = _round_up(h, self.div), _round_up(w, self.div)
-            images = np.zeros((len(frames), ch, cw, 3), np.float32)
+            images = np.zeros((len(frames), ch, cw, 3), np.uint8)
             for t, f in enumerate(frames):
-                images[t, :h, :w] = (f.astype(np.float32) - self.pixel_mean) / self.pixel_std
+                images[t, :h, :w] = f
         return {
             "images": images,
             "image_size": np.asarray([h, w], np.int32),

@@ -190,8 +190,9 @@ def _chunked(cfg, model, mapper, record, frame_files, args, names, H0, W0) -> in
         padded = _pad_to(images, n_w * W_sz)
         lg_l, mk_l = [], []
         for i in range(n_w):
-            lg, mk, state = _tracker_window(model, _frames(padded[i * W_sz : (i + 1) * W_sz], dev),
-                                            state)
+            frames = _frames(padded[i * W_sz : (i + 1) * W_sz], dev, cfg, sample["image_size"],
+                             min(W_sz, Tc - i * W_sz))
+            lg, mk, state = _tracker_window(model, frames, state)
             lg_l.append(lg)
             mk_l.append(mk)
         logits = online_post_processing(torch.cat(lg_l)[:Tc].float())
@@ -295,11 +296,11 @@ def _whole(cfg, model, mapper, record, frame_files, args, names, H0, W0, classif
     if classifier is not None:
         tc, nt = classifier
         fn = ov_video_logits_masks_fn(cfg, model, tc, nt, np.ones((len(nt) - 1,), np.float32))
-        logits, masks = fn(images)
+        logits, masks = fn(images, sample["image_size"])
     elif cfg.model.meta_architecture in ("minvis", "ctvis"):
-        logits, masks, aux = _minvis_video(cfg, model, images, W_sz)
+        logits, masks, aux = _minvis_video(cfg, model, images, W_sz, image_size=sample["image_size"])
     else:
-        logits, masks, aux = _online_video(cfg, model, images, W_sz)
+        logits, masks, aux = _online_video(cfg, model, images, W_sz, image_size=sample["image_size"])
     h, w = [int(v) for v in sample["image_size"]]
     res = inference_video(logits, masks[:, : len(frame_files)], img_size=(h, w),
                           output_size=(H0, W0), padded_size=images.shape[1:3],

@@ -78,8 +78,10 @@ def _read_window(outs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: host.numpy() for k, (host, _) in copies.items()}
 
 
-def stream_video(cfg, model, images: np.ndarray, keep_features: bool = False):
-    """The streaming cutter over one video (T, H, W, 3) normalized. Returns
+def stream_video(cfg, model, images: np.ndarray, keep_features: bool = False, image_size=None):
+    """The streaming cutter over one video (T, H, W, 3): the eval mapper's
+    uint8 canvas with its valid ``image_size``, or a normalized float32 one
+    (``inference._frames``). Returns
     (records {seq_id: SeqRecord}, T, (H4, W4), features): ``features`` is
     None, or with ``keep_features`` (the offline pass) the frame queries
     (T, fQ, C) on the device and the per-window mask features (W_sz, Cm,
@@ -99,7 +101,8 @@ def stream_video(cfg, model, images: np.ndarray, keep_features: bool = False):
     frame_l, mf_l = [], []
     shape4 = None
     for w in range(n_windows):
-        seg = model.segment_only(_frames(images[w * W_sz : (w + 1) * W_sz], dev))
+        seg = model.segment_only(_frames(images[w * W_sz : (w + 1) * W_sz], dev, cfg, image_size,
+                                         min(W_sz, T - w * W_sz)))
         lg, pm = seg["pred_logits"], seg["pred_masks"]
         fe, mf, qf = seg["pred_embds_without_norm"], seg["mask_features"], seg["query_feat"]
         shape4 = tuple(pm.shape[-2:])
@@ -180,11 +183,12 @@ def _softmax(x: np.ndarray) -> np.ndarray:
     return e / e.sum(axis=-1, keepdims=True)
 
 
-def _video_sequences(cfg, model, images: np.ndarray):
+def _video_sequences(cfg, model, images: np.ndarray, image_size=None):
     """The streaming pass, the sequences, and offline the refiner over the
     best ones: (class logits (N, K+1) fp32, masks (N, T, H4, W4) fp16)."""
     offline = cfg.model.meta_architecture == "daq_offline"
-    records, T, shape4, features = stream_video(cfg, model, images, keep_features=offline)
+    records, T, shape4, features = stream_video(cfg, model, images, keep_features=offline,
+                                                image_size=image_size)
     pred_cls, full_masks, embeds, _, _ = collect_sequences(cfg, records, T, shape4)
     if offline and pred_cls.shape[0] > 0:
         pred_cls, full_masks = _offline_refine(cfg, model, pred_cls, embeds, features)
@@ -203,11 +207,12 @@ def _bucketed(pred_cls: np.ndarray, full_masks: np.ndarray, dev):
     return torch.from_numpy(logits).to(dev), torch.from_numpy(masks)
 
 
-def daq_video_logits_masks(cfg, model, images: np.ndarray):
-    """The DAQ video forward of the VPS and VSS loops: (sequence logits
+def daq_video_logits_masks(cfg, model, images: np.ndarray, image_size=None):
+    """The DAQ video forward of the VPS and VSS loops over ``images`` with
+    its valid ``image_size`` (:func:`stream_video`): (sequence logits
     (N', K+1) on the model's device, masks (N', T, H4, W4) fp32 on the
     host), N' padded as :func:`_bucketed` says."""
-    pred_cls, full_masks = _video_sequences(cfg, model, images)
+    pred_cls, full_masks = _video_sequences(cfg, model, images, image_size)
     return _bucketed(pred_cls, full_masks, next(model.parameters()).device)
 
 
@@ -231,7 +236,7 @@ def run_daq_inference(cfg, model, loader: Iterator[dict], evaluator,
             video = sample.get("video_id", 0)
             vos = cfg.test.task == "vos"  # writes PNGs and keeps no timings
             with trace.span("eval.forward", video, None if vos else timings, "model_s"):
-                pred_cls, full_masks = _video_sequences(cfg, model, images)
+                pred_cls, full_masks = _video_sequences(cfg, model, images, sample["image_size"])
             if vos:
                 _vos_output(cfg, sample, pred_cls, full_masks)
                 continue

@@ -266,9 +266,27 @@ def _pad_to(images: np.ndarray, pad_T: int) -> np.ndarray:
     return np.concatenate([images, np.repeat(images[-1:], pad_T - T, axis=0)], axis=0)
 
 
-def _frames(images: np.ndarray, dev) -> torch.Tensor:
-    """(T, H, W, 3) numpy -> (T, 3, H, W) on ``dev``."""
-    return torch.from_numpy(np.ascontiguousarray(images)).to(dev).permute(0, 3, 1, 2)
+def _frames(images: np.ndarray, dev, cfg=None, image_size=None, real: Optional[int] = None
+            ) -> torch.Tensor:
+    """(T, H, W, 3) numpy -> (T, 3, H, W) float32 on ``dev``, a view of
+    channels-last memory. A float32 canvas goes up as it is. A uint8 canvas
+    (the eval mapper's) goes up as uint8 and is normalized on ``dev`` by
+    ``cfg.model.pixel_mean`` and ``pixel_std``, then zeroed outside the valid
+    ``image_size`` (h, w) (default: the whole canvas): the float32 canvas of
+    the JAX mapper, bit for bit, as the division is by a tensor (a scalar
+    divisor would become a multiply by its reciprocal). Its first ``real``
+    frames (default: all; a padded window repeats its last) count as
+    ``eval.frames_on_card``."""
+    x = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
+    if x.dtype == torch.uint8:
+        mean = torch.tensor(cfg.model.pixel_mean, dtype=torch.float32).to(dev)
+        std = torch.tensor(cfg.model.pixel_std, dtype=torch.float32).to(dev)
+        x = x.float().sub_(mean).div_(std)
+        h, w = x.shape[1:3] if image_size is None else (int(v) for v in image_size)
+        x[:, h:] = 0.0
+        x[:, :, w:] = 0.0
+        trace.count("eval.frames_on_card", x.shape[0] if real is None else real)
+    return x.permute(0, 3, 1, 2)
 
 
 def _segmenter_window(model, frames: torch.Tensor):
@@ -278,10 +296,12 @@ def _segmenter_window(model, frames: torch.Tensor):
     return out["pred_logits"], out["pred_masks"], out["pred_embds"]
 
 
-def _minvis_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_segmenter_window):
+def _minvis_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_segmenter_window,
+                  image_size=None):
     """MinVIS / CTVIS: the segmenter per window (``window_fn(model, frames)``,
     by default :func:`_segmenter_window`; the open-vocabulary loop passes
-    its ensemble), then the query alignment over all frames. Returns (mean
+    its ensemble), then the query alignment over all frames. ``images`` and
+    ``image_size`` as :func:`_frames` takes them. Returns (mean
     logits (Q, K+1), aligned masks (Q, T, H4, W4) on the device or, beyond
     the memory budget, paged to host fp16 and aligned there with the
     per-frame permutations, None)."""
@@ -296,7 +316,8 @@ def _minvis_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_segmente
 
     logits_l, masks_l, embds_l = [], [], []
     for i in range(n_windows):
-        lg, mk, em = window_fn(model, _frames(images[i * W_sz : (i + 1) * W_sz], dev))
+        frames = _frames(images[i * W_sz : (i + 1) * W_sz], dev, cfg, image_size, min(W_sz, T - i * W_sz))
+        lg, mk, em = window_fn(model, frames)
         logits_l.append(lg)
         masks_l.append(_page_out(mk, torch.float16) if page_to_host else mk)  # (W_sz, Q, H4, W4)
         embds_l.append(em)
@@ -311,10 +332,10 @@ def _minvis_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_segmente
     return mean_logits, aligned, None
 
 
-def _clipformer_video(cfg, model, images: np.ndarray, W_sz: int):
+def _clipformer_video(cfg, model, images: np.ndarray, W_sz: int, image_size=None):
     """Video Mask2Former: one clip-joint forward over the whole video at its
     true length. Returns (clip logits (Q, K+1), masks (Q, T, H4, W4), None)."""
-    out = model(_frames(images, next(model.parameters()).device)[None])
+    out = model(_frames(images, next(model.parameters()).device, cfg, image_size)[None])
     return out["pred_logits"][0], out["pred_masks"][0], None
 
 
@@ -325,14 +346,16 @@ def _tracker_window(model, frames: torch.Tensor, state):
     return track_out["pred_logits"][0], track_out["pred_masks"][0], state
 
 
-def _online_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_tracker_window):
+def _online_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_tracker_window,
+                  image_size=None):
     """DVIS online: the tracker carry streams across windows
     (``window_fn(model, frames, state)``, by default :func:`_tracker_window`;
     the open-vocabulary loop passes its ensemble); offline: the window
     outputs accumulate, then one refiner pass over the whole video. images
-    (T, H, W, 3) normalized numpy. Returns (class logits (Q, K+1), masks
-    (Q, T, H4, W4) on the device or paged to host fp16, aux logits (Q, K+1)
-    or None)."""
+    (T, H, W, 3) numpy, the eval mapper's uint8 canvas with its valid
+    ``image_size`` or a normalized float32 one (:func:`_frames`). Returns
+    (class logits (Q, K+1), masks (Q, T, H4, W4) on the device or paged to
+    host fp16, aux logits (Q, K+1) or None)."""
     dev = next(model.parameters()).device
     td = cfg.model.transformer_decoder
     C2 = td.hidden_dim * (2 if td.reid_branch else 1)
@@ -343,8 +366,8 @@ def _online_video(cfg, model, images: np.ndarray, W_sz: int, window_fn=_tracker_
     images = _pad_to(images, n_windows * W_sz)
     Him, Wim = images.shape[1:3]
 
-    def window(i):
-        return _frames(images[i * W_sz : (i + 1) * W_sz], dev)  # (W_sz, 3, H, W)
+    def window(i):  # (W_sz, 3, H, W)
+        return _frames(images[i * W_sz : (i + 1) * W_sz], dev, cfg, image_size, min(W_sz, T - i * W_sz))
 
     if cfg.model.meta_architecture != "dvis_offline":
         # beyond the memory budget each window's masks page to host fp16
@@ -401,8 +424,9 @@ _VIDEO_FNS = {"minvis": _minvis_video, "ctvis": _minvis_video,
               "maskformer": _clipformer_video, "video_maskformer": _clipformer_video}
 
 
-def video_logits_masks(cfg, model, images: np.ndarray, W_sz: int):
-    """The video's forward for ``model.meta_architecture``: (class logits
+def video_logits_masks(cfg, model, images: np.ndarray, W_sz: int, image_size=None):
+    """The video's forward for ``model.meta_architecture`` over ``images``
+    with its valid ``image_size`` (:func:`_frames`): (class logits
     (Q, K+1), masks (Q, T, H4, W4) on the device or paged to host fp16, aux
     logits (Q, K+1) or None). Only DVIS++ offline gives aux logits (the
     online tracker's logits averaged over time). DVIS-DAQ gives its
@@ -411,8 +435,9 @@ def video_logits_masks(cfg, model, images: np.ndarray, W_sz: int):
     if cfg.model.meta_architecture.startswith("daq_"):
         from dvis_plus_tpu_torch.engine.daq_inference import daq_video_logits_masks
 
-        return (*daq_video_logits_masks(cfg, model, images), None)
-    return _VIDEO_FNS.get(cfg.model.meta_architecture, _online_video)(cfg, model, images, W_sz)
+        return (*daq_video_logits_masks(cfg, model, images, image_size), None)
+    fn = _VIDEO_FNS.get(cfg.model.meta_architecture, _online_video)
+    return fn(cfg, model, images, W_sz, image_size=image_size)
 
 
 def _prefetch(it: Iterator, depth: int = 1) -> Iterator:
@@ -464,8 +489,8 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
     also waits for the worker's device work queued before it. A setting the port cannot honour raises
     ``NotImplementedError`` (``config.check_supported``). DVIS-DAQ goes to
     ``daq_inference.run_daq_inference``, a plain loop, as in the JAX
-    package. ``logits_masks_fn(images) -> (logits, masks)`` replaces the
-    closed-vocabulary forward (the open-vocabulary loop,
+    package. ``logits_masks_fn(images, image_size) -> (logits, masks)``
+    replaces the closed-vocabulary forward (the open-vocabulary loop,
     ``engine/ov_inference.py``, passes its ensemble); an open-vocabulary
     configuration needs it."""
     check_supported(cfg)
@@ -515,7 +540,8 @@ def run_vis_inference(cfg, model, loader: Iterator[dict], evaluator,
                 images = sample["images"]  # (T, H, W, 3) numpy
                 H, W = images.shape[1:3]
                 with trace.span("eval.forward", sample.get("video_id", 0), timings, "model_s"):
-                    logits, masks, aux = _forward(cfg, model, images, W_sz, logits_masks_fn)
+                    logits, masks, aux = _forward(cfg, model, images, W_sz, logits_masks_fn,
+                                                  sample["image_size"])
                     sync()
                 if executor is None:
                     post_and_process(sample, logits, masks, aux, H, W)
@@ -536,12 +562,12 @@ def _check_ov(cfg, logits_masks_fn) -> None:
                          "engine.ov_inference (python -m dvis_plus_tpu_torch.cli_ov)")
 
 
-def _forward(cfg, model, images, W_sz, logits_masks_fn):
+def _forward(cfg, model, images, W_sz, logits_masks_fn, image_size=None):
     """(logits, masks, aux) of the video: ``logits_masks_fn``'s, without aux,
     when given, else :func:`video_logits_masks`'s."""
     if logits_masks_fn is None:
-        return video_logits_masks(cfg, model, images, W_sz)
-    return (*logits_masks_fn(images), None)
+        return video_logits_masks(cfg, model, images, W_sz, image_size)
+    return (*logits_masks_fn(images, image_size), None)
 
 
 def _task_chunks(cfg, model, loader, timings, logits_masks_fn=None):
@@ -558,7 +584,8 @@ def _task_chunks(cfg, model, loader, timings, logits_masks_fn=None):
         images = sample["images"]  # (T, H, W, 3) numpy
         T, H, W = images.shape[:3]
         with trace.span("eval.forward", sample.get("video_id", 0), timings, "model_s"):
-            logits, masks, aux = _forward(cfg, model, images, W_sz, logits_masks_fn)
+            logits, masks, aux = _forward(cfg, model, images, W_sz, logits_masks_fn,
+                                          sample["image_size"])
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         masks = masks[:, :T]

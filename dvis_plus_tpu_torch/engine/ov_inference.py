@@ -71,7 +71,9 @@ class OVContext(NamedTuple):
 
 def ov_video_logits_masks_fn(cfg, model, text_classifier, num_templates: Sequence[int],
                              category_overlapping, void_index: Optional[int] = None):
-    """``f(images) -> (fused log-probs (Q, K+1), masks (Q, T', H4, W4))`` for
+    """``f(images, image_size=None) -> (fused log-probs (Q, K+1), masks
+    (Q, T', H4, W4))`` (``images`` and its valid ``image_size`` as
+    ``inference._frames`` takes them) for
     the architecture of ``cfg`` (MinVIS / CTVIS, DVIS++ online or offline),
     the open-vocabulary twin of ``inference.video_logits_masks``: what the
     VIS, VPS and VSS loops take as ``logits_masks_fn``. ``text_classifier``:
@@ -100,13 +102,13 @@ def ov_video_logits_masks_fn(cfg, model, text_classifier, num_templates: Sequenc
                             masks.transpose(0, 1))
         return fused, masks, state
 
-    def f(images: np.ndarray):
+    def f(images: np.ndarray, image_size=None):
         if arch in ("minvis_ov", "ctvis"):
-            logits, masks, _ = _minvis_video(cfg, model, images, W_sz, minvis_window)
+            logits, masks, _ = _minvis_video(cfg, model, images, W_sz, minvis_window, image_size)
         elif arch == "dvis_online_ov":
-            logits, masks, _ = _online_video(cfg, model, images, W_sz, online_window)
+            logits, masks, _ = _online_video(cfg, model, images, W_sz, online_window, image_size)
         else:
-            logits, masks = _offline_ov_video(cfg, model, images, W_sz, ov)
+            logits, masks = _offline_ov_video(cfg, model, images, W_sz, ov, image_size)
         return logits, masks
 
     return f
@@ -123,7 +125,7 @@ def run_ov_inference(cfg, model, loader: Iterator[dict], evaluator, text_classif
     run_vis_inference(cfg, model, loader, evaluator, timings, logits_masks_fn=fn)
 
 
-def _offline_ov_video(cfg, model, images: np.ndarray, W_sz: int, ov: OVContext):
+def _offline_ov_video(cfg, model, images: np.ndarray, W_sz: int, ov: OVContext, image_size=None):
     """DVIS++ offline OV over one video (see the module docstring). Returns
     (fused log-probs (Q, K+1), refined masks (Q, T, H4, W4) fp16, on the
     device or, beyond the memory budget, on the host)."""
@@ -140,7 +142,8 @@ def _offline_ov_video(cfg, model, images: np.ndarray, W_sz: int, ov: OVContext):
     keep_on_device = n_windows * (Him // 4) * (Wim // 4) * 256 * 4 * W_sz < eval_mask_budget_bytes(cfg)
     inst_l, frame_l, mf_l, clip_l = [], [], [], []
     for i in range(n_windows):
-        frames = _frames(images[i * W_sz : (i + 1) * W_sz], dev)[None]
+        frames = _frames(images[i * W_sz : (i + 1) * W_sz], dev, cfg, image_size,
+                         min(W_sz, T - i * W_sz))[None]
         inst, frame, mf, clip_d, state = model.online_step(frames, tc, nt, state)
         inst_l.append(inst)
         frame_l.append(frame)

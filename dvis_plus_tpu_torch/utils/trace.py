@@ -24,8 +24,12 @@ and :func:`records` read what was kept (``python -m dvis_plus_tpu_torch.cli
 Spans and counters (where, and what they time or count):
 
 - ``data.decode`` / ``data.normalize`` / ``data.frames``: the eval mapper
-  (``data/mapper.py``): the JPEG reads; the resize, canvas, normalization and
-  padding; the frames mapped.
+  (``data/mapper.py``): the JPEG reads; the resize into the zeroed uint8
+  canvas; the frames mapped.
+- ``eval.frames_on_card``: the frames of the eval mapper's uint8 canvas that
+  ``engine/inference.py::_frames`` normalized on the model's device (a
+  padded window's repeats of its last frame not counted); 0 where float32
+  frames are handed in.
 - ``eval.forward`` (``timings["model_s"]``): a video's forward in the eval
   loops, synchronized.
 - ``eval.page_out`` / ``eval.page_in`` and ``eval.page_out_bytes`` /

@@ -26,6 +26,7 @@ from dvis_plus_tpu_torch.data.datasets.ytvis import register_all_ytvis
 from dvis_plus_tpu_torch.data.mapper import YTVISDatasetMapper
 from dvis_plus_tpu_torch.evaluation.ytvos_eval import evaluate_vis
 from dvis_plus_tpu_torch.utils import rle
+from tests.test_torch_common import on_card_canvas
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 from synth_data import make_ytvis  # noqa: E402
@@ -86,19 +87,23 @@ def test_catalog_and_registration_equal(synth_root):
 
 def test_eval_mapper_equals_jax(synth_root):
     """48-pixel shorter edge from 64x96 frames: cv2 resizes, and the 48x72
-    result pads to 64x96 (divisibility 32)."""
+    result pads to 64x96 (divisibility 32). The port's uint8 canvas,
+    normalized as the eval loops normalize it (``_frames``, here on the CPU,
+    with its valid size), is the JAX mapper's float32 ``images`` bit for
+    bit; every other key is equal."""
     want_map = mapper_for_type(jax_load_config(YAML, TINY), "video_instance", False,
                                dataset_name="ytvis_2019_val")
-    got_map = YTVISDatasetMapper(load_config(YAML, TINY))
+    cfg = load_config(YAML, TINY)
+    got_map = YTVISDatasetMapper(cfg)
     for rec in catalog.get_dataset("ytvis_2019_val"):
-        got, want = got_map(rec, seed=0), want_map(rec, seed=0)
+        got, want = on_card_canvas(cfg, got_map(rec, seed=0)), want_map(rec, seed=0)
         assert sorted(got) == sorted(want)
         assert got["images"].shape == (5, 64, 96, 3) and list(got["image_size"]) == [48, 72]
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     frames = [np.full((40, 60, 3), i, np.uint8) for i in range(2)]
     rec = {"_frames": frames, "length": 2, "file_names": ["a", "b"]}
-    np.testing.assert_array_equal(got_map(rec)["images"], want_map(rec)["images"])
+    np.testing.assert_array_equal(on_card_canvas(cfg, got_map(rec))["images"], want_map(rec)["images"])
 
 
 def _random_tracks(rng, n, T, H, W, with_score):

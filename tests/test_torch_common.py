@@ -192,6 +192,30 @@ def images(T: int, seed: int = 1) -> np.ndarray:
     return np.random.RandomState(seed).randn(T, H_IN, W_IN, 3).astype(np.float32)
 
 
+def host_canvas(cfg, sample: dict) -> np.ndarray:
+    """The float32 canvas the port's eval mapper built on the host before it
+    handed over uint8 (and the JAX mapper builds): the valid (h, w) of
+    ``sample``'s uint8 canvas normalized in numpy, zero elsewhere."""
+    h, w = [int(v) for v in sample["image_size"]]
+    mean = np.asarray(cfg.model.pixel_mean, np.float32)
+    std = np.asarray(cfg.model.pixel_std, np.float32)
+    out = np.zeros(sample["images"].shape, np.float32)
+    out[:, :h, :w] = (sample["images"][:, :h, :w].astype(np.float32) - mean) / std
+    return out
+
+
+def on_card_canvas(cfg, sample: dict) -> dict:
+    """``sample`` of the port's eval mapper with its uint8 ``images``
+    normalized as the eval loops normalize them, by
+    ``engine.inference._frames`` (here on the CPU) with the sample's valid
+    size: (T, H, W, 3) float32, what the JAX eval mapper hands over."""
+    from dvis_plus_tpu_torch.engine.inference import _frames
+
+    assert sample["images"].dtype == np.uint8
+    x = _frames(sample["images"], torch.device("cpu"), cfg, sample["image_size"])
+    return dict(sample, images=x.permute(0, 2, 3, 1).numpy())
+
+
 def nchw(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, -3)))
 

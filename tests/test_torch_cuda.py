@@ -1348,3 +1348,27 @@ def test_demo_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         equal += int((a == b).all(-1).sum())
         total += a.shape[0] * a.shape[1]
     assert equal >= 0.999 * total, equal / total
+
+
+@pytest.mark.cuda
+def test_eval_frames_normalized_on_the_card_equal_the_numpy_canvas(cuda_device):
+    """A 5-frame 720x1280 uint8 canvas padded to 736x1280 (the VSPW eval
+    window), normalized on the card by ``_frames`` with its valid size, is
+    the float32 canvas numpy builds on the host, bit for bit, in the same
+    channels-last layout: a division turned into a multiply by the
+    reciprocal, or a fast-math one, would show here and not on the CPU."""
+    from dvis_plus_tpu_torch.config import load_config
+    from dvis_plus_tpu_torch.engine.inference import _frames
+
+    cfg = load_config(None)
+    h, w = 720, 1280
+    x = np.zeros((5, 736, 1280, 3), np.uint8)
+    x[:, :h, :w] = np.random.RandomState(0).randint(0, 256, (5, h, w, 3))
+    mean = np.asarray(cfg.model.pixel_mean, np.float32)
+    std = np.asarray(cfg.model.pixel_std, np.float32)
+    want = np.zeros(x.shape, np.float32)
+    want[:, :h, :w] = (x[:, :h, :w].astype(np.float32) - mean) / std
+    got = _frames(x, cuda_device, cfg, np.asarray([h, w], np.int32))
+    assert got.device.type == "cuda" and got.shape == (5, 3, 736, 1280)
+    assert got.stride() == torch.from_numpy(want).permute(0, 3, 1, 2).stride()
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).cpu().numpy(), want)

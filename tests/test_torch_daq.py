@@ -47,6 +47,7 @@ from tests.test_torch_common import (
     W_IN,
     jax_daq_model_and_params as models,
     rel_err,
+    on_card_canvas,
     tiny_daq_cfg as daq_cfg,
 )
 
@@ -478,7 +479,8 @@ def test_sot_eval_mapper_equals_jax():
     """``mapper_for_type(cfg, "video_sot")`` against the JAX package's
     ``SOTDatasetMapper(cfg, is_train=False)`` on a record with annotations
     of several categories (the mapper relabels them to 0; the eval output
-    reads none): every output equal."""
+    reads none): every output equal, the port's uint8 canvas once normalized
+    as the eval loops normalize it (``_frames``)."""
     from dvis_plus_tpu.core.config import load_config as jax_load_config
     from dvis_plus_tpu.data.mapper_sot import SOTDatasetMapper as JaxSOT
     from dvis_plus_tpu_torch.config import load_config
@@ -490,9 +492,10 @@ def test_sot_eval_mapper_equals_jax():
     record = {"_frames": frames, "length": 3, "height": 64, "width": 96, "video_id": 5,
               "file_names": [f"v/{t:05d}.jpg" for t in range(3)],
               "annotations": [[{"category_id": c, "id": 1}] for c in (1, 2, 3)]}
-    got_map = mapper_for_type(load_config(yaml, opts), "video_sot")
+    cfg = load_config(yaml, opts)
+    got_map = mapper_for_type(cfg, "video_sot")
     assert isinstance(got_map, SOTDatasetMapper)
-    got = got_map(dict(record), seed=0)
+    got = on_card_canvas(cfg, got_map(dict(record), seed=0))
     want = JaxSOT(jax_load_config(yaml, opts), is_train=False)(dict(record), seed=0)
     assert sorted(got) == sorted(want)
     for k in want:

@@ -28,6 +28,7 @@ from dvis_plus_tpu_torch.data.catalog import get_dataset, get_metadata
 from dvis_plus_tpu_torch.data.datasets.coco import load_coco_panoptic, register_all_coco
 from dvis_plus_tpu_torch.data.mapper import mapper_for_type
 from dvis_plus_tpu_torch.data.pseudo_video import CocoPanopticPseudoVideoMapper
+from tests.test_torch_common import on_card_canvas
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 from synth_data import make_coco  # noqa: E402
@@ -107,18 +108,19 @@ def test_panoptic_loader_and_sets_equal_jax(coco_root, tmp_path):
     ids=["clip_train", "clip_train_lsj_colour", "fcclip_train", "clip_eval"])
 def test_panoptic_pseudo_video_mapper_equals_jax(coco_root, yaml, extra, is_train):
     """Every record, four seeds each: every array of the JAX mapper's
-    output, equal. Without LSJ's crop every non-crowd segment is a track
+    output, equal (at eval the port's uint8 canvas once normalized as the
+    eval loops normalize it, ``_frames``). Without LSJ's crop every non-crowd segment is a track
     of its things-first class (person 0, car 1, sky 2); the crowd one is
     dropped."""
     want_m = jax_mapper_for_type(jax_load_config(yaml, SMALL + extra), "image_panoptic", is_train,
                                  dataset_name="coco_panoptic_video_ov")
-    got_m = mapper_for_type(load_config(yaml, SMALL + extra), "image_panoptic", is_train,
-                            dataset_name="coco_panoptic_video_ov")
+    cfg = load_config(yaml, SMALL + extra)
+    got_m = mapper_for_type(cfg, "image_panoptic", is_train, dataset_name="coco_panoptic_video_ov")
     assert isinstance(got_m, CocoPanopticPseudoVideoMapper)
     for rec in get_dataset("coco_panoptic_video_ov"):
         for seed in range(4):
             got = got_m(rec, seed=seed)
-            _assert_clips_equal(got, want_m(rec, seed=seed))
+            _assert_clips_equal(got if is_train else on_card_canvas(cfg, got), want_m(rec, seed=seed))
             if is_train and not extra:  # (LSJ crops may cut a segment out)
                 crowd = any(s["id"] == CROWD for s in rec["segments_infos"][0])
                 labels = got["labels"][got["valid"]]
@@ -154,7 +156,9 @@ def test_training_loader_equals_jax(coco_root):
 def test_eval_loader_reaches_the_panoptic_mapper(coco_root):
     """``datasets.dataset_type_test: [image_panoptic]``: the JAX test loader
     maps the set through the panoptic pseudo-video mapper (seed 0), and so
-    does the port's eval mapper; ``check_supported`` accepts the type."""
+    does the port's eval mapper (its uint8 canvas once normalized as the
+    eval loops normalize it, ``_frames``); ``check_supported`` accepts the
+    type."""
     opts = SMALL + ["datasets.test=[coco_panoptic_video_ov]", "datasets.dataset_type_test=[image_panoptic]"]
     cfg = load_config(YAML, opts)
     check_supported(cfg)
@@ -162,4 +166,4 @@ def test_eval_loader_reaches_the_panoptic_mapper(coco_root):
     mapper = mapper_for_type(cfg, "image_panoptic", dataset_name="coco_panoptic_video_ov")
     assert isinstance(mapper, CocoPanopticPseudoVideoMapper)
     for rec in get_dataset("coco_panoptic_video_ov"):
-        _assert_clips_equal(mapper(rec, seed=0), next(want))
+        _assert_clips_equal(on_card_canvas(cfg, mapper(rec, seed=0)), next(want))

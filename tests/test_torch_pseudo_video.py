@@ -29,6 +29,7 @@ from dvis_plus_tpu_torch.data.datasets import categories as pcat
 from dvis_plus_tpu_torch.data.datasets.coco import load_coco_instances, register_all_coco
 from dvis_plus_tpu_torch.data.mapper import mapper_for_type
 from dvis_plus_tpu_torch.data.pseudo_video import CocoPseudoVideoMapper
+from tests.test_torch_common import on_card_canvas
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 from synth_data import make_coco  # noqa: E402
@@ -124,14 +125,18 @@ def test_coco_loader_and_pseudo_splits_equal_jax(coco_root):
     ids=["image_train", "clip_train", "clip_train_lsj_colour", "clip_eval", "clip3_eval"])
 def test_pseudo_video_mapper_equals_jax(coco_root, yaml, extra, is_train):
     """Every record of the synthetic set, six seeds each: every array of
-    the JAX mapper's output, equal."""
+    the JAX mapper's output, equal (at eval the port's uint8 canvas once
+    normalized as the eval loops normalize it, ``_frames``)."""
     want_m = jax_mapper_for_type(jax_load_config(yaml, SMALL + extra), "image_instance", is_train)
-    got_m = mapper_for_type(load_config(yaml, SMALL + extra), "image_instance", is_train)
+    cfg = load_config(yaml, SMALL + extra)
+    got_m = mapper_for_type(cfg, "image_instance", is_train)
     assert isinstance(got_m, CocoPseudoVideoMapper)
     rotated = 0
     for rec in get_dataset("coco2ytvis2019_train"):
         for seed in range(6):
             want, got = want_m(rec, seed=seed), got_m(rec, seed=seed)
+            if not is_train:
+                got = on_card_canvas(cfg, got)
             assert sorted(got) == sorted(want)
             for k in want:
                 if isinstance(want[k], np.ndarray):

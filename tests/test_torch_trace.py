@@ -4,7 +4,9 @@ its spans sit on a CPU profiler's timeline as ``dvis:<name>``, and the eval
 loops' ``timings`` read the same with it on or off. The VSS loop on the tiny
 DVIS++ offline model, every window paged, counts the paged bytes that the
 tensors' shapes and dtypes give, and its class maps are bit-equal with the
-tracer on and off. The CLI's ``--trace-out`` writes what the tracer kept."""
+tracer on and off, and from the mapper's uint8 canvas (normalized on the
+device, ``eval.frames_on_card``) and from the float32 canvas the mapper
+built before. The CLI's ``--trace-out`` writes what the tracer kept."""
 import copy
 import json
 import threading
@@ -18,7 +20,7 @@ from dvis_plus_tpu_torch import cli
 from dvis_plus_tpu_torch.data.mapper import YTVISDatasetMapper
 from dvis_plus_tpu_torch.engine import inference
 from dvis_plus_tpu_torch.utils import trace
-from tests.test_torch_common import H_IN, W_IN, jax_offline_model_and_params, port_model
+from tests.test_torch_common import H_IN, W_IN, host_canvas, jax_offline_model_and_params, port_model
 
 torch.set_num_threads(2)
 
@@ -202,8 +204,9 @@ class MapRecorder:
 @pytest.fixture(scope="module")
 def vss_runs(tmp_path_factory):
     """run_vss_inference with the tracer off, then on, on a clock that only
-    the forward and the evaluator move: (cfg, recorders, timings, totals,
-    counters of the traced run)."""
+    the forward and the evaluator move: (cfg, [(recorder, timings, totals,
+    counters) of the run off and of the run on], the same of a traced run
+    over the float32 canvases the mapper built before)."""
     mp = pytest.MonkeyPatch()
     root = tmp_path_factory.mktemp("trace_vss")
     cfg, _, params = jax_offline_model_and_params()
@@ -225,22 +228,24 @@ def vss_runs(tmp_path_factory):
 
     mp.setattr(inference, "_forward", timed_forward)
     out = []
+    host = [dict(s, images=host_canvas(cfg, s)) for s in (mapper(r) for r in recs)]
     try:
-        for on in (False, True):
+        for on, samples in ((False, None), (True, None), (True, host)):
             trace.reset()
             (trace.enable if on else trace.disable)()
             rec, timings = MapRecorder(clock), {}
-            inference.run_vss_inference(cfg, model, (mapper(r) for r in recs), rec, timings=timings)
+            loader = (mapper(r) for r in recs) if samples is None else iter(samples)
+            inference.run_vss_inference(cfg, model, loader, rec, timings=timings)
             trace.disable()
             out.append((rec, timings, trace.totals(), trace.counters()))
     finally:
         mp.undo()
         trace.reset()
-    return cfg, out
+    return cfg, out[:2], out[2]
 
 
 def test_vss_class_maps_and_timings_equal_on_and_off(vss_runs):
-    _, ((off, t_off, tot_off, c_off), (on, t_on, _, _)) = vss_runs
+    _, ((off, t_off, tot_off, c_off), (on, t_on, _, _)), _ = vss_runs
     assert sorted(off.maps) == sorted(on.maps) == ["video_0", "video_1"]
     for vid in off.maps:
         assert off.maps[vid].dtype == np.uint8 and off.maps[vid].shape == (LENGTHS[int(vid[-1])], H_IN, W_IN)
@@ -252,7 +257,7 @@ def test_vss_class_maps_and_timings_equal_on_and_off(vss_runs):
 
 
 def test_vss_spans_and_counters(vss_runs):
-    cfg, (_, (_, _, totals, counters)) = vss_runs
+    cfg, (_, (_, _, totals, counters)), _ = vss_runs
     n = len(LENGTHS)
     for name in ("data.decode", "data.normalize", "eval.forward", "eval.post", "eval.class_map",
                  "eval.download", "eval.evaluator"):
@@ -277,6 +282,25 @@ def test_vss_spans_and_counters(vss_runs):
     assert counters["eval.page_in_bytes"] == frames * mf_frame + frames * mask_frame
     assert totals["eval.page_out"]["calls"] == 2 * windows  # mask features, refined masks
     assert totals["eval.page_in"]["calls"] == 2 * windows  # mask features, chunks
+
+
+def test_vss_class_maps_from_the_uint8_canvas_equal_the_float32_ones(vss_runs):
+    """The mapper's uint8 canvas, normalized on the device, and the float32
+    canvas built on the host the way the mapper did before give the same
+    class maps, bit for bit."""
+    _, (_, (on, _, _, _)), (host, _, _, _) = vss_runs
+    assert sorted(host.maps) == sorted(on.maps) == ["video_0", "video_1"]
+    for vid in on.maps:
+        np.testing.assert_array_equal(host.maps[vid], on.maps[vid])
+
+
+def test_frames_on_card_counts_every_mapped_frame(vss_runs):
+    """Every frame the eval mapper hands over is normalized on the device
+    (the padded tail windows' repeats not counted); none of a float32
+    canvas."""
+    _, (_, (_, _, _, counters)), (_, _, _, host_counters) = vss_runs
+    assert counters["eval.frames_on_card"] == counters["data.frames"] == sum(LENGTHS)
+    assert host_counters.get("eval.frames_on_card", 0) == 0 and "data.frames" not in host_counters
 
 
 YAML = "configs/dvis/dvis_offline_vitl_ytvis19.yaml"
@@ -320,7 +344,7 @@ def test_cli_trace_out_writes_the_tracer(monkeypatch, tmp_path):
     assert set(got) == {"totals", "counters", "records"}
     for name in ("data.decode", "data.normalize", "eval.forward", "eval.post", "eval.evaluator"):
         assert got["totals"][name]["calls"] == 2, name
-    assert got["counters"]["data.frames"] == 10
+    assert got["counters"]["data.frames"] == got["counters"]["eval.frames_on_card"] == 10
     recs = got["records"]
     assert len(recs) == sum(t["calls"] for t in got["totals"].values())
     assert set(recs[0]) == {"name", "thread", "start_ns", "end_ns", "id", "parent", "video"}

@@ -20,6 +20,7 @@ from dvis_plus_tpu_torch.config import load_config
 from dvis_plus_tpu_torch.data import catalog
 from dvis_plus_tpu_torch.data.datasets import vps_vss
 from dvis_plus_tpu_torch.data.mapper import mapper_for_type
+from tests.test_torch_common import on_card_canvas
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 from synth_data import make_vipseg, make_vspw  # noqa: E402
@@ -108,12 +109,16 @@ def test_vspw_preprocess_and_panoptic_decode_equal():
 def test_eval_mapper_equals_jax(synth_root, task):
     """VIPSeg frames are 64x96 with a size in the record, VSPW's 48x90 with
     none (the mapper takes the first frame's); a 48-pixel shorter edge,
-    padded to a multiple of 32."""
+    padded to a multiple of 32. The port's uint8 canvas, normalized as the
+    eval loops normalize it (``_frames``, here on the CPU, with its valid
+    size), is the JAX mapper's float32 ``images`` bit for bit; every other
+    key is equal."""
     yaml, name, dtype = SETS[task]
     want_map = jax_mapper_for_type(jax_load_config(yaml, TINY), dtype, False, dataset_name=name)
-    got_map = mapper_for_type(load_config(yaml, TINY), dtype)
+    cfg = load_config(yaml, TINY)
+    got_map = mapper_for_type(cfg, dtype)
     for rec in catalog.get_dataset(name):
-        got, want = got_map(rec, seed=0), want_map(rec, seed=0)
+        got, want = on_card_canvas(cfg, got_map(rec, seed=0)), want_map(rec, seed=0)
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
